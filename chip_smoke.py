@@ -1,12 +1,21 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
-Builds the port's CUDA kernels from pocketflow_tpu_torch/csrc, holds each
-against its plain PyTorch version on the card, drives the main path (the QAT
-ResNet-50 train step of UniformQuantLearner at bench.py's settings: 224x224,
-bf16, batch 256, exact BN, space-to-depth stem, synthetic ILSVRC-12, 4-bit
-weights) and its other quantization routes, and checks that every quantized
-weight and activation went through the kernels.  Any failed phase raises and
-the script exits non-zero without its last line.  The last line is
+Builds the port's CUDA kernels from pocketflow_tpu_torch/csrc (one nvcc per
+source, all started together), holds each against its plain PyTorch version
+on the card, and drives the port's paths:
+
+  * the main path: the QAT ResNet-50 train step of UniformQuantLearner at
+    bench.py's settings (224x224, bf16, batch 256, exact BN, space-to-depth
+    stem, synthetic ILSVRC-12, 4-bit weights), and its other quantization
+    routes;
+  * the three matmul experiments (pocketflow_tpu_torch/experiments:
+    fused_mm_proto, conv1x1_ab, mm_shape_sweep), short, at full shapes;
+  * the composed pruned+QAT step of bench.py (channel masks, masked
+    gradients, a re-zero after each update) at the main path's settings;
+
+and checks that each went through its kernels and never through a plain
+version.  Any failed phase raises and the script exits non-zero without its
+last line.  The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": <n>}}
 
@@ -15,27 +24,50 @@ difference from the plain version, and both times.  `launches` counts one
 run, which `run` names: for fake_quant_per_tensor the main path's 13 train
 steps (the counters are reset just before them and read just after, before
 the eval step), for fake_quant_per_column the 2 steps under channel buckets,
-the route that launches it (the main path does not).  `launches_by_run`
-gives every kernel's count in each run, each counted from its own reset.
+the route that launches it (the main path does not), for matmul_bf16 the
+mm_shape_sweep experiment and for bn_relu_matmul_stats the fused_mm_proto
+experiment.  `launches_by_run` gives every kernel's count in each run, each
+counted from its own reset.
 """
 
 import json
 import math
-import subprocess
+import os
 import sys
+import tempfile
 import time
 
 import torch
 
-SOURCE = 'pocketflow_tpu_torch/csrc/fake_quant.cu'
-REPLACES = {
-    'fake_quant_per_tensor': 'pocketflow_tpu/ops/fake_quant.py:84 (_fq_pallas_2d)',
-    'fake_quant_per_column': 'pocketflow_tpu/ops/fake_quant.py:108 (_fq_pallas_cols_grid)',
+from pocketflow_tpu_torch.core.cuda_timing import card_line, time_ms
+
+CSRC = 'pocketflow_tpu_torch/csrc/'
+# kernel -> (source file, the TPU kernel it replaces)
+KERNELS = {
+    'fake_quant_per_tensor': ('fake_quant.cu',
+                              'pocketflow_tpu/ops/fake_quant.py:84 (_fq_pallas_2d)'),
+    'fake_quant_per_column': ('fake_quant.cu',
+                              'pocketflow_tpu/ops/fake_quant.py:108 (_fq_pallas_cols_grid)'),
+    'matmul_bf16': ('matmul.cu', 'experiments/conv1x1_ab.py:123 (make_pallas); '
+                                 'experiments/mm_shape_sweep.py:58 (make_pallas)'),
+    'bn_relu_matmul_stats': ('matmul.cu', 'experiments/fused_mm_proto.py:56 (pallas_fused)'),
 }
 BATCH = 256
 N_WARMUP, N_TIMED = 3, 10
 MAIN_RUN = 'main path: %d QAT train steps, per-tensor 4-bit weights' % (N_WARMUP + N_TIMED)
 NB_WEIGHT_SITES, NB_ACT_SITES = 52, 49
+COMPOSED_WARMUP, COMPOSED_TIMED = 3, 5
+COMPOSED_RUN = 'composed pruned+QAT: %d train steps, 4-bit weights, channel masks' % (
+    COMPOSED_WARMUP + COMPOSED_TIMED)
+# the fused kernel's shape (experiments/fused_mm_proto.py) and its prologue
+K3_SHAPE, K3_SCALE, K3_SHIFT = (256 * 56 * 56, 256, 64), 1.1, 0.1
+K3_RAGGED_M = 256 * 56 * 56 - 1000
+# bn_relu_matmul_stats' column sums against the plain version's: s within
+# K3_S_TOL of the column's sum of |y32|, ss within K3_SS_TOL relative.  About
+# ten times the kernel's readings at K3's shape, and below what either fault
+# a kernel could hide gives at the ragged M: rows past M counted, or sums
+# taken from bf16 y (phase_matmul plants both and requires them to fail).
+K3_S_TOL, K3_SS_TOL = 3e-6, 5e-6
 
 
 def log(msg, *args):
@@ -47,22 +79,26 @@ def check(cond, msg, *args):
         raise RuntimeError('check failed: ' + (msg % args if args else msg))
 
 
-def card_line():
-    return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+def reset_counters():
+    from pocketflow_tpu_torch.ops import fake_quant as fq
+    from pocketflow_tpu_torch.ops import matmul as mm
+    fq.reset_counters()
+    mm.reset_counters()
 
 
-def time_ms(fn, reps=20):
-    """Mean device time of fn() over `reps` back-to-back calls (CUDA events)."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def counters() -> dict:
+    """Every kernel's launches and all plain calls since the last reset."""
+    from pocketflow_tpu_torch.ops import fake_quant as fq
+    from pocketflow_tpu_torch.ops import matmul as mm
+    a, b = fq.counters(), mm.counters()
+    return {**a, **b, 'plain': a['plain'] + b['plain']}
+
+
+def no_launches(**launches) -> dict:
+    out = {name: 0 for name in KERNELS}
+    out['plain'] = 0
+    out.update(launches)
+    return out
 
 
 def compare(got, want, alpha_over_k):
@@ -80,7 +116,8 @@ def compare(got, want, alpha_over_k):
 
 def phase_kernels(fq, weight_shapes, device):
     """Phase 3: each kernel against the plain version, at main-path shapes."""
-    results = {name: {'max_abs_err': 0.0} for name in REPLACES}
+    results = {name: {'max_abs_err': 0.0}
+               for name in ('fake_quant_per_tensor', 'fake_quant_per_column')}
     gen = torch.Generator(device=device).manual_seed(0)
     distinct = sorted(set(weight_shapes))
     for bits_value in (2, 4, 8):
@@ -149,6 +186,201 @@ def phase_kernels(fq, weight_shapes, device):
     return results
 
 
+def bf16_ulp(v):
+    """The spacing of bf16 values at |v| (fp32 tensor)."""
+    _, exponent = torch.frexp(v)
+    return torch.ldexp(torch.ones_like(v), exponent - 8)
+
+
+def compare_bf16(got, want, abs_terms):
+    """Max |got - want| and the number of differing elements of a bf16
+    product.  The tensor cores sum the fp32 products in another order and
+    rounding than the plain version's fp32 matmul, so an element may differ
+    by one bf16 ulp, or, where the sum cancels, by up to 2^-20 of the sum of
+    the products' magnitudes (abs_terms = |a| @ |b|), in at most 2e-3 of the
+    elements (1.15e-3 measured at K=2048, as many as cuBLAS's own bf16 GEMM
+    shows against the plain version)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    bound = torch.maximum(bf16_ulp(got), bf16_ulp(want)) + abs_terms * 2.0 ** -20
+    n_diff = int((diff > 0).sum())
+    over = float((diff - bound).max())
+    check(over <= 0 and n_diff <= max(1, got.numel() // 500),
+          'kernel differs from plain: %d elements, %.3g past the bound', n_diff, over)
+    return float(diff.max()), n_diff
+
+
+def stats_errors(s, ss, want_s, want_ss, abs_sum):
+    """The largest column error of s relative to the column's sum of |y32|,
+    and of ss relative to want_ss."""
+    return (float(((s - want_s).abs() / abs_sum).max()),
+            float(((ss - want_ss).abs() / want_ss).max()))
+
+
+def stats_within(errors) -> bool:
+    return errors[0] <= K3_S_TOL and errors[1] <= K3_SS_TOL
+
+
+def phase_matmul(mm, device):
+    """The matmul kernels against their plain versions at the experiments'
+    shapes: matmul_bf16 at the 8 ResNet-50 1x1 shapes of mm_shape_sweep and
+    the 3 square trunk shapes of conv1x1_ab; bn_relu_matmul_stats at
+    fused_mm_proto's shape and prologue, and at a ragged M, where the
+    statistics' bounds must also fail two planted faults."""
+    from pocketflow_tpu_torch.experiments import conv1x1_ab, mm_shape_sweep
+    results = {'matmul_bf16': {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0},
+               'bn_relu_matmul_stats': {'max_abs_err': 0.0}}
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def inputs(m, k, n):
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device=device) * 0.05).to(torch.bfloat16)
+        return x, w
+
+    k4 = [(n * h * wd, c, c) for (n, h, wd), c in conv1x1_ab.SHAPES]
+    for m, k, n in mm_shape_sweep.SHAPES + k4:
+        x, w = inputs(m, k, n)
+        got = mm.matmul_bf16(x, w)
+        err, nd = compare_bf16(got, mm._matmul_plain(x, w), x.float().abs() @ w.float().abs())
+        vs_cublas = int((got != torch.matmul(x, w)).sum())
+        ms = time_ms(lambda: mm.matmul_bf16(x, w))
+        plain_ms = time_ms(lambda: mm._matmul_plain(x, w))
+        cublas_ms = time_ms(lambda: torch.matmul(x, w))
+        results['matmul_bf16']['max_abs_err'] = max(results['matmul_bf16']['max_abs_err'], err)
+        if (m, k, n) in mm_shape_sweep.SHAPES:  # ms: one pass over the 8 shapes of the sweep
+            results['matmul_bf16']['ms'] += ms
+            results['matmul_bf16']['plain_ms'] += plain_ms
+        log('  matmul_bf16 M=%d K=%d N=%d: max|d|=%.3g n_diff=%d (%.2e), vs cuBLAS bf16 %d | '
+            'kernel %.4f ms, plain %.4f ms, cuBLAS bf16 %.4f ms',
+            m, k, n, err, nd, nd / got.numel(), vs_cublas, ms, plain_ms, cublas_ms)
+        del x, w, got
+
+    m, k, n = K3_SHAPE
+    x, w = inputs(m, k, n)
+    scale = torch.full((k,), K3_SCALE, device=device)
+    shift = torch.full((k,), K3_SHIFT, device=device)
+    for rows in (m, K3_RAGGED_M):
+        xr = x[:rows]
+        y, s, ss = mm.bn_relu_matmul_stats(xr, w, scale, shift)
+        again = mm.bn_relu_matmul_stats(xr, w, scale, shift)
+        check(all(torch.equal(a, b) for a, b in zip((y, s, ss), again)),
+              'bn_relu_matmul_stats: two runs differ')
+        want_y, want_s, want_ss = mm._bn_relu_matmul_stats_plain(xr, w, scale, shift)
+        z = torch.relu(xr.float() * scale + shift).to(torch.bfloat16).float()
+        err, nd = compare_bf16(y, want_y, z @ w.float().abs())
+        abs_sum = (z @ w.float()).abs().sum(0)
+        s_err, ss_err = stats_errors(s, ss, want_s, want_ss, abs_sum)
+        check(stats_within((s_err, ss_err)), 'bn_relu_matmul_stats sums: s %.3g (of the '
+              'column sums of |y32|), ss %.3g relative', s_err, ss_err)
+        results['bn_relu_matmul_stats']['max_abs_err'] = max(
+            results['bn_relu_matmul_stats']['max_abs_err'], err)
+        log('  bn_relu_matmul_stats M=%d K=%d N=%d scale %.1f shift %.1f: y max|d|=%.3g '
+            'n_diff=%d (%.2e); s err %.3g of sum|y32|, ss err %.3g relative; two runs equal',
+            rows, k, n, K3_SCALE, K3_SHIFT, err, nd, nd / y.numel(), s_err, ss_err)
+        if rows % mm._BLOCK_ROWS:
+            # the plain version with the last block's rows past M counted (x
+            # zero-padded: each such row adds relu(shift) @ w), and with the
+            # sums taken from bf16 y: the bounds must fail both
+            pad = -rows % mm._BLOCK_ROWS
+            _, pad_s, pad_ss = mm._bn_relu_matmul_stats_plain(
+                torch.cat([xr, xr.new_zeros((pad, k))]), w, scale, shift)
+            y16 = want_y.float()
+            for fault, sums in (('%d rows past M counted' % pad, (pad_s, pad_ss)),
+                                ('sums from bf16 y', (y16.sum(0), y16.square().sum(0)))):
+                errors = stats_errors(*sums, want_s, want_ss, abs_sum)
+                log('  planted fault, %s: s err %.3g, ss err %.3g (bounds %g, %g)', fault,
+                    *errors, K3_S_TOL, K3_SS_TOL)
+                check(not stats_within(errors), 'the statistics bounds pass a kernel with %s',
+                      fault)
+            del pad_s, pad_ss, y16
+        del z, want_y, abs_sum
+    ms = time_ms(lambda: mm.bn_relu_matmul_stats(x, w, scale, shift))
+    plain_ms = time_ms(lambda: mm._bn_relu_matmul_stats_plain(x, w, scale, shift))
+    results['bn_relu_matmul_stats'].update(ms=ms, plain_ms=plain_ms)
+    log('  bn_relu_matmul_stats M=%d K=%d N=%d: kernel %.4f ms, plain %.4f ms', m, k, n, ms,
+        plain_ms)
+    return results
+
+
+def phase_experiments():
+    """The three matmul experiments, short, at full shapes; each must launch
+    its kernel and call no plain version.  Returns {run label: counters}."""
+    from pocketflow_tpu_torch.experiments import conv1x1_ab, fused_mm_proto, mm_shape_sweep
+    out = os.path.join(tempfile.gettempdir(), 'pocketflow_tpu_torch', 'conv1x1_ab_smoke.json')
+    runs = {}
+    for label, module, argv, kernel in (
+            ('experiment fused_mm_proto: 2 reps at M=%d K=%d N=%d' % (
+                fused_mm_proto.M, fused_mm_proto.K, fused_mm_proto.N), fused_mm_proto,
+             ['--reps', '2'], 'bn_relu_matmul_stats'),
+            ('experiment conv1x1_ab: 2 reps at its 3 shapes', conv1x1_ab,
+             ['--reps', '2', '--out', out], 'matmul_bf16'),
+            ('experiment mm_shape_sweep: 1 round of 2 reps at its 8 shapes', mm_shape_sweep,
+             ['--rounds', '1', '--reps', '2'], 'matmul_bf16')):
+        reset_counters()  # this run's launches are counted from here ...
+        module.main(argv)  # raises SystemExit if its results fail its check_results
+        runs[label] = counters()  # ... to here
+        log('  %s: launches %s', label, runs[label])
+        check(runs[label][kernel] > 0 and runs[label]['plain'] == 0,
+              '%s: launches %s', label, runs[label])
+    return runs
+
+
+def phase_composed(learner, card):
+    """bench.py's composed pruned+QAT step at the main path's settings."""
+    from pocketflow_tpu_torch.learners.weight_sparsification.pruned_qat import (
+        build_pruned_qat_step, channel_masks)
+    t0 = time.perf_counter()
+    state, tx, _ = learner.init_state_quant()
+    masks = channel_masks(state.model)
+    state, train_step = build_pruned_qat_step(learner, tx, state, masks)
+    params = dict(state.model.named_parameters())
+    masked = [name for name, m in masks.items() if m.dim() == 4]
+    kernels = [params[name] for name in masked]
+    dead = [1.0 - masks[name] for name in masked]
+    check(len(masked) == 52, 'masked kernels %d', len(masked))
+    iterator = learner.dataset_train.build()
+    batches = [learner.put_batch(next(iterator)) for _ in range(4)]
+    torch.cuda.synchronize()
+    log('  set-up %.1f s; %d conv kernels masked, %d of %d of their input channels',
+        time.perf_counter() - t0, len(masked), sum(int(d.sum()) for d in dead),
+        sum(d.numel() for d in dead))
+
+    def leak():
+        """max |w| over the masked channels, on the device (no wait)."""
+        with torch.no_grad():
+            return torch.stack(torch._foreach_norm(torch._foreach_mul(kernels, dead),
+                                                   float('inf'))).max()
+
+    torch.cuda.reset_peak_memory_stats()
+    leaks = []
+    reset_counters()  # the composed run's launches are counted from here ...
+    for i in range(COMPOSED_WARMUP):
+        state, metrics = train_step(state, batches[i % 4], learner.generator(200 + i))
+        leaks.append(leak())
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for i in range(COMPOSED_WARMUP, COMPOSED_WARMUP + COMPOSED_TIMED):
+        state, metrics = train_step(state, batches[i % 4], learner.generator(200 + i))
+        leaks.append(leak())
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    counts = counters()  # ... to here
+    loss = float(metrics['loss'])
+    nb_steps = COMPOSED_WARMUP + COMPOSED_TIMED
+    check(math.isfinite(loss), 'composed loss %r', loss)
+    check(counts == no_launches(fake_quant_per_tensor=NB_WEIGHT_SITES * nb_steps),
+          'composed step launches %s', counts)
+    check(all(float(v) == 0.0 for v in leaks), 'masked channels not zero after a step: %s',
+          [float(v) for v in leaks])
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log('  step %d loss %.4f acc %.4f; masked channels exactly zero after each of the %d steps',
+        state.step, loss, float(metrics['accuracy']), nb_steps)
+    log('  %.2f img/s, %.2f ms/step over %d steps (the zero check included), peak memory '
+        '%.2f GiB | %s', BATCH * COMPOSED_TIMED / elapsed, 1e3 * elapsed / COMPOSED_TIMED,
+        COMPOSED_TIMED, peak_gib, card)
+    return counts
+
+
 def phase_reference(FLAGS, ModelHelper, UniformQuantLearner):
     """The QAT step on the card (kernels, fp32, no TF32) against the same
     step on the CPU (plain version) from the same seed, at a small size."""
@@ -178,6 +410,7 @@ def phase_reference(FLAGS, ModelHelper, UniformQuantLearner):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU',
               file=sys.stderr)
@@ -191,16 +424,20 @@ def main():
     from pocketflow_tpu_torch.nets.resnet_at_ilsvrc12 import ModelHelper
     from pocketflow_tpu_torch.ops import build
     from pocketflow_tpu_torch.ops import fake_quant as fq
+    from pocketflow_tpu_torch.ops import matmul as mm
 
     card = card_line()
     log('phase 1 device: %s | %s | torch %s cuda %s', card, torch.cuda.get_device_name(0),
         torch.__version__, torch.version.cuda)
 
-    _, build_log, build_s = build.load('fake_quant.cu')
-    log('phase 2 build: %s in %.1f s', SOURCE, build_s)
-    for line in build_log.splitlines():
-        if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
-            log('  ptxas: %s', line.strip())
+    start = time.perf_counter()
+    built = build.load_all(sorted({source for source, _ in KERNELS.values()}))
+    log('phase 2 build: %s side by side in %.1f s', ', '.join(built), time.perf_counter() - start)
+    for source, (_, build_log, build_s) in built.items():
+        log('  %s%s: nvcc %.1f s', CSRC, source, build_s)
+        for line in build_log.splitlines():
+            if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
+                log('  ptxas: %s', line.strip())
 
     FLAGS.override(synthetic_data=True, summ_step=10 ** 9, save_step=10 ** 9,
                    resnet_stem_s2d=True, rand_seed=0)
@@ -217,11 +454,14 @@ def main():
         check(stats['nb_matmuls'] == NB_WEIGHT_SITES and stats['nb_activations'] == NB_ACT_SITES,
               'sites %d/%d', stats['nb_matmuls'], stats['nb_activations'])
 
-        log('phase 3 kernels vs plain at the %d quantized weight shapes of ResNet-50',
+        log('phase 4 fake-quant kernels vs plain at the %d quantized weight shapes of ResNet-50',
             len(set(stats['weight_shapes'])))
         kernels = phase_kernels(fq, stats['weight_shapes'], device)
+        log('phase 5 matmul kernels vs plain at the experiments\' shapes')
+        kernels.update(phase_matmul(mm, device))
+        torch.cuda.empty_cache()
 
-        log('phase 4 main path: QAT ResNet-50 @224, bf16, batch %d, exact BN, s2d stem', BATCH)
+        log('phase 6 main path: QAT ResNet-50 @224, bf16, batch %d, exact BN, s2d stem', BATCH)
         state, tx, _ = learner.init_state_quant()
         train_step = learner.build_quant_train_step(tx)
         eval_step = learner.build_quant_eval_step()
@@ -232,7 +472,7 @@ def main():
         log('  set-up (learner, data, init) %.1f s', time.perf_counter() - t0)
         torch.cuda.reset_peak_memory_stats()
 
-        fq.reset_counters()  # the main path's launches are counted from here ...
+        reset_counters()  # the main path's launches are counted from here ...
         for i in range(N_WARMUP):
             state, metrics = train_step(state, batches[i % 4], learner.generator(i))
         torch.cuda.synchronize()
@@ -241,28 +481,25 @@ def main():
             state, metrics = train_step(state, batches[i % 4], learner.generator(i))
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - start
-        runs = {MAIN_RUN: fq.counters()}  # ... to here
+        runs = {MAIN_RUN: counters()}  # ... to here
         loss = float(metrics['loss'])
         counts = runs[MAIN_RUN]
         check(math.isfinite(loss), 'loss %r', loss)
         check(state.step == N_WARMUP + N_TIMED, 'step %d', state.step)
-        check(counts['fake_quant_per_tensor'] == NB_WEIGHT_SITES * state.step,
-              'K1 launches %d for %d steps', counts['fake_quant_per_tensor'], state.step)
-        check(counts['plain'] == 0 and counts['fake_quant_per_column'] == 0,
-              'unexpected launches %s', counts)
-        fq.reset_counters()
+        check(counts == no_launches(fake_quant_per_tensor=NB_WEIGHT_SITES * state.step),
+              'main path launches %s for %d steps', counts, state.step)
+        reset_counters()
         ev = {k: float(v) for k, v in eval_step(state, eval_batch).items()}
         check(all(math.isfinite(v) for v in ev.values()), 'eval %s', ev)
-        check(fq.counters() == {'fake_quant_per_tensor': NB_WEIGHT_SITES,
-                                'fake_quant_per_column': 0, 'plain': 0},
-              'eval step launches %s', fq.counters())
+        check(counters() == no_launches(fake_quant_per_tensor=NB_WEIGHT_SITES),
+              'eval step launches %s', counters())
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         log('  step %d loss %.4f acc %.4f | eval %s', state.step, loss,
             float(metrics['accuracy']), ev)
         log('  %.2f img/s, %.2f ms/step over %d steps, peak memory %.2f GiB | %s',
             BATCH * N_TIMED / elapsed, 1e3 * elapsed / N_TIMED, N_TIMED, peak_gib, card)
 
-        log('phase 5 other quantization routes, 2 steps each')
+        log('phase 7 other quantization routes, 2 steps each')
         channel = 'channel buckets (--uql_use_buckets --uql_bucket_type=channel): 2 QAT train steps'
         routes = [(channel, dict(uql_use_buckets=True, uql_bucket_type='channel'),
                    {'fake_quant_per_column': NB_WEIGHT_SITES}),
@@ -275,29 +512,42 @@ def main():
         for label, flags, per_step in routes:
             with FLAGS.scope(**flags):
                 state = learner.set_bits(state, *learner.choose_bits())
-                fq.reset_counters()
+                reset_counters()
                 for i in range(2):
                     state, metrics = train_step(state, batches[i], learner.generator(100 + i))
-                runs[label] = fq.counters()
+                runs[label] = counters()
                 loss = float(metrics['loss'])
             log('  %s: loss %.4f, launches %s', label, loss, runs[label])
             check(math.isfinite(loss), '%s loss %r', label, loss)
-            want = {'fake_quant_per_tensor': 0, 'fake_quant_per_column': 0, 'plain': 0}
-            want.update({name: 2 * n for name, n in per_step.items()})
+            want = no_launches(**{name: 2 * n for name, n in per_step.items()})
             check(runs[label] == want, '%s: launches %s, expected %s', label, runs[label], want)
+        del state, train_step, eval_step, batches, eval_batch
+        torch.cuda.empty_cache()
+
+        log('phase 8 the matmul experiments, short, at full shapes')
+        runs.update(phase_experiments())
+        torch.cuda.empty_cache()
+
+        log('phase 9 composed pruned+QAT step (bench.py): ResNet-50 @224, bf16, batch %d, '
+            'exact BN, s2d stem, 4-bit weights, half the input channels of every conv kernel '
+            'with more than 16 masked', BATCH)
+        runs[COMPOSED_RUN] = phase_composed(learner, card)
 
     # each kernel's launches in the run that drives it: the main path for K1',
-    # the channel-bucket route for K2'
-    own_run = {'fake_quant_per_tensor': MAIN_RUN, 'fake_quant_per_column': channel}
-    line = {'kernels': [{'name': name, 'route': 'cuda', 'source': SOURCE,
-                         'replaces': REPLACES[name], 'run': own_run[name],
+    # the channel-bucket route for K2', an experiment for each matmul kernel
+    own_run = {'fake_quant_per_tensor': MAIN_RUN, 'fake_quant_per_column': channel,
+               'matmul_bf16': next(label for label in runs if 'mm_shape_sweep' in label),
+               'bn_relu_matmul_stats': next(label for label in runs if 'fused_mm_proto' in label)}
+    line = {'kernels': [{'name': name, 'route': 'cuda', 'source': CSRC + source,
+                         'replaces': replaces, 'run': own_run[name],
                          'launches': runs[own_run[name]][name],
                          'launches_by_run': {label: c[name] for label, c in runs.items()},
                          'max_abs_err': kernels[name]['max_abs_err'],
                          'ms': kernels[name]['ms'], 'plain_ms': kernels[name]['plain_ms']}
-                        for name in REPLACES]}
+                        for name, (source, replaces) in KERNELS.items()]}
     for entry in line['kernels']:
         check(entry['launches'] > 0, '%s never launched in %s', entry['name'], entry['run'])
+    log('total %.1f s', time.perf_counter() - t_start)
     log('%s', card_line())
     log('%s', json.dumps(line))
     log('%s', json.dumps({'ok': True, 'device': {

@@ -1,0 +1,12 @@
+"""A/B experiments of the port's hand-written matmul kernels on one GPU
+(counterparts of the JAX package's experiments/fused_mm_proto.py,
+conv1x1_ab.py and mm_shape_sweep.py).  Each is an entry point,
+``python -m pocketflow_tpu_torch.experiments.<name>``, whose ``main(argv)``
+also returns its results, and each needs a CUDA device."""
+
+import torch
+
+
+def require_cuda(name: str):
+    if not torch.cuda.is_available():
+        raise SystemExit('%s: needs a CUDA device (torch.cuda.is_available() is False)' % name)

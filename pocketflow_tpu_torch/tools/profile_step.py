@@ -1,6 +1,6 @@
 """Step time and device-time profile of the port's train step on one GPU.
 
-    python -m pocketflow_tpu_torch.tools.profile_step [--variants qat,full-prec,...]
+    python -m pocketflow_tpu_torch.tools.profile_step [--variants qat,pruned-qat,...]
         [--out FILE]
 
 Each variant is ResNet-50 at 224x224, bf16, batch 256, exact BN,
@@ -13,6 +13,10 @@ settings of bench.py and chip_smoke.py), with the flags below on top:
     channel      qat with --uql_use_buckets --uql_bucket_type=channel
     split        qat with --uql_use_buckets --uql_bucket_type=split
     act8         qat with --uql_activation_bits=8
+    pruned-qat   qat composed with channel masks, as bench.py's pruned+QAT
+                 step: half the input channels of every conv kernel with more
+                 than 16 of them masked, masked gradients, and the masks
+                 re-applied after each update
 
 For each variant: 3 warm-up steps, then 3 windows of 10 steps timed on the
 host clock and ended by torch.cuda.synchronize(); then 5 steps under
@@ -20,23 +24,29 @@ torch.profiler (device activity only), reported per step: the device
 window (first kernel start to last kernel end), the device busy time (the
 union of kernel and copy intervals), the idle share of the window, kernel
 launches, device time by layer (`kernel_category`), and the top kernels.
-Last, the device time of one pass of each fake-quant kernel and of its plain
-version over the 52 quantized weights of one step (4 bits) and over one bf16
-activation 256x256x56x56 (8 bits): the profiler's kernel records of 10
-passes, summed and divided by 10, in two repeats.
+Last, the device time of one pass of each hand-written kernel and of its
+plain version: the fake-quant kernels over the 52 quantized weights of one
+step (4 bits) and over one bf16 activation 256x256x56x56 (8 bits);
+matmul_bf16 over the 8 ResNet-50 1x1 shapes of mm_shape_sweep, beside
+cuBLAS's bf16 matmul; bn_relu_matmul_stats at fused_mm_proto's shape.  Each
+is the profiler's kernel records of 10 passes, summed and divided by 10, in
+two repeats.
 
-Prints one JSON object as its last line and writes it to --out if given.
+Prints one JSON object as its last line and writes it to --out if given.  A
+variant named twice (to time two variants in turns, A B B A) is reported
+as name#2 the second time.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
 import torch
+
+from pocketflow_tpu_torch.core.cuda_timing import card_line
 
 VARIANTS = {
     'qat': ('uniform', {}),
@@ -45,6 +55,7 @@ VARIANTS = {
     'channel': ('uniform', {'uql_use_buckets': True, 'uql_bucket_type': 'channel'}),
     'split': ('uniform', {'uql_use_buckets': True, 'uql_bucket_type': 'split'}),
     'act8': ('uniform', {'uql_activation_bits': 8}),
+    'pruned-qat': ('uniform', {}),
 }
 BATCH = 256
 NB_WARMUP, NB_WINDOWS, NB_STEPS, NB_PROFILED = 3, 3, 10, 5
@@ -71,11 +82,6 @@ def kernel_category(name: str) -> str:
         if any(key in name for key in keys):
             return category
     return 'other'
-
-
-def _card() -> str:
-    return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def _device_events(prof):
@@ -139,7 +145,13 @@ def profile_variant(name: str) -> dict:
     learner_name, flags = VARIANTS[name]
     with FLAGS.scope(**flags):
         learner = create_learner(None, ModelHelper(resnet_size=50), learner_name, device='cuda')
-        if learner_name == 'uniform':
+        if name == 'pruned-qat':
+            from pocketflow_tpu_torch.learners.weight_sparsification.pruned_qat import (
+                build_pruned_qat_step, channel_masks)
+            state, tx, _ = learner.init_state_quant()
+            state, train_step = build_pruned_qat_step(learner, tx, state,
+                                                      channel_masks(state.model))
+        elif learner_name == 'uniform':
             state, tx, _ = learner.init_state_quant()
             train_step = learner.build_quant_train_step(tx)
         else:
@@ -179,7 +191,7 @@ def profile_variant(name: str) -> dict:
 
 
 def profile_kernels(weight_shapes, repeats: int = 2, passes: int = 10) -> dict:
-    """Device ms of one pass of each fake-quant kernel and its plain version,
+    """Device ms of one pass of each hand-written kernel and its plain version,
     averaged over `passes` passes in one profiled window (a window of one
     pass can come back with some of its records missing)."""
     from pocketflow_tpu_torch.ops import fake_quant as fq
@@ -206,6 +218,24 @@ def profile_kernels(weight_shapes, repeats: int = 2, passes: int = 10) -> dict:
         'per_tensor plain, bf16 act 256x256x56x56': lambda: fq._quantize_math_torch(
             act, k8, None).to(torch.bfloat16),
     }
+    from pocketflow_tpu_torch.experiments import fused_mm_proto, mm_shape_sweep
+    from pocketflow_tpu_torch.ops import matmul as mm
+    products = [(torch.randn((m, k), generator=gen, device='cuda').to(torch.bfloat16),
+                 (torch.randn((k, n), generator=gen, device='cuda') * 0.05).to(torch.bfloat16))
+                for m, k, n in mm_shape_sweep.SHAPES]
+    fused_in = fused_mm_proto.inputs(fused_mm_proto.M, fused_mm_proto.K, fused_mm_proto.N, 'cuda')
+    fns.update({
+        'matmul_bf16 kernel, 8 sweep shapes': lambda: [mm.matmul_bf16(x, w) for x, w in products],
+        'matmul_bf16 plain, 8 sweep shapes': lambda: [mm._matmul_plain(x, w)
+                                                      for x, w in products],
+        'cuBLAS bf16 matmul, 8 sweep shapes': lambda: [torch.matmul(x, w) for x, w in products],
+        'bn_relu_matmul_stats kernel, M=%d K=%d N=%d' % (
+            fused_mm_proto.M, fused_mm_proto.K, fused_mm_proto.N): lambda: mm.bn_relu_matmul_stats(
+                *fused_in),
+        'bn_relu_matmul_stats plain, M=%d K=%d N=%d' % (
+            fused_mm_proto.M, fused_mm_proto.K, fused_mm_proto.N):
+            lambda: mm._bn_relu_matmul_stats_plain(*fused_in),
+    })
     out = {}
     for label, fn in fns.items():
         fn()  # build and warm
@@ -217,7 +247,8 @@ def profile_kernels(weight_shapes, repeats: int = 2, passes: int = 10) -> dict:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    parser.add_argument('--variants', default='qat,full-prec,ghost-bn-8,channel,split,act8')
+    parser.add_argument('--variants',
+                        default='qat,full-prec,ghost-bn-8,channel,split,act8,pruned-qat')
     parser.add_argument('--out', default='')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -233,13 +264,14 @@ def main(argv=None):
                    resnet_stem_s2d=True, rand_seed=0, batch_size=BATCH, batch_size_eval=BATCH,
                    nb_smpls_train=16 * BATCH, nb_smpls_eval=2 * BATCH, compute_dtype='bfloat16',
                    bn_stats_subsample=1, uql_weight_bits=4, uql_activation_bits=32)
-    report = {'card': _card(), 'torch': torch.__version__, 'cuda': torch.version.cuda,
+    report = {'card': card_line(), 'torch': torch.__version__, 'cuda': torch.version.cuda,
               'batch_size': BATCH, 'variants': {}}
     print('card %s | torch %s cuda %s' % (report['card'], torch.__version__, torch.version.cuda),
           flush=True)
     for name in filter(None, args.variants.split(',')):
         result = profile_variant(name)
-        report['variants'][name] = result
+        runs = sum(key.split('#')[0] == name for key in report['variants'])
+        report['variants'][name if not runs else '%s#%d' % (name, runs + 1)] = result
         brief = {k: v for k, v in result.items() if k != 'profile'}
         brief.update({k: result['profile'][k] for k in
                       ('window_ms_per_step', 'busy_ms_per_step', 'idle_share',

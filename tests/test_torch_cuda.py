@@ -6,14 +6,26 @@ the JAX package to a CPU mesh):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: none.  The kernels round every step of the fp32 formula as the
-plain version does, so the two agree bit for bit.
+Tolerances: none for the fake-quant kernels, which round every step of the
+fp32 formula as the plain version does.  The matmul kernels sum the fp32
+products on the tensor cores, in another order and rounding than the plain
+version's fp32 matmul, so y may differ where the two fp32 sums round to
+different bf16 values: by one bf16 ulp, or, where the sum cancels, by up to
+2^-20 of the sum of the products' magnitudes, in at most 2e-3 of the
+elements (measured on an H100: 1.15e-3 at K=2048, exactly as many as
+cuBLAS's own bf16 GEMM shows against the same plain version; integer inputs,
+whose sums are exact, give equal results).  The column sums s are held within
+3e-6 of each column's sum of |y32|, ss within 5e-6 relative: the kernel reads
+at most 3.0e-7 and 4.8e-7 at these shapes and at M=802,816 on an H100, while
+counting rows past M or summing bf16 y reads 2.6e-5 (s) or 2.0e-5 (ss) even
+at M=801,816.
 """
 
 import pytest
 import torch
 
 from pocketflow_tpu_torch.ops import fake_quant as tfq
+from pocketflow_tpu_torch.ops import matmul as tmm
 
 
 @pytest.fixture
@@ -78,3 +90,75 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
         tfq.fake_quant_per_column(_inputs(cuda, (8, 8), torch.bfloat16), bits)
     with pytest.raises(ValueError):
         tfq.fake_quant_per_tensor(_inputs(cuda, (8, 8), torch.float32), bits.cpu())
+
+
+def _bf16_ulp(v):
+    """The spacing of bf16 values at |v| (fp32 tensor)."""
+    _, exponent = torch.frexp(v)
+    return torch.ldexp(torch.ones_like(v), exponent - 8)
+
+
+def _assert_bf16_close(got, want, abs_terms):
+    """The bound of the module docstring; abs_terms = |a| @ |b| in fp32."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    bound = torch.maximum(_bf16_ulp(got), _bf16_ulp(want)) + abs_terms * 2.0 ** -20
+    assert bool((diff <= bound).all()), float((diff - bound).max())
+    assert int((diff > 0).sum()) <= max(1, got.numel() // 500), int((diff > 0).sum())
+
+
+def _matmul_inputs(device, m, k, n, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=device) * 0.05).to(torch.bfloat16)
+    return x, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('m,k,n', [(2048, 64, 256), (1000, 72, 136), (12544, 2048, 512),
+                                   (50176, 256, 1024), (1, 8, 8), (129, 40, 24)])
+def test_matmul_kernel_equals_plain(cuda, m, k, n):
+    x, w = _matmul_inputs(cuda, m, k, n)
+    got = tmm.matmul_bf16(x, w)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    _assert_bf16_close(got, tmm._matmul_plain(x, w), x.float().abs() @ w.float().abs())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('m,k,n,scale,shift', [(2048, 64, 32, 1.1, 0.1), (2048, 64, 32, 2.0, 0.0),
+                                               (5000, 256, 64, 1.1, 0.1), (129, 40, 24, 0.7, -0.2),
+                                               (1, 8, 8, 1.1, 0.1)])
+def test_bn_relu_matmul_stats_kernel_equals_plain(cuda, m, k, n, scale, shift):
+    """Rows past M (the last block holds m % 128 of its 128) add nothing to
+    the statistics, and two runs give the same bits."""
+    x, w = _matmul_inputs(cuda, m, k, n, seed=1)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    scale_v = scale * (1 + 0.1 * torch.rand(k, generator=gen, device=cuda))
+    shift_v = shift + 0.1 * torch.rand(k, generator=gen, device=cuda)
+    y, s, ss = tmm.bn_relu_matmul_stats(x, w, scale_v, shift_v)
+    y2, s2, ss2 = tmm.bn_relu_matmul_stats(x, w, scale_v, shift_v)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(ss, ss2)
+    want_y, want_s, want_ss = tmm._bn_relu_matmul_stats_plain(x, w, scale_v, shift_v)
+    z = torch.relu(x.float() * scale_v + shift_v).to(torch.bfloat16).float()
+    _assert_bf16_close(y, want_y, z @ w.float().abs())
+    abs_sum = (z @ w.float()).abs().sum(0)
+    assert bool(((s - want_s).abs() <= 3e-6 * abs_sum).all())
+    assert bool(((ss - want_ss).abs() <= 5e-6 * want_ss).all())
+
+
+@pytest.mark.gpu
+def test_matmul_wrappers_count_launches_and_reject_bad_inputs(cuda):
+    tmm.reset_counters()
+    x, w = _matmul_inputs(cuda, 256, 64, 64)
+    scale = torch.ones(64, device=cuda)
+    tmm.matmul_bf16(x, w)
+    tmm.bn_relu_matmul_stats(x, w, scale, torch.zeros(64, device=cuda))
+    assert tmm.counters() == {'matmul_bf16': 1, 'bn_relu_matmul_stats': 1, 'plain': 0}
+    with pytest.raises(ValueError):
+        tmm.matmul_bf16(x.float(), w)
+    with pytest.raises(ValueError):
+        tmm.matmul_bf16(x.reshape(-1)[4:4 + 6400].reshape(100, 64), w)  # 8-byte aligned
+    with pytest.raises(ValueError):
+        tmm.bn_relu_matmul_stats(x, w, scale.cpu(), scale)

@@ -1,8 +1,10 @@
 """The whole slice: the port's UniformQuantLearner on ResNet-50 against the
 JAX package's, from one set of parameters carried across by the bridge.
-Shared by tests/test_torch_qat_slice.py (per-tensor weight quantization) and
-tests/test_torch_qat_slice_buckets.py (--uql_use_buckets, channel buckets),
-which run on separate test workers.
+Shared by tests/test_torch_qat_slice.py (per-tensor weight quantization),
+tests/test_torch_qat_slice_buckets.py (--uql_use_buckets, channel buckets)
+and tests/test_torch_masking.py (bench.py's composed pruned+QAT step: channel
+masks made with numpy and handed to both packages, masked gradients, the
+masks re-applied after each update), which run on separate test workers.
 
 Size: --ilsvrc_image_size=64, batch 8, fp32, synthetic ILSVRC-12.  The
 augmentation is switched to its deterministic path on both learners'
@@ -52,11 +54,14 @@ from pocketflow_tpu.config import FLAGS as JFLAGS
 from pocketflow_tpu.core import mesh as mesh_lib
 from pocketflow_tpu.learners.uniform_quantization import utils as juq
 from pocketflow_tpu.learners.uniform_quantization.learner import UniformQuantLearner as JLearner
+from pocketflow_tpu.learners.weight_sparsification import masking as jmasking
 from pocketflow_tpu.nets.resnet_at_ilsvrc12 import ModelHelper as JHelper
 from pocketflow_tpu_torch.config import FLAGS as TFLAGS
 from pocketflow_tpu_torch.core.bridge import from_jax_numpy, load_jax_numpy
 from pocketflow_tpu_torch.learners.uniform_quantization import utils as tuq
 from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner as TLearner
+from pocketflow_tpu_torch.learners.weight_sparsification.pruned_qat import (
+    build_pruned_qat_step, channel_masks)
 from pocketflow_tpu_torch.nets.resnet_at_ilsvrc12 import ModelHelper as THelper
 
 torch.set_num_threads(2)
@@ -110,7 +115,24 @@ def _load_port_state(tstate, snapshot):
     assert tstate.step == snapshot['step']
 
 
-def _run(buckets: bool):
+def bench_channel_masks(params, seed=0):
+    """bench.py:154-164's masks over a JAX params tree, in numpy: for every
+    4-D kernel with more than 16 input channels, a random half of them
+    (rounded up) kept, as a [1, 1, c, 1] mask; a 0-d one elsewhere."""
+    rng = np.random.default_rng(seed)
+
+    def mk(leaf):
+        if leaf.ndim == 4 and leaf.shape[2] > 16:
+            c = leaf.shape[2]
+            alive = np.zeros(c, np.float32)
+            alive[rng.permutation(c)[:(c + 1) // 2]] = 1.0
+            return alive.reshape(1, 1, -1, 1)
+        return np.ones((), np.float32)
+
+    return jax.tree_util.tree_map(mk, params)
+
+
+def _run(buckets: bool, composed: bool = False):
     flags = dict(SMALL, uql_use_buckets=buckets, uql_bucket_type='channel')
     mesh_lib.set_global_mesh(mesh_lib.build_mesh(jax.devices()[:1], ('data',), (1,)))
     with JFLAGS.scope(**flags), TFLAGS.scope(**flags):
@@ -148,9 +170,19 @@ def _run(buckets: bool):
                     'label': labels[BATCH * i:BATCH * (i + 1)]} for i in range(NB_STEPS)]
         helper = jlearner.model_helper
         # the JAX step reports no loss: carry the CE out as a metric (adds 0)
+        hooks = {}
+        if composed:  # bench.py:165-173, masks from numpy into both packages
+            masks = bench_channel_masks(params0)
+            extra = {**extra, 'masks': masks}
+            hooks = dict(grad_transform_fn=lambda g, s: jmasking.mask_gradients(
+                             g, s.extra['masks']),
+                         post_update_fn=lambda s: s.replace(
+                             params=jmasking.apply_masks(s.params, s.extra['masks'])))
+            out['masks'] = {k: v for k, v in _flat(masks).items() if v.ndim == 4}
         jstep = jlearner.build_train_step(
             jtx, policy_fn=jlearner._policy_fn(),
-            loss_extra_fn=lambda s, o, i, l: (0.0, {'ce': helper.softmax_cross_entropy(l, o)}))
+            loss_extra_fn=lambda s, o, i, l: (0.0, {'ce': helper.softmax_cross_entropy(l, o)}),
+            **hooks)
 
         def jax_step(snapshot, index, image_noise=0.0, params=None):
             """One JAX step from a numpy snapshot (the step donates its
@@ -176,7 +208,15 @@ def _run(buckets: bool):
             return m, after
 
         rng = np.random.default_rng(0)
-        tstep = tlearner.build_quant_train_step(ttx)
+        if composed:
+            tmasks = {k.replace('/', '.'): torch.from_numpy(v)
+                      for k, v in _flat(masks).items()}
+            tstate, tstep = build_pruned_qat_step(tlearner, ttx, tstate, tmasks)
+            out['port_channel_masks'] = {k: v.numpy() for k, v in
+                                         channel_masks(tstate.model).items()}
+            out['numpy_masks'] = {k: v.numpy() for k, v in tmasks.items()}
+        else:
+            tstep = tlearner.build_quant_train_step(ttx)
         snapshot = {'step': 0, 'params': params0, 'batch_stats': stats0,
                     'opt_state': jax.tree_util.tree_map(
                         np.array, jax.device_get(jlearner.init_opt_state(jtx, params0)))}
@@ -200,6 +240,14 @@ def _run(buckets: bool):
                 'port': ({k: float(v) for k, v in tm.items()},
                          {**{k: v.detach().numpy().copy() for k, v in tstate.params.items()},
                           **{k: v.numpy().copy() for k, v in tstate.batch_stats.items()}})})
+            if composed:  # SGD momentum of the masked kernels, after the step
+                out['steps'][-1]['momentum'] = {
+                    'jax': {k: v for k, v in _flat(_momentum_trace(jafter['opt_state'])).items()
+                            if k in out['masks']},
+                    'port': {name.replace('.', '/'): tstate.optimizer.state[p][
+                        'momentum_buffer'].numpy().copy()
+                        for name, p in tstate.model.named_parameters()
+                        if name.replace('.', '/') in out['masks']}}
             snapshot = jafter
         out['port_step'] = tstate.step
     mesh_lib.reset_global_mesh()
