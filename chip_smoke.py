@@ -20,14 +20,20 @@ last line.  The last line is
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": <n>}}
 
 and the line before it lists each kernel with its launches, its largest
-difference from the plain version, and both times.  `launches` counts one
-run, which `run` names: for fake_quant_per_tensor the main path's 13 train
-steps (the counters are reset just before them and read just after, before
-the eval step), for fake_quant_per_column the 2 steps under channel buckets,
-the route that launches it (the main path does not), for matmul_bf16 the
-mm_shape_sweep experiment and for bn_relu_matmul_stats the fused_mm_proto
-experiment.  `launches_by_run` gives every kernel's count in each run, each
-counted from its own reset.
+difference from the plain version, its time, the plain version's, the
+library call's where one computes the same function (else null), and its
+bound: the least time the card could take for the same work, the larger of
+the bytes moved (each input read once, each output written once) over the
+memory's rate and the operations over the peak rate of their type.
+`launches` counts one run, which `run` names: for fake_quant_per_tensor_group
+(the grouped route of K1', which quantizes the step's 52 weights in one
+launch pair) the main path's 13 train steps (the counters are reset just
+before them and read just after, before the eval step), for
+fake_quant_per_tensor the 2 steps with 8-bit activations (the main path
+quantizes no weight through it), for fake_quant_per_column the 2 steps
+under channel buckets, for matmul_bf16 the mm_shape_sweep experiment and
+for bn_relu_matmul_stats the fused_mm_proto experiment.  `launches_by_run`
+gives every kernel's count in each run, each counted from its own reset.
 """
 
 import json
@@ -39,13 +45,16 @@ import time
 
 import torch
 
-from pocketflow_tpu_torch.core.cuda_timing import card_line, time_ms
+from pocketflow_tpu_torch.core.cuda_timing import (
+    BF16_TENSOR_OPS_S, FP32_OPS_S, bound_ms as bound, card_line, matmul_bound_ms, time_ms)
 
 CSRC = 'pocketflow_tpu_torch/csrc/'
 # kernel -> (source file, the TPU kernel it replaces)
 KERNELS = {
     'fake_quant_per_tensor': ('fake_quant.cu',
                               'pocketflow_tpu/ops/fake_quant.py:84 (_fq_pallas_2d)'),
+    'fake_quant_per_tensor_group': ('fake_quant.cu', 'pocketflow_tpu/ops/fake_quant.py:84 '
+                                    '(_fq_pallas_2d; grouped route, all weights at once)'),
     'fake_quant_per_column': ('fake_quant.cu',
                               'pocketflow_tpu/ops/fake_quant.py:108 (_fq_pallas_cols_grid)'),
     'matmul_bf16': ('matmul.cu', 'experiments/conv1x1_ab.py:123 (make_pallas); '
@@ -55,6 +64,7 @@ KERNELS = {
 BATCH = 256
 N_WARMUP, N_TIMED = 3, 10
 MAIN_RUN = 'main path: %d QAT train steps, per-tensor 4-bit weights' % (N_WARMUP + N_TIMED)
+ACT8_RUN = '8-bit activations (--uql_activation_bits=8): 2 QAT train steps'
 NB_WEIGHT_SITES, NB_ACT_SITES = 52, 49
 COMPOSED_WARMUP, COMPOSED_TIMED = 3, 5
 COMPOSED_RUN = 'composed pruned+QAT: %d train steps, 4-bit weights, channel masks' % (
@@ -68,6 +78,13 @@ K3_RAGGED_M = 256 * 56 * 56 - 1000
 # a kernel could hide gives at the ragged M: rows past M counted, or sums
 # taken from bf16 y (phase_matmul plants both and requires them to fail).
 K3_S_TOL, K3_SS_TOL = 3e-6, 5e-6
+# fp32 operations a fake-quant element costs: min, max; x - beta, / alpha,
+# * k, round, / k, * alpha, + beta
+FQ_OPS_PER_ELEMENT = 9
+# ragged edges of matmul_bf16 (M past a 128-row tile, K past a 64-deep stage,
+# N past a column tile), beside the experiments' shapes
+MATMUL_RAGGED = [(1, 8, 8), (129, 8, 8), (1000, 8, 8), (129, 40, 24), (1000, 72, 136),
+                 (1000, 200, 264), (777, 520, 72), (30000, 72, 264)]
 
 
 def log(msg, *args):
@@ -114,8 +131,49 @@ def compare(got, want, alpha_over_k):
     return max_err, n_diff
 
 
+def fq_bound(nb_elements: int, element_bytes: int = 4):
+    """(bound_ms, bound_by) of a fake-quant pass over nb_elements: each read
+    once and written once, FQ_OPS_PER_ELEMENT fp32 operations each."""
+    return bound(2 * element_bytes * nb_elements, {FP32_OPS_S: FQ_OPS_PER_ELEMENT * nb_elements})
+
+
+def phase_group(fq, weight_shapes, device):
+    """The grouped route of K1' at the 52 weight shapes, mixed bits (2, 4, 8,
+    32 in turn; 32 copies): bit-equal to the plain version and, tensor by
+    tensor, to the per-tensor kernel."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    weights = [torch.randn(s, generator=gen, device=device) * 0.05 for s in weight_shapes]
+    bits = torch.tensor([(2.0, 4.0, 8.0, 32.0)[i % 4] for i in range(len(weights))],
+                        device=device)
+    got = fq.fake_quant_per_tensor_group(weights, bits)
+    for i, (w, b, g) in enumerate(zip(weights, bits, got)):
+        want = torch.where(b < 32, fq._quantize_math_torch(w, fq._levels(b), None), w)
+        check(torch.equal(g, want), 'grouped K1\' differs from plain at weight %d %s, bits %g',
+              i, tuple(w.shape), float(b))
+        if b < 32:
+            check(torch.equal(g, fq.fake_quant_per_tensor(w, b)),
+                  'grouped K1\' differs from the per-tensor kernel at weight %d', i)
+    log('  fake_quant_per_tensor_group: %d weights, bits 2/4/8/32 in turn: equal to plain and '
+        'to the per-tensor kernel, tensor by tensor', len(weights))
+    bits4 = torch.full((len(weights),), 4.0, device=device)
+    k = fq._levels(torch.tensor(4.0, device=device))
+    ms = time_ms(lambda: fq.fake_quant_per_tensor_group(weights, bits4))
+    plain_ms = time_ms(lambda: [torch.where(b < 32, fq._quantize_math_torch(w, k, None), w)
+                                for w, b in zip(weights, bits4)])
+    per_site_ms = time_ms(lambda: [torch.where(b < 32, fq.fake_quant_per_tensor(w, b), w)
+                                   for w, b in zip(weights, bits4)])
+    bound_ms, bound_by = fq_bound(sum(w.numel() for w in weights))
+    log('  fake_quant_per_tensor_group over the 52 weights of one step (4 bits): kernel %.4f ms, '
+        'plain %.4f ms, the per-site route (52 x per-tensor kernel + select) %.4f ms, bound '
+        '%.4f ms (%s)', ms, plain_ms, per_site_ms, bound_ms, bound_by)
+    return {'fake_quant_per_tensor_group': dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                                bound_ms=bound_ms, bound_by=bound_by,
+                                                library_ms=None)}
+
+
 def phase_kernels(fq, weight_shapes, device):
-    """Phase 3: each kernel against the plain version, at main-path shapes."""
+    """Phase 4: each fake-quant kernel against the plain version, at
+    main-path shapes."""
     results = {name: {'max_abs_err': 0.0}
                for name in ('fake_quant_per_tensor', 'fake_quant_per_column')}
     gen = torch.Generator(device=device).manual_seed(0)
@@ -175,14 +233,17 @@ def phase_kernels(fq, weight_shapes, device):
             time_ms(lambda: [fq.fake_quant_per_column(c, bits) for c in columns]),
             time_ms(lambda: [fq._quantize_math_torch(c, k, 0) for c in columns])),
     }
+    bound_ms, bound_by = fq_bound(sum(w.numel() for w in weights))
     for name, (ms, plain_ms) in t.items():
-        results[name]['ms'], results[name]['plain_ms'] = ms, plain_ms
-        log('  %s over the 52 weights of one step: kernel %.4f ms, plain %.4f ms',
-            name, ms, plain_ms)
+        results[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=None)
+        log('  %s over the 52 weights of one step: kernel %.4f ms, plain %.4f ms, bound %.4f ms '
+            '(%s)', name, ms, plain_ms, bound_ms, bound_by)
     act_ms = time_ms(lambda: fq.fake_quant_per_tensor(act, torch.tensor(8.0, device=device)), 10)
     act_plain = time_ms(lambda: fq._quantize_math_torch(act, k, None).to(torch.bfloat16), 10)
-    log('  fake_quant_per_tensor on the bf16 activation %s: kernel %.4f ms, plain %.4f ms',
-        tuple(act.shape), act_ms, act_plain)
+    log('  fake_quant_per_tensor on the bf16 activation %s: kernel %.4f ms, plain %.4f ms, '
+        'bound %.4f ms', tuple(act.shape), act_ms, act_plain, fq_bound(act.numel(), 2)[0])
+    results.update(phase_group(fq, weight_shapes, device))
     return results
 
 
@@ -223,12 +284,14 @@ def stats_within(errors) -> bool:
 
 def phase_matmul(mm, device):
     """The matmul kernels against their plain versions at the experiments'
-    shapes: matmul_bf16 at the 8 ResNet-50 1x1 shapes of mm_shape_sweep and
-    the 3 square trunk shapes of conv1x1_ab; bn_relu_matmul_stats at
-    fused_mm_proto's shape and prologue, and at a ragged M, where the
-    statistics' bounds must also fail two planted faults."""
+    shapes: matmul_bf16 at the 8 ResNet-50 1x1 shapes of mm_shape_sweep, the
+    3 square trunk shapes of conv1x1_ab and ragged edges (and bit-equal on
+    exact sums); bn_relu_matmul_stats at fused_mm_proto's shape and
+    prologue, and at a ragged M, where the statistics' bounds must also fail
+    two planted faults."""
     from pocketflow_tpu_torch.experiments import conv1x1_ab, mm_shape_sweep
-    results = {'matmul_bf16': {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0},
+    results = {'matmul_bf16': {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
+                               'library_ms': 0.0},
                'bn_relu_matmul_stats': {'max_abs_err': 0.0}}
     gen = torch.Generator(device=device).manual_seed(0)
 
@@ -238,22 +301,38 @@ def phase_matmul(mm, device):
         return x, w
 
     k4 = [(n * h * wd, c, c) for (n, h, wd), c in conv1x1_ab.SHAPES]
-    for m, k, n in mm_shape_sweep.SHAPES + k4:
+    bound_by_ms = {'bytes': 0.0, 'operations': 0.0}
+    for m, k, n in mm_shape_sweep.SHAPES + k4 + MATMUL_RAGGED:
         x, w = inputs(m, k, n)
         got = mm.matmul_bf16(x, w)
         err, nd = compare_bf16(got, mm._matmul_plain(x, w), x.float().abs() @ w.float().abs())
         vs_cublas = int((got != torch.matmul(x, w)).sum())
+        ints = [torch.randint(-3, 4, shape, generator=gen, device=device).to(torch.bfloat16)
+                for shape in ((m, k), (k, n))]
+        check(torch.equal(mm.matmul_bf16(*ints), mm._matmul_plain(*ints)),
+              'matmul_bf16 M=%d K=%d N=%d is not exact on exact sums', m, k, n)
+        results['matmul_bf16']['max_abs_err'] = max(results['matmul_bf16']['max_abs_err'], err)
+        if (m, k, n) in MATMUL_RAGGED:
+            log('  matmul_bf16 M=%d K=%d N=%d: max|d|=%.3g n_diff=%d, vs cuBLAS bf16 %d; exact '
+                'on exact sums', m, k, n, err, nd, vs_cublas)
+            continue
         ms = time_ms(lambda: mm.matmul_bf16(x, w))
         plain_ms = time_ms(lambda: mm._matmul_plain(x, w))
         cublas_ms = time_ms(lambda: torch.matmul(x, w))
-        results['matmul_bf16']['max_abs_err'] = max(results['matmul_bf16']['max_abs_err'], err)
-        if (m, k, n) in mm_shape_sweep.SHAPES:  # ms: one pass over the 8 shapes of the sweep
-            results['matmul_bf16']['ms'] += ms
-            results['matmul_bf16']['plain_ms'] += plain_ms
-        log('  matmul_bf16 M=%d K=%d N=%d: max|d|=%.3g n_diff=%d (%.2e), vs cuBLAS bf16 %d | '
-            'kernel %.4f ms, plain %.4f ms, cuBLAS bf16 %.4f ms',
-            m, k, n, err, nd, nd / got.numel(), vs_cublas, ms, plain_ms, cublas_ms)
-        del x, w, got
+        bound_ms, bound_by = matmul_bound_ms(m, k, n)
+        if (m, k, n) in mm_shape_sweep.SHAPES:  # one pass over the 8 shapes of the sweep
+            for key, value in (('ms', ms), ('plain_ms', plain_ms), ('bound_ms', bound_ms),
+                               ('library_ms', cublas_ms)):
+                results['matmul_bf16'][key] += value
+            bound_by_ms[bound_by] += bound_ms
+        log('  matmul_bf16 M=%d K=%d N=%d: max|d|=%.3g n_diff=%d (%.2e), vs cuBLAS bf16 %d; exact '
+            'on exact sums | kernel %.4f ms, plain %.4f ms, cuBLAS bf16 %.4f ms, bound %.4f ms '
+            '(%s): %.0f%% of the bound, cuBLAS/kernel %.2f',
+            m, k, n, err, nd, nd / got.numel(), vs_cublas, ms, plain_ms, cublas_ms, bound_ms,
+            bound_by, 100 * bound_ms / ms, cublas_ms / ms)
+        del x, w, got, ints
+    # the pass's bound is the sum of the shapes'; it is bound by what bounds most of it
+    results['matmul_bf16']['bound_by'] = max(bound_by_ms, key=bound_by_ms.get)
 
     m, k, n = K3_SHAPE
     x, w = inputs(m, k, n)
@@ -296,9 +375,16 @@ def phase_matmul(mm, device):
         del z, want_y, abs_sum
     ms = time_ms(lambda: mm.bn_relu_matmul_stats(x, w, scale, shift))
     plain_ms = time_ms(lambda: mm._bn_relu_matmul_stats_plain(x, w, scale, shift))
-    results['bn_relu_matmul_stats'].update(ms=ms, plain_ms=plain_ms)
-    log('  bn_relu_matmul_stats M=%d K=%d N=%d: kernel %.4f ms, plain %.4f ms', m, k, n, ms,
-        plain_ms)
+    # x, w, scale, shift read once; y, s, ss written once; the product on the
+    # tensor cores, the prologue (multiply, add, max) and the sums (add,
+    # multiply, add) in fp32
+    bound_ms, bound_by = bound(2 * (m * k + k * n + m * n) + 4 * (2 * k + 2 * n),
+                               {BF16_TENSOR_OPS_S: 2 * m * k * n,
+                                FP32_OPS_S: 3 * m * k + 3 * m * n})
+    results['bn_relu_matmul_stats'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                           bound_by=bound_by, library_ms=None)
+    log('  bn_relu_matmul_stats M=%d K=%d N=%d: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)',
+        m, k, n, ms, plain_ms, bound_ms, bound_by)
     return results
 
 
@@ -368,7 +454,7 @@ def phase_composed(learner, card):
     loss = float(metrics['loss'])
     nb_steps = COMPOSED_WARMUP + COMPOSED_TIMED
     check(math.isfinite(loss), 'composed loss %r', loss)
-    check(counts == no_launches(fake_quant_per_tensor=NB_WEIGHT_SITES * nb_steps),
+    check(counts == no_launches(fake_quant_per_tensor_group=nb_steps),
           'composed step launches %s', counts)
     check(all(float(v) == 0.0 for v in leaks), 'masked channels not zero after a step: %s',
           [float(v) for v in leaks])
@@ -486,12 +572,14 @@ def main():
         counts = runs[MAIN_RUN]
         check(math.isfinite(loss), 'loss %r', loss)
         check(state.step == N_WARMUP + N_TIMED, 'step %d', state.step)
-        check(counts == no_launches(fake_quant_per_tensor=NB_WEIGHT_SITES * state.step),
+        # one grouped launch a forward quantizes the 52 weights; no weight
+        # goes through the per-tensor kernel
+        check(counts == no_launches(fake_quant_per_tensor_group=state.step),
               'main path launches %s for %d steps', counts, state.step)
         reset_counters()
         ev = {k: float(v) for k, v in eval_step(state, eval_batch).items()}
         check(all(math.isfinite(v) for v in ev.values()), 'eval %s', ev)
-        check(counters() == no_launches(fake_quant_per_tensor=NB_WEIGHT_SITES),
+        check(counters() == no_launches(fake_quant_per_tensor_group=1),
               'eval step launches %s', counters())
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         log('  step %d loss %.4f acc %.4f | eval %s', state.step, loss,
@@ -506,9 +594,8 @@ def main():
                   ('split buckets (--uql_use_buckets --uql_bucket_type=split): 2 QAT train steps',
                    dict(uql_use_buckets=True, uql_bucket_type='split'),
                    {'fake_quant_per_column': NB_WEIGHT_SITES}),
-                  ('8-bit activations (--uql_activation_bits=8): 2 QAT train steps',
-                   dict(uql_activation_bits=8),
-                   {'fake_quant_per_tensor': NB_WEIGHT_SITES + NB_ACT_SITES})]
+                  (ACT8_RUN, dict(uql_activation_bits=8),
+                   {'fake_quant_per_tensor_group': 1, 'fake_quant_per_tensor': NB_ACT_SITES})]
         for label, flags, per_step in routes:
             with FLAGS.scope(**flags):
                 state = learner.set_bits(state, *learner.choose_bits())
@@ -533,17 +620,20 @@ def main():
             'with more than 16 masked', BATCH)
         runs[COMPOSED_RUN] = phase_composed(learner, card)
 
-    # each kernel's launches in the run that drives it: the main path for K1',
-    # the channel-bucket route for K2', an experiment for each matmul kernel
-    own_run = {'fake_quant_per_tensor': MAIN_RUN, 'fake_quant_per_column': channel,
+    # each kernel's launches in the run that drives it: the main path for the
+    # grouped K1', the 8-bit-activation route for K1' itself, the
+    # channel-bucket route for K2', an experiment for each matmul kernel
+    own_run = {'fake_quant_per_tensor_group': MAIN_RUN, 'fake_quant_per_tensor': ACT8_RUN,
+               'fake_quant_per_column': channel,
                'matmul_bf16': next(label for label in runs if 'mm_shape_sweep' in label),
                'bn_relu_matmul_stats': next(label for label in runs if 'fused_mm_proto' in label)}
     line = {'kernels': [{'name': name, 'route': 'cuda', 'source': CSRC + source,
                          'replaces': replaces, 'run': own_run[name],
                          'launches': runs[own_run[name]][name],
                          'launches_by_run': {label: c[name] for label, c in runs.items()},
-                         'max_abs_err': kernels[name]['max_abs_err'],
-                         'ms': kernels[name]['ms'], 'plain_ms': kernels[name]['plain_ms']}
+                         **{key: kernels[name][key] for key in (
+                             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                             'library_ms')}}
                         for name, (source, replaces) in KERNELS.items()]}
     for entry in line['kernels']:
         check(entry['launches'] > 0, '%s never launched in %s', entry['name'], entry['run'])

@@ -5,6 +5,9 @@
 //
 // pf_fake_quant_tensor replaces pocketflow_tpu/ops/fake_quant.py:_fq_pallas_2d
 // (body _fq_tensor_kernel): one (alpha, beta) for the whole tensor.
+// pf_fake_quant_tensor_group is a second route of _fq_pallas_2d: many fp32
+// tensors, each with its own (alpha, beta) and bits, in one pair of launches
+// (its design note is above the grouped kernels below).
 // pf_fake_quant_columns replaces _fq_pallas_cols_grid (body _fq_axis0_kernel):
 // one (alpha, beta) per column of a row-major [rows, cols] matrix.
 //
@@ -224,6 +227,128 @@ quantize_columns(const float* __restrict__ x, float* __restrict__ out, int64_t r
   }
 }
 
+// Grouped per-tensor kernels: T fp32 tensors in one pair of launches.
+//
+// pf_fake_quant_tensor_group is a second route of the same TPU kernel as
+// pf_fake_quant_tensor (_fq_pallas_2d), for the train step's weights: each
+// quantized weight went through the per-tensor kernels in two launches of
+// its own, then a select on bits < 32, so the 52 weights of ResNet-50 cost
+// 156 launches, most of them on tensors too small to fill the card (fixed
+// cost: 22% of the bandwidth bound).  Here every tensor is cut into chunks of
+// kGroupChunk elements, one block each, listed in a chunk table that depends
+// only on the shapes (the wrapper builds it once and keeps it on the device):
+// pass 1 writes each chunk's (min, max); pass 2 reduces the partials of its
+// chunk's tensor, in a fixed order, and quantizes the chunk, walking the
+// chunks backwards so that its first reads find pass 1's last in L2.  What
+// bounds it then is bytes: every element read twice (the second time from
+// L2 for as much as L2 holds: ResNet-50's weights are 94 MB, the L2 50 MB)
+// and written once.  A tensor whose bits are >= 32 is copied unchanged, which
+// is the select's result (its gradient is the identity either way); pass 1
+// skips it.  The arithmetic is quantize() above, so each tensor's result
+// equals pf_fake_quant_tensor's bit for bit.
+
+constexpr int kGroupChunk = kThreads * 4 * 16;  // elements a block: 16 float4 a thread
+
+// One tensor of a group: its input, its output's offset in the flat output
+// (a multiple of 4 elements), its size and its first chunk.
+struct GroupEntry {
+  const float* x;
+  int64_t out_offset;
+  int64_t n;
+  int64_t first_chunk;
+};
+
+// [begin, end) of chunk c of tensor e, and whether it can use float4 accesses.
+struct ChunkRange {
+  int64_t begin, end;
+  bool vec;
+};
+
+__device__ __forceinline__ ChunkRange chunk_range(const GroupEntry& e, int c) {
+  ChunkRange r;
+  r.begin = (c - e.first_chunk) * static_cast<int64_t>(kGroupChunk);
+  r.end = r.begin + kGroupChunk < e.n ? r.begin + kGroupChunk : e.n;
+  r.vec = reinterpret_cast<uintptr_t>(e.x) % 16 == 0;
+  return r;
+}
+
+__device__ __forceinline__ int64_t num_chunks(int64_t n) {
+  return (n + kGroupChunk - 1) / kGroupChunk;
+}
+
+__global__ void __launch_bounds__(kThreads)
+group_minmax_partials(const GroupEntry* __restrict__ entries, const int* __restrict__ chunk_tensor,
+                      const float* __restrict__ bits, float2* __restrict__ partials) {
+  const int c = blockIdx.x;
+  const int t = chunk_tensor[c];
+  if (bits[t] >= 32.0f) return;  // copied in pass 2; no partial is read
+  const GroupEntry e = entries[t];
+  const ChunkRange r = chunk_range(e, c);
+  float lo = FLT_MAX, hi = -FLT_MAX;
+  int64_t i = r.begin + threadIdx.x * 4;
+  if (r.vec) {
+    for (; i + 4 <= r.end; i += kThreads * 4) {
+      const float4 v = *reinterpret_cast<const float4*>(e.x + i);
+      lo = fminf(fminf(lo, v.x), fminf(v.y, fminf(v.z, v.w)));
+      hi = fmaxf(fmaxf(hi, v.x), fmaxf(v.y, fmaxf(v.z, v.w)));
+    }
+  }
+  for (; i < r.end; i += kThreads * 4) {  // the ragged tail, or every element if unaligned
+    for (int64_t j = i; j < i + 4 && j < r.end; ++j) {
+      lo = fminf(lo, e.x[j]);
+      hi = fmaxf(hi, e.x[j]);
+    }
+  }
+  block_minmax(lo, hi);
+  if (threadIdx.x == 0) partials[c] = make_float2(lo, hi);
+}
+
+__global__ void __launch_bounds__(kThreads)
+group_quantize(const GroupEntry* __restrict__ entries, const int* __restrict__ chunk_tensor,
+               const float* __restrict__ bits, const float2* __restrict__ partials,
+               float* __restrict__ out) {
+  // chunks in the reverse of pass 1's order: the last ones pass 1 read are
+  // still in L2 when this pass starts
+  const int c = gridDim.x - 1 - blockIdx.x;
+  const int t = chunk_tensor[c];
+  const GroupEntry e = entries[t];
+  const ChunkRange r = chunk_range(e, c);
+  float* o = out + e.out_offset;
+  const bool copy = bits[t] >= 32.0f;
+  float alpha = 0.0f, beta = 0.0f, k = 0.0f;
+  if (!copy) {  // uniform across the block: block_minmax's barriers are safe
+    float lo = FLT_MAX, hi = -FLT_MAX;
+    const int64_t p0 = e.first_chunk, p1 = p0 + num_chunks(e.n);
+    for (int64_t p = p0 + threadIdx.x; p < p1; p += kThreads) {
+      const float2 v = partials[p];
+      lo = fminf(lo, v.x);
+      hi = fmaxf(hi, v.y);
+    }
+    block_minmax(lo, hi);
+    alpha = __fadd_rn(__fsub_rn(hi, lo), kEps);
+    beta = lo;
+    k = levels(bits + t);
+  }
+  int64_t i = r.begin + threadIdx.x * 4;
+  if (r.vec) {
+    for (; i + 4 <= r.end; i += kThreads * 4) {
+      float4 v = *reinterpret_cast<const float4*>(e.x + i);
+      if (!copy) {
+        v.x = quantize(v.x, alpha, beta, k);
+        v.y = quantize(v.y, alpha, beta, k);
+        v.z = quantize(v.z, alpha, beta, k);
+        v.w = quantize(v.w, alpha, beta, k);
+      }
+      *reinterpret_cast<float4*>(o + i) = v;
+    }
+  }
+  for (; i < r.end; i += kThreads * 4) {
+    for (int64_t j = i; j < i + 4 && j < r.end; ++j) {
+      o[j] = copy ? e.x[j] : quantize(e.x[j], alpha, beta, k);
+    }
+  }
+}
+
 template <typename T>
 void launch_tensor(const void* x, void* out, int64_t n, float2* partials, int nparts,
                    const float* bits, cudaStream_t stream) {
@@ -253,6 +378,24 @@ int pf_fake_quant_tensor(const void* x, void* out, int64_t n, int is_bf16, void*
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// A group of T fp32 tensors.  entries: T GroupEntry on the device (x, the
+// output's offset in `out` in elements, a multiple of 4; n >= 1; the first
+// chunk, tensors in order); chunk_tensor: nchunks ints on the device, the
+// tensor of each chunk of kGroupChunk elements (nchunks = the sum of
+// ceil(n / kGroupChunk)); bits: T fp32 on the device; partials: scratch of
+// nchunks float2; out: 16-byte aligned.
+int pf_fake_quant_tensor_group(const void* entries, const int* chunk_tensor, int nchunks,
+                               const float* bits, void* partials, float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const GroupEntry* e = static_cast<const GroupEntry*>(entries);
+  float2* p = static_cast<float2*>(partials);
+  group_minmax_partials<<<nchunks, kThreads, 0, s>>>(e, chunk_tensor, bits, p);
+  group_quantize<<<nchunks, kThreads, 0, s>>>(e, chunk_tensor, bits, p, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int pf_fake_quant_group_chunk() { return kGroupChunk; }
 
 // x, out: row-major fp32 [rows, cols], rows >= 1, cols >= 1.
 // The rows are cut into nchunks chunks of `chunk` rows (nchunks = ceil(rows / chunk),

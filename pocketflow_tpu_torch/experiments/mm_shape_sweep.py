@@ -9,7 +9,9 @@ N*H*W at that stage), x ~ N(0, 1) and w ~ 0.05 N(0, 1) in bf16.  For each
 shape the two arms, torch.matmul (cuBLAS) and matmul_bf16 (csrc/matmul.cu),
 are timed in turn for `--rounds` rounds of `--reps` calls each (CUDA events
 around each round), and the medians are reported with the rate against the
-bytes of x, w and y.  The last line is the results as JSON.
+bytes of x, w and y, and beside the shape's bound (the larger of those bytes
+over the H100's memory rate and 2MKN over its bf16 tensor-core rate).  The
+last line is the results as JSON.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import sys
 
 import torch
 
-from pocketflow_tpu_torch.core.cuda_timing import card_line, time_ms
+from pocketflow_tpu_torch.core.cuda_timing import card_line, matmul_bound_ms, time_ms
 from pocketflow_tpu_torch.experiments import require_cuda
 from pocketflow_tpu_torch.ops.matmul import matmul_bf16
 
@@ -83,12 +85,15 @@ def main(argv=None) -> dict:
             row[arm + '_ms'] = statistics.median(times[arm])
             row[arm + '_gb_s'] = gb / row[arm + '_ms'] * 1e3
         row['torch_over_kernel'] = row['torch_ms'] / row['kernel_ms']
+        row['bound_ms'], row['bound_by'] = matmul_bound_ms(m, k, n)
+        row['kernel_share_of_bound'] = row['bound_ms'] / row['kernel_ms']
         row['max_abs_diff'] = diff
         results['M%d_K%d_N%d' % (m, k, n)] = row
         print('M=%8d K=%4d N=%4d | torch %8.4f ms (%5.0f GB/s) | kernel %8.4f ms (%5.0f GB/s) '
-              '| torch/kernel %.2fx | max|d| %.3g'
+              '| torch/kernel %.2fx | bound %.4f ms (%s), kernel at %.0f%% of it | max|d| %.3g'
               % (m, k, n, row['torch_ms'], row['torch_gb_s'], row['kernel_ms'],
-                 row['kernel_gb_s'], row['torch_over_kernel'], diff), flush=True)
+                 row['kernel_gb_s'], row['torch_over_kernel'], row['bound_ms'], row['bound_by'],
+                 100 * row['kernel_share_of_bound'], diff), flush=True)
     if args.out:
         with open(args.out, 'w') as fout:
             json.dump(results, fout, indent=2)

@@ -73,10 +73,14 @@ class UniformQuantLearner(AbstractLearner):
 
     def _policy_fn(self):
         weight_paths = self.statistics['weight_paths']
+        found = {}  # the model whose weights were last looked up, and its weights
 
         def policy_fn(state: TrainState):
-            return uq_utils.QuantPolicy(
-                weight_paths, state.extra['w_bits'], state.extra['a_bits'])
+            if found.get('model') is not state.model:  # once per model, not per step
+                found.update(model=state.model,
+                             weights=uq_utils.quant_weights(state.model, weight_paths))
+            return uq_utils.QuantPolicy(weight_paths, state.extra['w_bits'],
+                                        state.extra['a_bits'], found['weights'])
 
         return policy_fn
 

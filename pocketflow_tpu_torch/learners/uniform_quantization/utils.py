@@ -4,7 +4,9 @@
 Every PFConv/PFDense kernel passes through ``QuantPolicy.process_weight`` and
 every relu output through ``process_act``.  Per-layer bit-widths are device
 tensors in ``TrainState.extra``: a new bit list is a new tensor, and a step
-never reads bits back to the host.
+never reads bits back to the host.  On the per-tensor route the first
+``process_weight`` of a forward quantizes all of the policy's weights in one
+grouped kernel call (``fake_quant_group``), and each site takes its result.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from pocketflow_tpu_torch.config import FLAGS
-from pocketflow_tpu_torch.nn.layers import CompressionPolicy, compression
+from pocketflow_tpu_torch.nn.layers import CompressionPolicy, PFConv, PFDense, compression
 from pocketflow_tpu_torch.ops import fake_quant as fq
 
 FLAGS.DEFINE_integer('uql_weight_bits', 4, 'UQL: # of bits for weight quantization')
@@ -78,8 +80,19 @@ def discover_quant_sites(model: torch.nn.Module, sample_images: torch.Tensor) ->
     }
 
 
+def quant_weights(model: torch.nn.Module, weight_paths: List[str]) -> List[torch.Tensor]:
+    """The kernel parameters of `model` at `weight_paths`, in that order."""
+    kernels = {m.path: m.kernel for m in model.modules() if isinstance(m, (PFConv, PFDense))}
+    return [kernels[path] for path in weight_paths]
+
+
 class QuantPolicy(CompressionPolicy):
     """Fake-quantizes selected kernels + activations at per-layer bit-widths.
+
+    `weights` are the kernels at `weight_paths` (``quant_weights``): on the
+    per-tensor route the first ``process_weight`` of a forward quantizes them
+    all in one grouped call, with bits >= 32 passing a kernel through, and
+    each site takes its result.  The bucket routes quantize site by site.
 
     ``quant_acts`` disables activation quantization when every activation
     runs at >= 32 bits, so that no relu pays for a quantization whose result
@@ -87,27 +100,39 @@ class QuantPolicy(CompressionPolicy):
     """
 
     def __init__(self, weight_paths: List[str], w_bits: torch.Tensor, a_bits: torch.Tensor,
-                 quant_acts: bool = None):
+                 weights: List[torch.Tensor], quant_acts: bool = None):
+        if len(weights) != len(weight_paths):
+            raise ValueError('%d weights for %d weight paths' % (len(weights), len(weight_paths)))
         self.w_index = {p: i for i, p in enumerate(weight_paths)}
         self.w_bits = w_bits
         self.a_bits = a_bits
+        self.weights = weights
         self.quant_acts = (FLAGS.uql_activation_bits < 32
                            if quant_acts is None else quant_acts)
+        self._grouped = None
+
+    def reset_trace(self):
+        super().reset_trace()
+        self._grouped = None
 
     def process_weight(self, path, kernel):
         idx = self.w_index.get(path)
         if idx is None:
             return kernel
+        if kernel is not self.weights[idx]:
+            raise ValueError('QuantPolicy: the kernel at %s is not the weight the policy was '
+                             'built with' % path)
+        if not FLAGS.uql_use_buckets:
+            if self._grouped is None:  # the forward's first quantized site
+                self._grouped = fq.fake_quant_group(self.weights, self.w_bits)
+            return self._grouped[idx]
         bits = self.w_bits[idx]
-        if FLAGS.uql_use_buckets:
-            if FLAGS.uql_bucket_type == 'channel':
-                q = fq.fake_quant_channel_bucket(kernel, bits)
-            elif FLAGS.uql_bucket_type == 'split':
-                q = fq.fake_quant_split_bucket(kernel, bits, FLAGS.uql_bucket_size)
-            else:
-                raise ValueError('unrecognized bucket type: ' + FLAGS.uql_bucket_type)
+        if FLAGS.uql_bucket_type == 'channel':
+            q = fq.fake_quant_channel_bucket(kernel, bits)
+        elif FLAGS.uql_bucket_type == 'split':
+            q = fq.fake_quant_split_bucket(kernel, bits, FLAGS.uql_bucket_size)
         else:
-            q = fq.fake_quant(kernel, bits)
+            raise ValueError('unrecognized bucket type: ' + FLAGS.uql_bucket_type)
         # bits >= 32 means full precision
         return torch.where(bits < 32, q, kernel)
 

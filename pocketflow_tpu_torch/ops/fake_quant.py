@@ -12,20 +12,23 @@ nb_buckets], scale per column) and channel buckets (reshape [-1, c_out], scale
 per output channel).  Each public op is a ``torch.autograd.Function`` whose
 backward is the identity.
 
-Two CUDA kernels carry the forward (``csrc/fake_quant.cu``; its header says
+Three CUDA kernels carry the forward (``csrc/fake_quant.cu``; its header says
 which TPU kernel each replaces, what bounds it and what its design does about
-that): ``fake_quant_per_tensor`` and ``fake_quant_per_column``.  Dispatch is by
-device: a CPU tensor takes the plain PyTorch version (``_quantize_math_torch``),
-a CUDA tensor launches the kernel, anything else raises.  No call falls back
-from one to the other.  The module-level counters count kernel launches and
-plain calls, so a run can show which path it took.
+that): ``fake_quant_per_tensor``, ``fake_quant_per_tensor_group`` (many fp32
+tensors at their own bits in one launch pair, the train step's weights) and
+``fake_quant_per_column``.  Dispatch is by device: a CPU tensor takes the
+plain PyTorch version (``_quantize_math_torch``), a CUDA tensor launches the
+kernel, anything else raises.  No call falls back from one to the other.  The
+module-level counters count kernel launches and plain calls, so a run can
+show which path it took.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,17 +37,19 @@ EPS = 1e-10
 
 # launches of the CUDA kernels, and calls of the plain version (CPU tensors)
 tensor_kernel_launches = 0
+group_kernel_launches = 0
 column_kernel_launches = 0
 plain_calls = 0
 
 
 def reset_counters():
-    global tensor_kernel_launches, column_kernel_launches, plain_calls
-    tensor_kernel_launches = column_kernel_launches = plain_calls = 0
+    global tensor_kernel_launches, group_kernel_launches, column_kernel_launches, plain_calls
+    tensor_kernel_launches = group_kernel_launches = column_kernel_launches = plain_calls = 0
 
 
 def counters() -> dict:
     return {'fake_quant_per_tensor': tensor_kernel_launches,
+            'fake_quant_per_tensor_group': group_kernel_launches,
             'fake_quant_per_column': column_kernel_launches,
             'plain': plain_calls}
 
@@ -81,6 +86,8 @@ _MAX_PARTIALS = 1024
 _COL_TILE = 32          # kColTile in fake_quant.cu: columns per block
 _MIN_CHUNK_ROWS = 64    # rows per block of the per-column kernels, at least
 _BLOCKS_PER_SM = 4      # per-column grids aim at this many blocks per SM
+_GROUP_CHUNK = 16384    # kGroupChunk in fake_quant.cu: elements a block of a group
+_GROUP_TABLES = 8       # device chunk tables kept, one per group of tensors
 
 
 def _library() -> ctypes.CDLL:
@@ -92,6 +99,12 @@ def _library() -> ctypes.CDLL:
         lib.pf_fake_quant_tensor.restype = i32
         lib.pf_fake_quant_columns.argtypes = [ptr, ptr, i64, i64, i64, ptr, i32, ptr, ptr]
         lib.pf_fake_quant_columns.restype = i32
+        lib.pf_fake_quant_tensor_group.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr]
+        lib.pf_fake_quant_tensor_group.restype = i32
+        lib.pf_fake_quant_group_chunk.restype = i32
+        if lib.pf_fake_quant_group_chunk() != _GROUP_CHUNK:
+            raise RuntimeError('fake_quant.cu cuts groups into chunks of %d elements, the '
+                               'wrapper into %d' % (lib.pf_fake_quant_group_chunk(), _GROUP_CHUNK))
         lib._pf_bound = True
     return lib
 
@@ -157,6 +170,84 @@ def fake_quant_per_tensor(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _group_plan(sizes: Sequence[int]) -> Tuple[List[int], List[int], List[int], int]:
+    """The grouped kernel's layout of tensors of `sizes` elements: (offset of
+    each output in the flat output, a multiple of 4 elements; first chunk of
+    each tensor; the tensor of each chunk of _GROUP_CHUNK elements; size of
+    the flat output)."""
+    offsets, first_chunks, chunk_tensor, total = [], [], [], 0
+    for t, n in enumerate(sizes):
+        offsets.append(total)
+        first_chunks.append(len(chunk_tensor))
+        chunk_tensor += [t] * -(-n // _GROUP_CHUNK)
+        total += -(-n // 4) * 4
+    return offsets, first_chunks, chunk_tensor, total
+
+
+# (device, (address, shape) of each tensor) -> the device tables of that group
+_group_tables: 'collections.OrderedDict' = collections.OrderedDict()
+
+
+def _group_table(xs: Sequence[torch.Tensor]):
+    """(entries [T, 4] int64, chunk_tensor [nchunks] int32, (shape, strides,
+    offset) of each output in the flat output, flat output size) of a group,
+    the tables on its device.  Built at a group's first call and kept: a
+    train step quantizes the same parameters (updated in place) every step,
+    so a step copies nothing to the device."""
+    key = (xs[0].device, tuple((x.data_ptr(), x.shape) for x in xs))
+    table = _group_tables.get(key)
+    if table is None:
+        offsets, first_chunks, chunk_tensor, total = _group_plan([x.numel() for x in xs])
+        entries = torch.tensor([[x.data_ptr(), o, x.numel(), f]
+                                for x, o, f in zip(xs, offsets, first_chunks)], dtype=torch.int64)
+        table = (entries.to(xs[0].device),
+                 torch.tensor(chunk_tensor, dtype=torch.int32).to(xs[0].device),
+                 [(x.shape, x.stride(), o) for x, o in zip(xs, offsets)], total)
+        _group_tables[key] = table
+        if len(_group_tables) > _GROUP_TABLES:
+            _group_tables.popitem(last=False)
+    else:
+        _group_tables.move_to_end(key)
+    return table
+
+
+def fake_quant_per_tensor_group(xs: Sequence[torch.Tensor], bits: torch.Tensor) -> List[torch.Tensor]:
+    """Per-tensor fake-quant of each fp32 tensor xs[t] at bits[t] (a [T] fp32
+    tensor), or xs[t] unchanged where bits[t] >= 32: the list of results, in
+    order.  The grouped route of kernel K1' (one launch pair for all T) on
+    CUDA, where the results are views of one flat buffer; plain version on
+    the CPU."""
+    global group_kernel_launches, plain_calls
+    xs = list(xs)
+    if not xs:
+        raise ValueError('fake_quant_per_tensor_group takes at least one tensor')
+    device = xs[0].device
+    for x in xs:
+        if x.device != device or x.dtype != torch.float32 or not x.is_contiguous() \
+                or x.numel() < 1:
+            raise ValueError('fake_quant_per_tensor_group takes non-empty contiguous fp32 '
+                             'tensors on one device, got %s %s on %s'
+                             % (x.dtype, tuple(x.shape), x.device))
+    if bits.device != device or bits.dtype != torch.float32 or tuple(bits.shape) != (len(xs),):
+        raise ValueError('bits must be %d float32 on %s, got %s %s on %s'
+                         % (len(xs), device, bits.dtype, tuple(bits.shape), bits.device))
+    if device.type == 'cpu':
+        plain_calls += 1
+        return [torch.where(b < 32, _quantize_math_torch(x, _levels(b), None), x)
+                for x, b in zip(xs, bits)]
+    if device.type != 'cuda':
+        raise ValueError('fake_quant_per_tensor_group: no kernel for device %s' % device)
+    entries, chunk_tensor, layout, total = _group_table(xs)
+    out = torch.empty(total, dtype=torch.float32, device=device)
+    partials = torch.empty(2 * chunk_tensor.numel(), dtype=torch.float32, device=device)
+    err = _library().pf_fake_quant_tensor_group(
+        entries.data_ptr(), chunk_tensor.data_ptr(), chunk_tensor.numel(), bits.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    _check_launch(err, 'fake_quant_per_tensor_group')
+    group_kernel_launches += 1
+    return [out.as_strided(shape, strides, offset) for shape, strides, offset in layout]
+
+
 def fake_quant_per_column(x2d: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """Per-column fake-quant of an fp32 [rows, cols] matrix: each column has
     its own (alpha, beta).  Kernel K2' on CUDA, plain version on the CPU."""
@@ -197,6 +288,16 @@ class _FakeQuant(torch.autograd.Function):
         return g, None
 
 
+class _FakeQuantGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, bits, *xs):
+        return tuple(fake_quant_per_tensor_group([x.contiguous() for x in xs], bits))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *grads)
+
+
 class _FakeQuantSplitBucket(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, bits, bucket_size):
@@ -233,6 +334,13 @@ class _FakeQuantChannelBucket(torch.autograd.Function):
 def fake_quant(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """Per-tensor fake-quantization with STE."""
     return _FakeQuant.apply(x, bits)
+
+
+def fake_quant_group(xs: Sequence[torch.Tensor], bits: torch.Tensor) -> List[torch.Tensor]:
+    """Per-tensor fake-quantization of each xs[t] at bits[t] with STE, xs[t]
+    itself where bits[t] >= 32 (the select of the per-site route, whose
+    gradient is the identity too), all tensors in one kernel launch pair."""
+    return list(_FakeQuantGroup.apply(bits, *xs))
 
 
 def fake_quant_split_bucket(x: torch.Tensor, bits: torch.Tensor, bucket_size: int) -> torch.Tensor:

@@ -11,10 +11,12 @@ experiments/mm_shape_sweep.py (``make_pallas`` in both);
 ``bn_relu_matmul_stats`` replaces experiments/fused_mm_proto.py's
 ``pallas_fused``, whose statistics come from the fp32 accumulator before the
 bf16 cast.  Both run in ``csrc/matmul.cu`` (its header says what bounds them
-and what the design does about it).
+and what the design does about it): ``matmul_bf16`` on Hopper's TMA loads and
+``wgmma`` in a persistent, warp-specialised kernel, ``bn_relu_matmul_stats``
+on a WMMA core.
 
 x is a row-major [M, K] bf16 matrix, w [K, N] bf16, scale and shift K fp32
-values ([K] or [1, K]); K and N are multiples of 8, any M >= 1.  Dispatch is
+values ([K] or [1, K]); K and N are multiples of 8, 1 <= M < 2^31.  Dispatch is
 by device, as in ops/fake_quant.py: a CPU tensor takes the plain PyTorch
 version, a CUDA tensor launches the kernel, anything else raises; no call
 falls back from one to the other.  Inputs the kernels do not take raise
@@ -91,9 +93,9 @@ def _check_matmul(name: str, x: torch.Tensor, w: torch.Tensor) -> Tuple[int, int
             raise ValueError('%s: %s must be a contiguous 2-D bf16 matrix, got %s %s'
                              % (name, arg, t.dtype, tuple(t.shape)))
     (m, k), (k2, n) = x.shape, w.shape
-    if k != k2 or m < 1 or k < 8 or k % 8 or n < 8 or n % 8:
-        raise ValueError('%s takes [M, K] @ [K, N] with M >= 1 and K, N positive multiples '
-                         'of 8, got %s @ %s' % (name, tuple(x.shape), tuple(w.shape)))
+    if k != k2 or not 1 <= m < 2 ** 31 or k < 8 or k % 8 or n < 8 or n % 8:
+        raise ValueError('%s takes [M, K] @ [K, N] with 1 <= M < 2^31 and K, N positive '
+                         'multiples of 8, got %s @ %s' % (name, tuple(x.shape), tuple(w.shape)))
     if w.device != x.device:
         raise ValueError('%s: x on %s, w on %s' % (name, x.device, w.device))
     if x.device.type not in ('cpu', 'cuda'):

@@ -26,7 +26,9 @@ union of kernel and copy intervals), the idle share of the window, kernel
 launches, device time by layer (`kernel_category`), and the top kernels.
 Last, the device time of one pass of each hand-written kernel and of its
 plain version: the fake-quant kernels over the 52 quantized weights of one
-step (4 bits) and over one bf16 activation 256x256x56x56 (8 bits);
+step (4 bits; the grouped route, and the per-site route it replaced: the
+per-tensor kernel and a select on each weight) and over one bf16 activation
+256x256x56x56 (8 bits);
 matmul_bf16 over the 8 ResNet-50 1x1 shapes of mm_shape_sweep, beside
 cuBLAS's bf16 matmul; bn_relu_matmul_stats at fused_mm_proto's shape.  Each
 is the profiler's kernel records of 10 passes, summed and divided by 10, in
@@ -64,7 +66,7 @@ NB_BATCHES = 4
 # (layer, substrings of the kernel name), first match wins
 CATEGORIES = (
     ('fake-quant kernels', ('minmax_partials', 'quantize_tensor', 'column_partials',
-                            'quantize_columns')),
+                            'quantize_columns', 'group_quantize')),
     ('batch norm', ('batch_norm',)),
     ('optimizer (foreach)', ('multi_tensor_apply', 'foreach')),
     ('conv/matmul (cuDNN, cuBLAS)', ('xmma', 'gemm', 'nvjet', 'cutlass', 'cudnn', 'conv2d',
@@ -203,11 +205,16 @@ def profile_kernels(weight_shapes, repeats: int = 2, passes: int = 10) -> dict:
     act = torch.relu(torch.randn((256, 256, 56, 56), generator=gen, device='cuda',
                                  dtype=torch.bfloat16)).contiguous(memory_format=torch.channels_last)
     k4, k8 = fq._levels(bits4), fq._levels(bits8)
+    bits4_each = torch.full((len(weights),), 4.0, device='cuda')
     fns = {
         'per_tensor kernel, 52 weights': lambda: [fq.fake_quant_per_tensor(w, bits4)
                                                   for w in weights],
         'per_tensor plain, 52 weights': lambda: [fq._quantize_math_torch(w, k4, None)
                                                  for w in weights],
+        'per_tensor_group kernel, 52 weights': lambda: fq.fake_quant_per_tensor_group(
+            weights, bits4_each),
+        'per-site route (per_tensor kernel + select), 52 weights': lambda: [
+            torch.where(bits4 < 32, fq.fake_quant_per_tensor(w, bits4), w) for w in weights],
         'per_column kernel, 52 weights as [-1, c_out]': lambda: [
             fq.fake_quant_per_column(c, bits4) for c in columns],
         'per_column plain, 52 weights as [-1, c_out]': lambda: [

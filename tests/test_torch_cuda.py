@@ -84,12 +84,73 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     bits = torch.tensor(4.0, device=cuda)
     tfq.fake_quant(_inputs(cuda, (64, 64), torch.float32), bits)
     tfq.fake_quant_split_bucket(_inputs(cuda, (3, 3, 8, 16), torch.float32), bits, 256)
-    assert tfq.counters() == {'fake_quant_per_tensor': 1, 'fake_quant_per_column': 1,
-                              'plain': 0}
+    tfq.fake_quant_group([_inputs(cuda, (64, 64), torch.float32)] * 2,
+                         torch.tensor([4.0, 32.0], device=cuda))
+    assert tfq.counters() == {'fake_quant_per_tensor': 1, 'fake_quant_per_tensor_group': 1,
+                              'fake_quant_per_column': 1, 'plain': 0}
     with pytest.raises(ValueError):
         tfq.fake_quant_per_column(_inputs(cuda, (8, 8), torch.bfloat16), bits)
     with pytest.raises(ValueError):
         tfq.fake_quant_per_tensor(_inputs(cuda, (8, 8), torch.float32), bits.cpu())
+    x = _inputs(cuda, (8, 8), torch.float32)
+    for xs, group_bits in (([x.to(torch.bfloat16)], bits.reshape(1)),
+                           ([x.t()], bits.reshape(1)),
+                           ([x, x.cpu()], torch.ones(2, device=cuda)),
+                           ([x], bits.reshape(1).cpu()),
+                           ([x, x], bits.reshape(1))):
+        with pytest.raises(ValueError):
+            tfq.fake_quant_per_tensor_group(xs, group_bits)
+
+
+def resnet50_weight_shapes():
+    """The HWIO shapes of the 52 weights a QAT ResNet-50 step quantizes
+    (every conv but the stem): per bottleneck 1x1, 3x3 and 1x1 convs, and a
+    1x1 projection in the first block of each stage."""
+    shapes, cin = [], 64
+    for blocks, width in zip((3, 4, 6, 3), (64, 128, 256, 512)):
+        for block in range(blocks):
+            if block == 0:
+                shapes.append((1, 1, cin, 4 * width))
+            shapes += [(1, 1, cin, width), (3, 3, width, width), (1, 1, width, 4 * width)]
+            cin = 4 * width
+    return shapes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('bits_cycle', [(2, 4, 8, 32), (4,), (32,), (8, 3)])
+def test_group_kernel_equals_plain_and_per_tensor_kernel(cuda, bits_cycle):
+    """At the 52 weight shapes of ResNet-50, with mixed bits (32: copied):
+    the grouped kernel equals the plain version and, tensor by tensor, the
+    per-tensor kernel, bit for bit."""
+    shapes = resnet50_weight_shapes()
+    assert len(shapes) == 52
+    xs = [0.05 * _inputs(cuda, s, torch.float32, seed=i) for i, s in enumerate(shapes)]
+    bits = torch.tensor([float(bits_cycle[i % len(bits_cycle)]) for i in range(52)], device=cuda)
+    got = tfq.fake_quant_per_tensor_group(xs, bits)
+    again = tfq.fake_quant_per_tensor_group(xs, bits)
+    torch.cuda.synchronize()
+    for x, b, g, g2 in zip(xs, bits, got, again):
+        want = torch.where(b < 32, tfq._quantize_math_torch(x, tfq._levels(b), None), x)
+        assert g.shape == x.shape and torch.equal(g, want) and torch.equal(g, g2)
+        if b < 32:
+            assert torch.equal(g, tfq.fake_quant_per_tensor(x, b))
+
+
+@pytest.mark.gpu
+def test_group_kernel_ste_and_unaligned_inputs(cuda):
+    """The STE gradient is the identity, and inputs that start off a 16-byte
+    boundary (views) or have a ragged tail take the scalar path."""
+    base = _inputs(cuda, (70001,), torch.float32)
+    xs = [base[1:50001], base[3:3 + 16385].reshape(5, 29, 113), base[:7]]
+    bits = torch.tensor([4.0, 8.0, 2.0], device=cuda)
+    got = tfq.fake_quant_per_tensor_group(xs, bits)
+    for x, b, g in zip(xs, bits, got):
+        assert torch.equal(g, tfq._quantize_math_torch(x, tfq._levels(b), None))
+    leaves = [x.clone().requires_grad_(True) for x in xs]
+    outs = tfq.fake_quant_group(leaves, bits)
+    sum((o * o.detach()).sum() for o in outs).backward()
+    for leaf, o in zip(leaves, outs):
+        assert torch.equal(leaf.grad, o.detach())
 
 
 def _bf16_ulp(v):
@@ -114,15 +175,40 @@ def _matmul_inputs(device, m, k, n, seed=0):
     return x, w
 
 
+# the 8 ResNet-50 1x1 shapes of experiments/mm_shape_sweep.py, the 3 square
+# trunk shapes of experiments/conv1x1_ab.py, and ragged edges: M past a
+# 128-row tile, K past a 64-deep stage, N past a 64/128/256-column tile
+EXPERIMENT_SHAPES = [(802816, 64, 256), (802816, 256, 64), (200704, 128, 512),
+                     (200704, 512, 128), (50176, 256, 1024), (50176, 1024, 256),
+                     (12544, 512, 2048), (12544, 2048, 512),
+                     (802816, 256, 256), (200704, 512, 512), (50176, 1024, 1024)]
+RAGGED_SHAPES = [(1, 8, 8), (129, 8, 8), (1000, 8, 8), (129, 40, 24), (1000, 72, 136),
+                 (2048, 64, 256), (1000, 200, 264), (1, 520, 264), (777, 520, 72),
+                 (30000, 72, 264)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize('m,k,n', [(2048, 64, 256), (1000, 72, 136), (12544, 2048, 512),
-                                   (50176, 256, 1024), (1, 8, 8), (129, 40, 24)])
+@pytest.mark.parametrize('m,k,n', EXPERIMENT_SHAPES + RAGGED_SHAPES)
 def test_matmul_kernel_equals_plain(cuda, m, k, n):
     x, w = _matmul_inputs(cuda, m, k, n)
     got = tmm.matmul_bf16(x, w)
     torch.cuda.synchronize()
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
     _assert_bf16_close(got, tmm._matmul_plain(x, w), x.float().abs() @ w.float().abs())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('m,k,n', [(12544, 2048, 512), (200704, 128, 512), (802816, 64, 256),
+                                   (802816, 256, 64), (1, 2048, 512)] + RAGGED_SHAPES)
+def test_matmul_kernel_is_exact_on_exact_sums(cuda, m, k, n):
+    """Small integers: every partial sum is exact in fp32, so the kernel and
+    the plain version round the same value and agree bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randint(-3, 4, (m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randint(-3, 4, (k, n), generator=gen, device=cuda).to(torch.bfloat16)
+    got = tmm.matmul_bf16(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tmm._matmul_plain(x, w))
 
 
 @pytest.mark.gpu

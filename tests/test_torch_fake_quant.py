@@ -188,5 +188,96 @@ def test_cpu_tensors_take_the_plain_version():
     x = torch.randn(4, 8)
     tfq.fake_quant(x, _bits(4))
     tfq.fake_quant_channel_bucket(x, _bits(4))
-    assert tfq.counters() == {'fake_quant_per_tensor': 0, 'fake_quant_per_column': 0,
-                              'plain': 2}
+    tfq.fake_quant_group([x, x], torch.tensor([4.0, 32.0]))
+    assert tfq.counters() == {'fake_quant_per_tensor': 0, 'fake_quant_per_tensor_group': 0,
+                              'fake_quant_per_column': 0, 'plain': 3}
+
+
+# a few weight shapes of ResNet-50 (HWIO) and odd sizes, for the grouped op
+GROUP_SHAPES = [(1, 1, 64, 64), (3, 3, 64, 64), (1, 1, 64, 256), (1, 1, 256, 64), (7,),
+                (1, 1, 512, 128), (3, 3, 16, 8), (5, 3)]
+
+
+@pytest.mark.parametrize('bits', [[2, 4, 8, 32, 3, 32, 8, 4], [32] * 8, [4] * 8,
+                                  [8, 2, 32, 4, 8, 2, 32, 4]])
+def test_group_matches_jax_fake_quant_per_tensor(bits):
+    """The grouped op's plain version, tensor by tensor, against the JAX
+    package's per-site route: jnp.where(bits < 32, fake_quant(x, bits), x).
+    Bit-equal (fp32)."""
+    rng = np.random.default_rng(8)
+    xs = [(0.05 * rng.normal(size=s)).astype(np.float32) for s in GROUP_SHAPES]
+    bits = np.asarray(bits, np.float32)
+    got = tfq.fake_quant_per_tensor_group([torch.from_numpy(x) for x in xs],
+                                          torch.from_numpy(bits))
+    assert len(got) == len(xs)
+    for x, b, g in zip(xs, bits, got):
+        want = jnp.where(b < 32, jfq.fake_quant(jnp.asarray(x), jnp.asarray(b)), jnp.asarray(x))
+        assert g.shape == x.shape and g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(want))
+
+
+def test_group_ste_gradient_is_identity():
+    rng = np.random.default_rng(9)
+    xs = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).requires_grad_(True)
+          for s in GROUP_SHAPES]
+    qs = tfq.fake_quant_group(xs, torch.tensor([4.0, 32.0, 2.0, 8.0, 4.0, 32.0, 3.0, 4.0]))
+    weights = [torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in GROUP_SHAPES]
+    sum((q * w).sum() for q, w in zip(qs, weights)).backward()
+    for x, w in zip(xs, weights):
+        np.testing.assert_array_equal(x.grad.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize('sizes', [[4096, 36864, 16384, 7, 1], [2359296, 16385, 3, 5, 16384],
+                                   [1]])
+def test_group_plan_covers_every_element_once(sizes):
+    """The grouped kernel's chunk table: each tensor's chunks are consecutive
+    and cover it, and each output starts on a 16-byte boundary of its own
+    span of the flat output."""
+    offsets, first_chunks, chunk_tensor, total = tfq._group_plan(sizes)
+    chunk = tfq._GROUP_CHUNK
+    assert len(chunk_tensor) == sum(-(-n // chunk) for n in sizes)
+    for t, n in enumerate(sizes):
+        assert offsets[t] % 4 == 0
+        assert offsets[t] + n <= (offsets[t + 1] if t + 1 < len(sizes) else total)
+        nchunks = chunk_tensor.count(t)
+        assert chunk_tensor[first_chunks[t]:first_chunks[t] + nchunks] == [t] * nchunks
+        assert (nchunks - 1) * chunk < n <= nchunks * chunk
+    assert total == sum(-(-n // 4) * 4 for n in sizes)
+
+
+def test_group_table_is_built_once_per_group():
+    """The device tables of a group are kept by (address, shape) of its
+    tensors: the same parameters give the same tables (no copy to the
+    device), a reshaped view or a new tensor new ones, and at most
+    _GROUP_TABLES groups are kept."""
+    tfq._group_tables.clear()
+    xs = [torch.randn(s) for s in GROUP_SHAPES]
+    entries, chunk_tensor, layout, total = tfq._group_table(xs)
+    assert tfq._group_table(xs)[0] is entries
+    offsets, first_chunks, chunks, want_total = tfq._group_plan([x.numel() for x in xs])
+    assert total == want_total and chunk_tensor.tolist() == chunks
+    assert entries.tolist() == [[x.data_ptr(), o, x.numel(), f]
+                                for x, o, f in zip(xs, offsets, first_chunks)]
+    flat = torch.arange(total, dtype=torch.float32)
+    for x, o, (shape, strides, offset) in zip(xs, offsets, layout):
+        view = flat.as_strided(shape, strides, offset)
+        assert view.shape == x.shape and view.is_contiguous() and float(view.reshape(-1)[0]) == o
+    assert tfq._group_table([xs[0].reshape(-1)] + xs[1:])[0] is not entries
+    others = [torch.randn(3) for _ in range(tfq._GROUP_TABLES)]  # alive: distinct addresses
+    for other in others:
+        tfq._group_table([other])
+    assert len(tfq._group_tables) == tfq._GROUP_TABLES
+    assert tfq._group_table(xs)[0] is not entries
+    tfq._group_tables.clear()
+
+
+def test_group_rejects_what_the_kernel_does_not_take():
+    x = torch.randn(4, 8)
+    for xs, bits in (([], torch.ones(0)),
+                     ([x.to(torch.bfloat16)], torch.ones(1)),
+                     ([x.t()], torch.ones(1)),
+                     ([x, x], torch.ones(1)),
+                     ([x], torch.ones((), dtype=torch.float32)),
+                     ([x], torch.ones(1, dtype=torch.float64))):
+        with pytest.raises(ValueError):
+            tfq.fake_quant_per_tensor_group(xs, bits)

@@ -93,13 +93,14 @@ def test_bridge_raises_on_unmapped_and_unset_entries():
     assert float(bn.bn.var[0]) == 3.0 and float(bn.bn.scale.detach()[0]) == 2.0
 
 
-@pytest.mark.parametrize('op', ['per_tensor', 'per_column', 'fake_quant'])
+@pytest.mark.parametrize('op', ['per_tensor', 'per_column', 'fake_quant', 'group'])
 def test_kernel_wrappers_raise_off_cpu_and_cuda(op):
     from pocketflow_tpu_torch.ops import fake_quant as fq
     x = torch.empty((8, 8), device='meta')
     bits = torch.empty((), device='meta')
     fn = {'per_tensor': fq.fake_quant_per_tensor, 'per_column': fq.fake_quant_per_column,
-          'fake_quant': fq.fake_quant}[op]
+          'fake_quant': fq.fake_quant,
+          'group': lambda x, b: fq.fake_quant_per_tensor_group([x], b.reshape(1))}[op]
     with pytest.raises(ValueError, match='no kernel for device'):
         fn(x, bits)
 
@@ -177,7 +178,8 @@ def test_main_trains_baseline_then_qat_then_evaluates_on_cpu(tmp_path, monkeypat
     payload = ckpt.restore_latest(str(tmp_path / 'uql' / 'model.ckpt'))
     assert payload['step'] == 2
     assert torch.equal(payload['extra']['w_bits'], torch.full((52,), 2.0))
-    assert fq.counters()['plain'] >= 52 * 2
+    # each forward quantizes the 52 weights in one grouped call: 2 train steps, and evals
+    assert fq.counters()['plain'] >= 2
     port_main.main(common + ['--learner=uniform', '--exec_mode=eval'], device='cpu')
     with open(tmp_path / 'logs' / 'scalars.jsonl') as fin:
         tags = {json.loads(line)['tag'] for line in fin}

@@ -58,7 +58,6 @@ from pocketflow_tpu.learners.weight_sparsification import masking as jmasking
 from pocketflow_tpu.nets.resnet_at_ilsvrc12 import ModelHelper as JHelper
 from pocketflow_tpu_torch.config import FLAGS as TFLAGS
 from pocketflow_tpu_torch.core.bridge import from_jax_numpy, load_jax_numpy
-from pocketflow_tpu_torch.learners.uniform_quantization import utils as tuq
 from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner as TLearner
 from pocketflow_tpu_torch.learners.weight_sparsification.pruned_qat import (
     build_pruned_qat_step, channel_masks)
@@ -156,8 +155,7 @@ def _run(buckets: bool, composed: bool = False):
             {'params': jstate.params, 'batch_stats': jstate.batch_stats}, jx,
             jstate.extra['w_bits'], jstate.extra['a_bits']))
         tx = tlearner.dataset_eval.augment(torch.from_numpy(images), None, False)
-        tpolicy = tuq.QuantPolicy(tlearner.statistics['weight_paths'],
-                                  tstate.extra['w_bits'], tstate.extra['a_bits'])
+        tpolicy = tlearner._policy_fn()(tstate)
         with torch.no_grad():
             out['port_logits'] = tlearner.model_helper.forward_eval(
                 tstate.model, tx, policy=tpolicy).numpy()
