@@ -7,7 +7,8 @@ on the card, and drives the port's paths:
   * the main path: the QAT ResNet-50 train step of UniformQuantLearner at
     bench.py's settings (224x224, bf16, batch 256, exact BN, space-to-depth
     stem, synthetic ILSVRC-12, 4-bit weights), and its other quantization
-    routes;
+    routes (8-bit activations, channel and split buckets), each timed over
+    5 steps after 2;
   * the three matmul experiments (pocketflow_tpu_torch/experiments:
     fused_mm_proto, conv1x1_ab, mm_shape_sweep), short, at full shapes;
   * the composed pruned+QAT step of bench.py (channel masks, masked
@@ -29,11 +30,13 @@ memory's rate and the operations over the peak rate of their type.
 (the grouped route of K1', which quantizes the step's 52 weights in one
 launch pair) the main path's 13 train steps (the counters are reset just
 before them and read just after, before the eval step), for
-fake_quant_per_tensor the 2 steps with 8-bit activations (the main path
-quantizes no weight through it), for fake_quant_per_column the 2 steps
-under channel buckets, for matmul_bf16 the mm_shape_sweep experiment and
-for bn_relu_matmul_stats the fused_mm_proto experiment.  `launches_by_run`
-gives every kernel's count in each run, each counted from its own reset.
+fake_quant_per_tensor (K1' with the select folded in) the 7 steps with 8-bit
+activations, for fake_quant_per_column_group (the grouped route of K2') the
+7 steps under channel buckets, for fake_quant_per_column (K2' itself) the
+public per-site bucket ops over the model's 52 weights, for matmul_bf16 the
+mm_shape_sweep experiment and for bn_relu_matmul_stats the fused_mm_proto
+experiment.  `launches_by_run` gives every kernel's count in each run, each
+counted from its own reset.
 """
 
 import json
@@ -57,6 +60,8 @@ KERNELS = {
                                     '(_fq_pallas_2d; grouped route, all weights at once)'),
     'fake_quant_per_column': ('fake_quant.cu',
                               'pocketflow_tpu/ops/fake_quant.py:108 (_fq_pallas_cols_grid)'),
+    'fake_quant_per_column_group': ('fake_quant.cu', 'pocketflow_tpu/ops/fake_quant.py:108 '
+                                    '(_fq_pallas_cols_grid; grouped route, all weights at once)'),
     'matmul_bf16': ('matmul.cu', 'experiments/conv1x1_ab.py:123 (make_pallas); '
                                  'experiments/mm_shape_sweep.py:58 (make_pallas)'),
     'bn_relu_matmul_stats': ('matmul.cu', 'experiments/fused_mm_proto.py:56 (pallas_fused)'),
@@ -64,8 +69,22 @@ KERNELS = {
 BATCH = 256
 N_WARMUP, N_TIMED = 3, 10
 MAIN_RUN = 'main path: %d QAT train steps, per-tensor 4-bit weights' % (N_WARMUP + N_TIMED)
-ACT8_RUN = '8-bit activations (--uql_activation_bits=8): 2 QAT train steps'
+ROUTE_WARMUP, ROUTE_TIMED = 2, 5
+ROUTE_STEPS = ROUTE_WARMUP + ROUTE_TIMED
+ACT8_RUN = '8-bit activations (--uql_activation_bits=8): %d QAT train steps' % ROUTE_STEPS
+CHANNEL_RUN = ('channel buckets (--uql_use_buckets --uql_bucket_type=channel): %d QAT train '
+               'steps' % ROUTE_STEPS)
+SPLIT_RUN = ('split buckets (--uql_use_buckets --uql_bucket_type=split): %d QAT train steps'
+             % ROUTE_STEPS)
+PER_SITE_RUN = ('per-site bucket ops: fake_quant_channel_bucket and fake_quant_split_bucket '
+                'on each of the model\'s 52 quantized weights')
 NB_WEIGHT_SITES, NB_ACT_SITES = 52, 49
+# the activations K1' is timed on: the largest of the 8-bit route (411 MB of
+# bf16) and one of 51 MB, which L2 nearly holds
+ACT_SHAPES = [(256, 256, 56, 56), (256, 2048, 7, 7)]
+# K1' is also held against the plain version on an fp32 activation and on
+# ragged sizes (bf16, fp32), whole and as views that start off 16 bytes
+FP32_ACT_SHAPE, RAGGED_N = (32, 256, 56, 56), (1_000_003, 12_345_679)
 COMPOSED_WARMUP, COMPOSED_TIMED = 3, 5
 COMPOSED_RUN = 'composed pruned+QAT: %d train steps, 4-bit weights, channel masks' % (
     COMPOSED_WARMUP + COMPOSED_TIMED)
@@ -112,8 +131,8 @@ def counters() -> dict:
 
 
 def no_launches(**launches) -> dict:
-    out = {name: 0 for name in KERNELS}
-    out['plain'] = 0
+    """The counters with `launches` and no other kernel launch or plain call."""
+    out = {name: 0 for name in counters()}
     out.update(launches)
     return out
 
@@ -171,11 +190,121 @@ def phase_group(fq, weight_shapes, device):
                                                 library_ms=None)}
 
 
+def phase_tensor_kernel(fq, device):
+    """K1' with and without the select against the plain version (and the
+    plain version's select): bf16 channels-last activations of the 8-bit
+    route, fp32, a ragged n, an unaligned view; bits 2/4/8/16/32 (16 and 32
+    are past the table of levels; 32 with the select copies).  Then its time
+    on both activations of ACT_SHAPES, with and without the select, beside
+    the plain version's and the bound."""
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def act(shape, dtype=torch.bfloat16):
+        return torch.relu(torch.randn(shape, generator=gen, device=device)).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    base16 = torch.randn(3 + RAGGED_N[0], generator=gen, device=device).to(torch.bfloat16)
+    base32 = torch.randn(1 + RAGGED_N[1], generator=gen, device=device)
+    cases = [('bf16 act %s channels-last' % (shape,), act(shape)) for shape in ACT_SHAPES]
+    cases += [('fp32 act %s channels-last' % (FP32_ACT_SHAPE,), act(FP32_ACT_SHAPE, torch.float32)),
+              ('fp32 (3, 3, 512, 512)', torch.randn((3, 3, 512, 512), generator=gen,
+                                                     device=device)),
+              ('bf16 ragged n=%d' % RAGGED_N[0], base16[3:].clone()),
+              ('fp32 ragged n=%d' % RAGGED_N[1], base32[1:].clone()),
+              ('bf16 unaligned view (+6 bytes)', base16[3:]),
+              ('fp32 unaligned view (+4 bytes)', base32[1:])]
+    max_err = 0.0
+    for label, x in cases:
+        lo, hi = x.min().float(), x.max().float()
+        for bits_value in (2, 4, 8, 16, 32):
+            bits = torch.tensor(float(bits_value), device=device)
+            k = fq._levels(bits)
+            want = fq._quantize_math_torch(x, k, None).to(x.dtype)
+            got = fq.fake_quant_per_tensor(x, bits)
+            check(got.dtype == x.dtype and got.stride() == x.stride(),
+                  'K1\' lost the layout of %s', label)
+            err, nd = compare(got, want, float((hi - lo) / k))
+            selected = fq.fake_quant_per_tensor(x, bits, select=True)
+            if bits_value < 32:
+                check(torch.equal(selected, got), 'K1\' with the select differs from K1\' '
+                      'at %s, %d bits', label, bits_value)
+            else:
+                check(torch.equal(selected, x), 'K1\' with the select does not copy %s at 32 '
+                      'bits', label)
+            max_err = max(max_err, err)
+            log('  %s bits=%d: max|d|=%.3g n_diff=%d vs plain; with the select %s', label,
+                bits_value, err, nd, 'equal' if bits_value < 32 else 'a copy')
+            del want, got, selected
+    del cases, base16, base32
+    bits = torch.tensor(8.0, device=device)
+    k = fq._levels(bits)
+    result = None
+    for shape in ACT_SHAPES:
+        x = act(shape)
+        ms = time_ms(lambda: fq.fake_quant_per_tensor(x, bits, select=True))
+        no_select_ms = time_ms(lambda: fq.fake_quant_per_tensor(x, bits))
+        plain_ms = time_ms(lambda: torch.where(
+            bits < 32, fq._quantize_math_torch(x, k, None).to(x.dtype), x), 5)
+        bound_ms, bound_by = fq_bound(x.numel(), 2)
+        log('  fake_quant_per_tensor with the select, bf16 act %s, 8 bits: kernel %.4f ms '
+            '(%.0f%% of the bound; without the select %.4f ms), plain + select %.4f ms, '
+            'bound %.4f ms (%s)', shape, ms, 100 * bound_ms / ms, no_select_ms, plain_ms,
+            bound_ms, bound_by)
+        if result is None:  # the line reports the largest activation
+            result = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None)
+        del x
+    return {'fake_quant_per_tensor': result}
+
+
+def phase_column_group(fq, weight_shapes, device):
+    """The grouped route of K2' at the 52 weight shapes, channel and split
+    buckets, mixed bits (2, 4, 8, 32 in turn; 32 copies): bit-equal to the
+    plain version and, tensor by tensor, to the per-site ops on K2'
+    (pf_fake_quant_columns)."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    weights = [torch.randn(s, generator=gen, device=device) * 0.05 for s in weight_shapes]
+    bits = torch.tensor([(2.0, 4.0, 8.0, 32.0)[i % 4] for i in range(len(weights))],
+                        device=device)
+    for bucket_type, bucket_size in (('channel', None), ('split', 256)):
+        got = fq.fake_quant_per_column_group(weights, bits, bucket_size)
+        for i, (w, b, g) in enumerate(zip(weights, bits, got)):
+            want = torch.where(b < 32, fq._column_plain(w, fq._levels(b), bucket_size), w)
+            check(torch.equal(g, want), 'grouped K2\' differs from plain at weight %d %s, %s, '
+                  'bits %g', i, tuple(w.shape), bucket_type, float(b))
+            if b < 32:
+                per_site = (fq.fake_quant_channel_bucket(w, b) if bucket_size is None
+                            else fq.fake_quant_split_bucket(w, b, bucket_size))
+                check(torch.equal(g, per_site), 'grouped K2\' differs from the per-column '
+                      'kernel at weight %d, %s', i, bucket_type)
+        log('  fake_quant_per_column_group, %s buckets: %d weights, bits 2/4/8/32 in turn: equal '
+            'to plain and to the per-column kernel, tensor by tensor', bucket_type, len(weights))
+    bits4 = torch.full((len(weights),), 4.0, device=device)
+    b4 = bits4[0]
+    bound_ms, bound_by = fq_bound(sum(w.numel() for w in weights))
+    result = None
+    for bucket_type, bucket_size, per_site in (
+            ('channel', None, lambda w: fq.fake_quant_channel_bucket(w, b4)),
+            ('split', 256, lambda w: fq.fake_quant_split_bucket(w, b4, 256))):
+        ms = time_ms(lambda: fq.fake_quant_per_column_group(weights, bits4, bucket_size))
+        plain_ms = time_ms(lambda: [torch.where(b < 32, fq._column_plain(
+            w, fq._levels(b), bucket_size), w) for w, b in zip(weights, bits4)])
+        per_site_ms = time_ms(lambda: [torch.where(b4 < 32, per_site(w), w) for w in weights])
+        log('  fake_quant_per_column_group over the 52 weights of one step (4 bits, %s buckets): '
+            'kernel %.4f ms (%.0f%% of the bound), plain %.4f ms, the per-site route (52 x '
+            'per-column kernel + select) %.4f ms, bound %.4f ms (%s)', bucket_type, ms,
+            100 * bound_ms / ms, plain_ms, per_site_ms, bound_ms, bound_by)
+        if result is None:  # the line reports channel buckets
+            result = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None)
+    return {'fake_quant_per_column_group': result}
+
+
 def phase_kernels(fq, weight_shapes, device):
     """Phase 4: each fake-quant kernel against the plain version, at
     main-path shapes."""
-    results = {name: {'max_abs_err': 0.0}
-               for name in ('fake_quant_per_tensor', 'fake_quant_per_column')}
+    results = {'fake_quant_per_column': {'max_abs_err': 0.0}}
+    per_tensor_err = 0.0
     gen = torch.Generator(device=device).manual_seed(0)
     distinct = sorted(set(weight_shapes))
     for bits_value in (2, 4, 8):
@@ -187,8 +316,7 @@ def phase_kernels(fq, weight_shapes, device):
             want = fq._quantize_math_torch(w, k, None)
             err, nd = compare(fq.fake_quant_per_tensor(w, bits), want,
                               (w.max() - w.min()) / k)
-            results['fake_quant_per_tensor']['max_abs_err'] = max(
-                results['fake_quant_per_tensor']['max_abs_err'], err)
+            per_tensor_err = max(per_tensor_err, err)
             # channel buckets (K2' on reshape(-1, c_out))
             cols = w.reshape(-1, shape[-1])
             want = fq._quantize_math_torch(cols, k, 0)
@@ -206,44 +334,27 @@ def phase_kernels(fq, weight_shapes, device):
                 results['fake_quant_per_column']['max_abs_err'], err_c, err_s)
             log('  bits=%d %-18s per-tensor max|d|=%.3g n_diff=%d | channel %.3g/%d | '
                 'split %.3g/%d', bits_value, str(shape), err, nd, err_c, nd_c, err_s, nd_s)
-    # one bf16 activation of the main path through K1'
-    bits = torch.tensor(8.0, device=device)
-    act = torch.randn((BATCH, 256, 56, 56), generator=gen, device=device, dtype=torch.bfloat16)
-    act = torch.relu(act).contiguous(memory_format=torch.channels_last)
-    k = fq._levels(bits)
-    want = fq._quantize_math_torch(act, k, None).to(torch.bfloat16)
-    got = fq.fake_quant_per_tensor(act, bits)
-    check(got.is_contiguous(memory_format=torch.channels_last), 'K1 lost the activation layout')
-    # bf16 output: a difference of one bf16 ulp counts as the allowed tie step
-    err, nd = compare(got, want, float((act.max().float() - act.min().float()) / k))
-    results['fake_quant_per_tensor']['max_abs_err'] = max(
-        results['fake_quant_per_tensor']['max_abs_err'], err)
-    log('  bf16 activation %s per-tensor max|d|=%.3g n_diff=%d', tuple(act.shape), err, nd)
 
     # times: one pass over the main path's 52 quantized weights at 4 bits
     bits = torch.tensor(4.0, device=device)
     k = fq._levels(bits)
     weights = [torch.randn(s, generator=gen, device=device) for s in weight_shapes]
     columns = [w.reshape(-1, w.shape[-1]) for w in weights]
-    t = {
-        'fake_quant_per_tensor': (
-            time_ms(lambda: [fq.fake_quant_per_tensor(w, bits) for w in weights]),
-            time_ms(lambda: [fq._quantize_math_torch(w, k, None) for w in weights])),
-        'fake_quant_per_column': (
-            time_ms(lambda: [fq.fake_quant_per_column(c, bits) for c in columns]),
-            time_ms(lambda: [fq._quantize_math_torch(c, k, 0) for c in columns])),
-    }
     bound_ms, bound_by = fq_bound(sum(w.numel() for w in weights))
-    for name, (ms, plain_ms) in t.items():
-        results[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=None)
-        log('  %s over the 52 weights of one step: kernel %.4f ms, plain %.4f ms, bound %.4f ms '
-            '(%s)', name, ms, plain_ms, bound_ms, bound_by)
-    act_ms = time_ms(lambda: fq.fake_quant_per_tensor(act, torch.tensor(8.0, device=device)), 10)
-    act_plain = time_ms(lambda: fq._quantize_math_torch(act, k, None).to(torch.bfloat16), 10)
-    log('  fake_quant_per_tensor on the bf16 activation %s: kernel %.4f ms, plain %.4f ms, '
-        'bound %.4f ms', tuple(act.shape), act_ms, act_plain, fq_bound(act.numel(), 2)[0])
+    per_tensor_ms = time_ms(lambda: [fq.fake_quant_per_tensor(w, bits) for w in weights])
+    per_tensor_plain_ms = time_ms(lambda: [fq._quantize_math_torch(w, k, None) for w in weights])
+    ms = time_ms(lambda: [fq.fake_quant_per_column(c, bits) for c in columns])
+    plain_ms = time_ms(lambda: [fq._quantize_math_torch(c, k, 0) for c in columns])
+    results['fake_quant_per_column'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                            bound_by=bound_by, library_ms=None)
+    log('  over the 52 weights of one step: fake_quant_per_tensor %.4f ms (plain %.4f ms), '
+        'fake_quant_per_column %.4f ms (plain %.4f ms), bound %.4f ms (%s)', per_tensor_ms,
+        per_tensor_plain_ms, ms, plain_ms, bound_ms, bound_by)
+    results.update(phase_tensor_kernel(fq, device))
+    results['fake_quant_per_tensor']['max_abs_err'] = max(
+        results['fake_quant_per_tensor']['max_abs_err'], per_tensor_err)
     results.update(phase_group(fq, weight_shapes, device))
+    results.update(phase_column_group(fq, weight_shapes, device))
     return results
 
 
@@ -467,6 +578,59 @@ def phase_composed(learner, card):
     return counts
 
 
+def phase_routes(FLAGS, learner, state, train_step, batches, card):
+    """Phase 7: the other quantization routes, timed, each launching only
+    its kernels; then the per-site bucket ops.  Returns {run label: counters}."""
+    from pocketflow_tpu_torch.learners.uniform_quantization import utils as uq_utils
+    from pocketflow_tpu_torch.ops import fake_quant as fq
+    runs = {}
+    # launches a step: each forward quantizes the 52 weights in one
+    # grouped launch pair; on the 8-bit route each activation goes through
+    # K1' with the select, and no select runs outside a kernel
+    routes = [(ACT8_RUN, dict(uql_activation_bits=8),
+               dict(fake_quant_per_tensor_group=1, fake_quant_per_tensor=NB_ACT_SITES,
+                    fake_quant_per_tensor_select=NB_ACT_SITES)),
+              (CHANNEL_RUN, dict(uql_use_buckets=True, uql_bucket_type='channel'),
+               dict(fake_quant_per_column_group=1)),
+              (SPLIT_RUN, dict(uql_use_buckets=True, uql_bucket_type='split'),
+               dict(fake_quant_per_column_group=1))]
+    for label, flags, per_step in routes:
+        with FLAGS.scope(**flags):
+            state = learner.set_bits(state, *learner.choose_bits())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()  # this route's launches are counted from here ...
+            for i in range(ROUTE_STEPS):
+                if i == ROUTE_WARMUP:
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                state, metrics = train_step(state, batches[i % 4], learner.generator(100 + i))
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            runs[label] = counters()  # ... to here
+            loss = float(metrics['loss'])
+        log('  %s: loss %.4f, launches %s', label, loss, runs[label])
+        log('  %.2f img/s, %.2f ms/step over %d steps, peak memory %.2f GiB | %s',
+            BATCH * ROUTE_TIMED / elapsed, 1e3 * elapsed / ROUTE_TIMED, ROUTE_TIMED,
+            torch.cuda.max_memory_allocated() / 2 ** 30, card)
+        check(math.isfinite(loss), '%s loss %r', label, loss)
+        want = no_launches(**{name: ROUTE_STEPS * n for name, n in per_step.items()})
+        check(runs[label] == want, '%s: launches %s, expected %s', label, runs[label], want)
+    # the per-site bucket ops, which the bucket routes no longer call
+    weights = uq_utils.quant_weights(state.model, learner.statistics['weight_paths'])
+    bits = torch.tensor(4.0, device=weights[0].device)
+    reset_counters()  # this run's launches are counted from here ...
+    for w in weights:
+        fq.fake_quant_channel_bucket(w, bits)
+        fq.fake_quant_split_bucket(w, bits, 256)
+    torch.cuda.synchronize()
+    runs[PER_SITE_RUN] = counters()  # ... to here
+    log('  %s: launches %s', PER_SITE_RUN, runs[PER_SITE_RUN])
+    check(runs[PER_SITE_RUN] == no_launches(fake_quant_per_column=2 * NB_WEIGHT_SITES),
+          '%s: launches %s', PER_SITE_RUN, runs[PER_SITE_RUN])
+    return runs
+
+
 def phase_reference(FLAGS, ModelHelper, UniformQuantLearner):
     """The QAT step on the card (kernels, fp32, no TF32) against the same
     step on the CPU (plain version) from the same seed, at a small size."""
@@ -587,27 +751,9 @@ def main():
         log('  %.2f img/s, %.2f ms/step over %d steps, peak memory %.2f GiB | %s',
             BATCH * N_TIMED / elapsed, 1e3 * elapsed / N_TIMED, N_TIMED, peak_gib, card)
 
-        log('phase 7 other quantization routes, 2 steps each')
-        channel = 'channel buckets (--uql_use_buckets --uql_bucket_type=channel): 2 QAT train steps'
-        routes = [(channel, dict(uql_use_buckets=True, uql_bucket_type='channel'),
-                   {'fake_quant_per_column': NB_WEIGHT_SITES}),
-                  ('split buckets (--uql_use_buckets --uql_bucket_type=split): 2 QAT train steps',
-                   dict(uql_use_buckets=True, uql_bucket_type='split'),
-                   {'fake_quant_per_column': NB_WEIGHT_SITES}),
-                  (ACT8_RUN, dict(uql_activation_bits=8),
-                   {'fake_quant_per_tensor_group': 1, 'fake_quant_per_tensor': NB_ACT_SITES})]
-        for label, flags, per_step in routes:
-            with FLAGS.scope(**flags):
-                state = learner.set_bits(state, *learner.choose_bits())
-                reset_counters()
-                for i in range(2):
-                    state, metrics = train_step(state, batches[i], learner.generator(100 + i))
-                runs[label] = counters()
-                loss = float(metrics['loss'])
-            log('  %s: loss %.4f, launches %s', label, loss, runs[label])
-            check(math.isfinite(loss), '%s loss %r', label, loss)
-            want = no_launches(**{name: 2 * n for name, n in per_step.items()})
-            check(runs[label] == want, '%s: launches %s, expected %s', label, runs[label], want)
+        log('phase 7 other quantization routes, %d warm-up and %d timed steps each',
+            ROUTE_WARMUP, ROUTE_TIMED)
+        runs.update(phase_routes(FLAGS, learner, state, train_step, batches, card))
         del state, train_step, eval_step, batches, eval_batch
         torch.cuda.empty_cache()
 
@@ -622,9 +768,10 @@ def main():
 
     # each kernel's launches in the run that drives it: the main path for the
     # grouped K1', the 8-bit-activation route for K1' itself, the
-    # channel-bucket route for K2', an experiment for each matmul kernel
+    # channel-bucket route for the grouped K2', the per-site bucket ops for
+    # K2' itself, an experiment for each matmul kernel
     own_run = {'fake_quant_per_tensor_group': MAIN_RUN, 'fake_quant_per_tensor': ACT8_RUN,
-               'fake_quant_per_column': channel,
+               'fake_quant_per_column_group': CHANNEL_RUN, 'fake_quant_per_column': PER_SITE_RUN,
                'matmul_bf16': next(label for label in runs if 'mm_shape_sweep' in label),
                'bn_relu_matmul_stats': next(label for label in runs if 'fused_mm_proto' in label)}
     line = {'kernels': [{'name': name, 'route': 'cuda', 'source': CSRC + source,

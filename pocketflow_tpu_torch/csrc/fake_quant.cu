@@ -4,12 +4,16 @@
 //   out   = alpha * round((x - beta) / alpha * k) / k + beta        (fp32)
 //
 // pf_fake_quant_tensor replaces pocketflow_tpu/ops/fake_quant.py:_fq_pallas_2d
-// (body _fq_tensor_kernel): one (alpha, beta) for the whole tensor.
+// (body _fq_tensor_kernel): one (alpha, beta) for the whole tensor; with
+// `select` it also takes the quant policy's select on bits < 32 (its design
+// note is above its kernels below).
 // pf_fake_quant_tensor_group is a second route of _fq_pallas_2d: many fp32
-// tensors, each with its own (alpha, beta) and bits, in one pair of launches
-// (its design note is above the grouped kernels below).
+// tensors, each with its own (alpha, beta) and bits, in one pair of launches.
 // pf_fake_quant_columns replaces _fq_pallas_cols_grid (body _fq_axis0_kernel):
 // one (alpha, beta) per column of a row-major [rows, cols] matrix.
+// pf_fake_quant_columns_group is a second route of _fq_pallas_cols_grid: many
+// fp32 tensors, each viewed as a column matrix with its own bits, in one pair
+// of launches.
 //
 // What bounds them on the card: bytes.  Each element is read twice (once for
 // the min/max, once to quantize) and written once, with a few flops in
@@ -37,6 +41,7 @@
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -44,10 +49,6 @@ constexpr float kEps = 1e-10f;
 constexpr int kThreads = 256;      // per-tensor kernels: threads per block
 constexpr int kColTile = 32;       // per-column kernels: columns per block (one warp wide)
 constexpr int kRowWarps = 8;       // per-column kernels: warps splitting a chunk's rows
-
-template <typename T> struct Vec16;
-template <> struct Vec16<float> { using type = float4; static constexpr int n = 4; };
-template <> struct Vec16<__nv_bfloat16> { using type = uint4; static constexpr int n = 8; };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -90,71 +91,346 @@ __device__ __forceinline__ void block_minmax(float& lo, float& hi) {
   warp_minmax(lo, hi);
 }
 
-// Pass 1: each block reduces a grid-stride slice of x to one (min, max).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-minmax_partials(const T* __restrict__ x, int64_t n, int vectorized, float2* __restrict__ partials) {
-  using V = typename Vec16<T>::type;
-  constexpr int kVec = Vec16<T>::n;
-  const int64_t tid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t nvec = vectorized ? n / kVec : 0;
-  float lo = FLT_MAX, hi = -FLT_MAX;
-  const V* xv = reinterpret_cast<const V*>(x);
-  for (int64_t i = tid; i < nvec; i += stride) {
-    const V v = xv[i];
-    const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      const float f = to_float(e[j]);
-      lo = fminf(lo, f);
-      hi = fmaxf(hi, f);
-    }
+// Per-tensor kernels (K1').
+//
+// One large tensor, fp32 or bf16: the 8-bit activation route quantizes 49
+// activations a step, the largest 256x256x56x56 bf16 (411 MB), each followed
+// by the policy's select on bits < 32.  Bound: bytes, two reads and a write.
+// What the design does about it:
+// - The select is folded in: with `select`, a tensor whose bits are >= 32 is
+//   copied (its gradient is the identity either way, so autograd needs no
+//   select of its own), and pass 1 returns at once.
+// - Both passes run persistent blocks (as many as fit on the SMs), each
+//   thread with kUnroll independent 16-byte loads in flight.
+// - Min and max are exact in any order: pass 1's blocks write their partials
+//   and the last block to finish (an atomic count, which it resets to 0 for
+//   the next call) reduces them to one (lo, hi), so each pass-2 block reads
+//   one pair.
+// - Pass 2 walks the tensor from its end, where pass 1 finished: its first
+//   reads find pass 1's last lines in L2 (all of a tensor of 50 MB or less).
+// - Pass 2 takes a table of outputs built by each block with the steps of
+//   quantize(), so that most of an element's arithmetic goes: computed
+//   directly, its two divisions (reciprocals on the SM's 16-a-clock units,
+//   and their corrections) bound the pass, not its bytes.  A bf16 input has
+//   65,536 possible values: the table holds the output of every one in
+//   [min, max] (and the NaNs), 128 KB of shared memory indexed by the
+//   input's bits, so an element costs one shared-memory load.  An fp32
+//   output depends on m = rint((x - beta) / alpha * k) alone, an integer in
+//   [0, k]: the table holds the k + 1 outputs (up to kMaxTableLevels), so an
+//   element costs one division, one multiply, rintf and a load; above that,
+//   or for an m outside the table (only a NaN gives one), it computes
+//   quantize()'s last steps directly.  Both tables give the bits of
+//   quantize().
+
+constexpr int kUnroll = 4;               // 16-byte loads in flight a thread
+constexpr int kMaxTensorBlocks = 2048;   // partials of pass 1 (132 SMs x 8 blocks fit)
+constexpr int kMaxTableLevels = 4096;    // entries of the fp32 table by level (16 KB)
+constexpr int kLutThreads = 1024;        // bf16 pass 2: one block of these a SM
+constexpr int kBf16Values = 65536;       // entries of the bf16 table by input
+constexpr int kBf16TableBytes = kBf16Values * sizeof(unsigned short);  // 128 KB
+
+// Scratch of pf_fake_quant_tensor, zeroed once: `done` returns to 0 at the
+// end of every pass 1 that counts.
+struct TensorScratch {
+  unsigned int done;
+  unsigned int unused;
+  float2 range;                          // (min, max) of the tensor
+  float2 partials[kMaxTensorBlocks];
+};
+
+// W elements of T, loaded and stored whole (16 bytes, or one element where
+// the pointers are not 16-byte aligned).
+template <typename T, int W> struct __align__(sizeof(T) * W) Pack { T e[W]; };
+
+template <typename P>
+__device__ __forceinline__ P load_pack(const P* p) {
+  if constexpr (sizeof(P) == 16) {  // one 16-byte load
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    P v;
+    memcpy(&v, &raw, 16);
+    return v;
+  } else {
+    return *p;
   }
-  for (int64_t i = nvec * kVec + tid; i < n; i += stride) {
-    const float f = to_float(x[i]);
+}
+
+template <typename P>
+__device__ __forceinline__ void store_pack(P* p, const P& v) {
+  if constexpr (sizeof(P) == 16) {  // one 16-byte store
+    uint4 raw;
+    memcpy(&raw, &v, 16);
+    *reinterpret_cast<uint4*>(p) = raw;
+  } else {
+    *p = v;
+  }
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void pack_minmax(const Pack<T, W>& v, float& lo, float& hi) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    const float f = to_float(v.e[j]);
     lo = fminf(lo, f);
     hi = fmaxf(hi, f);
   }
-  block_minmax(lo, hi);
-  if (threadIdx.x == 0) partials[blockIdx.x] = make_float2(lo, hi);
 }
 
-// Pass 2: each block reduces all partials, then quantizes its grid-stride slice.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-quantize_tensor(const T* __restrict__ x, T* __restrict__ out, int64_t n, int vectorized,
-                const float2* __restrict__ partials, int nparts, const float* __restrict__ bits) {
-  using V = typename Vec16<T>::type;
-  constexpr int kVec = Vec16<T>::n;
+// Pass 1: the (min, max) of x into s->range.
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads, 4)
+tensor_minmax(const T* __restrict__ x, int64_t n, const float* __restrict__ bits, int select,
+              TensorScratch* __restrict__ s) {
+  if (select && *bits >= 32.0f) return;  // pass 2 copies; nothing reads the range
+  using P = Pack<T, W>;
+  const P* xp = reinterpret_cast<const P*>(x);
+  const int64_t units = n / W;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   float lo = FLT_MAX, hi = -FLT_MAX;
-  for (int i = threadIdx.x; i < nparts; i += blockDim.x) {
-    const float2 p = partials[i];
-    lo = fminf(lo, p.x);
-    hi = fmaxf(hi, p.y);
+  for (int64_t base = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; base < units;
+       base += kUnroll * stride) {
+    P v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {  // past the end: base again, which changes nothing
+      const int64_t i = base + u * stride;
+      v[u] = load_pack(xp + (i < units ? i : base));
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) pack_minmax(v[u], lo, hi);
+  }
+  if (blockIdx.x == 0) {  // the ragged tail, fewer than W elements
+    for (int64_t i = units * W + threadIdx.x; i < n; i += kThreads) {
+      lo = fminf(lo, to_float(x[i]));
+      hi = fmaxf(hi, to_float(x[i]));
+    }
   }
   block_minmax(lo, hi);
-  const float alpha = __fadd_rn(__fsub_rn(hi, lo), kEps);
-  const float beta = lo;
-  const float k = levels(bits);
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    s->partials[blockIdx.x] = make_float2(lo, hi);
+    __threadfence();  // the partial is visible before the count says so
+    last = atomicAdd(&s->done, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  lo = FLT_MAX;
+  hi = -FLT_MAX;
+  for (int p = threadIdx.x; p < static_cast<int>(gridDim.x); p += kThreads) {
+    const float2 v = __ldcg(&s->partials[p]);  // from L2: other SMs wrote them
+    lo = fminf(lo, v.x);
+    hi = fmaxf(hi, v.y);
+  }
+  block_minmax(lo, hi);
+  if (threadIdx.x == 0) {
+    s->range = make_float2(lo, hi);
+    s->done = 0;
+  }
+}
 
-  const int64_t tid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t nvec = vectorized ? n / kVec : 0;
-  const V* xv = reinterpret_cast<const V*>(x);
-  V* ov = reinterpret_cast<V*>(out);
-  for (int64_t i = tid; i < nvec; i += stride) {
-    const V v = xv[i];
-    const T* e = reinterpret_cast<const T*>(&v);
-    V r;
-    T* o = reinterpret_cast<T*>(&r);
+// quantize() of x through the table of outputs by level, where m is in it.
+__device__ __forceinline__ float quantize_by_level(float x, float alpha, float beta, float k,
+                                                   float table_top, const float* table) {
+  const float m = rintf(__fmul_rn(__fdiv_rn(__fsub_rn(x, beta), alpha), k));
+  if (m >= 0.0f && m <= table_top) return table[static_cast<int>(m)];
+  return __fadd_rn(__fmul_rn(alpha, __fdiv_rn(m, k)), beta);
+}
+
+// out = op(x) over n elements, pass 2's walk: persistent blocks of
+// `threads`, kUnroll units of W elements in flight a thread, from the end of
+// the tensor to its start (the ragged tail, fewer than W elements, first).
+template <typename T, int W, typename Op>
+__device__ __forceinline__ void quantize_walk(const T* __restrict__ x, T* __restrict__ out,
+                                              int64_t n, int threads, Op op) {
+  using P = Pack<T, W>;
+  const P* xp = reinterpret_cast<const P*>(x);
+  P* outp = reinterpret_cast<P*>(out);
+  const int64_t units = n / W;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * threads;
+  const int64_t span = kUnroll * stride;
+  if (blockIdx.x == 0) {
+    for (int64_t i = units * W + threadIdx.x; i < n; i += threads) out[i] = op(x[i]);
+  }
+  for (int64_t g = (units + span - 1) / span - 1; g >= 0; --g) {
+    const int64_t base = g * span + blockIdx.x * static_cast<int64_t>(threads) + threadIdx.x;
+    P v[kUnroll];
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) o[j] = from_float<T>(quantize(to_float(e[j]), alpha, beta, k));
-    ov[i] = r;
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t i = base + u * stride;
+      if (i < units) v[u] = load_pack(xp + i);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t i = base + u * stride;
+      if (i >= units) continue;
+#pragma unroll
+      for (int j = 0; j < W; ++j) v[u].e[j] = op(v[u].e[j]);
+      store_pack(outp + i, v[u]);
+    }
   }
-  for (int64_t i = nvec * kVec + tid; i < n; i += stride) {
-    out[i] = from_float<T>(quantize(to_float(x[i]), alpha, beta, k));
+}
+
+template <typename T>
+struct Copy {
+  __device__ __forceinline__ T operator()(T v) const { return v; }
+};
+
+struct ByLevel {  // an fp32 input's output, through the table of outputs by level
+  float alpha, beta, k, table_top;
+  const float* table;
+  __device__ __forceinline__ float operator()(float v) const {
+    return quantize_by_level(v, alpha, beta, k, table_top, table);
   }
+};
+
+struct ByValue {  // a bf16 input's output, from the table by input bits
+  const unsigned short* table;
+  __device__ __forceinline__ __nv_bfloat16 operator()(__nv_bfloat16 v) const {
+    return __ushort_as_bfloat16(table[__bfloat16_as_ushort(v)]);
+  }
+};
+
+// (alpha, beta, k) from pass 1's range and the bits.
+struct Scale {
+  float alpha, beta, k;
+};
+
+__device__ __forceinline__ Scale tensor_scale(const TensorScratch* s, float bits) {
+  const float2 range = s->range;
+  return {__fadd_rn(__fsub_rn(range.y, range.x), kEps), range.x, __fsub_rn(exp2f(bits), 1.0f)};
+}
+
+// Pass 2 for fp32: quantize x into out through the table of outputs by
+// level (up to kMaxTableLevels levels; above, directly), or copy it (select,
+// bits >= 32).
+template <int W>
+__global__ void __launch_bounds__(kThreads, 4)
+tensor_quantize_f32(const float* __restrict__ x, float* __restrict__ out, int64_t n,
+                    const float* __restrict__ bits, int select,
+                    const TensorScratch* __restrict__ s) {
+  __shared__ float by_level[kMaxTableLevels];
+  const float b = *bits;
+  if (select && b >= 32.0f) {
+    quantize_walk<float, W>(x, out, n, kThreads, Copy<float>());
+    return;
+  }
+  const Scale q = tensor_scale(s, b);
+  // the table holds levels 0 .. table_top; -1: no table
+  const float table_top =
+      q.k >= 0.0f && q.k < static_cast<float>(kMaxTableLevels) ? floorf(q.k) : -1.0f;
+  for (int m = threadIdx.x; m <= static_cast<int>(table_top); m += kThreads) {
+    by_level[m] = __fadd_rn(__fmul_rn(q.alpha, __fdiv_rn(static_cast<float>(m), q.k)), q.beta);
+  }
+  __syncthreads();
+  quantize_walk<float, W>(x, out, n, kThreads, ByLevel{q.alpha, q.beta, q.k, table_top, by_level});
+}
+
+// Pass 2 for bf16 through the table of outputs by input value: each block
+// first fills the entries of the values in [min, max] and of the NaNs (no
+// other value occurs), then walks.
+template <int W>
+__global__ void __launch_bounds__(kLutThreads, 1)
+tensor_quantize_bf16(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
+                     int64_t n, const float* __restrict__ bits, int select,
+                     const TensorScratch* __restrict__ s) {
+  extern __shared__ unsigned short by_value[];
+  const float b = *bits;
+  if (select && b >= 32.0f) {
+    quantize_walk<__nv_bfloat16, W>(x, out, n, kLutThreads, Copy<__nv_bfloat16>());
+    return;
+  }
+  const Scale q = tensor_scale(s, b);
+  const float lo = s->range.x, hi = s->range.y;
+  for (int v = threadIdx.x; v < kBf16Values; v += kLutThreads) {
+    const float f = __uint_as_float(static_cast<unsigned>(v) << 16);
+    if (!(f < lo || f > hi)) {  // in range, or a NaN
+      by_value[v] = __bfloat16_as_ushort(__float2bfloat16_rn(quantize(f, q.alpha, q.beta, q.k)));
+    }
+  }
+  __syncthreads();
+  quantize_walk<__nv_bfloat16, W>(x, out, n, kLutThreads, ByValue{by_value});
+}
+
+// The launch settings below are read once per device and kept in arrays
+// indexed by the device's ordinal; the kernels run on the current device.
+constexpr int kMaxDevices = 64;
+
+int sm_count(int device) {
+  static int sms[kMaxDevices] = {};
+  if (!sms[device]) cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+  return sms[device];
+}
+
+// Blocks of Kernel (`threads` a block, `smem` bytes of dynamic shared
+// memory, which Kernel is first allowed where that is more than the default
+// 48 KB) that fit on one SM of `device`; 0 where a CUDA call failed, its
+// error left for cudaGetLastError.
+template <auto Kernel>
+int blocks_per_sm(int device, int threads, int smem) {
+  static int per_sm[kMaxDevices] = {};
+  if (!per_sm[device]) {
+    if (smem > 48 * 1024 &&
+        cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+            cudaSuccess) {
+      return 0;
+    }
+    int fit = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, Kernel, threads, smem) !=
+            cudaSuccess || fit < 1) {
+      return 0;
+    }
+    per_sm[device] = fit;
+  }
+  return per_sm[device];
+}
+
+// Blocks of `threads` that keep every SM of `device` full (per_sm each), at
+// most what `units` needs and what the scratch holds.
+int persistent_grid(int device, int per_sm, int threads, int64_t units) {
+  int64_t grid = static_cast<int64_t>(per_sm) * sm_count(device);
+  const int64_t wanted = (units + threads * kUnroll - 1) / (threads * kUnroll);
+  if (grid > wanted) grid = wanted;
+  if (grid > kMaxTensorBlocks) grid = kMaxTensorBlocks;
+  return grid > 1 ? static_cast<int>(grid) : 1;
+}
+
+// Both passes on the current device; 0 or a CUDA error (a launch setting
+// that could not be read launches nothing).
+template <typename T, int W>
+int launch_tensor_w(const T* x, T* out, int64_t n, TensorScratch* s, const float* bits,
+                    int select, cudaStream_t stream) {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return static_cast<int>(cudaGetLastError());
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  const int minmax_per_sm = blocks_per_sm<tensor_minmax<T, W>>(device, kThreads, 0);
+  int quantize_per_sm;
+  if constexpr (sizeof(T) == 2) {  // bf16
+    quantize_per_sm = blocks_per_sm<tensor_quantize_bf16<W>>(device, kLutThreads,
+                                                             kBf16TableBytes);
+  } else {
+    quantize_per_sm = blocks_per_sm<tensor_quantize_f32<W>>(device, kThreads, 0);
+  }
+  if (!minmax_per_sm || !quantize_per_sm) return static_cast<int>(cudaGetLastError());
+  const int64_t units = n / W;
+  tensor_minmax<T, W><<<persistent_grid(device, minmax_per_sm, kThreads, units), kThreads, 0,
+                        stream>>>(x, n, bits, select, s);
+  if constexpr (sizeof(T) == 2) {
+    tensor_quantize_bf16<W><<<persistent_grid(device, quantize_per_sm, kLutThreads, units),
+                              kLutThreads, kBf16TableBytes, stream>>>(x, out, n, bits, select, s);
+  } else {
+    tensor_quantize_f32<W><<<persistent_grid(device, quantize_per_sm, kThreads, units), kThreads,
+                             0, stream>>>(x, out, n, bits, select, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tensor(const void* x, void* out, int64_t n, TensorScratch* s, const float* bits,
+                  int select, cudaStream_t stream) {
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (aligned) return launch_tensor_w<T, 16 / sizeof(T)>(xt, ot, n, s, bits, select, stream);
+  return launch_tensor_w<T, 1>(xt, ot, n, s, bits, select, stream);
 }
 
 // Per-column kernels.  Block (i, j) owns kColTile neighbouring columns and
@@ -349,35 +625,150 @@ group_quantize(const GroupEntry* __restrict__ entries, const int* __restrict__ c
   }
 }
 
-template <typename T>
-void launch_tensor(const void* x, void* out, int64_t n, float2* partials, int nparts,
-                   const float* bits, cudaStream_t stream) {
-  const int vectorized = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                         (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  const T* xt = static_cast<const T*>(x);
-  minmax_partials<T><<<nparts, kThreads, 0, stream>>>(xt, n, vectorized, partials);
-  quantize_tensor<T><<<nparts, kThreads, 0, stream>>>(xt, static_cast<T*>(out), n, vectorized,
-                                                      partials, nparts, bits);
+// Grouped per-column kernels: T fp32 tensors in one pair of launches.
+//
+// pf_fake_quant_columns_group is the bucket routes' counterpart of the
+// grouped per-tensor kernels (a second route of _fq_pallas_cols_grid): with
+// --uql_use_buckets every quantized weight went through the per-column
+// kernels in two launches of its own, after a copy into its column view and
+// before the select on bits < 32, so the 52 weights of ResNet-50 cost 52
+// launch pairs and as many selects a forward.  Here tensor t is a column
+// matrix [rows, cols] whose element (r, c) is x[r * cols + c]: channel
+// buckets [n / c_out, c_out], split buckets [bucket_size, ceil(n /
+// bucket_size)], where an element past n reads as x[n - 1] (the pad of the
+// reference) and is never written, so no padded copy is made.  A chunk is a
+// tensor, a tile of kColTile columns and kColGroupRows of its rows; the chunk
+// table depends only on the shapes (the wrapper builds it once and keeps it
+// on the device), and each tensor's chunks are its column tiles in order,
+// each tile's row chunks consecutive.  Pass 1 writes each chunk's per-column
+// (min, max); pass 2, walking the chunks backwards (its first reads find
+// pass 1's last in L2), reduces its tile's partials in a fixed order and
+// quantizes its chunk, or copies it where bits >= 32 (the select, whose
+// gradient is the identity either way).  Bound: bytes, each element read
+// twice and written once; a warp reads and writes one row's 32 columns, 128
+// consecutive bytes.  The arithmetic is quantize(), so each tensor's result
+// equals pf_fake_quant_columns' on its column view bit for bit.
+
+constexpr int kColGroupRows = 512;  // rows of a chunk: 16K elements at 32 columns
+constexpr int kColUnroll = 8;       // rows a thread loads before it uses them
+
+// One tensor of a column group.
+struct ColumnEntry {
+  const float* x;
+  int64_t out_offset;   // of its output in the flat output, a multiple of 4
+  int64_t n;            // its elements
+  int64_t rows, cols;   // its column view
+  int64_t first_chunk;
+  int64_t row_chunks;   // chunks of a column tile: ceil(rows / kColGroupRows)
+};
+
+// Chunk c's tensor entry, first column and row range.
+struct ColumnChunk {
+  int t;
+  ColumnEntry e;
+  int64_t col, r0, r1, first_partial;
+};
+
+__device__ __forceinline__ ColumnChunk column_chunk(const ColumnEntry* entries,
+                                                    const int* chunk_tensor, int c) {
+  ColumnChunk ch;
+  ch.t = chunk_tensor[c];
+  ch.e = entries[ch.t];
+  const int64_t local = c - ch.e.first_chunk;
+  const int64_t tile = local / ch.e.row_chunks;
+  ch.col = tile * kColTile + threadIdx.x;
+  ch.r0 = (local % ch.e.row_chunks) * kColGroupRows;
+  ch.r1 = ch.r0 + kColGroupRows < ch.e.rows ? ch.r0 + kColGroupRows : ch.e.rows;
+  ch.first_partial = ch.e.first_chunk + tile * ch.e.row_chunks;
+  return ch;
+}
+
+__global__ void __launch_bounds__(kColTile * kRowWarps)
+column_group_partials(const ColumnEntry* __restrict__ entries, const int* __restrict__ chunk_tensor,
+                      const float* __restrict__ bits, float2* __restrict__ partials) {
+  const int c = blockIdx.x;
+  const ColumnChunk ch = column_chunk(entries, chunk_tensor, c);
+  if (bits[ch.t] >= 32.0f) return;  // copied in pass 2; no partial is read
+  float lo = FLT_MAX, hi = -FLT_MAX;
+  if (ch.col < ch.e.cols) {
+    const float pad = ch.e.x[ch.e.n - 1];
+    for (int64_t r = ch.r0 + threadIdx.y; r < ch.r1; r += kRowWarps * kColUnroll) {
+      float f[kColUnroll];
+#pragma unroll
+      for (int u = 0; u < kColUnroll; ++u) {  // past n: the pad; past the chunk: row r again
+        const int64_t row = r + u * kRowWarps, i = row * ch.e.cols + ch.col;
+        f[u] = row >= ch.r1 ? f[0] : i < ch.e.n ? ch.e.x[i] : pad;
+      }
+#pragma unroll
+      for (int u = 0; u < kColUnroll; ++u) {
+        lo = fminf(lo, f[u]);
+        hi = fmaxf(hi, f[u]);
+      }
+    }
+  }
+  column_minmax(lo, hi);
+  if (threadIdx.y == 0) partials[c * static_cast<int64_t>(kColTile) + threadIdx.x] =
+      make_float2(lo, hi);
+}
+
+__global__ void __launch_bounds__(kColTile * kRowWarps)
+column_group_quantize(const ColumnEntry* __restrict__ entries, const int* __restrict__ chunk_tensor,
+                      const float* __restrict__ bits, const float2* __restrict__ partials,
+                      float* __restrict__ out) {
+  const int c = gridDim.x - 1 - blockIdx.x;  // the reverse of pass 1's order
+  const ColumnChunk ch = column_chunk(entries, chunk_tensor, c);
+  const bool active = ch.col < ch.e.cols;
+  const bool copy = bits[ch.t] >= 32.0f;
+  float alpha = 0.0f, beta = 0.0f, k = 0.0f;
+  if (!copy) {  // uniform across the block: column_minmax's barrier is safe
+    float lo = FLT_MAX, hi = -FLT_MAX;
+    if (active) {
+      for (int64_t j = threadIdx.y; j < ch.e.row_chunks; j += kRowWarps) {
+        const float2 p = partials[(ch.first_partial + j) * kColTile + threadIdx.x];
+        lo = fminf(lo, p.x);
+        hi = fmaxf(hi, p.y);
+      }
+    }
+    column_minmax(lo, hi);
+    alpha = __fadd_rn(__fsub_rn(hi, lo), kEps);
+    beta = lo;
+    k = levels(bits + ch.t);
+  }
+  if (!active) return;
+  float* o = out + ch.e.out_offset;
+  for (int64_t r = ch.r0 + threadIdx.y; r < ch.r1; r += kRowWarps * kColUnroll) {
+    float f[kColUnroll];
+#pragma unroll
+    for (int u = 0; u < kColUnroll; ++u) {
+      const int64_t row = r + u * kRowWarps, i = row * ch.e.cols + ch.col;
+      if (row < ch.r1 && i < ch.e.n) f[u] = ch.e.x[i];
+    }
+#pragma unroll
+    for (int u = 0; u < kColUnroll; ++u) {
+      const int64_t row = r + u * kRowWarps, i = row * ch.e.cols + ch.col;
+      if (row < ch.r1 && i < ch.e.n) o[i] = copy ? f[u] : quantize(f[u], alpha, beta, k);
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// x, out: n elements of fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1), n >= 1.
-// partials: scratch of nparts float2; nparts in [1, 1024] is also the grid size.
-// bits: one fp32 on the device.
-int pf_fake_quant_tensor(const void* x, void* out, int64_t n, int is_bf16, void* partials,
-                         int nparts, const float* bits, void* stream) {
+// x, out: n elements of fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1), n >= 1,
+// dense in memory.  scratch: pf_fake_quant_tensor_scratch_bytes() on the
+// device, zeroed before its first use and used by one stream at a time.
+// bits: one fp32 on the device.  select: copy x where bits >= 32.  Runs on
+// the current device, which must hold x, out, scratch and stream.
+int pf_fake_quant_tensor(const void* x, void* out, int64_t n, int is_bf16, void* scratch,
+                         const float* bits, int select, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float2* p = static_cast<float2*>(partials);
-  if (is_bf16) {
-    launch_tensor<__nv_bfloat16>(x, out, n, p, nparts, bits, s);
-  } else {
-    launch_tensor<float>(x, out, n, p, nparts, bits, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  TensorScratch* sc = static_cast<TensorScratch*>(scratch);
+  if (is_bf16) return launch_tensor<__nv_bfloat16>(x, out, n, sc, bits, select, s);
+  return launch_tensor<float>(x, out, n, sc, bits, select, s);
 }
+
+int pf_fake_quant_tensor_scratch_bytes() { return static_cast<int>(sizeof(TensorScratch)); }
 
 // A group of T fp32 tensors.  entries: T GroupEntry on the device (x, the
 // output's offset in `out` in elements, a multiple of 4; n >= 1; the first
@@ -411,5 +802,28 @@ int pf_fake_quant_columns(const float* x, float* out, int64_t rows, int64_t cols
   quantize_columns<<<grid, block, 0, s>>>(x, out, rows, cols, chunk, p, nchunks, bits);
   return static_cast<int>(cudaGetLastError());
 }
+
+// A group of T fp32 column matrices.  entries: T ColumnEntry on the device
+// (x; the output's offset in `out` in elements, a multiple of 4; n >= 1;
+// rows, cols >= 1 with rows * cols >= n; the first chunk and the row chunks
+// of a column tile, tensors in order); chunk_tensor: nchunks ints on the
+// device, the tensor of each chunk (nchunks = the sum of ceil(cols /
+// kColTile) * ceil(rows / kColGroupRows)); bits: T fp32 on the device;
+// partials: scratch of nchunks * kColTile float2; out: 16-byte aligned.
+int pf_fake_quant_columns_group(const void* entries, const int* chunk_tensor, int nchunks,
+                                const float* bits, void* partials, float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ColumnEntry* e = static_cast<const ColumnEntry*>(entries);
+  float2* p = static_cast<float2*>(partials);
+  const dim3 block(kColTile, kRowWarps);
+  column_group_partials<<<nchunks, block, 0, s>>>(e, chunk_tensor, bits, p);
+  column_group_quantize<<<nchunks, block, 0, s>>>(e, chunk_tensor, bits, p, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The constants the wrapper lays its tables out by.
+int pf_fake_quant_column_group_rows() { return kColGroupRows; }
+int pf_fake_quant_column_tile() { return kColTile; }
+int pf_fake_quant_column_entry_bytes() { return static_cast<int>(sizeof(ColumnEntry)); }
 
 }  // extern "C"

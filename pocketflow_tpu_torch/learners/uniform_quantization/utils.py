@@ -4,9 +4,11 @@
 Every PFConv/PFDense kernel passes through ``QuantPolicy.process_weight`` and
 every relu output through ``process_act``.  Per-layer bit-widths are device
 tensors in ``TrainState.extra``: a new bit list is a new tensor, and a step
-never reads bits back to the host.  On the per-tensor route the first
-``process_weight`` of a forward quantizes all of the policy's weights in one
-grouped kernel call (``fake_quant_group``), and each site takes its result.
+never reads bits back to the host.  The first ``process_weight`` of a forward
+quantizes all of the policy's weights in one grouped kernel call
+(``fake_quant_group`` per tensor, ``fake_quant_bucket_group`` with buckets),
+and each site takes its result; each activation goes through one kernel call
+with the select on bits < 32 inside (``fake_quant_select``).
 """
 
 from __future__ import annotations
@@ -89,14 +91,13 @@ def quant_weights(model: torch.nn.Module, weight_paths: List[str]) -> List[torch
 class QuantPolicy(CompressionPolicy):
     """Fake-quantizes selected kernels + activations at per-layer bit-widths.
 
-    `weights` are the kernels at `weight_paths` (``quant_weights``): on the
-    per-tensor route the first ``process_weight`` of a forward quantizes them
-    all in one grouped call, with bits >= 32 passing a kernel through, and
-    each site takes its result.  The bucket routes quantize site by site.
+    `weights` are the kernels at `weight_paths` (``quant_weights``): the
+    first ``process_weight`` of a forward quantizes them all in one grouped
+    call (per tensor, or in channel or split buckets), with bits >= 32
+    passing a kernel through, and each site takes its result.
 
     ``quant_acts`` disables activation quantization when every activation
-    runs at >= 32 bits, so that no relu pays for a quantization whose result
-    the `where` discards.
+    runs at >= 32 bits, so that no relu pays for a copy of itself.
     """
 
     def __init__(self, weight_paths: List[str], w_bits: torch.Tensor, a_bits: torch.Tensor,
@@ -122,19 +123,13 @@ class QuantPolicy(CompressionPolicy):
         if kernel is not self.weights[idx]:
             raise ValueError('QuantPolicy: the kernel at %s is not the weight the policy was '
                              'built with' % path)
-        if not FLAGS.uql_use_buckets:
-            if self._grouped is None:  # the forward's first quantized site
+        if self._grouped is None:  # the forward's first quantized site
+            if FLAGS.uql_use_buckets:
+                self._grouped = fq.fake_quant_bucket_group(
+                    self.weights, self.w_bits, FLAGS.uql_bucket_type, FLAGS.uql_bucket_size)
+            else:
                 self._grouped = fq.fake_quant_group(self.weights, self.w_bits)
-            return self._grouped[idx]
-        bits = self.w_bits[idx]
-        if FLAGS.uql_bucket_type == 'channel':
-            q = fq.fake_quant_channel_bucket(kernel, bits)
-        elif FLAGS.uql_bucket_type == 'split':
-            q = fq.fake_quant_split_bucket(kernel, bits, FLAGS.uql_bucket_size)
-        else:
-            raise ValueError('unrecognized bucket type: ' + FLAGS.uql_bucket_type)
-        # bits >= 32 means full precision
-        return torch.where(bits < 32, q, kernel)
+        return self._grouped[idx]
 
     def process_act(self, path, act):
         if not path.startswith('act/') or not self.quant_acts:
@@ -142,8 +137,8 @@ class QuantPolicy(CompressionPolicy):
         if self.a_bits.shape[0] == 0:
             return act
         idx = int(path.split('/')[1])  # call-order site id assigned by relu()
-        bits = self.a_bits[idx]
-        return torch.where(bits < 32, fq.fake_quant(act, bits).to(act.dtype), act)
+        # bits >= 32 means full precision: the select is inside the op
+        return fq.fake_quant_select(act, self.a_bits[idx])
 
 
 def bits_state(statistics: Dict[str, Any], w_bit_list=None, a_bit_list=None,

@@ -12,15 +12,17 @@ nb_buckets], scale per column) and channel buckets (reshape [-1, c_out], scale
 per output channel).  Each public op is a ``torch.autograd.Function`` whose
 backward is the identity.
 
-Three CUDA kernels carry the forward (``csrc/fake_quant.cu``; its header says
+Four CUDA kernels carry the forward (``csrc/fake_quant.cu``; its header says
 which TPU kernel each replaces, what bounds it and what its design does about
-that): ``fake_quant_per_tensor``, ``fake_quant_per_tensor_group`` (many fp32
-tensors at their own bits in one launch pair, the train step's weights) and
-``fake_quant_per_column``.  Dispatch is by device: a CPU tensor takes the
-plain PyTorch version (``_quantize_math_torch``), a CUDA tensor launches the
-kernel, anything else raises.  No call falls back from one to the other.  The
-module-level counters count kernel launches and plain calls, so a run can
-show which path it took.
+that): ``fake_quant_per_tensor`` (with ``select``, the quant policy's select
+on bits < 32 too: the activations), ``fake_quant_per_tensor_group`` (many
+fp32 tensors at their own bits in one launch pair: the train step's
+weights), ``fake_quant_per_column`` and ``fake_quant_per_column_group`` (the
+bucket routes' weights in one launch pair).  Dispatch is by device: a CPU
+tensor takes the plain PyTorch version (``_quantize_math_torch``), a CUDA
+tensor launches the kernel, anything else raises.  No call falls back from
+one to the other.  The module-level counters count kernel launches and plain
+calls, so a run can show which path it took.
 """
 
 from __future__ import annotations
@@ -35,22 +37,29 @@ import torch
 
 EPS = 1e-10
 
-# launches of the CUDA kernels, and calls of the plain version (CPU tensors)
+# launches of the CUDA kernels (select_launches: those of the per-tensor
+# kernel with the select), and calls of the plain version (CPU tensors)
 tensor_kernel_launches = 0
+select_launches = 0
 group_kernel_launches = 0
 column_kernel_launches = 0
+column_group_launches = 0
 plain_calls = 0
 
 
 def reset_counters():
-    global tensor_kernel_launches, group_kernel_launches, column_kernel_launches, plain_calls
-    tensor_kernel_launches = group_kernel_launches = column_kernel_launches = plain_calls = 0
+    global tensor_kernel_launches, select_launches, group_kernel_launches
+    global column_kernel_launches, column_group_launches, plain_calls
+    tensor_kernel_launches = select_launches = group_kernel_launches = 0
+    column_kernel_launches = column_group_launches = plain_calls = 0
 
 
 def counters() -> dict:
     return {'fake_quant_per_tensor': tensor_kernel_launches,
+            'fake_quant_per_tensor_select': select_launches,
             'fake_quant_per_tensor_group': group_kernel_launches,
             'fake_quant_per_column': column_kernel_launches,
+            'fake_quant_per_column_group': column_group_launches,
             'plain': plain_calls}
 
 
@@ -81,12 +90,12 @@ def _quantize_math_torch(x: torch.Tensor, k: torch.Tensor, axis: Optional[int]) 
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-_TENSOR_THREADS = 256  # kThreads in fake_quant.cu
-_MAX_PARTIALS = 1024
-_COL_TILE = 32          # kColTile in fake_quant.cu: columns per block
+_COL_TILE = 32          # kColTile in fake_quant.cu: columns per block (one warp wide)
 _MIN_CHUNK_ROWS = 64    # rows per block of the per-column kernels, at least
 _BLOCKS_PER_SM = 4      # per-column grids aim at this many blocks per SM
 _GROUP_CHUNK = 16384    # kGroupChunk in fake_quant.cu: elements a block of a group
+_COL_GROUP_ROWS = 512   # kColGroupRows in fake_quant.cu: rows a block of a column group
+_COL_ENTRY_FIELDS = 7   # int64 fields of a ColumnEntry in fake_quant.cu
 _GROUP_TABLES = 8       # device chunk tables kept, one per group of tensors
 
 
@@ -95,16 +104,23 @@ def _library() -> ctypes.CDLL:
     lib, _, _ = build.load('fake_quant.cu')
     if not getattr(lib, '_pf_bound', False):
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.pf_fake_quant_tensor.argtypes = [ptr, ptr, i64, i32, ptr, i32, ptr, ptr]
+        lib.pf_fake_quant_tensor.argtypes = [ptr, ptr, i64, i32, ptr, ptr, i32, ptr]
         lib.pf_fake_quant_tensor.restype = i32
         lib.pf_fake_quant_columns.argtypes = [ptr, ptr, i64, i64, i64, ptr, i32, ptr, ptr]
         lib.pf_fake_quant_columns.restype = i32
-        lib.pf_fake_quant_tensor_group.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr]
-        lib.pf_fake_quant_tensor_group.restype = i32
-        lib.pf_fake_quant_group_chunk.restype = i32
-        if lib.pf_fake_quant_group_chunk() != _GROUP_CHUNK:
-            raise RuntimeError('fake_quant.cu cuts groups into chunks of %d elements, the '
-                               'wrapper into %d' % (lib.pf_fake_quant_group_chunk(), _GROUP_CHUNK))
+        for name in ('pf_fake_quant_tensor_group', 'pf_fake_quant_columns_group'):
+            getattr(lib, name).argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr]
+            getattr(lib, name).restype = i32
+        layout = {'pf_fake_quant_group_chunk': _GROUP_CHUNK,
+                  'pf_fake_quant_column_group_rows': _COL_GROUP_ROWS,
+                  'pf_fake_quant_column_tile': _COL_TILE,
+                  'pf_fake_quant_column_entry_bytes': 8 * _COL_ENTRY_FIELDS}
+        for name, want in layout.items():
+            getattr(lib, name).restype = i32
+            if getattr(lib, name)() != want:
+                raise RuntimeError('fake_quant.cu: %s() is %d, the wrapper lays its tables out '
+                                   'for %d' % (name, getattr(lib, name)(), want))
+        lib.pf_fake_quant_tensor_scratch_bytes.restype = i32
         lib._pf_bound = True
     return lib
 
@@ -142,31 +158,48 @@ def _dense(x: torch.Tensor) -> bool:
         memory_format=torch.channels_last))
 
 
-def fake_quant_per_tensor(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """Per-tensor fake-quant of fp32 or bf16 `x` at `bits` (0-d fp32 tensor);
-    the result has x's dtype and memory layout.  Kernel K1' on CUDA, plain
-    version on the CPU."""
-    global tensor_kernel_launches, plain_calls
+# (device, stream) -> the per-tensor kernel's scratch on that stream, zeroed
+# once: its pass 1 leaves it zeroed for the next call
+_tensor_scratch = {}
+
+
+def _scratch(device: torch.device, stream) -> torch.Tensor:
+    key = (device, stream.cuda_stream)
+    scratch = _tensor_scratch.get(key)
+    if scratch is None:
+        scratch = torch.zeros(_library().pf_fake_quant_tensor_scratch_bytes() // 4,
+                              dtype=torch.int32, device=device)
+        _tensor_scratch[key] = scratch
+    return scratch
+
+
+def fake_quant_per_tensor(x: torch.Tensor, bits: torch.Tensor,
+                          select: bool = False) -> torch.Tensor:
+    """Per-tensor fake-quant of fp32 or bf16 `x` at `bits` (0-d fp32 tensor)
+    or, with `select`, x unchanged where bits >= 32 (the quant policy's
+    select); the result has x's dtype and memory layout.  Kernel K1' on
+    CUDA, plain version on the CPU."""
+    global tensor_kernel_launches, select_launches, plain_calls
     if x.device.type == 'cpu':
         plain_calls += 1
-        return _quantize_math_torch(x, _levels(bits), None).to(x.dtype)
+        q = _quantize_math_torch(x, _levels(bits), None).to(x.dtype)
+        return torch.where(bits < 32, q, x) if select else q
     if x.device.type != 'cuda':
         raise ValueError('fake_quant_per_tensor: no kernel for device %s' % x.device)
     if x.dtype not in (torch.float32, torch.bfloat16) or not _dense(x) or x.numel() < 1:
         raise ValueError('fake_quant_per_tensor takes a non-empty dense fp32/bf16 '
                          'tensor, got %s %s' % (x.dtype, tuple(x.shape)))
     _check_bits(bits, x)
-    n = x.numel()
-    per_block = _TENSOR_THREADS * (16 // x.element_size()) * 4
-    nparts = int(min(_MAX_PARTIALS, max(1, -(-n // per_block))))
     out = torch.empty_like(x)
-    partials = torch.empty(2 * nparts, dtype=torch.float32, device=x.device)
-    err = _library().pf_fake_quant_tensor(
-        x.data_ptr(), out.data_ptr(), n, int(x.dtype == torch.bfloat16),
-        partials.data_ptr(), nparts, bits.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device)
+    with torch.cuda.device(x.device):
+        err = _library().pf_fake_quant_tensor(
+            x.data_ptr(), out.data_ptr(), x.numel(), int(x.dtype == torch.bfloat16),
+            _scratch(x.device, stream).data_ptr(), bits.data_ptr(), int(select),
+            stream.cuda_stream)
     _check_launch(err, 'fake_quant_per_tensor')
     tensor_kernel_launches += 1
+    select_launches += int(select)
     return out
 
 
@@ -184,31 +217,61 @@ def _group_plan(sizes: Sequence[int]) -> Tuple[List[int], List[int], List[int], 
     return offsets, first_chunks, chunk_tensor, total
 
 
-# (device, (address, shape) of each tensor) -> the device tables of that group
+# (kind, device, (address, shape) of each tensor) -> the device tables of that group
 _group_tables: 'collections.OrderedDict' = collections.OrderedDict()
 
 
-def _group_table(xs: Sequence[torch.Tensor]):
-    """(entries [T, 4] int64, chunk_tensor [nchunks] int32, (shape, strides,
-    offset) of each output in the flat output, flat output size) of a group,
-    the tables on its device.  Built at a group's first call and kept: a
-    train step quantizes the same parameters (updated in place) every step,
-    so a step copies nothing to the device."""
-    key = (xs[0].device, tuple((x.data_ptr(), x.shape) for x in xs))
+def _cached_table(key, build):
+    """The tables of a group, built by build() at the group's first call and
+    kept: a train step quantizes the same parameters (updated in place)
+    every step, so a step copies nothing to the device."""
     table = _group_tables.get(key)
     if table is None:
-        offsets, first_chunks, chunk_tensor, total = _group_plan([x.numel() for x in xs])
-        entries = torch.tensor([[x.data_ptr(), o, x.numel(), f]
-                                for x, o, f in zip(xs, offsets, first_chunks)], dtype=torch.int64)
-        table = (entries.to(xs[0].device),
-                 torch.tensor(chunk_tensor, dtype=torch.int32).to(xs[0].device),
-                 [(x.shape, x.stride(), o) for x, o in zip(xs, offsets)], total)
-        _group_tables[key] = table
+        table = _group_tables[key] = build()
         if len(_group_tables) > _GROUP_TABLES:
             _group_tables.popitem(last=False)
     else:
         _group_tables.move_to_end(key)
     return table
+
+
+def _group_key(kind, xs: Sequence[torch.Tensor]):
+    return (kind, xs[0].device, tuple((x.data_ptr(), x.shape) for x in xs))
+
+
+def _flat_layout(xs: Sequence[torch.Tensor], offsets: Sequence[int]):
+    """(shape, strides, offset) of each output in the flat output."""
+    return [(x.shape, x.stride(), o) for x, o in zip(xs, offsets)]
+
+
+def _group_table(xs: Sequence[torch.Tensor]):
+    """(entries [T, 4] int64, chunk_tensor [nchunks] int32, (shape, strides,
+    offset) of each output in the flat output, flat output size) of a group,
+    the tables on its device, built once per group."""
+    def build():
+        offsets, first_chunks, chunk_tensor, total = _group_plan([x.numel() for x in xs])
+        entries = torch.tensor([[x.data_ptr(), o, x.numel(), f]
+                                for x, o, f in zip(xs, offsets, first_chunks)], dtype=torch.int64)
+        return (entries.to(xs[0].device),
+                torch.tensor(chunk_tensor, dtype=torch.int32).to(xs[0].device),
+                _flat_layout(xs, offsets), total)
+    return _cached_table(_group_key('tensor', xs), build)
+
+
+def _check_group(name: str, xs: Sequence[torch.Tensor], bits: torch.Tensor):
+    """Raise unless xs are non-empty contiguous fp32 tensors on one device
+    and bits one float32 each on it."""
+    if not xs:
+        raise ValueError('%s takes at least one tensor' % name)
+    device = xs[0].device
+    for x in xs:
+        if x.device != device or x.dtype != torch.float32 or not x.is_contiguous() \
+                or x.numel() < 1:
+            raise ValueError('%s takes non-empty contiguous fp32 tensors on one device, got '
+                             '%s %s on %s' % (name, x.dtype, tuple(x.shape), x.device))
+    if bits.device != device or bits.dtype != torch.float32 or tuple(bits.shape) != (len(xs),):
+        raise ValueError('bits must be %d float32 on %s, got %s %s on %s'
+                         % (len(xs), device, bits.dtype, tuple(bits.shape), bits.device))
 
 
 def fake_quant_per_tensor_group(xs: Sequence[torch.Tensor], bits: torch.Tensor) -> List[torch.Tensor]:
@@ -219,18 +282,8 @@ def fake_quant_per_tensor_group(xs: Sequence[torch.Tensor], bits: torch.Tensor) 
     the CPU."""
     global group_kernel_launches, plain_calls
     xs = list(xs)
-    if not xs:
-        raise ValueError('fake_quant_per_tensor_group takes at least one tensor')
+    _check_group('fake_quant_per_tensor_group', xs, bits)
     device = xs[0].device
-    for x in xs:
-        if x.device != device or x.dtype != torch.float32 or not x.is_contiguous() \
-                or x.numel() < 1:
-            raise ValueError('fake_quant_per_tensor_group takes non-empty contiguous fp32 '
-                             'tensors on one device, got %s %s on %s'
-                             % (x.dtype, tuple(x.shape), x.device))
-    if bits.device != device or bits.dtype != torch.float32 or tuple(bits.shape) != (len(xs),):
-        raise ValueError('bits must be %d float32 on %s, got %s %s on %s'
-                         % (len(xs), device, bits.dtype, tuple(bits.shape), bits.device))
     if device.type == 'cpu':
         plain_calls += 1
         return [torch.where(b < 32, _quantize_math_torch(x, _levels(b), None), x)
@@ -240,9 +293,10 @@ def fake_quant_per_tensor_group(xs: Sequence[torch.Tensor], bits: torch.Tensor) 
     entries, chunk_tensor, layout, total = _group_table(xs)
     out = torch.empty(total, dtype=torch.float32, device=device)
     partials = torch.empty(2 * chunk_tensor.numel(), dtype=torch.float32, device=device)
-    err = _library().pf_fake_quant_tensor_group(
-        entries.data_ptr(), chunk_tensor.data_ptr(), chunk_tensor.numel(), bits.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        err = _library().pf_fake_quant_tensor_group(
+            entries.data_ptr(), chunk_tensor.data_ptr(), chunk_tensor.numel(), bits.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     _check_launch(err, 'fake_quant_per_tensor_group')
     group_kernel_launches += 1
     return [out.as_strided(shape, strides, offset) for shape, strides, offset in layout]
@@ -266,12 +320,116 @@ def fake_quant_per_column(x2d: torch.Tensor, bits: torch.Tensor) -> torch.Tensor
     chunk, nchunks = _row_chunks(rows, cols, _sm_count(x2d.device))
     out = torch.empty_like(x2d)
     partials = torch.empty(2 * nchunks * cols, dtype=torch.float32, device=x2d.device)
-    err = _library().pf_fake_quant_columns(
-        x2d.data_ptr(), out.data_ptr(), rows, cols, chunk, partials.data_ptr(), nchunks,
-        bits.data_ptr(), torch.cuda.current_stream(x2d.device).cuda_stream)
+    with torch.cuda.device(x2d.device):
+        err = _library().pf_fake_quant_columns(
+            x2d.data_ptr(), out.data_ptr(), rows, cols, chunk, partials.data_ptr(), nchunks,
+            bits.data_ptr(), torch.cuda.current_stream(x2d.device).cuda_stream)
     _check_launch(err, 'fake_quant_per_column')
     column_kernel_launches += 1
     return out
+
+
+def _column_view(shape: Sequence[int], bucket_size: Optional[int]) -> Tuple[int, int]:
+    """(rows, cols) of a tensor's column view: channel buckets (bucket_size
+    None) [n / c_out, c_out]; split buckets the flattened tensor as row-major
+    [bucket_size, ceil(n / bucket_size)], as tf.reshape (bucket j collects
+    the elements with index % cols == j), the missing elements reading as the
+    last one."""
+    n = int(np.prod(shape))
+    if bucket_size is None:
+        return n // shape[-1], shape[-1]
+    return bucket_size, -(-n // bucket_size)
+
+
+def _column_matrix(x: torch.Tensor, bucket_size: Optional[int]) -> torch.Tensor:
+    """x's column view as a [rows, cols] tensor (split buckets padded with
+    the last element)."""
+    rows, cols = _column_view(x.shape, bucket_size)
+    flat = x.reshape(-1)
+    pad = rows * cols - flat.numel()
+    if pad:
+        flat = torch.cat([flat, flat[-1:].expand(pad)])
+    return flat.reshape(rows, cols)
+
+
+def _from_columns(out2d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The inverse of _column_matrix: out2d's first x.numel() elements in x's shape."""
+    return out2d.reshape(-1)[:x.numel()].reshape(x.shape)
+
+
+def _column_plain(x: torch.Tensor, k: torch.Tensor, bucket_size: Optional[int]) -> torch.Tensor:
+    """The plain per-column fake-quant of x in its column view (fp32), of x's shape."""
+    return _from_columns(_quantize_math_torch(_column_matrix(x, bucket_size), k, 0), x)
+
+
+def _column_group_plan(views: Sequence[Tuple[int, int, int]]):
+    """The grouped per-column kernel's layout of tensors of (n, rows, cols):
+    (offset of each output in the flat output, a multiple of 4 elements;
+    first chunk of each tensor; row chunks of each of its column tiles; the
+    tensor of each chunk, a tensor's chunks tile by tile, each tile's row
+    chunks consecutive; size of the flat output)."""
+    offsets, first_chunks, row_chunks, chunk_tensor, total = [], [], [], [], 0
+    for t, (n, rows, cols) in enumerate(views):
+        offsets.append(total)
+        first_chunks.append(len(chunk_tensor))
+        row_chunks.append(-(-rows // _COL_GROUP_ROWS))
+        chunk_tensor += [t] * (-(-cols // _COL_TILE) * row_chunks[-1])
+        total += -(-n // 4) * 4
+    return offsets, first_chunks, row_chunks, chunk_tensor, total
+
+
+def _column_group_table(xs: Sequence[torch.Tensor], bucket_size: Optional[int]):
+    """(entries [T, 7] int64, chunk_tensor [nchunks] int32, (shape, strides,
+    offset) of each output in the flat output, flat output size) of a column
+    group, the tables on its device, built once per group."""
+    def build():
+        views = [(x.numel(), *_column_view(x.shape, bucket_size)) for x in xs]
+        offsets, first_chunks, row_chunks, chunk_tensor, total = _column_group_plan(views)
+        entries = torch.tensor([[x.data_ptr(), o, n, rows, cols, f, rc]
+                                for x, o, (n, rows, cols), f, rc
+                                in zip(xs, offsets, views, first_chunks, row_chunks)],
+                               dtype=torch.int64)
+        return (entries.to(xs[0].device),
+                torch.tensor(chunk_tensor, dtype=torch.int32).to(xs[0].device),
+                _flat_layout(xs, offsets), total)
+    return _cached_table(_group_key(('columns', bucket_size), xs), build)
+
+
+def fake_quant_per_column_group(xs: Sequence[torch.Tensor], bits: torch.Tensor,
+                                bucket_size: Optional[int] = None) -> List[torch.Tensor]:
+    """Per-column fake-quant of each fp32 tensor xs[t] at bits[t] (a [T] fp32
+    tensor) in its column view, or xs[t] unchanged where bits[t] >= 32: the
+    list of results, in order, each of its tensor's shape.  Channel buckets
+    (bucket_size None: [-1, c_out]) or split buckets of bucket_size (see
+    _column_view).  The grouped route of kernel K2' (one launch pair for all
+    T) on CUDA, where the results are views of one flat buffer; plain version
+    on the CPU."""
+    global column_group_launches, plain_calls
+    xs = list(xs)
+    _check_group('fake_quant_per_column_group', xs, bits)
+    if bucket_size is None:
+        if any(x.dim() < 1 for x in xs):
+            raise ValueError('channel buckets need a last axis; got a 0-d tensor')
+    elif bucket_size < 1:
+        raise ValueError('bucket_size must be at least 1, got %d' % bucket_size)
+    device = xs[0].device
+    if device.type == 'cpu':
+        plain_calls += 1
+        return [torch.where(b < 32, _column_plain(x, _levels(b), bucket_size), x)
+                for x, b in zip(xs, bits)]
+    if device.type != 'cuda':
+        raise ValueError('fake_quant_per_column_group: no kernel for device %s' % device)
+    entries, chunk_tensor, layout, total = _column_group_table(xs, bucket_size)
+    out = torch.empty(total, dtype=torch.float32, device=device)
+    partials = torch.empty(2 * _COL_TILE * chunk_tensor.numel(), dtype=torch.float32,
+                           device=device)
+    with torch.cuda.device(device):
+        err = _library().pf_fake_quant_columns_group(
+            entries.data_ptr(), chunk_tensor.data_ptr(), chunk_tensor.numel(), bits.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    _check_launch(err, 'fake_quant_per_column_group')
+    column_group_launches += 1
+    return [out.as_strided(shape, strides, offset) for shape, strides, offset in layout]
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +446,16 @@ class _FakeQuant(torch.autograd.Function):
         return g, None
 
 
+class _FakeQuantSelect(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bits):
+        return fake_quant_per_tensor(x if _dense(x) else x.contiguous(), bits, select=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class _FakeQuantGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, bits, *xs):
@@ -298,42 +466,39 @@ class _FakeQuantGroup(torch.autograd.Function):
         return (None, *grads)
 
 
-class _FakeQuantSplitBucket(torch.autograd.Function):
+class _FakeQuantColumnGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, bits, bucket_size, *xs):
+        return tuple(fake_quant_per_column_group([x.contiguous() for x in xs], bits, bucket_size))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *grads)
+
+
+class _FakeQuantBucket(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, bits, bucket_size):
-        flat = x.reshape(-1)
-        n = flat.shape[0]
-        nb_buckets = -(-n // bucket_size)
-        pad = nb_buckets * bucket_size - n
-        if pad:
-            flat = torch.cat([flat, flat[-1:].expand(pad)])
-        # row-major [bucket_size, nb_buckets], as tf.reshape: bucket j
-        # collects the elements with index % nb_buckets == j
-        cols = flat.reshape(bucket_size, nb_buckets).contiguous()
-        out = fake_quant_per_column(cols, bits).reshape(-1)
-        if pad:
-            out = out[:n]
-        return out.reshape(x.shape).to(x.dtype)
+        q = fake_quant_per_column(_column_matrix(x, bucket_size).contiguous(), bits)
+        return _from_columns(q, x).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         return g, None, None
 
 
-class _FakeQuantChannelBucket(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, bits):
-        cols = x.reshape(-1, x.shape[-1]).contiguous()
-        return fake_quant_per_column(cols, bits).reshape(x.shape).to(x.dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 def fake_quant(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """Per-tensor fake-quantization with STE."""
     return _FakeQuant.apply(x, bits)
+
+
+def fake_quant_select(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """fake_quant(x, bits) where bits < 32, else x, with STE: the quant
+    policy's activation route, where the reference takes
+    jnp.where(bits < 32, fake_quant(x, bits), x), in one kernel launch pair
+    with the select inside.  The gradient is the identity on both sides of
+    32, as both branches of the reference's where pass it through."""
+    return _FakeQuantSelect.apply(x, bits)
 
 
 def fake_quant_group(xs: Sequence[torch.Tensor], bits: torch.Tensor) -> List[torch.Tensor]:
@@ -343,17 +508,33 @@ def fake_quant_group(xs: Sequence[torch.Tensor], bits: torch.Tensor) -> List[tor
     return list(_FakeQuantGroup.apply(bits, *xs))
 
 
+def fake_quant_bucket_group(xs: Sequence[torch.Tensor], bits: torch.Tensor, bucket_type: str,
+                            bucket_size: int) -> List[torch.Tensor]:
+    """Bucketed fake-quantization of each xs[t] at bits[t] with STE, xs[t]
+    itself where bits[t] >= 32 (the select of the per-site route), all
+    tensors in one kernel launch pair: 'channel' buckets (per output
+    channel, the last axis) or 'split' buckets of bucket_size, each tensor's
+    result equal to fake_quant_channel_bucket's or fake_quant_split_bucket's."""
+    if bucket_type == 'channel':
+        size = None
+    elif bucket_type == 'split':
+        size = int(bucket_size)
+    else:
+        raise ValueError('unrecognized bucket type: ' + bucket_type)
+    return list(_FakeQuantColumnGroup.apply(bits, size, *xs))
+
+
 def fake_quant_split_bucket(x: torch.Tensor, bits: torch.Tensor, bucket_size: int) -> torch.Tensor:
     """Split-bucket fake-quantization with STE: flatten, pad with the LAST
     element to a multiple of bucket_size, scale per bucket."""
-    return _FakeQuantSplitBucket.apply(x, bits, int(bucket_size))
+    return _FakeQuantBucket.apply(x, bits, int(bucket_size))
 
 
 def fake_quant_channel_bucket(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """Per-output-channel fake-quantization with STE: reshape [-1, c_out] and
     scale per column.  For HWIO conv kernels and [c_in, c_out] dense kernels
     the last axis is c_out."""
-    return _FakeQuantChannelBucket.apply(x, bits)
+    return _FakeQuantBucket.apply(x, bits, None)
 
 
 # ---------------------------------------------------------------------------

@@ -26,13 +26,15 @@ union of kernel and copy intervals), the idle share of the window, kernel
 launches, device time by layer (`kernel_category`), and the top kernels.
 Last, the device time of one pass of each hand-written kernel and of its
 plain version: the fake-quant kernels over the 52 quantized weights of one
-step (4 bits; the grouped route, and the per-site route it replaced: the
-per-tensor kernel and a select on each weight) and over one bf16 activation
-256x256x56x56 (8 bits);
-matmul_bf16 over the 8 ResNet-50 1x1 shapes of mm_shape_sweep, beside
-cuBLAS's bf16 matmul; bn_relu_matmul_stats at fused_mm_proto's shape.  Each
-is the profiler's kernel records of 10 passes, summed and divided by 10, in
-two repeats.
+step (4 bits; the grouped routes, per tensor and in channel and split
+buckets, and the per-site routes they replaced: a kernel and a select on
+each weight), over one bf16 activation 256x256x56x56 and one 256x2048x7x7
+(8 bits; K1' with the select, with and without its table of levels, and
+the select after the plain version); matmul_bf16 over the 8 ResNet-50 1x1
+shapes of mm_shape_sweep, beside cuBLAS's bf16 matmul; bn_relu_matmul_stats
+at fused_mm_proto's shape.  Each is the profiler's kernel records of 10
+passes, summed and divided by 10, in two repeats, and the last repeat
+kernel by kernel.
 
 Prints one JSON object as its last line and writes it to --out if given.  A
 variant named twice (to time two variants in turns, A B B A) is reported
@@ -65,8 +67,9 @@ NB_BATCHES = 4
 
 # (layer, substrings of the kernel name), first match wins
 CATEGORIES = (
-    ('fake-quant kernels', ('minmax_partials', 'quantize_tensor', 'column_partials',
-                            'quantize_columns', 'group_quantize')),
+    ('fake-quant kernels', ('tensor_minmax', 'tensor_quantize', 'minmax_partials',
+                            'group_quantize', 'column_partials', 'quantize_columns',
+                            'column_group_partials', 'column_group_quantize')),
     ('batch norm', ('batch_norm',)),
     ('optimizer (foreach)', ('multi_tensor_apply', 'foreach')),
     ('conv/matmul (cuDNN, cuBLAS)', ('xmma', 'gemm', 'nvjet', 'cutlass', 'cudnn', 'conv2d',
@@ -195,15 +198,18 @@ def profile_variant(name: str) -> dict:
 def profile_kernels(weight_shapes, repeats: int = 2, passes: int = 10) -> dict:
     """Device ms of one pass of each hand-written kernel and its plain version,
     averaged over `passes` passes in one profiled window (a window of one
-    pass can come back with some of its records missing)."""
+    pass can come back with some of its records missing), `repeats` times;
+    and the last repeat's ms by kernel name."""
     from pocketflow_tpu_torch.ops import fake_quant as fq
     gen = torch.Generator(device='cuda').manual_seed(0)
     bits4 = torch.tensor(4.0, device='cuda')
     bits8 = torch.tensor(8.0, device='cuda')
     weights = [torch.randn(s, generator=gen, device='cuda') * 0.05 for s in weight_shapes]
     columns = [w.reshape(-1, w.shape[-1]) for w in weights]
-    act = torch.relu(torch.randn((256, 256, 56, 56), generator=gen, device='cuda',
-                                 dtype=torch.bfloat16)).contiguous(memory_format=torch.channels_last)
+    acts = {shape: torch.relu(torch.randn(shape, generator=gen, device='cuda',
+                                          dtype=torch.bfloat16)).contiguous(
+                                              memory_format=torch.channels_last)
+            for shape in ((256, 256, 56, 56), (256, 2048, 7, 7))}
     k4, k8 = fq._levels(bits4), fq._levels(bits8)
     bits4_each = torch.full((len(weights),), 4.0, device='cuda')
     fns = {
@@ -219,12 +225,26 @@ def profile_kernels(weight_shapes, repeats: int = 2, passes: int = 10) -> dict:
             fq.fake_quant_per_column(c, bits4) for c in columns],
         'per_column plain, 52 weights as [-1, c_out]': lambda: [
             fq._quantize_math_torch(c, k4, 0) for c in columns],
-        'split buckets (256) kernel, 52 weights': lambda: [
-            fq.fake_quant_split_bucket(w, bits4, 256) for w in weights],
-        'per_tensor kernel, bf16 act 256x256x56x56': lambda: fq.fake_quant_per_tensor(act, bits8),
-        'per_tensor plain, bf16 act 256x256x56x56': lambda: fq._quantize_math_torch(
-            act, k8, None).to(torch.bfloat16),
+        'per_column_group kernel, 52 weights, channel buckets': lambda: (
+            fq.fake_quant_per_column_group(weights, bits4_each)),
+        'per-site channel route (per_column kernel + select), 52 weights': lambda: [
+            torch.where(bits4 < 32, fq.fake_quant_channel_bucket(w, bits4), w) for w in weights],
+        'per_column_group kernel, 52 weights, split buckets (256)': lambda: (
+            fq.fake_quant_per_column_group(weights, bits4_each, 256)),
+        'per-site split route (per_column kernel + select), 52 weights': lambda: [
+            torch.where(bits4 < 32, fq.fake_quant_split_bucket(w, bits4, 256), w)
+            for w in weights],
     }
+    for shape, act in acts.items():
+        name = 'x'.join(map(str, shape))
+        fns.update({
+            'per_tensor kernel, bf16 act %s' % name: lambda act=act: (
+                fq.fake_quant_per_tensor(act, bits8)),
+            'per_tensor kernel + select, bf16 act %s' % name: lambda act=act: (
+                fq.fake_quant_per_tensor(act, bits8, select=True)),
+            'per_tensor plain + select, bf16 act %s' % name: lambda act=act: torch.where(
+                bits8 < 32, fq._quantize_math_torch(act, k8, None).to(torch.bfloat16), act),
+        })
     from pocketflow_tpu_torch.experiments import fused_mm_proto, mm_shape_sweep
     from pocketflow_tpu_torch.ops import matmul as mm
     products = [(torch.randn((m, k), generator=gen, device='cuda').to(torch.bfloat16),
@@ -243,13 +263,19 @@ def profile_kernels(weight_shapes, repeats: int = 2, passes: int = 10) -> dict:
             fused_mm_proto.M, fused_mm_proto.K, fused_mm_proto.N):
             lambda: mm._bn_relu_matmul_stats_plain(*fused_in),
     })
-    out = {}
+    out, by_name = {}, {}
     for label, fn in fns.items():
         fn()  # build and warm
         torch.cuda.synchronize()
-        out[label] = [sum(e - s for _, s, e in _profile(lambda i: fn(), passes)) / passes / 1e3
-                      for _ in range(repeats)]
-    return out
+        out[label] = []
+        for _ in range(repeats):
+            events = _profile(lambda i: fn(), passes)
+            out[label].append(sum(e - s for _, s, e in events) / passes / 1e3)
+        by_name[label] = {}  # the last repeat, kernel by kernel
+        for name, s, e in events:
+            name = name.replace('(anonymous namespace)::', '').split('(')[0][:60]
+            by_name[label][name] = by_name[label].get(name, 0.0) + (e - s) / passes / 1e3
+    return out, by_name
 
 
 def main(argv=None):
@@ -289,9 +315,12 @@ def main(argv=None):
     from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
     weight_shapes = UniformQuantLearner(None, ModelHelper(resnet_size=50),
                                         device='cuda').statistics['weight_shapes']
-    report['kernels_device_ms_per_pass'] = profile_kernels(weight_shapes)
+    report['kernels_device_ms_per_pass'], report['kernels_device_ms_by_name'] = profile_kernels(
+        weight_shapes)
     for label, values in report['kernels_device_ms_per_pass'].items():
         print('device ms %-48s %s' % (label, ['%.4f' % v for v in values]), flush=True)
+        print('    by kernel %s' % {name: round(ms, 4) for name, ms in
+                                    report['kernels_device_ms_by_name'][label].items()})
     if args.out:
         with open(args.out, 'w') as fout:
             json.dump(report, fout, indent=1)

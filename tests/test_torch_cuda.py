@@ -7,7 +7,8 @@ the JAX package to a CPU mesh):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: none for the fake-quant kernels, which round every step of the
-fp32 formula as the plain version does.  The matmul kernels sum the fp32
+fp32 formula as the plain version does (K1' reads most outputs from a table
+of the levels built with the same steps, and is tested with and without it).  The matmul kernels sum the fp32
 products on the tensor cores, in another order and rounding than the plain
 version's fp32 matmul, so y may differ where the two fp32 sums round to
 different bf16 values: by one bf16 ulp, or, where the sum cancels, by up to
@@ -65,6 +66,67 @@ def test_per_tensor_kernel_keeps_channels_last(cuda):
     assert torch.equal(got, tfq._quantize_math_torch(x, tfq._levels(bits), None).to(x.dtype))
 
 
+def _activation(device, case):
+    """An input of K1' on the 8-bit activation route, or one of its edges:
+    bf16 channels-last relu outputs, fp32, ragged sizes and views that start
+    off a 16-byte boundary."""
+    if case == 'bf16 channels-last':
+        x = torch.relu(_inputs(device, (16, 256, 56, 56), torch.bfloat16))
+        return x.contiguous(memory_format=torch.channels_last)
+    if case == 'bf16 channels-last 7x7':
+        x = torch.relu(_inputs(device, (32, 2048, 7, 7), torch.bfloat16))
+        return x.contiguous(memory_format=torch.channels_last)
+    if case == 'fp32 channels-last':
+        return _inputs(device, (8, 64, 28, 28), torch.float32).contiguous(
+            memory_format=torch.channels_last)
+    if case == 'bf16 odd n':
+        return _inputs(device, (1_000_003,), torch.bfloat16)
+    if case == 'fp32 odd n':
+        return _inputs(device, (3, 5, 7, 11, 13), torch.float32)
+    if case == 'bf16 unaligned view':
+        return _inputs(device, (70_005,), torch.bfloat16)[3:]
+    return _inputs(device, (70_005,), torch.float32)[1:]  # fp32 unaligned view
+
+
+ACTIVATION_CASES = ['bf16 channels-last', 'bf16 channels-last 7x7', 'fp32 channels-last',
+                    'bf16 odd n', 'fp32 odd n', 'bf16 unaligned view', 'fp32 unaligned view']
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('bits', [2, 4, 8, 16, 32])
+@pytest.mark.parametrize('case', ACTIVATION_CASES)
+def test_per_tensor_kernel_with_select_equals_plain(cuda, bits, case):
+    """K1' with and without the select equals the plain version (and its
+    select) bit for bit; the output keeps the input's layout; at 32 bits the
+    select copies."""
+    x = _activation(cuda, case)
+    bits = torch.tensor(float(bits), device=cuda)
+    want = tfq._quantize_math_torch(x, tfq._levels(bits), None).to(x.dtype)
+    got = tfq.fake_quant_per_tensor(x, bits)
+    selected = tfq.fake_quant_per_tensor(x, bits, select=True)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.stride() == x.stride() and torch.equal(got, want)
+    assert torch.equal(selected, torch.where(bits < 32, want, x))
+
+
+@pytest.mark.gpu
+def test_select_ste_and_scratch_reuse(cuda):
+    """fake_quant_select's gradient is the identity on both sides of 32, and
+    the kernel's scratch is zeroed again after each call, whatever grid the
+    previous call ran (large, tiny, 32 bits skipping pass 1)."""
+    xs = [_activation(cuda, case) for case in ('bf16 channels-last', 'fp32 odd n')]
+    for x in xs + [x.reshape(-1)[:7] for x in xs] + xs:
+        for bits_value in (8.0, 32.0, 4.0):
+            bits = torch.tensor(bits_value, device=cuda)
+            leaf = x.clone().requires_grad_(True)
+            out = tfq.fake_quant_select(leaf, bits)
+            weight = torch.ones_like(out) * 0.5
+            (out * weight).sum().backward()
+            want = torch.where(bits < 32, tfq._quantize_math_torch(x, tfq._levels(bits), None)
+                               .to(x.dtype), x)
+            assert torch.equal(out.detach(), want) and torch.equal(leaf.grad, weight)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('bits', [2, 4, 8])
 @pytest.mark.parametrize('shape', [(4608, 512), (256, 9216), (1, 1), (300, 33), (2048, 1001),
@@ -83,23 +145,33 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     tfq.reset_counters()
     bits = torch.tensor(4.0, device=cuda)
     tfq.fake_quant(_inputs(cuda, (64, 64), torch.float32), bits)
+    tfq.fake_quant_select(_inputs(cuda, (64, 64), torch.bfloat16), bits)
     tfq.fake_quant_split_bucket(_inputs(cuda, (3, 3, 8, 16), torch.float32), bits, 256)
     tfq.fake_quant_group([_inputs(cuda, (64, 64), torch.float32)] * 2,
                          torch.tensor([4.0, 32.0], device=cuda))
-    assert tfq.counters() == {'fake_quant_per_tensor': 1, 'fake_quant_per_tensor_group': 1,
-                              'fake_quant_per_column': 1, 'plain': 0}
+    tfq.fake_quant_bucket_group([_inputs(cuda, (64, 64), torch.float32)] * 2,
+                                torch.tensor([4.0, 32.0], device=cuda), 'channel', 256)
+    assert tfq.counters() == {'fake_quant_per_tensor': 2, 'fake_quant_per_tensor_select': 1,
+                              'fake_quant_per_tensor_group': 1, 'fake_quant_per_column': 1,
+                              'fake_quant_per_column_group': 1, 'plain': 0}
     with pytest.raises(ValueError):
         tfq.fake_quant_per_column(_inputs(cuda, (8, 8), torch.bfloat16), bits)
     with pytest.raises(ValueError):
         tfq.fake_quant_per_tensor(_inputs(cuda, (8, 8), torch.float32), bits.cpu())
+    with pytest.raises(ValueError):
+        tfq.fake_quant_per_tensor(_inputs(cuda, (8, 8), torch.float16), bits, select=True)
+    with pytest.raises(ValueError):
+        tfq.fake_quant_per_tensor(_inputs(cuda, (8, 8), torch.float32).t()[:, :4], bits)
     x = _inputs(cuda, (8, 8), torch.float32)
     for xs, group_bits in (([x.to(torch.bfloat16)], bits.reshape(1)),
                            ([x.t()], bits.reshape(1)),
                            ([x, x.cpu()], torch.ones(2, device=cuda)),
                            ([x], bits.reshape(1).cpu()),
                            ([x, x], bits.reshape(1))):
-        with pytest.raises(ValueError):
-            tfq.fake_quant_per_tensor_group(xs, group_bits)
+        for group in (tfq.fake_quant_per_tensor_group, tfq.fake_quant_per_column_group):
+            with pytest.raises(ValueError):
+                group(xs, group_bits)
+    assert tfq.counters()['fake_quant_per_column_group'] == 1
 
 
 def resnet50_weight_shapes():
@@ -151,6 +223,47 @@ def test_group_kernel_ste_and_unaligned_inputs(cuda):
     sum((o * o.detach()).sum() for o in outs).backward()
     for leaf, o in zip(leaves, outs):
         assert torch.equal(leaf.grad, o.detach())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('bucket_size', [None, 256, 7])
+@pytest.mark.parametrize('bits_cycle', [(2, 4, 8, 32), (4,), (32,)])
+def test_column_group_kernel_equals_plain_and_per_column_kernel(cuda, bucket_size, bits_cycle):
+    """At the 52 weight shapes of ResNet-50, channel or split buckets, mixed
+    bits (32: copied): the grouped per-column kernel equals the plain version
+    and, tensor by tensor, the per-site bucket ops on the per-column kernel,
+    bit for bit, and two runs agree."""
+    shapes = resnet50_weight_shapes()
+    xs = [0.05 * _inputs(cuda, s, torch.float32, seed=i) for i, s in enumerate(shapes)]
+    bits = torch.tensor([float(bits_cycle[i % len(bits_cycle)]) for i in range(52)], device=cuda)
+    got = tfq.fake_quant_per_column_group(xs, bits, bucket_size)
+    again = tfq.fake_quant_per_column_group(xs, bits, bucket_size)
+    torch.cuda.synchronize()
+    for x, b, g, g2 in zip(xs, bits, got, again):
+        want = torch.where(b < 32, tfq._column_plain(x, tfq._levels(b), bucket_size), x)
+        assert g.shape == x.shape and torch.equal(g, want) and torch.equal(g, g2)
+        if b < 32:
+            per_site = (tfq.fake_quant_channel_bucket(x, b) if bucket_size is None
+                        else tfq.fake_quant_split_bucket(x, b, bucket_size))
+            assert torch.equal(g, per_site)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('bucket_type', ['channel', 'split'])
+def test_column_group_kernel_ste_and_odd_shapes(cuda, bucket_type):
+    """The grouped per-column op's STE gradient is the identity, on shapes
+    with ragged column tiles and row chunks, split pads of every length, and
+    a tensor of one element."""
+    shapes = [(7,), (1, 1), (1, 1, 3, 33), (600, 65), (3, 3, 100, 70), (1025, 31)]
+    xs = [_inputs(cuda, s, torch.float32, seed=i) for i, s in enumerate(shapes)]
+    bits = torch.tensor([4.0, 8.0, 2.0, 32.0, 3.0, 8.0], device=cuda)
+    size = None if bucket_type == 'channel' else 64
+    leaves = [x.clone().requires_grad_(True) for x in xs]
+    outs = tfq.fake_quant_bucket_group(leaves, bits, bucket_type, 64)
+    sum((o * o.detach()).sum() for o in outs).backward()
+    for x, b, leaf, o in zip(xs, bits, leaves, outs):
+        want = torch.where(b < 32, tfq._column_plain(x, tfq._levels(b), size), x)
+        assert torch.equal(o.detach(), want) and torch.equal(leaf.grad, o.detach())
 
 
 def _bf16_ulp(v):

@@ -54,6 +54,24 @@ def _pallas_per_column(x2d, k):
         interpret=True)(x2d, k.reshape(1))
 
 
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('bits', [2, 4, 8, 32])
+def test_select_matches_jax_where(bits, dtype):
+    """fake_quant_select against the JAX policy's activation route,
+    jnp.where(bits < 32, fake_quant(act, bits).astype(dtype), act), on a
+    channels-last activation: bit for bit, layout kept."""
+    x = np.maximum(np.random.default_rng(10).normal(size=(2, 6, 5, 3)), 0).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)  # NHWC, the layout of the JAX package
+    jbits = jnp.asarray(float(bits))
+    want = jnp.where(jbits < 32, jfq.fake_quant(jx, jbits).astype(jx.dtype), jx)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype)).permute(0, 3, 1, 2)  # NCHW, channels last
+    assert tx.is_contiguous(memory_format=torch.channels_last)
+    got = tfq.fake_quant_select(tx, _bits(bits))
+    assert got.dtype == tx.dtype and got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).to(torch.float32).numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
 @pytest.mark.parametrize('bits', [2, 4, 8])
 def test_per_tensor_matches_numpy_oracle(bits):
     x = np.random.default_rng(0).normal(size=(37, 19)).astype(np.float32)
@@ -140,16 +158,27 @@ def test_ste_gradient_is_identity():
     np.testing.assert_allclose(x.grad.numpy(), want, **TOL)
 
 
-@pytest.mark.parametrize('op', ['split', 'channel'])
+@pytest.mark.parametrize('op', ['split', 'channel', 'select-4', 'select-32', 'channel-group',
+                                'split-group'])
 def test_ste_gradient_split_and_channel(op):
+    """The STE gradient is the identity: of the bucket ops, of their grouped
+    route (bits 4 and 32 in one group) and of fake_quant_select on both
+    sides of 32."""
     x = torch.from_numpy(np.random.default_rng(7).normal(size=(8, 16)).astype(np.float32))
     x.requires_grad_(True)
     if op == 'split':
         out = tfq.fake_quant_split_bucket(x, _bits(4), 32)
-    else:
+    elif op == 'channel':
         out = tfq.fake_quant_channel_bucket(x, _bits(4))
+    elif op.startswith('select'):
+        out = tfq.fake_quant_select(x, _bits(int(op.split('-')[1])))
+    else:
+        outs = tfq.fake_quant_bucket_group([x, x * 2], torch.tensor([4.0, 32.0]),
+                                           op.split('-')[0], 32)
+        out = outs[0] + outs[1] / 2
     out.sum().backward()
-    np.testing.assert_array_equal(x.grad.numpy(), np.ones((8, 16), np.float32))
+    want = np.full((8, 16), 2.0 if op.endswith('group') else 1.0, np.float32)
+    np.testing.assert_array_equal(x.grad.numpy(), want)
 
 
 @pytest.mark.parametrize('shape,bucket_type,bucket_size', [
@@ -187,10 +216,13 @@ def test_cpu_tensors_take_the_plain_version():
     tfq.reset_counters()
     x = torch.randn(4, 8)
     tfq.fake_quant(x, _bits(4))
+    tfq.fake_quant_select(x, _bits(4))
     tfq.fake_quant_channel_bucket(x, _bits(4))
     tfq.fake_quant_group([x, x], torch.tensor([4.0, 32.0]))
-    assert tfq.counters() == {'fake_quant_per_tensor': 0, 'fake_quant_per_tensor_group': 0,
-                              'fake_quant_per_column': 0, 'plain': 3}
+    tfq.fake_quant_bucket_group([x, x], torch.tensor([4.0, 32.0]), 'split', 4)
+    assert tfq.counters() == {'fake_quant_per_tensor': 0, 'fake_quant_per_tensor_select': 0,
+                              'fake_quant_per_tensor_group': 0, 'fake_quant_per_column': 0,
+                              'fake_quant_per_column_group': 0, 'plain': 5}
 
 
 # a few weight shapes of ResNet-50 (HWIO) and odd sizes, for the grouped op
@@ -281,3 +313,81 @@ def test_group_rejects_what_the_kernel_does_not_take():
                      ([x], torch.ones(1, dtype=torch.float64))):
         with pytest.raises(ValueError):
             tfq.fake_quant_per_tensor_group(xs, bits)
+
+
+# weight shapes of ResNet-50 (HWIO) and odd sizes, for the grouped per-column
+# op: split buckets of 256 pad all but the multiples of 256
+COLUMN_GROUP_SHAPES = [(1, 1, 64, 64), (3, 3, 64, 64), (1, 1, 64, 256), (7, 3), (300,),
+                       (3, 3, 16, 8), (1, 1, 512, 128), (2, 2, 5, 33)]
+
+
+@pytest.mark.parametrize('bucket_type,bucket_size', [('channel', 0), ('split', 256),
+                                                     ('split', 7), ('split', 1)])
+@pytest.mark.parametrize('bits', [[2, 4, 8, 32, 3, 32, 8, 4], [4] * 8])
+def test_column_group_matches_jax_buckets(bucket_type, bucket_size, bits):
+    """The grouped per-column op's plain version, tensor by tensor, against
+    the JAX policy's bucket route: jnp.where(bits < 32,
+    fake_quant_{channel,split}_bucket(x, bits), x).  Bit-equal (fp32)."""
+    rng = np.random.default_rng(11)
+    xs = [(0.05 * rng.normal(size=s)).astype(np.float32) for s in COLUMN_GROUP_SHAPES]
+    bits = np.asarray(bits, np.float32)
+    got = tfq.fake_quant_bucket_group([torch.from_numpy(x) for x in xs], torch.from_numpy(bits),
+                                      bucket_type, bucket_size)
+    assert len(got) == len(xs)
+    for x, b, g in zip(xs, bits, got):
+        jb = jnp.asarray(b)
+        if bucket_type == 'channel':
+            q = jfq.fake_quant_channel_bucket(jnp.asarray(x), jb)
+        else:
+            q = jfq.fake_quant_split_bucket(jnp.asarray(x), jb, bucket_size)
+        want = jnp.where(jb < 32, q, jnp.asarray(x))
+        assert g.shape == x.shape and g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize('bucket_size', [None, 256, 7, 1])
+def test_column_group_plan_covers_every_element_once(bucket_size):
+    """The grouped per-column kernel's chunk table, walked as the kernel
+    walks it (chunk -> tensor, column tile, row range; element (r, c) at
+    r * cols + c): every element of every tensor is written by exactly one
+    chunk, each tile's row chunks are consecutive, the elements past n (the
+    split pad) are read as x[n - 1] and never written, and each output
+    starts on a 16-byte boundary of its own span of the flat output."""
+    shapes = COLUMN_GROUP_SHAPES + [(3, 3, 512, 512), (1, 1, 2048, 3)]
+    if bucket_size is None:
+        shapes = [s for s in shapes if len(s) > 1]
+    views = [(int(np.prod(s)), *tfq._column_view(s, bucket_size)) for s in shapes]
+    offsets, first_chunks, row_chunks, chunk_tensor, total = tfq._column_group_plan(views)
+    written = [np.zeros(n, np.int64) for n, _, _ in views]
+    padded_reads = [0] * len(views)
+    for c, t in enumerate(chunk_tensor):
+        n, rows, cols = views[t]
+        local = c - first_chunks[t]
+        tile, rchunk = divmod(local, row_chunks[t])
+        r = np.arange(rchunk * tfq._COL_GROUP_ROWS, min((rchunk + 1) * tfq._COL_GROUP_ROWS, rows))
+        col = tile * tfq._COL_TILE + np.arange(tfq._COL_TILE)
+        index = (r[:, None] * cols + col[None, col < cols]).reshape(-1)
+        np.add.at(written[t], index[index < n], 1)
+        padded_reads[t] += int((index >= n).sum())
+    for t, (n, rows, cols) in enumerate(views):
+        assert rows * cols >= n and (written[t] == 1).all()
+        assert padded_reads[t] == rows * cols - n
+        assert chunk_tensor.count(t) == -(-cols // tfq._COL_TILE) * row_chunks[t]
+        assert offsets[t] % 4 == 0
+        assert offsets[t] + n <= (offsets[t + 1] if t + 1 < len(views) else total)
+    assert sorted(chunk_tensor) == chunk_tensor
+
+
+def test_column_group_rejects_what_the_kernel_does_not_take():
+    x = torch.randn(4, 8)
+    for xs, bits, bucket_size in (([], torch.ones(0), None),
+                                  ([x.to(torch.bfloat16)], torch.ones(1), None),
+                                  ([x.t()], torch.ones(1), None),
+                                  ([x, x], torch.ones(1), None),
+                                  ([x], torch.ones(1, dtype=torch.float64), 4),
+                                  ([torch.ones(())], torch.ones(1), None),
+                                  ([x], torch.ones(1), 0)):
+        with pytest.raises(ValueError):
+            tfq.fake_quant_per_column_group(xs, bits, bucket_size)
+    with pytest.raises(ValueError, match='bucket type'):
+        tfq.fake_quant_bucket_group([x], torch.ones(1), 'rows', 4)

@@ -93,14 +93,17 @@ def test_bridge_raises_on_unmapped_and_unset_entries():
     assert float(bn.bn.var[0]) == 3.0 and float(bn.bn.scale.detach()[0]) == 2.0
 
 
-@pytest.mark.parametrize('op', ['per_tensor', 'per_column', 'fake_quant', 'group'])
+@pytest.mark.parametrize('op', ['per_tensor', 'per_column', 'fake_quant', 'group', 'select',
+                                'column_group'])
 def test_kernel_wrappers_raise_off_cpu_and_cuda(op):
     from pocketflow_tpu_torch.ops import fake_quant as fq
     x = torch.empty((8, 8), device='meta')
     bits = torch.empty((), device='meta')
     fn = {'per_tensor': fq.fake_quant_per_tensor, 'per_column': fq.fake_quant_per_column,
           'fake_quant': fq.fake_quant,
-          'group': lambda x, b: fq.fake_quant_per_tensor_group([x], b.reshape(1))}[op]
+          'group': lambda x, b: fq.fake_quant_per_tensor_group([x], b.reshape(1)),
+          'select': fq.fake_quant_select,
+          'column_group': lambda x, b: fq.fake_quant_per_column_group([x], b.reshape(1), 4)}[op]
     with pytest.raises(ValueError, match='no kernel for device'):
         fn(x, bits)
 
@@ -112,7 +115,7 @@ def test_profile_step_summarizes_device_events():
     from pocketflow_tpu_torch.tools import profile_step as ps
     events = [('void at::native::batch_norm_collect_statistics_channels_last_kernel', 0, 400),
               ('sm90_xmma_fprop_implicit_gemm_bf16bf16', 300, 1000),
-              ('void quantize_tensor<float>(float const*)', 1500, 1600),
+              ('void (anonymous namespace)::tensor_quantize_f32<4>(float const*)', 1500, 1600),
               ('Memcpy HtoD (Pinned -> Device)', 1600, 1700),
               ('void at::native::vectorized_elementwise_kernel<4, CUDAFunctor_add>', 1900, 2000),
               ('some_unknown_kernel', 2000, 2100)]

@@ -1,11 +1,15 @@
-"""The QAT policy's grouped weight route (learners/uniform_quantization/utils.py):
-on the per-tensor route one grouped fake-quant call per forward quantizes the
-policy's weights, and each site takes its result.  Held against the per-site
-route it replaced (fake_quant at each site, then torch.where(bits < 32, q,
-kernel)) on a small ResNet on the CPU: the same logits, the same activation
-sites in the same order, and the same gradients, bit for bit (the same fp32
-formula on the same inputs).  The JAX package's own per-site policy is held
-against the port in tests/test_torch_qat_slice.py."""
+"""The QAT policy's grouped routes (learners/uniform_quantization/utils.py):
+one grouped fake-quant call per forward quantizes the policy's weights (per
+tensor, or in channel or split buckets), each site takes its result, and
+each activation goes through fake_quant_select (the select on bits < 32 in
+the op).  Held against the per-site routes they replaced (fake_quant,
+fake_quant_channel_bucket or fake_quant_split_bucket at each site, then
+torch.where(bits < 32, q, kernel); fake_quant on each activation, then
+torch.where(bits < 32, q, act)) on a small ResNet on the CPU, with mixed
+bits (some 32): the same logits, the same activation sites in the same
+order, and the same gradients, bit for bit (the same fp32 formula on the
+same inputs).  The JAX package's own per-site policy is held against the
+port in tests/test_torch_qat_slice*.py."""
 
 import numpy as np
 import pytest
@@ -24,15 +28,28 @@ SMALL = dict(ilsvrc_image_size=32, batch_size=2, batch_size_eval=2, nb_smpls_tra
 
 
 class PerSitePolicy(tuq.QuantPolicy):
-    """The per-site weight route: each quantized kernel through fake_quant,
-    then the select on bits < 32."""
+    """The per-site routes: each quantized kernel through fake_quant or a
+    bucket op, and each activation through fake_quant, each followed by the
+    select on bits < 32."""
 
     def process_weight(self, path, kernel):
         idx = self.w_index.get(path)
         if idx is None:
             return kernel
         bits = self.w_bits[idx]
-        return torch.where(bits < 32, tfq.fake_quant(kernel, bits), kernel)
+        if not TFLAGS.uql_use_buckets:
+            q = tfq.fake_quant(kernel, bits)
+        elif TFLAGS.uql_bucket_type == 'channel':
+            q = tfq.fake_quant_channel_bucket(kernel, bits)
+        else:
+            q = tfq.fake_quant_split_bucket(kernel, bits, TFLAGS.uql_bucket_size)
+        return torch.where(bits < 32, q, kernel)
+
+    def process_act(self, path, act):
+        if not path.startswith('act/') or not self.quant_acts:
+            return act
+        bits = self.a_bits[int(path.split('/')[1])]
+        return torch.where(bits < 32, tfq.fake_quant(act, bits).to(act.dtype), act)
 
 
 class ActRecorder:
@@ -62,9 +79,15 @@ def _forward_backward(learner, state, policy, images):
     return logits.detach(), recorder.sites, grads
 
 
-@pytest.mark.parametrize('act_bits', [32, 8])
-def test_grouped_route_equals_per_site_route(act_bits):
-    with TFLAGS.scope(**SMALL, uql_activation_bits=act_bits):
+BUCKETS = {None: {}, 'channel': dict(uql_use_buckets=True, uql_bucket_type='channel'),
+           'split': dict(uql_use_buckets=True, uql_bucket_type='split', uql_bucket_size=64)}
+
+
+@pytest.mark.parametrize('act_bits,buckets', [(32, None), (8, None), (32, 'channel'),
+                                              (8, 'channel'), (32, 'split'), (8, 'split')],
+                         ids=['32', '8', 'channel-32', 'channel-8', 'split-32', 'split-8'])
+def test_grouped_route_equals_per_site_route(act_bits, buckets):
+    with TFLAGS.scope(**SMALL, **BUCKETS[buckets], uql_activation_bits=act_bits):
         learner = UniformQuantLearner(None, ModelHelper(resnet_size=18), device='cpu')
         stats = learner.statistics
         state, _, _ = learner.init_state_quant()

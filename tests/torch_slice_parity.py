@@ -1,8 +1,9 @@
 """The whole slice: the port's UniformQuantLearner on ResNet-50 against the
 JAX package's, from one set of parameters carried across by the bridge.
 Shared by tests/test_torch_qat_slice.py (per-tensor weight quantization),
-tests/test_torch_qat_slice_buckets.py (--uql_use_buckets, channel buckets)
-and tests/test_torch_masking.py (bench.py's composed pruned+QAT step: channel
+tests/test_torch_qat_slice_buckets.py (--uql_use_buckets, channel buckets),
+tests/test_torch_qat_slice_act8.py (--uql_activation_bits=8: the 49
+activations through fake_quant_select) and tests/test_torch_masking.py (bench.py's composed pruned+QAT step: channel
 masks made with numpy and handed to both packages, masked gradients, the
 masks re-applied after each update), which run on separate test workers.
 
@@ -26,8 +27,12 @@ step 1 from the bridged initial state and step 2 from the bridged JAX state
 after step 1 (parameters, BN statistics and SGD momentum buffers).
 
 Tolerances, per tensor, on the L2 norm of the difference from the JAX step:
-* quant sites: equal (52 weights, 49 activations);
-* eval logits: rtol=atol=1e-3, per element;
+* quant sites: equal (52 weights, 49 activations); at --uql_activation_bits
+  below 32, each activation site of the port's eval forward returns what the
+  JAX QuantPolicy.process_act returns on the same input, bit for bit;
+* eval logits: rtol=atol=1e-3, per element; and, as the steps below, within
+  the slice's bound of the JAX package's own spread (two JAX evals with the
+  images or the parameters perturbed by 1e-7 relative);
 * each step's loss and metrics, and the parameters and BN statistics after
   it: ||port - jax|| <= ||ATOL + RTOL*|jax||| + NOISE_FACTOR * floor, with
   rtol=1e-4, atol=1e-5, where `floor` is the JAX package's own spread: the
@@ -131,8 +136,9 @@ def bench_channel_masks(params, seed=0):
     return jax.tree_util.tree_map(mk, params)
 
 
-def _run(buckets: bool, composed: bool = False):
-    flags = dict(SMALL, uql_use_buckets=buckets, uql_bucket_type='channel')
+def _run(buckets: bool, composed: bool = False, act_bits: int = 32):
+    flags = dict(SMALL, uql_use_buckets=buckets, uql_bucket_type='channel',
+                 uql_activation_bits=act_bits)
     mesh_lib.set_global_mesh(mesh_lib.build_mesh(jax.devices()[:1], ('data',), (1,)))
     with JFLAGS.scope(**flags), TFLAGS.scope(**flags):
         jlearner = JLearner(None, JHelper(resnet_size=50))
@@ -154,11 +160,34 @@ def _run(buckets: bool, composed: bool = False):
         out['jax_logits'] = np.asarray(jeval(
             {'params': jstate.params, 'batch_stats': jstate.batch_stats}, jx,
             jstate.extra['w_bits'], jstate.extra['a_bits']))
+        # the JAX package's own spread: images, then parameters, perturbed
+        rng = np.random.default_rng(1)
+        jparams = {'params': jstate.params, 'batch_stats': jstate.batch_stats}
+        jnoisy = jax.tree_util.tree_map(
+            lambda a: a * (1 + PERTURBATION * rng.standard_normal(a.shape)).astype(np.float32),
+            jparams)
+        jx_noisy = jx * (1 + PERTURBATION * rng.standard_normal(jx.shape)).astype(np.float32)
+        out['jax_logits_reruns'] = [np.asarray(jeval(variables, inputs, jstate.extra['w_bits'],
+                                                     jstate.extra['a_bits']))
+                                    for variables, inputs in ((jparams, jx_noisy), (jnoisy, jx))]
         tx = tlearner.dataset_eval.augment(torch.from_numpy(images), None, False)
         tpolicy = tlearner._policy_fn()(tstate)
+        # each activation site's input and output in the port's eval forward
+        out['port_act_sites'] = sites = []
+        quantize_act = tpolicy.process_act
+
+        def recording(path, act):
+            result = quantize_act(path, act)
+            if path.startswith('act/'):
+                sites.append((path, act.numpy().copy(), result.numpy().copy()))
+            return result
+
+        tpolicy.process_act = recording
         with torch.no_grad():
             out['port_logits'] = tlearner.model_helper.forward_eval(
                 tstate.model, tx, policy=tpolicy).numpy()
+        out['jax_policy'] = juq.QuantPolicy(paths, jstate.extra['w_bits'],
+                                            jstate.extra['a_bits'], quant_acts=act_bits < 32)
 
         # train steps on the same host batches
         for learner in (jlearner, tlearner):
@@ -272,6 +301,35 @@ def test_quant_sites_match(run):
 
 def test_eval_logits_match(run):
     np.testing.assert_allclose(run['port_logits'], run['jax_logits'], rtol=1e-3, atol=1e-3)
+
+
+def test_eval_logits_within_the_reference_spread(run):
+    """The eval logits under the slice's bound: ||port - jax|| <= ||ATOL +
+    RTOL*|jax||| + NOISE_FACTOR * the larger ||rerun - jax|| of two JAX
+    evals, one with the images and one with the parameters perturbed by
+    1e-7 relative."""
+    want = run['jax_logits']
+    floor = max(float(np.linalg.norm(r - want)) for r in run['jax_logits_reruns'])
+    err = float(np.linalg.norm(run['port_logits'] - want))
+    assert err <= _tolerance(want, floor), (err, _tolerance(want, floor), floor)
+
+
+def _nhwc(a):
+    """A port activation (NCHW) in the JAX package's layout (NHWC)."""
+    return a.transpose(0, 2, 3, 1) if a.ndim == 4 else a
+
+
+def test_activation_sites_quantize_as_the_reference(run):
+    """Each of the 49 activation sites of the port's eval forward returns,
+    bit for bit, what the JAX package's QuantPolicy.process_act returns on
+    the same input: the site's quantization, level for level, apart from the
+    chaos of the whole network (which moves the inputs, not this map)."""
+    sites = run['port_act_sites']
+    assert [path for path, _, _ in sites] == ['act/%d' % i for i in range(49)]
+    policy = run['jax_policy']
+    for path, act, got in sites:
+        want = np.asarray(policy.process_act(path, jnp.asarray(_nhwc(act))))
+        np.testing.assert_array_equal(_nhwc(got), want, err_msg=path)
 
 
 def test_train_loss_and_metrics_match(run):
