@@ -31,12 +31,11 @@ memory's rate and the operations over the peak rate of their type.
 launch pair) the main path's 13 train steps (the counters are reset just
 before them and read just after, before the eval step), for
 fake_quant_per_tensor (K1' with the select folded in) the 7 steps with 8-bit
-activations, for fake_quant_per_column_group (the grouped route of K2') the
-7 steps under channel buckets, for fake_quant_per_column (K2' itself) the
-public per-site bucket ops over the model's 52 weights, for matmul_bf16 the
-mm_shape_sweep experiment and for bn_relu_matmul_stats the fused_mm_proto
-experiment.  `launches_by_run` gives every kernel's count in each run, each
-counted from its own reset.
+activations, for fake_quant_per_column_group (K2', all weights in one launch
+pair; the per-site bucket ops are groups of one) the 7 steps under channel
+buckets, for matmul_bf16 the mm_shape_sweep experiment and for
+bn_relu_matmul_stats the fused_mm_proto experiment.  `launches_by_run` gives
+every kernel's count in each run, each counted from its own reset.
 """
 
 import json
@@ -58,10 +57,8 @@ KERNELS = {
                               'pocketflow_tpu/ops/fake_quant.py:84 (_fq_pallas_2d)'),
     'fake_quant_per_tensor_group': ('fake_quant.cu', 'pocketflow_tpu/ops/fake_quant.py:84 '
                                     '(_fq_pallas_2d; grouped route, all weights at once)'),
-    'fake_quant_per_column': ('fake_quant.cu',
-                              'pocketflow_tpu/ops/fake_quant.py:108 (_fq_pallas_cols_grid)'),
     'fake_quant_per_column_group': ('fake_quant.cu', 'pocketflow_tpu/ops/fake_quant.py:108 '
-                                    '(_fq_pallas_cols_grid; grouped route, all weights at once)'),
+                                    '(_fq_pallas_cols_grid; all weights at once, or one)'),
     'matmul_bf16': ('matmul.cu', 'experiments/conv1x1_ab.py:123 (make_pallas); '
                                  'experiments/mm_shape_sweep.py:58 (make_pallas)'),
     'bn_relu_matmul_stats': ('matmul.cu', 'experiments/fused_mm_proto.py:56 (pallas_fused)'),
@@ -76,8 +73,6 @@ CHANNEL_RUN = ('channel buckets (--uql_use_buckets --uql_bucket_type=channel): %
                'steps' % ROUTE_STEPS)
 SPLIT_RUN = ('split buckets (--uql_use_buckets --uql_bucket_type=split): %d QAT train steps'
              % ROUTE_STEPS)
-PER_SITE_RUN = ('per-site bucket ops: fake_quant_channel_bucket and fake_quant_split_bucket '
-                'on each of the model\'s 52 quantized weights')
 NB_WEIGHT_SITES, NB_ACT_SITES = 52, 49
 # the activations K1' is timed on: the largest of the 8-bit route (411 MB of
 # bf16) and one of 51 MB, which L2 nearly holds
@@ -91,11 +86,15 @@ COMPOSED_RUN = 'composed pruned+QAT: %d train steps, 4-bit weights, channel mask
 # the fused kernel's shape (experiments/fused_mm_proto.py) and its prologue
 K3_SHAPE, K3_SCALE, K3_SHIFT = (256 * 56 * 56, 256, 64), 1.1, 0.1
 K3_RAGGED_M = 256 * 56 * 56 - 1000
+# exact-sum shapes of bn_relu_matmul_stats (M, K, N): ss stays below 2^24;
+# the last one has a K that no shared-memory copy of scale and shift would hold
+K3_EXACT = [(2048, 64, 64), (1000, 72, 136), (300, 200, 264), (16, 8200, 16)]
 # bn_relu_matmul_stats' column sums against the plain version's: s within
 # K3_S_TOL of the column's sum of |y32|, ss within K3_SS_TOL relative.  About
-# ten times the kernel's readings at K3's shape, and below what either fault
-# a kernel could hide gives at the ragged M: rows past M counted, or sums
-# taken from bf16 y (phase_matmul plants both and requires them to fail).
+# ten times the kernel's readings at K3's shape (3.8e-7 and 4.6e-7 on an
+# H100), and below what either fault a kernel could hide gives at the ragged
+# M: rows past M counted, or sums taken from bf16 y (phase_matmul plants both
+# and requires them to fail).
 K3_S_TOL, K3_SS_TOL = 3e-6, 5e-6
 # fp32 operations a fake-quant element costs: min, max; x - beta, / alpha,
 # * k, round, / k, * alpha, + beta
@@ -258,10 +257,10 @@ def phase_tensor_kernel(fq, device):
 
 
 def phase_column_group(fq, weight_shapes, device):
-    """The grouped route of K2' at the 52 weight shapes, channel and split
+    """K2' with the select at the 52 weight shapes, channel and split
     buckets, mixed bits (2, 4, 8, 32 in turn; 32 copies): bit-equal to the
-    plain version and, tensor by tensor, to the per-site ops on K2'
-    (pf_fake_quant_columns)."""
+    plain version and, tensor by tensor below 32 bits, to the per-site ops
+    (a group of one each, without the select)."""
     gen = torch.Generator(device=device).manual_seed(3)
     weights = [torch.randn(s, generator=gen, device=device) * 0.05 for s in weight_shapes]
     bits = torch.tensor([(2.0, 4.0, 8.0, 32.0)[i % 4] for i in range(len(weights))],
@@ -275,10 +274,10 @@ def phase_column_group(fq, weight_shapes, device):
             if b < 32:
                 per_site = (fq.fake_quant_channel_bucket(w, b) if bucket_size is None
                             else fq.fake_quant_split_bucket(w, b, bucket_size))
-                check(torch.equal(g, per_site), 'grouped K2\' differs from the per-column '
-                      'kernel at weight %d, %s', i, bucket_type)
+                check(torch.equal(g, per_site), 'grouped K2\' differs from the per-site op '
+                      'at weight %d, %s', i, bucket_type)
         log('  fake_quant_per_column_group, %s buckets: %d weights, bits 2/4/8/32 in turn: equal '
-            'to plain and to the per-column kernel, tensor by tensor', bucket_type, len(weights))
+            'to plain and to the per-site ops, tensor by tensor', bucket_type, len(weights))
     bits4 = torch.full((len(weights),), 4.0, device=device)
     b4 = bits4[0]
     bound_ms, bound_by = fq_bound(sum(w.numel() for w in weights))
@@ -292,7 +291,7 @@ def phase_column_group(fq, weight_shapes, device):
         per_site_ms = time_ms(lambda: [torch.where(b4 < 32, per_site(w), w) for w in weights])
         log('  fake_quant_per_column_group over the 52 weights of one step (4 bits, %s buckets): '
             'kernel %.4f ms (%.0f%% of the bound), plain %.4f ms, the per-site route (52 x '
-            'per-column kernel + select) %.4f ms, bound %.4f ms (%s)', bucket_type, ms,
+            'per-site op + select) %.4f ms, bound %.4f ms (%s)', bucket_type, ms,
             100 * bound_ms / ms, plain_ms, per_site_ms, bound_ms, bound_by)
         if result is None:  # the line reports channel buckets
             result = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -302,12 +301,13 @@ def phase_column_group(fq, weight_shapes, device):
 
 def phase_kernels(fq, weight_shapes, device):
     """Phase 4: each fake-quant kernel against the plain version, at
-    main-path shapes."""
-    results = {'fake_quant_per_column': {'max_abs_err': 0.0}}
+    main-path shapes: K1' and the per-site bucket ops (K2', a group of one
+    without the select) at bits 2, 4, 8 and 32 (quantized, not copied),
+    then K1' on activations and both grouped routes."""
     per_tensor_err = 0.0
     gen = torch.Generator(device=device).manual_seed(0)
     distinct = sorted(set(weight_shapes))
-    for bits_value in (2, 4, 8):
+    for bits_value in (2, 4, 8, 32):
         bits = torch.tensor(float(bits_value), device=device)
         k = fq._levels(bits)
         for shape in distinct:
@@ -317,40 +317,29 @@ def phase_kernels(fq, weight_shapes, device):
             err, nd = compare(fq.fake_quant_per_tensor(w, bits), want,
                               (w.max() - w.min()) / k)
             per_tensor_err = max(per_tensor_err, err)
-            # channel buckets (K2' on reshape(-1, c_out))
-            cols = w.reshape(-1, shape[-1])
-            want = fq._quantize_math_torch(cols, k, 0)
-            err_c, nd_c = compare(fq.fake_quant_per_column(cols, bits), want,
-                                  (cols.amax(0) - cols.amin(0)) / k)
-            # split buckets (K2' on [bucket_size, nb_buckets], bucket_size=256)
-            got = fq.fake_quant_split_bucket(w, bits, 256)
-            flat = w.reshape(-1)
-            nb = -(-flat.numel() // 256)
-            padded = torch.cat([flat, flat[-1:].expand(nb * 256 - flat.numel())])
-            want = fq._quantize_math_torch(padded.reshape(256, nb), k, 0).reshape(-1)
-            want = want[:flat.numel()].reshape(shape)
-            err_s, nd_s = compare(got, want, (w.max() - w.min()) / k)
-            results['fake_quant_per_column']['max_abs_err'] = max(
-                results['fake_quant_per_column']['max_abs_err'], err_c, err_s)
-            log('  bits=%d %-18s per-tensor max|d|=%.3g n_diff=%d | channel %.3g/%d | '
-                'split %.3g/%d', bits_value, str(shape), err, nd, err_c, nd_c, err_s, nd_s)
+            # the per-site bucket ops: channel ([-1, c_out]) and split (256)
+            for label, got, size in (('channel', fq.fake_quant_channel_bucket(w, bits), None),
+                                     ('split', fq.fake_quant_split_bucket(w, bits, 256), 256)):
+                check(torch.equal(got, fq._column_plain(w, k, size)),
+                      'per-site %s bucket op differs from plain at %s, %d bits', label, shape,
+                      bits_value)
+                check(not torch.equal(got, w), 'per-site %s bucket op copies %s at %d bits',
+                      label, shape, bits_value)
+            log('  bits=%d %-18s per-tensor max|d|=%.3g n_diff=%d | per-site channel and split '
+                'bucket ops equal to plain', bits_value, str(shape), err, nd)
 
     # times: one pass over the main path's 52 quantized weights at 4 bits
     bits = torch.tensor(4.0, device=device)
     k = fq._levels(bits)
     weights = [torch.randn(s, generator=gen, device=device) for s in weight_shapes]
-    columns = [w.reshape(-1, w.shape[-1]) for w in weights]
     bound_ms, bound_by = fq_bound(sum(w.numel() for w in weights))
     per_tensor_ms = time_ms(lambda: [fq.fake_quant_per_tensor(w, bits) for w in weights])
     per_tensor_plain_ms = time_ms(lambda: [fq._quantize_math_torch(w, k, None) for w in weights])
-    ms = time_ms(lambda: [fq.fake_quant_per_column(c, bits) for c in columns])
-    plain_ms = time_ms(lambda: [fq._quantize_math_torch(c, k, 0) for c in columns])
-    results['fake_quant_per_column'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                            bound_by=bound_by, library_ms=None)
+    per_site_ms = time_ms(lambda: [fq.fake_quant_channel_bucket(w, bits) for w in weights])
     log('  over the 52 weights of one step: fake_quant_per_tensor %.4f ms (plain %.4f ms), '
-        'fake_quant_per_column %.4f ms (plain %.4f ms), bound %.4f ms (%s)', per_tensor_ms,
-        per_tensor_plain_ms, ms, plain_ms, bound_ms, bound_by)
-    results.update(phase_tensor_kernel(fq, device))
+        'fake_quant_channel_bucket (52 groups of one) %.4f ms, bound %.4f ms (%s)', per_tensor_ms,
+        per_tensor_plain_ms, per_site_ms, bound_ms, bound_by)
+    results = phase_tensor_kernel(fq, device)
     results['fake_quant_per_tensor']['max_abs_err'] = max(
         results['fake_quant_per_tensor']['max_abs_err'], per_tensor_err)
     results.update(phase_group(fq, weight_shapes, device))
@@ -399,7 +388,8 @@ def phase_matmul(mm, device):
     3 square trunk shapes of conv1x1_ab and ragged edges (and bit-equal on
     exact sums); bn_relu_matmul_stats at fused_mm_proto's shape and
     prologue, and at a ragged M, where the statistics' bounds must also fail
-    two planted faults."""
+    two planted faults, and bit-equal on exact sums; its time beside
+    matmul_bf16's and cuBLAS's on the same x and w (the same bytes)."""
     from pocketflow_tpu_torch.experiments import conv1x1_ab, mm_shape_sweep
     results = {'matmul_bf16': {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
                                'library_ms': 0.0},
@@ -467,11 +457,11 @@ def phase_matmul(mm, device):
         log('  bn_relu_matmul_stats M=%d K=%d N=%d scale %.1f shift %.1f: y max|d|=%.3g '
             'n_diff=%d (%.2e); s err %.3g of sum|y32|, ss err %.3g relative; two runs equal',
             rows, k, n, K3_SCALE, K3_SHIFT, err, nd, nd / y.numel(), s_err, ss_err)
-        if rows % mm._BLOCK_ROWS:
-            # the plain version with the last block's rows past M counted (x
+        if rows % mm._TILE_ROWS:
+            # the plain version with the last tile's rows past M counted (x
             # zero-padded: each such row adds relu(shift) @ w), and with the
             # sums taken from bf16 y: the bounds must fail both
-            pad = -rows % mm._BLOCK_ROWS
+            pad = -rows % mm._TILE_ROWS
             _, pad_s, pad_ss = mm._bn_relu_matmul_stats_plain(
                 torch.cat([xr, xr.new_zeros((pad, k))]), w, scale, shift)
             y16 = want_y.float()
@@ -484,8 +474,18 @@ def phase_matmul(mm, device):
                       fault)
             del pad_s, pad_ss, y16
         del z, want_y, abs_sum
+    for shape in K3_EXACT:  # integers, scale 2, shift 0: every sum exact in fp32
+        ints = [torch.randint(-3, 4, size, generator=gen, device=device).to(torch.bfloat16)
+                for size in (shape[:2], shape[1:])]
+        bn = (torch.full((shape[1],), 2.0, device=device), torch.zeros(shape[1], device=device))
+        check(all(torch.equal(a, b) for a, b in zip(mm.bn_relu_matmul_stats(*ints, *bn),
+                                                    mm._bn_relu_matmul_stats_plain(*ints, *bn))),
+              'bn_relu_matmul_stats M=%d K=%d N=%d is not exact on exact sums', *shape)
+    log('  bn_relu_matmul_stats at %s: y, s and ss exact on exact sums', K3_EXACT)
     ms = time_ms(lambda: mm.bn_relu_matmul_stats(x, w, scale, shift))
     plain_ms = time_ms(lambda: mm._bn_relu_matmul_stats_plain(x, w, scale, shift))
+    matmul_ms = time_ms(lambda: mm.matmul_bf16(x, w))
+    cublas_ms = time_ms(lambda: torch.matmul(x, w))
     # x, w, scale, shift read once; y, s, ss written once; the product on the
     # tensor cores, the prologue (multiply, add, max) and the sums (add,
     # multiply, add) in fp32
@@ -494,8 +494,10 @@ def phase_matmul(mm, device):
                                 FP32_OPS_S: 3 * m * k + 3 * m * n})
     results['bn_relu_matmul_stats'].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                            bound_by=bound_by, library_ms=None)
-    log('  bn_relu_matmul_stats M=%d K=%d N=%d: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)',
-        m, k, n, ms, plain_ms, bound_ms, bound_by)
+    log('  bn_relu_matmul_stats M=%d K=%d N=%d: kernel %.4f ms (%.0f%% of the bound), plain '
+        '%.4f ms, bound %.4f ms (%s) | the product alone on the same x and w: matmul_bf16 '
+        '%.4f ms, cuBLAS bf16 %.4f ms', m, k, n, ms, 100 * bound_ms / ms, plain_ms, bound_ms,
+        bound_by, matmul_ms, cublas_ms)
     return results
 
 
@@ -580,9 +582,7 @@ def phase_composed(learner, card):
 
 def phase_routes(FLAGS, learner, state, train_step, batches, card):
     """Phase 7: the other quantization routes, timed, each launching only
-    its kernels; then the per-site bucket ops.  Returns {run label: counters}."""
-    from pocketflow_tpu_torch.learners.uniform_quantization import utils as uq_utils
-    from pocketflow_tpu_torch.ops import fake_quant as fq
+    its kernels.  Returns {run label: counters}."""
     runs = {}
     # launches a step: each forward quantizes the 52 weights in one
     # grouped launch pair; on the 8-bit route each activation goes through
@@ -616,18 +616,6 @@ def phase_routes(FLAGS, learner, state, train_step, batches, card):
         check(math.isfinite(loss), '%s loss %r', label, loss)
         want = no_launches(**{name: ROUTE_STEPS * n for name, n in per_step.items()})
         check(runs[label] == want, '%s: launches %s, expected %s', label, runs[label], want)
-    # the per-site bucket ops, which the bucket routes no longer call
-    weights = uq_utils.quant_weights(state.model, learner.statistics['weight_paths'])
-    bits = torch.tensor(4.0, device=weights[0].device)
-    reset_counters()  # this run's launches are counted from here ...
-    for w in weights:
-        fq.fake_quant_channel_bucket(w, bits)
-        fq.fake_quant_split_bucket(w, bits, 256)
-    torch.cuda.synchronize()
-    runs[PER_SITE_RUN] = counters()  # ... to here
-    log('  %s: launches %s', PER_SITE_RUN, runs[PER_SITE_RUN])
-    check(runs[PER_SITE_RUN] == no_launches(fake_quant_per_column=2 * NB_WEIGHT_SITES),
-          '%s: launches %s', PER_SITE_RUN, runs[PER_SITE_RUN])
     return runs
 
 
@@ -686,7 +674,8 @@ def main():
     for source, (_, build_log, build_s) in built.items():
         log('  %s%s: nvcc %.1f s', CSRC, source, build_s)
         for line in build_log.splitlines():
-            if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
+            if any(key in line for key in ('registers', 'spill', 'Compiling entry')) \
+                    or 'warning' in line.lower():
                 log('  ptxas: %s', line.strip())
 
     FLAGS.override(synthetic_data=True, summ_step=10 ** 9, save_step=10 ** 9,
@@ -768,10 +757,9 @@ def main():
 
     # each kernel's launches in the run that drives it: the main path for the
     # grouped K1', the 8-bit-activation route for K1' itself, the
-    # channel-bucket route for the grouped K2', the per-site bucket ops for
-    # K2' itself, an experiment for each matmul kernel
+    # channel-bucket route for K2', an experiment for each matmul kernel
     own_run = {'fake_quant_per_tensor_group': MAIN_RUN, 'fake_quant_per_tensor': ACT8_RUN,
-               'fake_quant_per_column_group': CHANNEL_RUN, 'fake_quant_per_column': PER_SITE_RUN,
+               'fake_quant_per_column_group': CHANNEL_RUN,
                'matmul_bf16': next(label for label in runs if 'mm_shape_sweep' in label),
                'bn_relu_matmul_stats': next(label for label in runs if 'fused_mm_proto' in label)}
     line = {'kernels': [{'name': name, 'route': 'cuda', 'source': CSRC + source,

@@ -9,11 +9,10 @@
 // note is above its kernels below).
 // pf_fake_quant_tensor_group is a second route of _fq_pallas_2d: many fp32
 // tensors, each with its own (alpha, beta) and bits, in one pair of launches.
-// pf_fake_quant_columns replaces _fq_pallas_cols_grid (body _fq_axis0_kernel):
-// one (alpha, beta) per column of a row-major [rows, cols] matrix.
-// pf_fake_quant_columns_group is a second route of _fq_pallas_cols_grid: many
-// fp32 tensors, each viewed as a column matrix with its own bits, in one pair
-// of launches.
+// pf_fake_quant_columns_group replaces _fq_pallas_cols_grid (body
+// _fq_axis0_kernel): one (alpha, beta) per column of a column matrix, for
+// many fp32 tensors, each with its own bits, in one pair of launches; a
+// group of one tensor is the per-site bucket ops' route.
 //
 // What bounds them on the card: bytes.  Each element is read twice (once for
 // the min/max, once to quantize) and written once, with a few flops in
@@ -25,7 +24,7 @@
 // design keeps the passes cheap instead: 16-byte vector loads and stores
 // (per tensor) or one 128-byte line per warp and row (per column),
 // warp-shuffle reductions, enough blocks to keep all 132 SMs reading (the
-// per-column kernels cut the rows into chunks, so a matrix of 64 columns is
+// grouped kernels cut every tensor into chunks, so a weight of 64 columns is
 // more than two blocks), and no padding (the ragged tail is masked, where the
 // TPU padded to its (8, 128) tile).
 //
@@ -47,17 +46,11 @@ namespace {
 
 constexpr float kEps = 1e-10f;
 constexpr int kThreads = 256;      // per-tensor kernels: threads per block
-constexpr int kColTile = 32;       // per-column kernels: columns per block (one warp wide)
-constexpr int kRowWarps = 8;       // per-column kernels: warps splitting a chunk's rows
+constexpr int kColTile = 32;       // grouped per-column kernels: columns a block (one warp wide)
+constexpr int kRowWarps = 8;       // grouped per-column kernels: warps splitting a chunk's rows
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // The reference's op order, each step rounded once.
 __device__ __forceinline__ float quantize(float x, float alpha, float beta, float k) {
@@ -433,76 +426,6 @@ int launch_tensor(const void* x, void* out, int64_t n, TensorScratch* s, const f
   return launch_tensor_w<T, 1>(xt, ot, n, s, bits, select, stream);
 }
 
-// Per-column kernels.  Block (i, j) owns kColTile neighbouring columns and
-// the j-th chunk of `chunk` rows: a warp reads 32 consecutive floats of a row
-// (one 128-byte line), and kRowWarps warps split the chunk's rows.  Cutting
-// the rows into chunks gives the card enough blocks when a matrix has few
-// columns (64 output channels make two column tiles).
-
-// Min/max of each column over the block's warps; every thread gets its column's.
-__device__ __forceinline__ void column_minmax(float& lo, float& hi) {
-  __shared__ float s_lo[kRowWarps][kColTile], s_hi[kRowWarps][kColTile];
-  s_lo[threadIdx.y][threadIdx.x] = lo;
-  s_hi[threadIdx.y][threadIdx.x] = hi;
-  __syncthreads();
-  lo = s_lo[0][threadIdx.x];
-  hi = s_hi[0][threadIdx.x];
-#pragma unroll
-  for (int w = 1; w < kRowWarps; ++w) {
-    lo = fminf(lo, s_lo[w][threadIdx.x]);
-    hi = fmaxf(hi, s_hi[w][threadIdx.x]);
-  }
-}
-
-// Pass 1: min/max of each column over the block's chunk, into partials[j][col].
-__global__ void __launch_bounds__(kColTile * kRowWarps)
-column_partials(const float* __restrict__ x, int64_t rows, int64_t cols, int64_t chunk,
-                float2* __restrict__ partials) {
-  const int64_t col = blockIdx.x * (int64_t)kColTile + threadIdx.x;
-  const int64_t r0 = blockIdx.y * chunk;
-  const int64_t r1 = r0 + chunk < rows ? r0 + chunk : rows;
-  float lo = FLT_MAX, hi = -FLT_MAX;
-  if (col < cols) {
-#pragma unroll 4
-    for (int64_t r = r0 + threadIdx.y; r < r1; r += kRowWarps) {
-      const float f = x[r * cols + col];
-      lo = fminf(lo, f);
-      hi = fmaxf(hi, f);
-    }
-  }
-  column_minmax(lo, hi);
-  if (threadIdx.y == 0 && col < cols) partials[blockIdx.y * cols + col] = make_float2(lo, hi);
-}
-
-// Pass 2: each block reduces its columns' partials over all chunks, then
-// quantizes its own chunk.
-__global__ void __launch_bounds__(kColTile * kRowWarps)
-quantize_columns(const float* __restrict__ x, float* __restrict__ out, int64_t rows, int64_t cols,
-                 int64_t chunk, const float2* __restrict__ partials, int nchunks,
-                 const float* __restrict__ bits) {
-  const int64_t col = blockIdx.x * (int64_t)kColTile + threadIdx.x;
-  const bool active = col < cols;
-  float lo = FLT_MAX, hi = -FLT_MAX;
-  if (active) {
-    for (int c = threadIdx.y; c < nchunks; c += kRowWarps) {
-      const float2 p = partials[c * cols + col];
-      lo = fminf(lo, p.x);
-      hi = fmaxf(hi, p.y);
-    }
-  }
-  column_minmax(lo, hi);
-  if (!active) return;
-  const float alpha = __fadd_rn(__fsub_rn(hi, lo), kEps);
-  const float beta = lo;
-  const float k = levels(bits);
-  const int64_t r0 = blockIdx.y * chunk;
-  const int64_t r1 = r0 + chunk < rows ? r0 + chunk : rows;
-#pragma unroll 4
-  for (int64_t r = r0 + threadIdx.y; r < r1; r += kRowWarps) {
-    out[r * cols + col] = quantize(x[r * cols + col], alpha, beta, k);
-  }
-}
-
 // Grouped per-tensor kernels: T fp32 tensors in one pair of launches.
 //
 // pf_fake_quant_tensor_group is a second route of the same TPU kernel as
@@ -629,10 +552,10 @@ group_quantize(const GroupEntry* __restrict__ entries, const int* __restrict__ c
 //
 // pf_fake_quant_columns_group is the bucket routes' counterpart of the
 // grouped per-tensor kernels (a second route of _fq_pallas_cols_grid): with
-// --uql_use_buckets every quantized weight went through the per-column
-// kernels in two launches of its own, after a copy into its column view and
-// before the select on bits < 32, so the 52 weights of ResNet-50 cost 52
-// launch pairs and as many selects a forward.  Here tensor t is a column
+// --uql_use_buckets every quantized weight went through a per-column
+// kernel pair of its own, after a copy into its column view and before the
+// select on bits < 32, so the 52 weights of ResNet-50 cost 52 launch pairs
+// and as many selects a forward.  Here tensor t is a column
 // matrix [rows, cols] whose element (r, c) is x[r * cols + c]: channel
 // buckets [n / c_out, c_out], split buckets [bucket_size, ceil(n /
 // bucket_size)], where an element past n reads as x[n - 1] (the pad of the
@@ -643,14 +566,32 @@ group_quantize(const GroupEntry* __restrict__ entries, const int* __restrict__ c
 // each tile's row chunks consecutive.  Pass 1 writes each chunk's per-column
 // (min, max); pass 2, walking the chunks backwards (its first reads find
 // pass 1's last in L2), reduces its tile's partials in a fixed order and
-// quantizes its chunk, or copies it where bits >= 32 (the select, whose
-// gradient is the identity either way).  Bound: bytes, each element read
-// twice and written once; a warp reads and writes one row's 32 columns, 128
+// quantizes its chunk.  With `select` (the bucket routes) a tensor whose
+// bits are >= 32 is copied instead (the select, whose gradient is the
+// identity either way) and pass 1 skips it; without it (the per-site bucket
+// ops, a group of one) every tensor is quantized, 32 bits included, as the
+// reference's per-site ops do.  Bound: bytes, each element read twice and
+// written once; a warp reads and writes one row's 32 columns, 128
 // consecutive bytes.  The arithmetic is quantize(), so each tensor's result
-// equals pf_fake_quant_columns' on its column view bit for bit.
+// equals the plain version on its column view bit for bit.
 
 constexpr int kColGroupRows = 512;  // rows of a chunk: 16K elements at 32 columns
 constexpr int kColUnroll = 8;       // rows a thread loads before it uses them
+
+// Min/max of each column over the block's warps; every thread gets its column's.
+__device__ __forceinline__ void column_minmax(float& lo, float& hi) {
+  __shared__ float s_lo[kRowWarps][kColTile], s_hi[kRowWarps][kColTile];
+  s_lo[threadIdx.y][threadIdx.x] = lo;
+  s_hi[threadIdx.y][threadIdx.x] = hi;
+  __syncthreads();
+  lo = s_lo[0][threadIdx.x];
+  hi = s_hi[0][threadIdx.x];
+#pragma unroll
+  for (int w = 1; w < kRowWarps; ++w) {
+    lo = fminf(lo, s_lo[w][threadIdx.x]);
+    hi = fmaxf(hi, s_hi[w][threadIdx.x]);
+  }
+}
 
 // One tensor of a column group.
 struct ColumnEntry {
@@ -685,10 +626,11 @@ __device__ __forceinline__ ColumnChunk column_chunk(const ColumnEntry* entries,
 
 __global__ void __launch_bounds__(kColTile * kRowWarps)
 column_group_partials(const ColumnEntry* __restrict__ entries, const int* __restrict__ chunk_tensor,
-                      const float* __restrict__ bits, float2* __restrict__ partials) {
+                      const float* __restrict__ bits, int select,
+                      float2* __restrict__ partials) {
   const int c = blockIdx.x;
   const ColumnChunk ch = column_chunk(entries, chunk_tensor, c);
-  if (bits[ch.t] >= 32.0f) return;  // copied in pass 2; no partial is read
+  if (select && bits[ch.t] >= 32.0f) return;  // copied in pass 2; no partial is read
   float lo = FLT_MAX, hi = -FLT_MAX;
   if (ch.col < ch.e.cols) {
     const float pad = ch.e.x[ch.e.n - 1];
@@ -713,12 +655,12 @@ column_group_partials(const ColumnEntry* __restrict__ entries, const int* __rest
 
 __global__ void __launch_bounds__(kColTile * kRowWarps)
 column_group_quantize(const ColumnEntry* __restrict__ entries, const int* __restrict__ chunk_tensor,
-                      const float* __restrict__ bits, const float2* __restrict__ partials,
-                      float* __restrict__ out) {
+                      const float* __restrict__ bits, int select,
+                      const float2* __restrict__ partials, float* __restrict__ out) {
   const int c = gridDim.x - 1 - blockIdx.x;  // the reverse of pass 1's order
   const ColumnChunk ch = column_chunk(entries, chunk_tensor, c);
   const bool active = ch.col < ch.e.cols;
-  const bool copy = bits[ch.t] >= 32.0f;
+  const bool copy = select && bits[ch.t] >= 32.0f;
   float alpha = 0.0f, beta = 0.0f, k = 0.0f;
   if (!copy) {  // uniform across the block: column_minmax's barrier is safe
     float lo = FLT_MAX, hi = -FLT_MAX;
@@ -788,36 +730,23 @@ int pf_fake_quant_tensor_group(const void* entries, const int* chunk_tensor, int
 
 int pf_fake_quant_group_chunk() { return kGroupChunk; }
 
-// x, out: row-major fp32 [rows, cols], rows >= 1, cols >= 1.
-// The rows are cut into nchunks chunks of `chunk` rows (nchunks = ceil(rows / chunk),
-// at most 65535); partials: scratch of nchunks * cols float2.  bits: one fp32 on the device.
-int pf_fake_quant_columns(const float* x, float* out, int64_t rows, int64_t cols, int64_t chunk,
-                          void* partials, int nchunks, const float* bits, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float2* p = static_cast<float2*>(partials);
-  const dim3 block(kColTile, kRowWarps);
-  const dim3 grid(static_cast<unsigned>((cols + kColTile - 1) / kColTile),
-                  static_cast<unsigned>(nchunks));
-  column_partials<<<grid, block, 0, s>>>(x, rows, cols, chunk, p);
-  quantize_columns<<<grid, block, 0, s>>>(x, out, rows, cols, chunk, p, nchunks, bits);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // A group of T fp32 column matrices.  entries: T ColumnEntry on the device
 // (x; the output's offset in `out` in elements, a multiple of 4; n >= 1;
 // rows, cols >= 1 with rows * cols >= n; the first chunk and the row chunks
 // of a column tile, tensors in order); chunk_tensor: nchunks ints on the
 // device, the tensor of each chunk (nchunks = the sum of ceil(cols /
 // kColTile) * ceil(rows / kColGroupRows)); bits: T fp32 on the device;
-// partials: scratch of nchunks * kColTile float2; out: 16-byte aligned.
+// select: copy the tensors whose bits are >= 32; partials: scratch of
+// nchunks * kColTile float2; out: 16-byte aligned.
 int pf_fake_quant_columns_group(const void* entries, const int* chunk_tensor, int nchunks,
-                                const float* bits, void* partials, float* out, void* stream) {
+                                const float* bits, int select, void* partials, float* out,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const ColumnEntry* e = static_cast<const ColumnEntry*>(entries);
   float2* p = static_cast<float2*>(partials);
   const dim3 block(kColTile, kRowWarps);
-  column_group_partials<<<nchunks, block, 0, s>>>(e, chunk_tensor, bits, p);
-  column_group_quantize<<<nchunks, block, 0, s>>>(e, chunk_tensor, bits, p, out);
+  column_group_partials<<<nchunks, block, 0, s>>>(e, chunk_tensor, bits, select, p);
+  column_group_quantize<<<nchunks, block, 0, s>>>(e, chunk_tensor, bits, select, p, out);
   return static_cast<int>(cudaGetLastError());
 }
 

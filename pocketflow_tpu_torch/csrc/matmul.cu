@@ -16,83 +16,108 @@
 // matmul with a BN scale/shift + ReLU prologue and a per-column sum/sum^2
 // epilogue taken from the fp32 accumulator, as the TPU kernel takes them.
 //
-// What bounds pf_matmul_bf16 on the card.  A product of [M, K] and [K, N]
-// does 2*M*K*N flops on (M*K + K*N + M*N)*2 bytes, so about K*N / (K + N)
-// flops a byte: 51 at K=256, N=64, 205 at K=512, N=2048, against the H100's
-// ~295 bf16 flops a byte.  Six of the eight ResNet-50 1x1 shapes are bound by
-// bytes (reading x once and writing y once at the memory's rate is the whole
-// game there), the two stage-4 shapes by the tensor cores.  The TPU kernel
-// streamed (TILE_M, K) blocks of x through VMEM against the whole of w.
+// What bounds them on the card.  A product of [M, K] and [K, N] does
+// 2*M*K*N flops on (M*K + K*N + M*N)*2 bytes, so about K*N / (K + N) flops a
+// byte: 51 at K=256, N=64, 205 at K=512, N=2048, against the H100's ~295 bf16
+// flops a byte.  Six of the eight ResNet-50 1x1 shapes are bound by bytes
+// (reading x once and writing y once at the memory's rate is the whole game
+// there), the two stage-4 shapes by the tensor cores.  The fused kernel's
+// shape (M=802,816, K=256, N=64) is one of the six: its prologue and sums add
+// a few instructions an element and no bytes.  The TPU kernels streamed
+// (TILE_M, K) blocks of x through VMEM against the whole of w.
 //
-// The design (the usual Hopper GEMM):
+// Both run on one kernel body, matmul_wgmma<BN, kStats> (the usual Hopper
+// GEMM):
 //   * TMA loads: one producer warp copies 128x64 tiles of x and 64x64 panels
 //     of w into a ring of shared-memory stages (128-byte swizzle), each stage
 //     with an mbarrier for its arrival (transaction bytes) and one for its
 //     release.  Boxes past M or K fill zeros, so a ragged M or K needs no
-//     masked loads; the descriptors are encoded on the host in
-//     pf_matmul_bf16 (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint,
-//     no -lcuda) and passed as __grid_constant__ parameters.
+//     masked loads; the descriptors are encoded on the host
+//     (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, no -lcuda) and
+//     passed as __grid_constant__ parameters.  Waits trap after ~10 s, so a
+//     pipeline fault is a launch error, not a hung card.
 //   * wgmma: two consumer warpgroups each own 64 rows of a 128-row tile and
-//     run m64nBNk16 (bf16 in, fp32 accumulators in registers) on the
-//     stage; w stays row-major [K, N], which is the MN-major ("transposed")
-//     B operand wgmma reads from the swizzled panels, so no transpose pass.
-//     One wgmma group stays in flight while the previous stage is released.
+//     run m64nBNk16 (bf16 in, fp32 accumulators in registers) on the stage;
+//     w stays row-major [K, N], which is the MN-major ("transposed") B
+//     operand wgmma reads from the swizzled panels, so no transpose pass.
 //     The producer warpgroup gives its registers to the consumers
 //     (setmaxnreg).
-//   * Tile by N: BN = 64, 128 or 256, the least that covers N up to 256, so
-//     at N <= 256 one tile spans all of y's columns and each row of x is read
-//     from device memory once; wider N takes 128x256 tiles (128x128 where
-//     those leave a last wave mostly idle), walked with the column tile
-//     fastest so that the tiles of one row tile run at the same time on
-//     neighbouring SMs and x is read from memory once while w stays in the
-//     50 MB L2.
-//   * A persistent grid, one block per SM, walking the output tiles.  The
-//     epilogue rounds the accumulators with __float2bfloat16_rn into a
-//     swizzled tile in shared memory (no bank conflicts) and stores it with
-//     TMA (rows past M and columns past N are clipped), while the producer
-//     already loads the next tile's stages.
+//   * A persistent grid, at most one block per SM, walking the output tiles
+//     with the column tile fastest, so that the tiles of one row tile run at
+//     the same time on neighbouring SMs and x is read from memory once while
+//     w stays in the 50 MB L2.  The epilogue rounds the accumulators with
+//     __float2bfloat16_rn into a swizzled tile in shared memory (no bank
+//     conflicts) and stores it with TMA (rows past M and columns past N are
+//     clipped), while the producer already loads the next tile's stages.
 //
-// The fused kernel (pf_bn_relu_matmul_stats) keeps the first, WMMA-based
-// design: a block of 256 threads owns a 128x64 tile of y and walks K in steps
-// of 32 staged through registers and shared memory; the next k-step's tiles
-// are loaded into registers while the current one multiplies.  Its prologue
-// needs x in registers between the load and the product, which on the new
-// core is the register-A variant of wgmma (later work).  The prologue runs
-// while a tile of x is staged in shared memory, spelled with __fmul_rn and
-// __fadd_rn (never an FMA) so that z equals the plain version's separate
-// multiply and add; k past K gives z = 0 (a zero row of x is not a zero row
-// of z: relu(0 * scale + shift) = shift).  The statistics need a sum over all
-// rows, which on the TPU ran in grid order into one accumulator.  Hopper
-// blocks run in no order, so each block writes the sums of its own rows (rows
-// < M only) into a scratch of partials, and a second launch reduces the
-// partials of each column in a fixed order, in double.  No float atomics: two
-// runs give the same bits.
+// The plain product (kStats false) takes A from shared memory too, and keeps
+// one wgmma group in flight while the previous stage is released.  Tile by
+// N: BN = 64, 128 or 256, the least that covers N up to 256, so at N <= 256
+// one tile spans all of y's columns; wider N takes 128x256 tiles (128x128
+// where those leave a last wave mostly idle).
+//
+// The fused product (kStats true) adds two things to the same body.
+//   * The prologue in registers (the register-A form of wgmma).  z has to
+//     sit between the shared-memory tile and the tensor cores.  Rewriting
+//     the landed tile in shared memory would cost a store, a proxy fence and
+//     a barrier of both warpgroups each stage; instead each warp loads its
+//     16 rows of the stage with ldmatrix (conflict-free on the 128-byte
+//     swizzle), applies z = bf16(relu(x * scale + shift)) to the fragments
+//     with __fmul_rn and __fadd_rn (never an FMA, so z equals the plain
+//     version's separate multiply and add), repacks them with
+//     __floats2bfloat162_rn and issues wgmma with A from registers and w
+//     from shared memory.  The fragment registers are rewritten each stage,
+//     so a stage's products are waited for before the next stage's
+//     ldmatrix; the other warpgroup keeps the tensor cores busy meanwhile.
+//     scale and shift travel with the stage: a second warp of the producer
+//     warpgroup writes the stage's 64 values of each into its shared memory
+//     (zero past K; 512 bytes from L2 beside the stage's 24 KB or more of x
+//     and w) and arrives on the stage's barrier with the TMA's bytes, laid
+//     out so that a thread reads the four values of a 16-deep step in one
+//     16-byte load.  So K is bounded by nothing but the int type, as in the
+//     plain product.  Past K, x and w are zero (TMA fill) and z =
+//     relu(0 * 0 + 0) = 0.  Past M, x is zero but z = relu(shift) is not,
+//     so those rows' accumulators are not zero: the TMA store clips them and
+//     the sums skip them.
+//   * The statistics from the accumulators, before the bf16 rounding, in a
+//     fixed order: each thread adds its two rows of a column (rows < M only),
+//     then three warp shuffles halve the values a lane holds while summing
+//     over the warp's 16 rows (fp32, as the TPU kernel sums a tile); each
+//     lane adds its tile sums into double accumulators of its own, tile by
+//     tile; at the end the block sums its 8 warps' in shared memory, in
+//     order, into one row of partials.  Every tile a block walks has the same
+//     column tile (the grid is a multiple of the column tiles), so a block's
+//     accumulators cover BN columns.  A second, small launch sums each
+//     column's partials over the blocks in double, a warp a column, in a
+//     fixed order.  No float atomics: two runs give the same bits.  BN = 64
+//     (N <= 64) or 128: at 256 the accumulators, the fragments and the
+//     statistics would not fit the consumers' registers.
 //
 // Plain C interface for ctypes; every entry point returns cudaGetLastError()
-// (or cudaErrorInvalidValue when a TMA descriptor cannot be made).
+// (or cudaErrorInvalidValue when a TMA descriptor cannot be made or an input
+// is out of range).
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; nothing is linked from it)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// pf_matmul_bf16: TMA + wgmma, warp-specialised, persistent
-// ---------------------------------------------------------------------------
 
 constexpr int kMmBM = 128;        // rows of y a tile: two consumer warpgroups of 64
 constexpr int kMmBK = 64;         // k a stage: one 128-byte swizzled row of bf16
 constexpr int kPanel = 64;        // columns of one 128-byte swizzled panel
 constexpr int kPanelRowBytes = 128;
 constexpr int kMmThreads = 384;   // warpgroups 0 and 1 consume, 2 produces
+constexpr int kConsumerThreads = 256;
 constexpr int kConsumerWarps = 8;
 constexpr int kSmemAlign = 1024;  // a 128-byte swizzle repeats every 8 rows of 128 bytes
+constexpr int kMaxSmem = 232448;  // dynamic shared memory of one block
+constexpr int kBnThreads = 32;    // kStats: the producer warp that writes scale and shift
 constexpr long long kWaitTrapCycles = 1LL << 34;  // ~10 s at the H100's clocks
 
-template <int BN> struct MmTile {
+template <int BN, bool kStats> struct MmTile {
   static constexpr int kStages = BN == 256 ? 3 : BN == 128 ? 5 : 8;
   static constexpr int kABytes = kMmBM * kMmBK * 2;            // 16 KB of x
   static constexpr int kBBytes = kMmBK * BN * 2;               // BN/64 panels of w
@@ -100,8 +125,13 @@ template <int BN> struct MmTile {
   static constexpr int kCBytes = kMmBM * BN * 2;               // the bf16 y tile
   static constexpr int kWgCBytes = kCBytes / 2;                // a warpgroup's 64 rows
   static constexpr int kBarOffset = kStages * kStageBytes + kCBytes;
-  static constexpr int kSmemBytes = kBarOffset + 2 * kStages * 8 + kSmemAlign;
-  static_assert(kSmemBytes <= 232448, "shared memory of one block");
+  static constexpr int kBnOffset = kBarOffset + 2 * kStages * 8;  // kStats: scale, shift a stage
+  static constexpr int kBnFloats = 2 * kMmBK;
+  static constexpr int kSmemBytes = kBnOffset + (kStats ? kStages * kBnFloats * 4 : 0) + kSmemAlign;
+  static_assert(kSmemBytes <= kMaxSmem, "shared memory of one block");
+  static_assert(!kStats || BN <= 128, "the fused kernel's registers");
+  static_assert(!kStats || kStages * kStageBytes >= kConsumerWarps * 32 * (BN / 16) * 8,
+                "the block's statistics are summed in the stages' memory");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -167,8 +197,31 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead, uint
          static_cast<uint64_t>((stride >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
 }
 
-// d (+)= a @ b for one m64nNk16 step: a K-major (x), b MN-major (w), both
-// from shared memory; scale_d = 0 starts a new sum.
+// The operands of the wgmma instructions below: the accumulators d[0..N/2)
+// as "+f" operands %0..%(N/2 - 1), then A, B and scale_d.
+#define PF_ACC8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define PF_ACC32(i) PF_ACC8(i), PF_ACC8(i + 8), PF_ACC8(i + 16), PF_ACC8(i + 24)
+#define PF_D32                                                                    \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "        \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define PF_D64                                                                    \
+  PF_D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+         "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "    \
+         "%60, %61, %62, %63"
+#define PF_D128                                                                       \
+  PF_D64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "    \
+         "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, " \
+         "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "     \
+         "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "    \
+         "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+
+// d (+)= a @ b for one m64nNk16 step, b MN-major (w) from shared memory;
+// scale_d = 0 starts a new sum.  mma: a K-major (x) from shared memory;
+// mma_rs: a from registers, four 32-bit registers of two bf16 each in the
+// layout of mma.m16n8k16's A fragment, warp q of the warpgroup holding rows
+// [16 q, 16 q + 16).
 template <int N> struct Wgmma;
 
 template <> struct Wgmma<64> {
@@ -176,15 +229,19 @@ template <> struct Wgmma<64> {
                                              int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" PF_D32
         "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : PF_ACC32(0)
         : "l"(a), "l"(b), "r"(scale_d));
+  }
+  __device__ __forceinline__ static void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" PF_D32
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : PF_ACC32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
@@ -193,21 +250,19 @@ template <> struct Wgmma<128> {
                                              int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" PF_D64
         "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : PF_ACC32(0), PF_ACC32(32)
         : "l"(a), "l"(b), "r"(scale_d));
+  }
+  __device__ __forceinline__ static void mma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" PF_D64
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : PF_ACC32(0), PF_ACC32(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
@@ -216,48 +271,89 @@ template <> struct Wgmma<256> {
                                              int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" PF_D128
         "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : PF_ACC32(0), PF_ACC32(32), PF_ACC32(64), PF_ACC32(96)
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
+#undef PF_ACC8
+#undef PF_ACC32
+#undef PF_D32
+#undef PF_D64
+#undef PF_D128
 
 template <int R>
-__device__ __forceinline__ void fence_accumulators(float (&d)[R]) {
+__device__ __forceinline__ void fence_registers(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-template <int BN>
+template <int R>
+__device__ __forceinline__ void fence_registers(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i, and register i gets this lane's two values of it.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// relu(x * scale + shift) in the plain version's order, each step rounded once
+__device__ __forceinline__ float bn_relu(float x, float scale, float shift) {
+  const float t = __fadd_rn(__fmul_rn(x, scale), shift);
+  return t < 0.0f ? 0.0f : t;
+}
+
+// The prologue of two bf16 (the low one first) of an A fragment register.
+__device__ __forceinline__ uint32_t bn_relu2(uint32_t v, float scale_lo, float scale_hi,
+                                             float shift_lo, float shift_hi) {
+  const __nv_bfloat162 z =
+      __floats2bfloat162_rn(bn_relu(__uint_as_float(v << 16), scale_lo, shift_lo),
+                            bn_relu(__uint_as_float(v & 0xFFFF0000u), scale_hi, shift_hi));
+  uint32_t out;
+  memcpy(&out, &z, 4);
+  return out;
+}
+
+// Where k's scale and shift sit in shared memory: within each 16-deep step,
+// thread t (lane % 4) of a warp needs k = 2t, 2t + 1, 2t + 8, 2t + 9 (its A
+// fragment's columns), which go to slots 4t .. 4t + 3.
+__device__ __forceinline__ int bn_slot(int k) {
+  const int j = k & 15;
+  return (k & ~15) | ((j & 7) >> 1) << 2 | (j >> 3) << 1 | (j & 1);
+}
+
+// v[0, 2H) -> v[0, H): each lane keeps the half that its lane bit `mask`
+// selects, summed with the partner lane's same half.
+template <int H, int R>
+__device__ __forceinline__ void fold_half(float (&v)[R], int lane, int mask) {
+  const bool upper = (lane & mask) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float keep = upper ? v[i + H] : v[i];
+    v[i] = __fadd_rn(keep, __shfl_xor_sync(0xFFFFFFFFu, send, mask));
+  }
+}
+
+template <int BN, bool kStats>
 __global__ void __launch_bounds__(kMmThreads, 1)
 matmul_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
-             const __grid_constant__ CUtensorMap map_y, int M, int K, int N) {
-  using T = MmTile<BN>;
+             const __grid_constant__ CUtensorMap map_y, int M, int K, int N,
+             const float* __restrict__ scale, const float* __restrict__ shift,
+             double* __restrict__ partials) {
+  using T = MmTile<BN, kStats>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + kSmemAlign - 1) & ~static_cast<uint32_t>(kSmemAlign - 1);
@@ -273,7 +369,7 @@ matmul_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ 
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < T::kStages; ++s) {
-      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(full_bar + 8 * s, kStats ? 1 + kBnThreads : 1);
       mbar_init(empty_bar + 8 * s, kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -281,9 +377,11 @@ matmul_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ 
   __syncthreads();
 
   if (wg == 2) {
-    // producer: one thread keeps the ring full
+    // producers: one thread keeps the ring full of x and w; with kStats the
+    // next warp writes each stage's scale and shift
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-    if (threadIdx.x == 256) {
+    const bool loads = threadIdx.x == 256;
+    if (loads || (kStats && threadIdx.x >= 288 && threadIdx.x < 288 + kBnThreads)) {
       int stage = 0;
       uint32_t phase = 0;
       for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -292,13 +390,25 @@ matmul_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ 
         for (int kb = 0; kb < nk; ++kb) {
           mbar_wait(empty_bar + 8 * stage, phase ^ 1);
           const uint32_t bar = full_bar + 8 * stage;
-          const uint32_t a = base + stage * T::kStageBytes;
-          mbar_expect_tx(bar, T::kStageBytes);
-          tma_load(a, &map_x, bar, kb * kMmBK, m0);
+          if (loads) {
+            const uint32_t a = base + stage * T::kStageBytes;
+            mbar_expect_tx(bar, T::kStageBytes);
+            tma_load(a, &map_x, bar, kb * kMmBK, m0);
 #pragma unroll
-          for (int p = 0; p < BN / kPanel; ++p)
-            tma_load(a + T::kABytes + p * kMmBK * kPanelRowBytes, &map_w, bar, n0 + p * kPanel,
-                     kb * kMmBK);
+            for (int p = 0; p < BN / kPanel; ++p)
+              tma_load(a + T::kABytes + p * kMmBK * kPanelRowBytes, &map_w, bar, n0 + p * kPanel,
+                       kb * kMmBK);
+          } else if constexpr (kStats) {
+            // k = kb * kMmBK + j goes to slot bn_slot(j) of the stage's
+            // scale, then of its shift; zero past K
+            float* bn = reinterpret_cast<float*>(smem + T::kBnOffset) + stage * T::kBnFloats;
+            for (int j = threadIdx.x & 31; j < kMmBK; j += kBnThreads) {
+              const int k = kb * kMmBK + j;
+              bn[bn_slot(j)] = k < K ? scale[k] : 0.0f;
+              bn[kMmBK + bn_slot(j)] = k < K ? shift[k] : 0.0f;
+            }
+            mbar_arrive(bar);
+          }
           if (++stage == T::kStages) {
             stage = 0;
             phase ^= 1;
@@ -317,6 +427,18 @@ matmul_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ 
     float acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;  // each tile's first wgmma overwrites it
+
+    // kStats: the stages' scale and shift; this lane's ldmatrix row of a
+    // stage; its tile sums
+    const float* bn = reinterpret_cast<const float*>(smem + T::kBnOffset);
+    const int a_row = wg * 64 + wq * 16 + (lane & 15);
+    const uint32_t a_row_offset = a_row * kPanelRowBytes;
+    double sums[BN / 16];
+    if constexpr (kStats) {
+#pragma unroll
+      for (int i = 0; i < BN / 16; ++i) sums[i] = 0.0;
+    }
+
     int stage = 0;
     uint32_t phase = 0;
     for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -325,22 +447,58 @@ matmul_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ 
       int prev = 0;
       for (int kb = 0; kb < nk; ++kb) {
         mbar_wait(full_bar + 8 * stage, phase);
-        const uint32_t a = base + stage * T::kStageBytes + wg * 64 * kPanelRowBytes;
         const uint32_t b = base + stage * T::kStageBytes + T::kABytes;
-        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+        if constexpr (kStats) {
+          // the previous stage's products are done (its A registers are
+          // rewritten below): release it
+          if (kb > 0) {
+            wgmma_wait_all();
+            fence_registers(acc);
+            if (lane == 0) mbar_arrive(empty_bar + 8 * prev);
+          }
+          // this warp's 16 rows of the stage, 16 k a step: matrices (rows
+          // 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15), each
+          // 16-byte row at chunk (k / 8) ^ (row % 8) of the swizzle
+          const uint32_t a = base + stage * T::kStageBytes + a_row_offset;
+          uint32_t frag[kMmBK / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < kMmBK / 16; ++kk) {
-          // x: 16 k to the right (32 bytes) within the swizzled row; w: 16
-          // rows down; panels of w kMmBK rows apart, 8-row groups 1 KB apart
-          Wgmma<BN>::mma(acc, smem_desc(a + kk * 32, 16, 1024),
-                         smem_desc(b + kk * 16 * kPanelRowBytes, kMmBK * kPanelRowBytes, 1024),
-                         kb > 0 || kk > 0);
-        }
-        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-        if (kb > 0) {  // the previous stage's products are done: release it
-          asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-          fence_accumulators(acc);
-          if (lane == 0) mbar_arrive(empty_bar + 8 * prev);
+          for (int kk = 0; kk < kMmBK / 16; ++kk)
+            ldmatrix_x4(frag[kk], a + (((2 * kk + (lane >> 4)) ^ (a_row & 7)) << 4));
+#pragma unroll
+          for (int kk = 0; kk < kMmBK / 16; ++kk) {
+            const float* slot = bn + stage * T::kBnFloats + kk * 16 + 4 * (lane & 3);
+            const float4 sc = *reinterpret_cast<const float4*>(slot);
+            const float4 sh = *reinterpret_cast<const float4*>(slot + kMmBK);
+            frag[kk][0] = bn_relu2(frag[kk][0], sc.x, sc.y, sh.x, sh.y);  // row g, k 2t
+            frag[kk][1] = bn_relu2(frag[kk][1], sc.x, sc.y, sh.x, sh.y);  // row g + 8, k 2t
+            frag[kk][2] = bn_relu2(frag[kk][2], sc.z, sc.w, sh.z, sh.w);  // row g, k 2t + 8
+            frag[kk][3] = bn_relu2(frag[kk][3], sc.z, sc.w, sh.z, sh.w);  // row g + 8, k 2t + 8
+            fence_registers(frag[kk]);
+          }
+          asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+          for (int kk = 0; kk < kMmBK / 16; ++kk)
+            Wgmma<BN>::mma_rs(acc, frag[kk],
+                              smem_desc(b + kk * 16 * kPanelRowBytes, kMmBK * kPanelRowBytes, 1024),
+                              kb > 0 || kk > 0);
+          asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        } else {
+          const uint32_t a = base + stage * T::kStageBytes + wg * 64 * kPanelRowBytes;
+          asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+          for (int kk = 0; kk < kMmBK / 16; ++kk) {
+            // x: 16 k to the right (32 bytes) within the swizzled row; w: 16
+            // rows down; panels of w kMmBK rows apart, 8-row groups 1 KB apart
+            Wgmma<BN>::mma(acc, smem_desc(a + kk * 32, 16, 1024),
+                           smem_desc(b + kk * 16 * kPanelRowBytes, kMmBK * kPanelRowBytes, 1024),
+                           kb > 0 || kk > 0);
+          }
+          asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+          if (kb > 0) {  // the previous stage's products are done: release it
+            asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+            fence_registers(acc);
+            if (lane == 0) mbar_arrive(empty_bar + 8 * prev);
+          }
         }
         prev = stage;
         if (++stage == T::kStages) {
@@ -348,8 +506,8 @@ matmul_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ 
           phase ^= 1;
         }
       }
-      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-      fence_accumulators(acc);
+      wgmma_wait_all();
+      fence_registers(acc);
       if (lane == 0) mbar_arrive(empty_bar + 8 * prev);
 
       // epilogue: the previous tile's store has read the y tile ...
@@ -377,9 +535,77 @@ matmul_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ 
           tma_store(&map_y, c_wg + p * 64 * kPanelRowBytes, n0 + p * kPanel, m0 + wg * 64);
         asm volatile("cp.async.bulk.commit_group;" ::: "memory");
       }
+
+      if constexpr (kStats) {
+        // this thread holds rows g and g + 8 of its warp's 16 (g = lane / 4)
+        // and columns 8 j + 2 (lane % 4) + c: v[4 j + 2 c] sums y32, v[4 j +
+        // 2 c + 1] y32^2 over its rows < M
+        const int64_t row = static_cast<int64_t>(m0) + wg * 64 + r0;
+        const bool in0 = row < M, in1 = row + 8 < M;
+        float v[BN / 2];
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float y0 = in0 ? acc[4 * j + c] : 0.0f;
+            const float y1 = in1 ? acc[4 * j + 2 + c] : 0.0f;
+            v[4 * j + 2 * c] = __fadd_rn(y0, y1);
+            v[4 * j + 2 * c + 1] = __fadd_rn(__fmul_rn(y0, y0), __fmul_rn(y1, y1));
+          }
+        }
+        // over the 8 lanes of a lane % 4 (lane bits 4, 3, 2): lane keeps
+        // v[i], i < BN / 16, the sum of the value at i + (lane / 4) BN / 16
+        fold_half<BN / 4>(v, lane, 16);
+        fold_half<BN / 8>(v, lane, 8);
+        fold_half<BN / 16>(v, lane, 4);
+#pragma unroll
+        for (int i = 0; i < BN / 16; ++i) sums[i] += static_cast<double>(v[i]);
+      }
     }
     if (leader) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+
+    if constexpr (kStats) {
+      // the block's sums: its 8 warps' in order, through the stages' memory
+      // (every load has landed and been read once both warpgroups are here)
+      double* red = reinterpret_cast<double*>(smem);  // [warp][lane][BN / 16]
+      named_barrier(3, kConsumerThreads);
+#pragma unroll
+      for (int i = 0; i < BN / 16; ++i) red[(threadIdx.x * (BN / 16)) + i] = sums[i];
+      named_barrier(3, kConsumerThreads);
+      const int n0 = static_cast<int>(blockIdx.x % n_tiles) * BN;  // every tile's column tile
+      for (int u = threadIdx.x; u < 2 * BN; u += kConsumerThreads) {
+        // column col = 8 j + 2 t + c, sum q (0: y32, 1: y32^2) sits at
+        // index 4 j + 2 c + q of lane t's values before the folds
+        const int col = u >> 1, q = u & 1;
+        const int index = 4 * (col >> 3) + 2 * (col & 1) + q;
+        const int from = ((index / (BN / 16)) << 2 | ((col >> 1) & 3)) * (BN / 16) + index % (BN / 16);
+        double sum = 0.0;
+#pragma unroll
+        for (int w = 0; w < kConsumerWarps; ++w) sum += red[w * 32 * (BN / 16) + from];
+        if (n0 + col < N) partials[(2 * static_cast<int64_t>(blockIdx.x) + q) * N + n0 + col] = sum;
+      }
+    }
   }
+}
+
+// Launch 2 of the fused kernel: s[col] and ss[col] from the blocks'
+// partials of col's column tile, in double, a warp each: lane l sums every
+// 32nd of them from the l-th, in block order, then the lanes' sums fold in a
+// fixed order.
+constexpr int kReduceThreads = 256;
+
+__global__ void __launch_bounds__(kReduceThreads)
+stats_reduce(const double* __restrict__ partials, int grid, int n_tiles, int bn, int N,
+             float* __restrict__ s, float* __restrict__ ss) {
+  const int u = (blockIdx.x * kReduceThreads + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (u >= 2 * N) return;  // the whole warp
+  const int q = u / N, col = u % N;
+  double sum = 0.0;
+  for (int b = col / bn + lane * n_tiles; b < grid; b += 32 * n_tiles)
+    sum += partials[(2 * static_cast<int64_t>(b) + q) * N + col];
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) sum += __shfl_down_sync(0xFFFFFFFFu, sum, offset);
+  if (lane == 0) (q ? ss : s)[col] = static_cast<float>(sum);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -427,223 +653,64 @@ double wave_use(int64_t tiles, int sms) {
   return static_cast<double>(tiles) / static_cast<double>(waves * sms);
 }
 
-template <int BN>
-int launch_matmul(const void* x, const void* w, void* y, int64_t M, int K, int N, int sms,
-                  cudaStream_t stream) {
-  using T = MmTile<BN>;
+int sm_count() {
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return sms;
+}
+
+// The fused kernel's column tile width and grid: a multiple of its column
+// tiles (so that each block walks one column tile), at most one block an SM
+// where the column tiles allow, and no more blocks than tiles.
+int stats_bn(int N) { return N <= 64 ? 64 : 128; }
+
+int64_t stats_grid(int64_t M, int N, int sms) {
+  const int bn = stats_bn(N);
+  const int64_t n_tiles = (N + bn - 1) / bn;
+  const int64_t fill = n_tiles <= sms ? sms - sms % n_tiles : n_tiles;
+  const int64_t tiles = num_tiles(M, N, bn);
+  return tiles < fill ? tiles : fill;
+}
+
+// The tensor maps of x, w and y, the shared memory allowance and the launch
+// of matmul_wgmma<BN, kStats> on `grid` blocks.
+template <int BN, bool kStats>
+int launch(const void* x, const void* w, void* y, int64_t M, int K, int N, int64_t grid,
+           const float* scale, const float* shift, double* partials, cudaStream_t stream) {
+  using T = MmTile<BN, kStats>;
   CUtensorMap map_x, map_w, map_y;
   if (!tensor_map(&map_x, x, K, M, kMmBK, kMmBM) || !tensor_map(&map_w, w, N, K, kPanel, kMmBK) ||
       !tensor_map(&map_y, y, N, M, kPanel, kMmBM / 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncSetAttribute(matmul_wgmma<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       T::kSmemBytes);
-  const int64_t tiles = num_tiles(M, N, BN);
-  const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  matmul_wgmma<BN><<<grid, kMmThreads, T::kSmemBytes, stream>>>(map_x, map_w, map_y,
-                                                                 static_cast<int>(M), K, N);
+  const cudaError_t err = cudaFuncSetAttribute(
+      matmul_wgmma<BN, kStats>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  matmul_wgmma<BN, kStats><<<static_cast<unsigned>(grid), kMmThreads, T::kSmemBytes, stream>>>(
+      map_x, map_w, map_y, static_cast<int>(M), K, N, scale, shift, partials);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------------------
-// pf_bn_relu_matmul_stats: the WMMA core with the BN/ReLU prologue
-// ---------------------------------------------------------------------------
-
-using namespace nvcuda;
-
-constexpr int kBM = 128;                    // rows of y per block
-constexpr int kBN = 64;                     // columns of y per block
-constexpr int kBK = 32;                     // k per step
-constexpr int kThreads = 256;               // 8 warps: 4 along M x 2 along N, 32x32 each
-constexpr int kALd = kBK + 8;               // bf16 per row of the x tile in shared memory
-constexpr int kBLd = kBN + 8;               // bf16 per row of the w tile
-constexpr int kCLd = kBN + 4;               // floats per row of the fp32 y tile
-constexpr int kABytes = kBM * kALd * 2;     // 10,240
-constexpr int kBBytes = kBK * kBLd * 2;     // 4,608
-constexpr int kCBytes = kBM * kCLd * 4;     // 34,816 (reuses the x and w tiles' space)
-constexpr int kSmemBytes = kCBytes > kABytes + kBBytes ? kCBytes : kABytes + kBBytes;
-constexpr int kStatGroups = kThreads / kBN; // row groups of the per-block column sums
-constexpr int kRedCols = 32;                // reduce_stats: columns per block
-constexpr int kRedRows = 8;                 // reduce_stats: threads splitting the partials
-
-static_assert(kBM * kBK / 8 == 2 * kThreads, "x tile: two 16-byte chunks a thread");
-static_assert(kBK * kBN / 8 == kThreads, "w tile: one 16-byte chunk a thread");
-
-// z = bf16(relu(x * scale + shift)) in the plain version's order, each step rounded once
-__device__ __forceinline__ __nv_bfloat16 prologue(__nv_bfloat16 x, float scale, float shift) {
-  const float t = __fadd_rn(__fmul_rn(__bfloat162float(x), scale), shift);
-  return __float2bfloat16_rn(t < 0.0f ? 0.0f : t);
+template <int BN>
+int launch_matmul(const void* x, const void* w, void* y, int64_t M, int K, int N, int sms,
+                  cudaStream_t stream) {
+  const int64_t tiles = num_tiles(M, N, BN);
+  return launch<BN, false>(x, w, y, M, K, N, tiles < sms ? tiles : sms, nullptr, nullptr,
+                           nullptr, stream);
 }
 
-__global__ void __launch_bounds__(kThreads)
-bn_relu_matmul_tile(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-            const float* __restrict__ scale, const float* __restrict__ shift,
-            __nv_bfloat16* __restrict__ y, float* __restrict__ partial_s,
-            float* __restrict__ partial_ss, int64_t M, int K, int N) {
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  __nv_bfloat16* a_tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* b_tile = reinterpret_cast<__nv_bfloat16*>(smem + kABytes);
-  float* c_tile = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int n_tiles = (N + kBN - 1) / kBN;
-  const int64_t m_tile = blockIdx.x / n_tiles;
-  const int64_t m0 = m_tile * kBM;
-  const int n0 = (blockIdx.x % n_tiles) * kBN;
-  const int warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
-
-  // this thread's 16-byte chunks: two of the x tile, one of the w tile
-  int a_row[2], a_col[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = tid + i * kThreads;
-    a_row[i] = c >> 2;
-    a_col[i] = (c & 3) * 8;
-  }
-  const int b_row = tid >> 3, b_col = (tid & 7) * 8;
-  const bool b_col_ok = n0 + b_col < N;
-
-  uint4 ra[2], rb;
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int64_t m = m0 + a_row[i];
-      const int k = k0 + a_col[i];
-      ra[i] = (m < M && k < K) ? *reinterpret_cast<const uint4*>(x + m * K + k)
-                               : make_uint4(0u, 0u, 0u, 0u);
-    }
-    const int k = k0 + b_row;
-    rb = (k < K && b_col_ok)
-             ? *reinterpret_cast<const uint4*>(w + static_cast<int64_t>(k) * N + n0 + b_col)
-             : make_uint4(0u, 0u, 0u, 0u);
-  };
-  auto store = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      uint4 v = ra[i];
-      const int k = k0 + a_col[i];
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
-      if (k < K) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) e[j] = prologue(e[j], scale[k + j], shift[k + j]);
-      }  // else v is zero: k past K adds nothing
-      *reinterpret_cast<uint4*>(a_tile + a_row[i] * kALd + a_col[i]) = v;
-    }
-    *reinterpret_cast<uint4*>(b_tile + b_row * kBLd + b_col) = rb;
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int nk = (K + kBK - 1) / kBK;
-  load(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    store(kt * kBK);
-    __syncthreads();
-    if (kt + 1 < nk) load((kt + 1) * kBK);  // in flight while the tensor cores work
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], a_tile + (wm * 32 + i * 16) * kALd + kk, kALd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], b_tile + kk * kBLd + wn * 32 + j * 16, kBLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();  // the tiles are rewritten next step, or become c_tile below
-  }
-
-  // fp32 tile of y in shared memory, then bf16 stores of 8 columns a thread
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(c_tile + (wm * 32 + i * 16) * kCLd + wn * 32 + j * 16, acc[i][j],
-                              kCLd, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int c = tid; c < kBM * kBN / 8; c += kThreads) {
-    const int row = c >> 3, col = (c & 7) * 8;
-    const int64_t m = m0 + row;
-    if (m < M && n0 + col < N) {
-      const float4 lo = *reinterpret_cast<const float4*>(c_tile + row * kCLd + col);
-      const float4 hi = *reinterpret_cast<const float4*>(c_tile + row * kCLd + col + 4);
-      const float f[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      uint4 out;
-      __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&out);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16_rn(f[j]);
-      *reinterpret_cast<uint4*>(y + m * N + n0 + col) = out;
-    }
-  }
-
-  // column sums of this block's rows < M: kStatGroups groups of rows, each
-  // summed in row order, then the groups in order
-  __shared__ float red_s[kStatGroups][kBN], red_ss[kStatGroups][kBN];
-  const int col = tid % kBN, grp = tid / kBN;
-  const int64_t left = M - m0;
-  const int rows = left < kBM ? static_cast<int>(left) : kBM;
-  constexpr int kPer = kBM / kStatGroups;
-  float s = 0.0f, ss = 0.0f;
-  for (int r = grp * kPer; r < (grp + 1) * kPer && r < rows; ++r) {
-    const float v = c_tile[r * kCLd + col];
-    s = __fadd_rn(s, v);
-    ss = __fadd_rn(ss, __fmul_rn(v, v));
-  }
-  red_s[grp][col] = s;
-  red_ss[grp][col] = ss;
-  __syncthreads();
-  if (tid < kBN && n0 + tid < N) {
-    s = red_s[0][tid];
-    ss = red_ss[0][tid];
-#pragma unroll
-    for (int g = 1; g < kStatGroups; ++g) {
-      s = __fadd_rn(s, red_s[g][tid]);
-      ss = __fadd_rn(ss, red_ss[g][tid]);
-    }
-    partial_s[m_tile * N + n0 + tid] = s;
-    partial_ss[m_tile * N + n0 + tid] = ss;
-  }
+template <int BN>
+int launch_stats(const void* x, const void* w, const float* scale, const float* shift, void* y,
+                 double* partials, float* s, float* ss, int64_t M, int K, int N, int sms,
+                 cudaStream_t stream) {
+  const int64_t grid = stats_grid(M, N, sms);
+  const int err = launch<BN, true>(x, w, y, M, K, N, grid, scale, shift, partials, stream);
+  if (err != 0) return err;
+  const int warps_a_block = kReduceThreads / 32;
+  stats_reduce<<<(2 * N + warps_a_block - 1) / warps_a_block, kReduceThreads, 0, stream>>>(
+      partials, static_cast<int>(grid), (N + BN - 1) / BN, BN, N, s, ss);
+  return static_cast<int>(cudaGetLastError());
 }
-
-// Launch 2 of the fused kernel: s[col] = sum over p of partial_s[p][col] (and
-// ss), in double, each thread over a fixed stride of the partials, then the
-// threads' sums in order.
-__global__ void __launch_bounds__(kRedCols * kRedRows)
-reduce_stats(const float* __restrict__ partial_s, const float* __restrict__ partial_ss,
-             int64_t nparts, int N, float* __restrict__ s, float* __restrict__ ss) {
-  __shared__ double red_s[kRedRows][kRedCols], red_ss[kRedRows][kRedCols];
-  const int col = blockIdx.x * kRedCols + threadIdx.x;
-  double a = 0.0, b = 0.0;
-  if (col < N) {
-    for (int64_t p = threadIdx.y; p < nparts; p += kRedRows) {
-      a += partial_s[p * N + col];
-      b += partial_ss[p * N + col];
-    }
-  }
-  red_s[threadIdx.y][threadIdx.x] = a;
-  red_ss[threadIdx.y][threadIdx.x] = b;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < N) {
-    for (int r = 1; r < kRedRows; ++r) {
-      a += red_s[r][threadIdx.x];
-      b += red_ss[r][threadIdx.x];
-    }
-    s[col] = static_cast<float>(a);
-    ss[col] = static_cast<float>(b);
-  }
-}
-
-int64_t row_tiles(int64_t M) { return (M + kBM - 1) / kBM; }
-int64_t blocks(int64_t M, int N) { return row_tiles(M) * ((N + kBN - 1) / kBN); }
 
 }  // namespace
 
@@ -655,9 +722,7 @@ int pf_matmul_bf16(const void* x, const void* w, void* y, int64_t M, int K, int 
                    void* stream) {
   if (M < 1 || M > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int sms = sm_count();
   if (N <= 64) return launch_matmul<64>(x, w, y, M, K, N, sms, st);
   if (N <= 128) return launch_matmul<128>(x, w, y, M, K, N, sms, st);
   // 128x256 tiles, unless their last wave leaves many SMs idle where 128x128
@@ -669,18 +734,21 @@ int pf_matmul_bf16(const void* x, const void* w, void* y, int64_t M, int K, int 
 }
 
 // As pf_matmul_bf16, with scale and shift [K] fp32 and s, ss [N] fp32.
-// partial_s and partial_ss: scratch of ceil(M / 128) * N floats each.
+// partials: scratch of 2 * N doubles for each of
+// pf_bn_relu_matmul_stats_grid(M, N) blocks.
 int pf_bn_relu_matmul_stats(const void* x, const void* w, const float* scale,
-                            const float* shift, void* y, float* partial_s, float* partial_ss,
-                            float* s, float* ss, int64_t M, int K, int N, void* stream) {
+                            const float* shift, void* y, double* partials, float* s, float* ss,
+                            int64_t M, int K, int N, void* stream) {
+  if (M < 1 || M > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bn_relu_matmul_tile<<<static_cast<unsigned>(blocks(M, N)), kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), scale, shift,
-      static_cast<__nv_bfloat16*>(y), partial_s, partial_ss, M, K, N);
-  const dim3 block(kRedCols, kRedRows);
-  reduce_stats<<<(N + kRedCols - 1) / kRedCols, block, 0, st>>>(partial_s, partial_ss,
-                                                                 row_tiles(M), N, s, ss);
-  return static_cast<int>(cudaGetLastError());
+  const int sms = sm_count();
+  if (stats_bn(N) == 64)
+    return launch_stats<64>(x, w, scale, shift, y, partials, s, ss, M, K, N, sms, st);
+  return launch_stats<128>(x, w, scale, shift, y, partials, s, ss, M, K, N, sms, st);
 }
+
+// The blocks of pf_bn_relu_matmul_stats on the current device, each with a
+// row of partials.
+int64_t pf_bn_relu_matmul_stats_grid(int64_t M, int N) { return stats_grid(M, N, sm_count()); }
 
 }  // extern "C"

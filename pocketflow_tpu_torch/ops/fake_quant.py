@@ -12,13 +12,14 @@ nb_buckets], scale per column) and channel buckets (reshape [-1, c_out], scale
 per output channel).  Each public op is a ``torch.autograd.Function`` whose
 backward is the identity.
 
-Four CUDA kernels carry the forward (``csrc/fake_quant.cu``; its header says
+Three CUDA kernels carry the forward (``csrc/fake_quant.cu``; its header says
 which TPU kernel each replaces, what bounds it and what its design does about
 that): ``fake_quant_per_tensor`` (with ``select``, the quant policy's select
 on bits < 32 too: the activations), ``fake_quant_per_tensor_group`` (many
 fp32 tensors at their own bits in one launch pair: the train step's
-weights), ``fake_quant_per_column`` and ``fake_quant_per_column_group`` (the
-bucket routes' weights in one launch pair).  Dispatch is by device: a CPU
+weights) and ``fake_quant_per_column_group`` (the bucket routes' weights in
+one launch pair; a group of one, without the select, is the per-site bucket
+ops' route).  Dispatch is by device: a CPU
 tensor takes the plain PyTorch version (``_quantize_math_torch``), a CUDA
 tensor launches the kernel, anything else raises.  No call falls back from
 one to the other.  The module-level counters count kernel launches and plain
@@ -29,7 +30,6 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import functools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,23 +42,21 @@ EPS = 1e-10
 tensor_kernel_launches = 0
 select_launches = 0
 group_kernel_launches = 0
-column_kernel_launches = 0
 column_group_launches = 0
 plain_calls = 0
 
 
 def reset_counters():
     global tensor_kernel_launches, select_launches, group_kernel_launches
-    global column_kernel_launches, column_group_launches, plain_calls
+    global column_group_launches, plain_calls
     tensor_kernel_launches = select_launches = group_kernel_launches = 0
-    column_kernel_launches = column_group_launches = plain_calls = 0
+    column_group_launches = plain_calls = 0
 
 
 def counters() -> dict:
     return {'fake_quant_per_tensor': tensor_kernel_launches,
             'fake_quant_per_tensor_select': select_launches,
             'fake_quant_per_tensor_group': group_kernel_launches,
-            'fake_quant_per_column': column_kernel_launches,
             'fake_quant_per_column_group': column_group_launches,
             'plain': plain_calls}
 
@@ -91,12 +89,11 @@ def _quantize_math_torch(x: torch.Tensor, k: torch.Tensor, axis: Optional[int]) 
 # ---------------------------------------------------------------------------
 
 _COL_TILE = 32          # kColTile in fake_quant.cu: columns per block (one warp wide)
-_MIN_CHUNK_ROWS = 64    # rows per block of the per-column kernels, at least
-_BLOCKS_PER_SM = 4      # per-column grids aim at this many blocks per SM
 _GROUP_CHUNK = 16384    # kGroupChunk in fake_quant.cu: elements a block of a group
 _COL_GROUP_ROWS = 512   # kColGroupRows in fake_quant.cu: rows a block of a column group
 _COL_ENTRY_FIELDS = 7   # int64 fields of a ColumnEntry in fake_quant.cu
-_GROUP_TABLES = 8       # device chunk tables kept, one per group of tensors
+_GROUP_TABLES = 128     # device chunk tables kept: one per group (a route's weights, or one
+                        # weight of a per-site bucket op: 2 x 52 for ResNet-50's)
 
 
 def _library() -> ctypes.CDLL:
@@ -106,11 +103,10 @@ def _library() -> ctypes.CDLL:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.pf_fake_quant_tensor.argtypes = [ptr, ptr, i64, i32, ptr, ptr, i32, ptr]
         lib.pf_fake_quant_tensor.restype = i32
-        lib.pf_fake_quant_columns.argtypes = [ptr, ptr, i64, i64, i64, ptr, i32, ptr, ptr]
-        lib.pf_fake_quant_columns.restype = i32
-        for name in ('pf_fake_quant_tensor_group', 'pf_fake_quant_columns_group'):
-            getattr(lib, name).argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr]
-            getattr(lib, name).restype = i32
+        lib.pf_fake_quant_tensor_group.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr]
+        lib.pf_fake_quant_tensor_group.restype = i32
+        lib.pf_fake_quant_columns_group.argtypes = [ptr, ptr, i32, ptr, i32, ptr, ptr, ptr]
+        lib.pf_fake_quant_columns_group.restype = i32
         layout = {'pf_fake_quant_group_chunk': _GROUP_CHUNK,
                   'pf_fake_quant_column_group_rows': _COL_GROUP_ROWS,
                   'pf_fake_quant_column_tile': _COL_TILE,
@@ -123,21 +119,6 @@ def _library() -> ctypes.CDLL:
         lib.pf_fake_quant_tensor_scratch_bytes.restype = i32
         lib._pf_bound = True
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _row_chunks(rows: int, cols: int, sm_count: int) -> Tuple[int, int]:
-    """(rows per chunk, number of chunks) for the per-column kernels: enough
-    blocks to give every SM a few, each with at least _MIN_CHUNK_ROWS rows."""
-    col_tiles = -(-cols // _COL_TILE)
-    wanted = -(-_BLOCKS_PER_SM * sm_count // col_tiles)
-    nchunks = max(1, min(wanted, rows // _MIN_CHUNK_ROWS))
-    chunk = -(-rows // nchunks)
-    return chunk, -(-rows // chunk)
 
 
 def _check_launch(err: int, name: str):
@@ -302,33 +283,6 @@ def fake_quant_per_tensor_group(xs: Sequence[torch.Tensor], bits: torch.Tensor) 
     return [out.as_strided(shape, strides, offset) for shape, strides, offset in layout]
 
 
-def fake_quant_per_column(x2d: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """Per-column fake-quant of an fp32 [rows, cols] matrix: each column has
-    its own (alpha, beta).  Kernel K2' on CUDA, plain version on the CPU."""
-    global column_kernel_launches, plain_calls
-    if x2d.device.type == 'cpu':
-        plain_calls += 1
-        return _quantize_math_torch(x2d, _levels(bits), 0).to(x2d.dtype)
-    if x2d.device.type != 'cuda':
-        raise ValueError('fake_quant_per_column: no kernel for device %s' % x2d.device)
-    if x2d.dtype != torch.float32 or x2d.dim() != 2 or not x2d.is_contiguous() \
-            or x2d.numel() < 1:
-        raise ValueError('fake_quant_per_column takes a non-empty contiguous fp32 '
-                         '[rows, cols] matrix, got %s %s' % (x2d.dtype, tuple(x2d.shape)))
-    _check_bits(bits, x2d)
-    rows, cols = x2d.shape
-    chunk, nchunks = _row_chunks(rows, cols, _sm_count(x2d.device))
-    out = torch.empty_like(x2d)
-    partials = torch.empty(2 * nchunks * cols, dtype=torch.float32, device=x2d.device)
-    with torch.cuda.device(x2d.device):
-        err = _library().pf_fake_quant_columns(
-            x2d.data_ptr(), out.data_ptr(), rows, cols, chunk, partials.data_ptr(), nchunks,
-            bits.data_ptr(), torch.cuda.current_stream(x2d.device).cuda_stream)
-    _check_launch(err, 'fake_quant_per_column')
-    column_kernel_launches += 1
-    return out
-
-
 def _column_view(shape: Sequence[int], bucket_size: Optional[int]) -> Tuple[int, int]:
     """(rows, cols) of a tensor's column view: channel buckets (bucket_size
     None) [n / c_out, c_out]; split buckets the flattened tensor as row-major
@@ -396,14 +350,16 @@ def _column_group_table(xs: Sequence[torch.Tensor], bucket_size: Optional[int]):
 
 
 def fake_quant_per_column_group(xs: Sequence[torch.Tensor], bits: torch.Tensor,
-                                bucket_size: Optional[int] = None) -> List[torch.Tensor]:
+                                bucket_size: Optional[int] = None,
+                                select: bool = True) -> List[torch.Tensor]:
     """Per-column fake-quant of each fp32 tensor xs[t] at bits[t] (a [T] fp32
-    tensor) in its column view, or xs[t] unchanged where bits[t] >= 32: the
-    list of results, in order, each of its tensor's shape.  Channel buckets
-    (bucket_size None: [-1, c_out]) or split buckets of bucket_size (see
-    _column_view).  The grouped route of kernel K2' (one launch pair for all
-    T) on CUDA, where the results are views of one flat buffer; plain version
-    on the CPU."""
+    tensor) in its column view, or, with `select`, xs[t] unchanged where
+    bits[t] >= 32 (the quant policy's select; without it every tensor is
+    quantized, 32 bits included): the list of results, in order, each of its
+    tensor's shape.  Channel buckets (bucket_size None: [-1, c_out]) or split
+    buckets of bucket_size (see _column_view).  Kernel K2' (one launch pair
+    for all T) on CUDA, where the results are views of one flat buffer; plain
+    version on the CPU."""
     global column_group_launches, plain_calls
     xs = list(xs)
     _check_group('fake_quant_per_column_group', xs, bits)
@@ -415,8 +371,10 @@ def fake_quant_per_column_group(xs: Sequence[torch.Tensor], bits: torch.Tensor,
     device = xs[0].device
     if device.type == 'cpu':
         plain_calls += 1
-        return [torch.where(b < 32, _column_plain(x, _levels(b), bucket_size), x)
-                for x, b in zip(xs, bits)]
+        quantized = [_column_plain(x, _levels(b), bucket_size) for x, b in zip(xs, bits)]
+        if not select:
+            return quantized
+        return [torch.where(b < 32, q, x) for x, b, q in zip(xs, bits, quantized)]
     if device.type != 'cuda':
         raise ValueError('fake_quant_per_column_group: no kernel for device %s' % device)
     entries, chunk_tensor, layout, total = _column_group_table(xs, bucket_size)
@@ -426,7 +384,8 @@ def fake_quant_per_column_group(xs: Sequence[torch.Tensor], bits: torch.Tensor,
     with torch.cuda.device(device):
         err = _library().pf_fake_quant_columns_group(
             entries.data_ptr(), chunk_tensor.data_ptr(), chunk_tensor.numel(), bits.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+            int(select), partials.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
     _check_launch(err, 'fake_quant_per_column_group')
     column_group_launches += 1
     return [out.as_strided(shape, strides, offset) for shape, strides, offset in layout]
@@ -479,8 +438,11 @@ class _FakeQuantColumnGroup(torch.autograd.Function):
 class _FakeQuantBucket(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, bits, bucket_size):
-        q = fake_quant_per_column(_column_matrix(x, bucket_size).contiguous(), bits)
-        return _from_columns(q, x).to(x.dtype)
+        # a group of one, quantized at any bits (the reference's per-site ops
+        # have no select), in fp32
+        q = fake_quant_per_column_group([x.float().contiguous()], bits.reshape(1), bucket_size,
+                                        select=False)[0]
+        return q.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):

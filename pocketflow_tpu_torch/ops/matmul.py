@@ -10,10 +10,13 @@ JAX package's experiments.
 experiments/mm_shape_sweep.py (``make_pallas`` in both);
 ``bn_relu_matmul_stats`` replaces experiments/fused_mm_proto.py's
 ``pallas_fused``, whose statistics come from the fp32 accumulator before the
-bf16 cast.  Both run in ``csrc/matmul.cu`` (its header says what bounds them
-and what the design does about it): ``matmul_bf16`` on Hopper's TMA loads and
-``wgmma`` in a persistent, warp-specialised kernel, ``bn_relu_matmul_stats``
-on a WMMA core.
+bf16 cast.  Both run on one kernel body in ``csrc/matmul.cu`` (its header
+says what bounds them and what the design does about it): a persistent,
+warp-specialised kernel on Hopper's TMA loads and ``wgmma``.
+``bn_relu_matmul_stats`` applies its prologue to x between shared memory and
+the tensor cores (``wgmma`` with A from registers), takes each block's
+column sums from the fp32 accumulators in a fixed order, and sums the
+blocks' partials in a second, small launch.
 
 x is a row-major [M, K] bf16 matrix, w [K, N] bf16, scale and shift K fp32
 values ([K] or [1, K]); K and N are multiples of 8, 1 <= M < 2^31.  Dispatch is
@@ -36,7 +39,7 @@ matmul_kernel_launches = 0
 stats_kernel_launches = 0
 plain_calls = 0
 
-_BLOCK_ROWS = 128  # kBM in matmul.cu: rows of y a block owns, one partial sum each
+_TILE_ROWS = 128  # kMmBM in matmul.cu: rows of y a tile; the last tile holds M % 128 rows
 
 
 def reset_counters():
@@ -75,8 +78,10 @@ def _library() -> ctypes.CDLL:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.pf_matmul_bf16.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.pf_matmul_bf16.restype = i32
-        lib.pf_bn_relu_matmul_stats.argtypes = [ptr] * 9 + [i64, i32, i32, ptr]
+        lib.pf_bn_relu_matmul_stats.argtypes = [ptr] * 8 + [i64, i32, i32, ptr]
         lib.pf_bn_relu_matmul_stats.restype = i32
+        lib.pf_bn_relu_matmul_stats_grid.argtypes = [i64, i32]
+        lib.pf_bn_relu_matmul_stats_grid.restype = i64
         lib._pf_bound = True
     return lib
 
@@ -140,11 +145,15 @@ def bn_relu_matmul_stats(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         return _bn_relu_matmul_stats_plain(x, w, scale, shift)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     stats = torch.empty((2, n), dtype=torch.float32, device=x.device)
-    partials = torch.empty((2, -(-m // _BLOCK_ROWS), n), dtype=torch.float32, device=x.device)
-    err = _library().pf_bn_relu_matmul_stats(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
-        partials[0].data_ptr(), partials[1].data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), m, k, n, torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        # a row of (sum, sum of squares) partials for each block of the kernel
+        partials = torch.empty((lib.pf_bn_relu_matmul_stats_grid(m, n), 2, n),
+                               dtype=torch.float64, device=x.device)
+        err = lib.pf_bn_relu_matmul_stats(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
+            partials.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), m, k, n,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch(err, 'bn_relu_matmul_stats')
     stats_kernel_launches += 1
     return y, stats[0], stats[1]

@@ -27,12 +27,13 @@ launches, device time by layer (`kernel_category`), and the top kernels.
 Last, the device time of one pass of each hand-written kernel and of its
 plain version: the fake-quant kernels over the 52 quantized weights of one
 step (4 bits; the grouped routes, per tensor and in channel and split
-buckets, and the per-site routes they replaced: a kernel and a select on
-each weight), over one bf16 activation 256x256x56x56 and one 256x2048x7x7
-(8 bits; K1' with the select, with and without its table of levels, and
-the select after the plain version); matmul_bf16 over the 8 ResNet-50 1x1
-shapes of mm_shape_sweep, beside cuBLAS's bf16 matmul; bn_relu_matmul_stats
-at fused_mm_proto's shape.  Each is the profiler's kernel records of 10
+buckets, and the per-site routes they replaced: a per-site op and a select
+on each weight), over one bf16 activation 256x256x56x56 and one
+256x2048x7x7 (8 bits; K1' with and without the select, and the select after
+the plain version); matmul_bf16 over the 8 ResNet-50 1x1 shapes of
+mm_shape_sweep, beside cuBLAS's bf16 matmul; bn_relu_matmul_stats at
+fused_mm_proto's shape, beside matmul_bf16 and cuBLAS on the same x and w.
+Each is the profiler's kernel records of 10
 passes, summed and divided by 10, in two repeats, and the last repeat
 kernel by kernel.
 
@@ -68,8 +69,7 @@ NB_BATCHES = 4
 # (layer, substrings of the kernel name), first match wins
 CATEGORIES = (
     ('fake-quant kernels', ('tensor_minmax', 'tensor_quantize', 'minmax_partials',
-                            'group_quantize', 'column_partials', 'quantize_columns',
-                            'column_group_partials', 'column_group_quantize')),
+                            'group_quantize', 'column_group_partials', 'column_group_quantize')),
     ('batch norm', ('batch_norm',)),
     ('optimizer (foreach)', ('multi_tensor_apply', 'foreach')),
     ('conv/matmul (cuDNN, cuBLAS)', ('xmma', 'gemm', 'nvjet', 'cutlass', 'cudnn', 'conv2d',
@@ -205,7 +205,7 @@ def profile_kernels(weight_shapes, repeats: int = 2, passes: int = 10) -> dict:
     bits4 = torch.tensor(4.0, device='cuda')
     bits8 = torch.tensor(8.0, device='cuda')
     weights = [torch.randn(s, generator=gen, device='cuda') * 0.05 for s in weight_shapes]
-    columns = [w.reshape(-1, w.shape[-1]) for w in weights]
+    columns = [w.reshape(-1, w.shape[-1]) for w in weights]  # channel buckets
     acts = {shape: torch.relu(torch.randn(shape, generator=gen, device='cuda',
                                           dtype=torch.bfloat16)).contiguous(
                                               memory_format=torch.channels_last)
@@ -221,17 +221,15 @@ def profile_kernels(weight_shapes, repeats: int = 2, passes: int = 10) -> dict:
             weights, bits4_each),
         'per-site route (per_tensor kernel + select), 52 weights': lambda: [
             torch.where(bits4 < 32, fq.fake_quant_per_tensor(w, bits4), w) for w in weights],
-        'per_column kernel, 52 weights as [-1, c_out]': lambda: [
-            fq.fake_quant_per_column(c, bits4) for c in columns],
         'per_column plain, 52 weights as [-1, c_out]': lambda: [
             fq._quantize_math_torch(c, k4, 0) for c in columns],
         'per_column_group kernel, 52 weights, channel buckets': lambda: (
             fq.fake_quant_per_column_group(weights, bits4_each)),
-        'per-site channel route (per_column kernel + select), 52 weights': lambda: [
+        'per-site channel route (per-site op + select), 52 weights': lambda: [
             torch.where(bits4 < 32, fq.fake_quant_channel_bucket(w, bits4), w) for w in weights],
         'per_column_group kernel, 52 weights, split buckets (256)': lambda: (
             fq.fake_quant_per_column_group(weights, bits4_each, 256)),
-        'per-site split route (per_column kernel + select), 52 weights': lambda: [
+        'per-site split route (per-site op + select), 52 weights': lambda: [
             torch.where(bits4 < 32, fq.fake_quant_split_bucket(w, bits4, 256), w)
             for w in weights],
     }
@@ -262,6 +260,10 @@ def profile_kernels(weight_shapes, repeats: int = 2, passes: int = 10) -> dict:
         'bn_relu_matmul_stats plain, M=%d K=%d N=%d' % (
             fused_mm_proto.M, fused_mm_proto.K, fused_mm_proto.N):
             lambda: mm._bn_relu_matmul_stats_plain(*fused_in),
+        'matmul_bf16 kernel, bn_relu_matmul_stats\'s x and w': lambda: mm.matmul_bf16(
+            *fused_in[:2]),
+        'cuBLAS bf16 matmul, bn_relu_matmul_stats\'s x and w': lambda: torch.matmul(
+            *fused_in[:2]),
     })
     out, by_name = {}, {}
     for label, fn in fns.items():

@@ -7,19 +7,19 @@ the JAX package to a CPU mesh):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: none for the fake-quant kernels, which round every step of the
-fp32 formula as the plain version does (K1' reads most outputs from a table
-of the levels built with the same steps, and is tested with and without it).  The matmul kernels sum the fp32
+fp32 formula as the plain version does (K1' reads its outputs from tables
+built with the same steps).  The matmul kernels sum the fp32
 products on the tensor cores, in another order and rounding than the plain
 version's fp32 matmul, so y may differ where the two fp32 sums round to
 different bf16 values: by one bf16 ulp, or, where the sum cancels, by up to
 2^-20 of the sum of the products' magnitudes, in at most 2e-3 of the
 elements (measured on an H100: 1.15e-3 at K=2048, exactly as many as
 cuBLAS's own bf16 GEMM shows against the same plain version; integer inputs,
-whose sums are exact, give equal results).  The column sums s are held within
-3e-6 of each column's sum of |y32|, ss within 5e-6 relative: the kernel reads
-at most 3.0e-7 and 4.8e-7 at these shapes and at M=802,816 on an H100, while
-counting rows past M or summing bf16 y reads 2.6e-5 (s) or 2.0e-5 (ss) even
-at M=801,816.
+whose sums are exact, give equal results: y, s and ss alike).  The column
+sums s are held within 3e-6 of each column's sum of |y32|, ss within 5e-6
+relative: on an H100 the kernel reads at most 3.8e-7 and 4.6e-7 at
+M=802,816, while counting rows past M or summing bf16 y reads 2.6e-5 (s) or
+1.8e-5 (ss) even at M=801,816.
 """
 
 import pytest
@@ -128,16 +128,20 @@ def test_select_ste_and_scratch_reuse(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('bits', [2, 4, 8])
+@pytest.mark.parametrize('bits', [2, 4, 8, 32])
 @pytest.mark.parametrize('shape', [(4608, 512), (256, 9216), (1, 1), (300, 33), (2048, 1001),
                                    (576, 64), (100000, 3)])
 def test_per_column_kernel_equals_plain(cuda, bits, shape):
+    """The per-column kernel on one [rows, cols] matrix without the select
+    (the per-site channel-bucket op's route) equals the plain version, 32
+    bits quantized."""
     x = _inputs(cuda, shape, torch.float32, seed=1)
     bits = torch.tensor(float(bits), device=cuda)
     want = tfq._quantize_math_torch(x, tfq._levels(bits), 0)
-    got = tfq.fake_quant_per_column(x, bits)
+    got = tfq.fake_quant_per_column_group([x], bits.reshape(1), None, select=False)[0]
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert torch.equal(tfq.fake_quant_channel_bucket(x, bits), want)
 
 
 @pytest.mark.gpu
@@ -152,10 +156,8 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     tfq.fake_quant_bucket_group([_inputs(cuda, (64, 64), torch.float32)] * 2,
                                 torch.tensor([4.0, 32.0], device=cuda), 'channel', 256)
     assert tfq.counters() == {'fake_quant_per_tensor': 2, 'fake_quant_per_tensor_select': 1,
-                              'fake_quant_per_tensor_group': 1, 'fake_quant_per_column': 1,
-                              'fake_quant_per_column_group': 1, 'plain': 0}
-    with pytest.raises(ValueError):
-        tfq.fake_quant_per_column(_inputs(cuda, (8, 8), torch.bfloat16), bits)
+                              'fake_quant_per_tensor_group': 1,
+                              'fake_quant_per_column_group': 2, 'plain': 0}
     with pytest.raises(ValueError):
         tfq.fake_quant_per_tensor(_inputs(cuda, (8, 8), torch.float32), bits.cpu())
     with pytest.raises(ValueError):
@@ -171,7 +173,7 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
         for group in (tfq.fake_quant_per_tensor_group, tfq.fake_quant_per_column_group):
             with pytest.raises(ValueError):
                 group(xs, group_bits)
-    assert tfq.counters()['fake_quant_per_column_group'] == 1
+    assert tfq.counters()['fake_quant_per_column_group'] == 2
 
 
 def resnet50_weight_shapes():
@@ -231,8 +233,8 @@ def test_group_kernel_ste_and_unaligned_inputs(cuda):
 def test_column_group_kernel_equals_plain_and_per_column_kernel(cuda, bucket_size, bits_cycle):
     """At the 52 weight shapes of ResNet-50, channel or split buckets, mixed
     bits (32: copied): the grouped per-column kernel equals the plain version
-    and, tensor by tensor, the per-site bucket ops on the per-column kernel,
-    bit for bit, and two runs agree."""
+    and, tensor by tensor, the per-site bucket ops (a group of one without
+    the select) below 32 bits, bit for bit, and two runs agree."""
     shapes = resnet50_weight_shapes()
     xs = [0.05 * _inputs(cuda, s, torch.float32, seed=i) for i, s in enumerate(shapes)]
     bits = torch.tensor([float(bits_cycle[i % len(bits_cycle)]) for i in range(52)], device=cuda)
@@ -327,10 +329,14 @@ def test_matmul_kernel_is_exact_on_exact_sums(cuda, m, k, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize('m,k,n,scale,shift', [(2048, 64, 32, 1.1, 0.1), (2048, 64, 32, 2.0, 0.0),
                                                (5000, 256, 64, 1.1, 0.1), (129, 40, 24, 0.7, -0.2),
-                                               (1, 8, 8, 1.1, 0.1)])
+                                               (1, 8, 8, 1.1, 0.1), (1000, 40, 64, 1.1, 0.1),
+                                               (3000, 72, 64, 0.9, 0.05), (777, 200, 72, 1.1, 0.1),
+                                               (1000, 72, 136, 1.1, 0.1),
+                                               (2048, 200, 264, 1.0, -0.1)])
 def test_bn_relu_matmul_stats_kernel_equals_plain(cuda, m, k, n, scale, shift):
-    """Rows past M (the last block holds m % 128 of its 128) add nothing to
-    the statistics, and two runs give the same bits."""
+    """Rows past M (the last tile holds m % 128 of its 128) add nothing to
+    the statistics, K past a 64-deep stage (40, 72, 200) and N past a column
+    tile (72, 136, 264) are right, and two runs give the same bits."""
     x, w = _matmul_inputs(cuda, m, k, n, seed=1)
     gen = torch.Generator(device=cuda).manual_seed(2)
     scale_v = scale * (1 + 0.1 * torch.rand(k, generator=gen, device=cuda))
@@ -345,6 +351,26 @@ def test_bn_relu_matmul_stats_kernel_equals_plain(cuda, m, k, n, scale, shift):
     abs_sum = (z @ w.float()).abs().sum(0)
     assert bool(((s - want_s).abs() <= 3e-6 * abs_sum).all())
     assert bool(((ss - want_ss).abs() <= 5e-6 * want_ss).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('m,k,n', [(2048, 64, 64), (129, 40, 24), (1000, 72, 136),
+                                   (300, 200, 264), (1, 8, 8), (16, 8200, 16)])
+def test_bn_relu_matmul_stats_kernel_is_exact_on_exact_sums(cuda, m, k, n):
+    """Integers in [-3, 3], scale 2, shift 0: z, every product and every
+    partial sum of y32, s and ss is an integer below 2^24, exact in fp32 in
+    any order, so y, s and ss equal the plain version's bit for bit; K
+    bounded by no shared memory (8200)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randint(-3, 4, (m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randint(-3, 4, (k, n), generator=gen, device=cuda).to(torch.bfloat16)
+    scale, shift = torch.full((k,), 2.0, device=cuda), torch.zeros(k, device=cuda)
+    got = tmm.bn_relu_matmul_stats(x, w, scale, shift)
+    want = tmm._bn_relu_matmul_stats_plain(x, w, scale, shift)
+    torch.cuda.synchronize()
+    assert float(want[2].max()) < 2 ** 24
+    for g, v in zip(got, want):
+        assert torch.equal(g, v)
 
 
 @pytest.mark.gpu

@@ -106,13 +106,57 @@ def test_per_tensor_matches_pallas_kernel_body(bits):
 
 @pytest.mark.parametrize('shape', [(256, 384), (72, 128), (8, 256)])
 def test_per_column_matches_pallas_kernel_body(shape):
-    """K2 (_fq_pallas_cols_grid) in interpret mode, 128-column stripes."""
+    """K2 (_fq_pallas_cols_grid) in interpret mode, 128-column stripes,
+    against the grouped per-column op on one matrix (channel buckets of a
+    [rows, cols] matrix are its columns) without the select."""
     x = np.random.default_rng(3).normal(size=shape).astype(np.float32)
     k = jnp.exp2(jnp.float32(4)) - 1.0
     want = np.asarray(_pallas_per_column(jnp.asarray(x), k))
     np.testing.assert_allclose(want, np.asarray(jfq._quantize_math(jnp.asarray(x), k, 0)), **TOL)
-    got = tfq.fake_quant_per_column(torch.from_numpy(x), _bits(4)).numpy()
+    got = tfq.fake_quant_per_column_group([torch.from_numpy(x)], torch.tensor([4.0]), None,
+                                          select=False)[0].numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize('shape', [(3, 3, 8, 16), (25, 11), (1, 1, 64, 256)])
+@pytest.mark.parametrize('op', ['channel', 'split-7', 'split-256'])
+def test_per_site_bucket_ops_quantize_at_32_bits(shape, op):
+    """The per-site bucket ops have no select, as the JAX package's: at 32
+    bits they quantize (k = 2^32 - 1), and equal JAX's ops bit for bit."""
+    x = np.random.default_rng(12).normal(size=shape).astype(np.float32)
+    bits = jnp.asarray(32.0)
+    if op == 'channel':
+        got = tfq.fake_quant_channel_bucket(torch.from_numpy(x), _bits(32))
+        want = jfq.fake_quant_channel_bucket(jnp.asarray(x), bits)
+    else:
+        size = int(op.split('-')[1])
+        got = tfq.fake_quant_split_bucket(torch.from_numpy(x), _bits(32), size)
+        want = jfq.fake_quant_split_bucket(jnp.asarray(x), bits, size)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy() != x).any()  # quantized, not copied
+
+
+@pytest.mark.parametrize('bucket_size', [None, 7, 256])
+def test_column_group_without_select_quantizes_at_32_bits(bucket_size):
+    """The grouped per-column op without the select quantizes a tensor at
+    32 bits as JAX's _quantize_math does on its column view; with the select
+    it copies it."""
+    rng = np.random.default_rng(13)
+    xs = [rng.normal(size=s).astype(np.float32) for s in ((3, 3, 8, 16), (25, 11), (300,))]
+    if bucket_size is None:
+        xs = xs[:2]
+    bits = torch.full((len(xs),), 32.0)
+    got = tfq.fake_quant_per_column_group([torch.from_numpy(x) for x in xs], bits, bucket_size,
+                                          select=False)
+    copied = tfq.fake_quant_per_column_group([torch.from_numpy(x) for x in xs], bits, bucket_size)
+    k = jnp.exp2(jnp.float32(32)) - 1.0
+    for x, g, c in zip(xs, got, copied):
+        rows, cols = tfq._column_view(x.shape, bucket_size)
+        flat = np.concatenate([x.reshape(-1), np.full(rows * cols - x.size, x.reshape(-1)[-1],
+                                                      np.float32)])
+        want = np.asarray(jfq._quantize_math(jnp.asarray(flat.reshape(rows, cols)), k, 0))
+        np.testing.assert_array_equal(g.numpy(), want.reshape(-1)[:x.size].reshape(x.shape))
+        np.testing.assert_array_equal(c.numpy(), x)
 
 
 @pytest.mark.parametrize('shape,bucket_size', [((25, 11), 64), ((3, 3, 8, 16), 256),
@@ -202,14 +246,24 @@ def test_quantized_model_bits_matches_jax():
 @pytest.mark.parametrize('rows,cols', [(576, 64), (4608, 512), (256, 9216), (2048, 1001),
                                        (1, 1), (63, 7), (100000, 3)])
 def test_per_column_row_chunks_cover_the_rows(rows, cols):
-    """The per-column kernels' grid (132 SMs, as on an H100): the chunks
-    tile the rows exactly, each holds at least 64 rows unless the matrix has
-    fewer, and the grid's second axis stays within CUDA's 65535."""
-    chunk, nchunks = tfq._row_chunks(rows, cols, 132)
-    assert (nchunks - 1) * chunk < rows <= nchunks * chunk
-    assert chunk >= min(rows, tfq._MIN_CHUNK_ROWS) and 1 <= nchunks <= 65535
-    if rows >= 64 * 4 * 132:  # a narrow, tall matrix still gives every SM a block
-        assert nchunks * -(-cols // tfq._COL_TILE) >= 132
+    """The grouped per-column kernel's chunks of one [rows, cols] matrix
+    (the per-site bucket ops' group of one): each column tile's row chunks
+    tile the rows exactly, in order, and the grid (one block a chunk) stays
+    within CUDA's 2^31 - 1."""
+    offsets, first_chunks, row_chunks, chunk_tensor, total = tfq._column_group_plan(
+        [(rows * cols, rows, cols)])
+    assert offsets == [0] and first_chunks == [0] and total == -(-rows * cols // 4) * 4
+    per_tile = row_chunks[0]
+    assert (per_tile - 1) * tfq._COL_GROUP_ROWS < rows <= per_tile * tfq._COL_GROUP_ROWS
+    assert chunk_tensor == [0] * (-(-cols // tfq._COL_TILE) * per_tile)
+    starts = [(c % per_tile) * tfq._COL_GROUP_ROWS for c in range(len(chunk_tensor))]
+    ends = [min(r0 + tfq._COL_GROUP_ROWS, rows) for r0 in starts]
+    for tile in range(-(-cols // tfq._COL_TILE)):  # consecutive, no gap, no overlap
+        tile_starts = starts[tile * per_tile:(tile + 1) * per_tile]
+        tile_ends = ends[tile * per_tile:(tile + 1) * per_tile]
+        assert tile_starts[0] == 0 and tile_ends[-1] == rows
+        assert tile_starts[1:] == tile_ends[:-1]
+    assert len(chunk_tensor) < 2 ** 31
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -221,7 +275,7 @@ def test_cpu_tensors_take_the_plain_version():
     tfq.fake_quant_group([x, x], torch.tensor([4.0, 32.0]))
     tfq.fake_quant_bucket_group([x, x], torch.tensor([4.0, 32.0]), 'split', 4)
     assert tfq.counters() == {'fake_quant_per_tensor': 0, 'fake_quant_per_tensor_select': 0,
-                              'fake_quant_per_tensor_group': 0, 'fake_quant_per_column': 0,
+                              'fake_quant_per_tensor_group': 0,
                               'fake_quant_per_column_group': 0, 'plain': 5}
 
 

@@ -99,7 +99,7 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda(op):
     from pocketflow_tpu_torch.ops import fake_quant as fq
     x = torch.empty((8, 8), device='meta')
     bits = torch.empty((), device='meta')
-    fn = {'per_tensor': fq.fake_quant_per_tensor, 'per_column': fq.fake_quant_per_column,
+    fn = {'per_tensor': fq.fake_quant_per_tensor, 'per_column': fq.fake_quant_channel_bucket,
           'fake_quant': fq.fake_quant,
           'group': lambda x, b: fq.fake_quant_per_tensor_group([x], b.reshape(1)),
           'select': fq.fake_quant_select,
