@@ -13,6 +13,12 @@ on the card, and drives the port's paths:
     fused_mm_proto, conv1x1_ab, mm_shape_sweep), short, at full shapes;
   * the composed pruned+QAT step of bench.py (channel masks, masked
     gradients, a re-zero after each update) at the main path's settings;
+  * the model zoo through main.main at full width: ResNet-20 @ CIFAR-10 at
+    batch 128 on CIFAR-10 .bin files written by make_minimal_data, full-prec
+    (run A, the teacher) then QAT with distillation (B: 4-bit weights; C: and
+    8-bit activations; D: channel buckets), ConvNet @ FMNIST and LeNet @
+    CIFAR-10 under QAT, each with its launches counted per quantized forward
+    (a global forward hook), its loss and eval metrics; runs A and B timed;
 
 and checks that each went through its kernels and never through a plain
 version.  Any failed phase raises and the script exits non-zero without its
@@ -35,7 +41,8 @@ activations, for fake_quant_per_column_group (K2', all weights in one launch
 pair; the per-site bucket ops are groups of one) the 7 steps under channel
 buckets, for matmul_bf16 the mm_shape_sweep experiment and for
 bn_relu_matmul_stats the fused_mm_proto experiment.  `launches_by_run` gives
-every kernel's count in each run, each counted from its own reset.
+every kernel's count in each run, each counted from its own reset, the
+zoo's runs included.
 """
 
 import json
@@ -96,6 +103,41 @@ K3_EXACT = [(2048, 64, 64), (1000, 72, 136), (300, 200, 264), (16, 8200, 16)]
 # M: rows past M counted, or sums taken from bf16 y (phase_matmul plants both
 # and requires them to fail).
 K3_S_TOL, K3_SS_TOL = 3e-6, 5e-6
+# and against float64 sums of the bf16 z and w (every product exact), s within
+# K3_S_TOL64 of the column's sum of |y|, ss within K3_SS_TOL64 relative: about
+# five times the kernel's readings on an H100 (2.1e-7 and 3.9e-7; the fp32
+# plain version's 2.6e-7 and 2.1e-7), and far below both planted faults
+K3_S_TOL64, K3_SS_TOL64 = 1e-6, 2e-6
+# the model zoo's path at full width (ResNet-20 @ CIFAR-10, widths 16/32/64,
+# batch 128; ConvNet @ FMNIST, LeNet @ CIFAR-10), through main.main on the
+# card: CIFAR-10 .bin files written by make_minimal_data, the samples a set
+ZOO_BATCH, ZOO_TRAIN, ZOO_EVAL = 128, 1280, 512
+# each model's (quantized weights, activation sites), and the nets' classes
+ZOO_SITES = {'resnet_at_cifar10': (20, 19), 'convnet_at_fmnist': (2, 3), 'lenet_at_cifar10': (2, 3)}
+ZOO_NETS = ('ResNetCifar', 'ConvNet', 'LeNet')
+ZOO_RUNS = [  # (label, model, flags, expected launches a quantized forward)
+    ('zoo run A: resnet_at_cifar10 full-prec, 30 steps', 'resnet_at_cifar10',
+     ['--learner=full-prec', '--nb_epochs_rat=0.012'], {}),
+    ('zoo run B: resnet_at_cifar10 uniform 4-bit + distillation, 30 steps', 'resnet_at_cifar10',
+     ['--learner=uniform', '--enbl_dst', '--uql_weight_bits=4', '--nb_epochs_rat=0.05'],
+     dict(fake_quant_per_tensor_group=1)),
+    ('zoo run C: resnet_at_cifar10 uniform 4-bit, 8-bit activations + distillation, 30 steps',
+     'resnet_at_cifar10', ['--learner=uniform', '--enbl_dst', '--uql_weight_bits=4',
+                           '--uql_activation_bits=8', '--nb_epochs_rat=0.05'],
+     dict(fake_quant_per_tensor_group=1, fake_quant_per_tensor=19,
+          fake_quant_per_tensor_select=19)),
+    ('zoo run D: resnet_at_cifar10 uniform, channel buckets, 6 steps', 'resnet_at_cifar10',
+     ['--learner=uniform', '--uql_use_buckets', '--uql_bucket_type=channel',
+      '--nb_epochs_rat=0.01'], dict(fake_quant_per_column_group=1)),
+    ('zoo run E: convnet_at_fmnist uniform 4-bit, synthetic FMNIST, 30 steps',
+     'convnet_at_fmnist', ['--learner=uniform', '--synthetic_data', '--nb_epochs_rat=0.05'],
+     dict(fake_quant_per_tensor_group=1)),
+    ('zoo run F: lenet_at_cifar10 uniform 4-bit, 30 steps', 'lenet_at_cifar10',
+     ['--learner=uniform', '--nb_epochs_rat=0.05'], dict(fake_quant_per_tensor_group=1))]
+# ResNet-20's activations at batch 128 (bf16 channels-last) and the dense
+# ones after fc3's relu (ConvNet 1024, LeNet 256 features)
+ZOO_ACT_SHAPES = [(128, 16, 32, 32), (128, 32, 16, 16), (128, 64, 8, 8), (128, 1024), (128, 256)]
+ZOO_TIMED_WARMUP, ZOO_TIMED = 5, 20
 # fp32 operations a fake-quant element costs: min, max; x - beta, / alpha,
 # * k, round, / k, * alpha, + beta
 FQ_OPS_PER_ELEMENT = 9
@@ -457,6 +499,16 @@ def phase_matmul(mm, device):
         log('  bn_relu_matmul_stats M=%d K=%d N=%d scale %.1f shift %.1f: y max|d|=%.3g '
             'n_diff=%d (%.2e); s err %.3g of sum|y32|, ss err %.3g relative; two runs equal',
             rows, k, n, K3_SCALE, K3_SHIFT, err, nd, nd / y.numel(), s_err, ss_err)
+        # the sums in float64 from the bf16 z and w: every product is exact
+        y64 = z.double() @ w.double()
+        sums64 = (y64.sum(0), y64.square().sum(0), y64.abs().sum(0))
+        del y64
+        kernel64 = stats_errors(s.double(), ss.double(), *sums64)
+        plain64 = stats_errors(want_s.double(), want_ss.double(), *sums64)
+        log('  against float64 sums of the bf16 z and w: kernel s %.3g, ss %.3g; fp32 plain '
+            'version s %.3g, ss %.3g', *kernel64, *plain64)
+        check(kernel64[0] <= K3_S_TOL64 and kernel64[1] <= K3_SS_TOL64,
+              'bn_relu_matmul_stats sums against float64: s %.3g, ss %.3g', *kernel64)
         if rows % mm._TILE_ROWS:
             # the plain version with the last tile's rows past M counted (x
             # zero-padded: each such row adds relu(shift) @ w), and with the
@@ -468,10 +520,14 @@ def phase_matmul(mm, device):
             for fault, sums in (('%d rows past M counted' % pad, (pad_s, pad_ss)),
                                 ('sums from bf16 y', (y16.sum(0), y16.square().sum(0)))):
                 errors = stats_errors(*sums, want_s, want_ss, abs_sum)
-                log('  planted fault, %s: s err %.3g, ss err %.3g (bounds %g, %g)', fault,
-                    *errors, K3_S_TOL, K3_SS_TOL)
+                errors64 = stats_errors(*(t.double() for t in sums), *sums64)
+                log('  planted fault, %s: s err %.3g, ss err %.3g (bounds %g, %g); against '
+                    'float64 s %.3g, ss %.3g (bounds %g, %g)', fault, *errors, K3_S_TOL,
+                    K3_SS_TOL, *errors64, K3_S_TOL64, K3_SS_TOL64)
                 check(not stats_within(errors), 'the statistics bounds pass a kernel with %s',
                       fault)
+                check(errors64[0] > K3_S_TOL64 or errors64[1] > K3_SS_TOL64,
+                      'the float64 bounds pass a kernel with %s', fault)
             del pad_s, pad_ss, y16
         del z, want_y, abs_sum
     for shape in K3_EXACT:  # integers, scale 2, shift 0: every sum exact in fp32
@@ -619,15 +675,15 @@ def phase_routes(FLAGS, learner, state, train_step, batches, card):
     return runs
 
 
-def phase_reference(FLAGS, ModelHelper, UniformQuantLearner):
+def phase_reference(FLAGS, make_helper, UniformQuantLearner, **flags):
     """The QAT step on the card (kernels, fp32, no TF32) against the same
     step on the CPU (plain version) from the same seed, at a small size."""
-    small = dict(ilsvrc_image_size=64, batch_size=4, batch_size_eval=4, nb_smpls_train=64,
-                 nb_smpls_eval=8, compute_dtype='float32')
+    small = dict(batch_size=4, batch_size_eval=4, nb_smpls_train=64, nb_smpls_eval=8,
+                 compute_dtype='float32', **flags)
     with FLAGS.scope(**small):
         out = {}
         for device in ('cuda', 'cpu'):
-            learner = UniformQuantLearner(None, ModelHelper(resnet_size=50), device=device)
+            learner = UniformQuantLearner(None, make_helper(), device=device)
             ds = learner.dataset_train
             ds.augment_xy = lambda batch, gen, is_train, ds=ds: type(ds).augment_xy(
                 ds, batch, gen, False)
@@ -645,6 +701,219 @@ def phase_reference(FLAGS, ModelHelper, UniformQuantLearner):
         logit_err, float(out['cpu'][0].abs().max()), loss_gpu, loss_cpu)
     check(logit_err <= 1e-3 + 1e-3 * float(out['cpu'][0].abs().max()), 'logits disagree')
     check(abs(loss_gpu - loss_cpu) <= 1e-3 * abs(loss_cpu), 'train loss disagrees')
+
+
+def phase_zoo_kernels(fq, weight_shapes, device):
+    """The fake-quant kernels at the model zoo's shapes, against their plain
+    versions bit for bit: K1' per tensor and the per-site bucket ops at
+    each quantized weight shape (bits 2/4/8/32), the grouped K1' and K2'
+    (channel and split buckets) over each net's weights with mixed bits and
+    over one weight alone; K1' with and without the select on ResNet-20's
+    activations and the dense ones after fc3's relu, bf16, 8 bits."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    mixed = (2.0, 4.0, 8.0, 32.0)
+    for net, shapes in weight_shapes.items():
+        weights = [torch.randn(s, generator=gen, device=device) * 0.05 for s in shapes]
+        for bits_value in (2, 4, 8, 32):
+            bits = torch.tensor(float(bits_value), device=device)
+            k = fq._levels(bits)
+            for w in weights:
+                want = fq._quantize_math_torch(w, k, None)
+                compare(fq.fake_quant_per_tensor(w, bits), want, (w.max() - w.min()) / k)
+                for got, size in ((fq.fake_quant_channel_bucket(w, bits), None),
+                                  (fq.fake_quant_split_bucket(w, bits, 256), 256)):
+                    check(torch.equal(got, fq._column_plain(w, k, size)),
+                          'per-site bucket op differs from plain at %s, %d bits', tuple(w.shape),
+                          bits_value)
+        for offset in range(4):  # mixed bits, each weight at each of 2/4/8/32 in turn
+            bits = torch.tensor([mixed[(i + offset) % 4] for i in range(len(weights))],
+                                device=device)
+            groups = [('grouped K1\'', fq.fake_quant_per_tensor_group(weights, bits),
+                       lambda w, k: fq._quantize_math_torch(w, k, None))]
+            groups += [('grouped K2\' %s' % label,
+                        fq.fake_quant_per_column_group(weights, bits, size),
+                        lambda w, k, size=size: fq._column_plain(w, k, size))
+                       for label, size in (('channel', None), ('split', 256))]
+            for label, got, plain in groups:
+                for i, (w, b, g) in enumerate(zip(weights, bits, got)):
+                    want = torch.where(b < 32, plain(w, fq._levels(b)), w)
+                    check(torch.equal(g, want), '%s differs from plain on %s weight %d %s, '
+                          'bits %g', label, net, i, tuple(w.shape), float(b))
+        for w in weights:  # a group of one
+            b = torch.full((1,), 4.0, device=device)
+            check(torch.equal(fq.fake_quant_per_tensor_group([w], b)[0],
+                              fq._quantize_math_torch(w, fq._levels(b[0]), None)),
+                  'grouped K1\' differs from plain on %s alone', tuple(w.shape))
+        log('  %s: %d quantized weights %s: K1\', the per-site bucket ops, the grouped K1\' and '
+            'K2\' (mixed bits) equal to plain', net, len(weights),
+            sorted({tuple(s) for s in shapes}))
+        bits4 = torch.full((len(weights),), 4.0, device=device)
+        k4 = fq._levels(bits4[0])
+        ms = time_ms(lambda: fq.fake_quant_per_tensor_group(weights, bits4))
+        plain_ms = time_ms(lambda: [fq._quantize_math_torch(w, k4, None) for w in weights])
+        log('  fake_quant_per_tensor_group over %s\'s %d weights (4 bits): kernel %.4f ms, plain '
+            '%.4f ms, bound %.4f ms (%s)', net, len(weights), ms, plain_ms,
+            *fq_bound(sum(w.numel() for w in weights)))
+    bits = torch.tensor(8.0, device=device)
+    k = fq._levels(bits)
+    for shape in ZOO_ACT_SHAPES:
+        x = torch.relu(torch.randn(shape, generator=gen, device=device)).to(torch.bfloat16)
+        if x.dim() == 4:
+            x = x.contiguous(memory_format=torch.channels_last)
+        want = fq._quantize_math_torch(x, k, None).to(x.dtype)
+        got = fq.fake_quant_per_tensor(x, bits)
+        check(got.stride() == x.stride(), 'K1\' lost the layout of %s', shape)
+        err, nd = compare(got, want, float((x.max().float() - x.min().float()) / k))
+        check(torch.equal(fq.fake_quant_per_tensor(x, bits, select=True), got),
+              'K1\' with the select differs from K1\' on %s', shape)
+        ms = time_ms(lambda: fq.fake_quant_per_tensor(x, bits, select=True))
+        plain_ms = time_ms(lambda: torch.where(
+            bits < 32, fq._quantize_math_torch(x, k, None).to(x.dtype), x))
+        log('  K1\' bf16 act %s, 8 bits: max|d|=%.3g n_diff=%d vs plain; with the select equal | '
+            'with the select %.4f ms, plain + select %.4f ms, bound %.4f ms (%s)', shape, err, nd,
+            ms, plain_ms, *fq_bound(x.numel(), 2))
+
+
+class ForwardCounter:
+    """Counts the forwards of the zoo's nets that run under a QuantPolicy
+    (the student's; the teacher runs under none), by a global forward
+    pre-hook, and records each learner's train-step metrics and eval means."""
+
+    def __init__(self):
+        from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner
+        self.forwards = self.steps = 0
+        self.metrics, self.evals = None, []
+        counter = self
+        build_train_step, run_eval_loop = (AbstractLearner.build_train_step,
+                                           AbstractLearner.run_eval_loop)
+
+        def counted_build(learner, *args, **kwargs):
+            step_fn = build_train_step(learner, *args, **kwargs)
+
+            def counted(state, batch, generator):
+                state, metrics = step_fn(state, batch, generator)
+                counter.steps += 1
+                counter.metrics = metrics
+                return state, metrics
+            return counted
+
+        def recorded_eval(learner, *args, **kwargs):
+            means = run_eval_loop(learner, *args, **kwargs)
+            counter.evals.append(means)
+            return means
+
+        self._undo = [(AbstractLearner, 'build_train_step', build_train_step),
+                      (AbstractLearner, 'run_eval_loop', run_eval_loop)]
+        AbstractLearner.build_train_step = counted_build
+        AbstractLearner.run_eval_loop = recorded_eval
+        self._hook = torch.nn.modules.module.register_module_forward_pre_hook(self._pre_hook)
+
+    def _pre_hook(self, module, inputs):
+        from pocketflow_tpu_torch.learners.uniform_quantization.utils import QuantPolicy
+        from pocketflow_tpu_torch.nn.layers import current_policy
+        if type(module).__name__ in ZOO_NETS and isinstance(current_policy(), QuantPolicy):
+            self.forwards += 1
+
+    def close(self):
+        self._hook.remove()
+        for owner, name, fn in self._undo:
+            setattr(owner, name, fn)
+
+
+def phase_zoo_path(FLAGS, work_dir, card):
+    """The zoo's path at full width through main.main on the card: each run
+    with its launches counted from its own reset, a finite loss and finite
+    eval metrics; one launch pair of the grouped kernel a quantized forward,
+    19 of K1' with the select a forward on the 8-bit run, no kernel on the
+    full-precision run (the teacher's), no plain call anywhere.  Returns
+    {run label: counters}."""
+    from pocketflow_tpu_torch import main as port_main
+    from pocketflow_tpu_torch.tools import make_minimal_data
+    t0 = time.perf_counter()
+    make_minimal_data.main(['--dst_dir=%s' % work_dir, '--datasets=cifar10',
+                            '--nb_train=%d' % ZOO_TRAIN, '--nb_eval=%d' % ZOO_EVAL])
+    log('  CIFAR-10 .bin files (%d train, %d eval records) written in %.1f s', ZOO_TRAIN,
+        ZOO_EVAL, time.perf_counter() - t0)
+    runs = {}
+    for label, model, argv, per_forward in ZOO_RUNS:
+        argv = ['--model=%s' % model, '--data_dir_local=%s' % os.path.join(work_dir, 'cifar10'),
+                '--batch_size=%d' % ZOO_BATCH, '--nb_smpls_train=%d' % ZOO_TRAIN,
+                '--nb_smpls_eval=%d' % ZOO_EVAL, '--compute_dtype=bfloat16',
+                '--log_dir=%s' % os.path.join(work_dir, 'logs', model),
+                '--save_path=%s' % os.path.join(work_dir, model, 'models', 'model.ckpt'),
+                '--uql_save_quant_model_path=%s' % os.path.join(work_dir, model, 'uql',
+                                                                 'model.ckpt')] + argv
+        counter = ForwardCounter()
+        start = time.perf_counter()
+        try:
+            with FLAGS.scope(**FLAGS.as_dict()):
+                reset_counters()  # this run's launches are counted from here ...
+                learner = port_main.main(argv, device='cuda')
+                torch.cuda.synchronize()
+                runs[label] = counters()  # ... to here
+        finally:
+            counter.close()
+        elapsed = time.perf_counter() - start
+        loss = float(counter.metrics['loss'])
+        check(math.isfinite(loss), '%s: loss %r', label, loss)
+        check(counter.evals and all(math.isfinite(v) for v in counter.evals[-1].values()),
+              '%s: eval %s', label, counter.evals)
+        want = no_launches(**{name: n * counter.forwards for name, n in per_forward.items()})
+        check(runs[label] == want, '%s: launches %s over %d quantized forwards, expected %s',
+              label, runs[label], counter.forwards, want)
+        if per_forward:
+            stats = learner.statistics
+            check((stats['nb_matmuls'], stats['nb_activations']) == ZOO_SITES[model],
+                  '%s: sites %d/%d', label, stats['nb_matmuls'], stats['nb_activations'])
+            check(counter.forwards > counter.steps > 0, '%s: %d forwards, %d steps', label,
+                  counter.forwards, counter.steps)
+        else:
+            check(counter.forwards == 0 and counter.steps > 0, '%s: %d quantized forwards',
+                  label, counter.forwards)
+        log('  %s: %d steps, %d quantized forwards, loss %.4f, eval %s | launches %s | %.1f s '
+            '(the run, its evals and its checkpoint)', label, counter.steps, counter.forwards,
+            loss, {k: round(v, 4) for k, v in counter.evals[-1].items()}, runs[label], elapsed)
+    return runs
+
+
+def phase_zoo_timing(FLAGS, work_dir, card):
+    """Runs A and B's steps timed at batch 128: ZOO_TIMED steps on 4 staged
+    batches after ZOO_TIMED_WARMUP, host clock ended by a synchronize."""
+    from pocketflow_tpu_torch.learners.full_precision import FullPrecLearner
+    from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
+    from pocketflow_tpu_torch.nets.resnet_at_cifar10 import ModelHelper
+    model_dir = os.path.join(work_dir, 'resnet_at_cifar10')
+    for label, enbl_dst in (('run A (full-prec)', False),
+                            ('run B (uniform 4-bit + distillation)', True)):
+        with FLAGS.scope(data_dir_local=os.path.join(work_dir, 'cifar10'), batch_size=ZOO_BATCH,
+                         nb_smpls_train=ZOO_TRAIN, compute_dtype='bfloat16', enbl_dst=enbl_dst,
+                         uql_weight_bits=4, uql_activation_bits=32, uql_use_buckets=False,
+                         save_path=os.path.join(model_dir, 'models', 'model.ckpt')):
+            if enbl_dst:
+                learner = UniformQuantLearner(None, ModelHelper(), device='cuda')
+                state, tx, _ = learner.init_state_quant()
+                state, restored = learner.restore_baseline(state)
+                check(restored, 'run B: no baseline under %s', model_dir)
+                state = learner.set_bits(state, *learner.choose_bits())
+                train_step = learner.build_quant_train_step(tx)
+            else:
+                learner = FullPrecLearner(None, ModelHelper(), device='cuda')
+                state, tx, _ = learner.init_state()
+                train_step = learner.build_train_step(tx)
+            iterator = learner.dataset_train.build()
+            batches = [learner.put_batch(next(iterator)) for _ in range(4)]
+            for i in range(ZOO_TIMED_WARMUP):
+                state, metrics = train_step(state, batches[i % 4], learner.generator(i))
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for i in range(ZOO_TIMED):
+                state, metrics = train_step(state, batches[i % 4], learner.generator(i))
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            check(math.isfinite(float(metrics['loss'])), '%s loss', label)
+        log('  ResNet-20 @ CIFAR-10 %s, bf16, batch %d: %.2f img/s, %.3f ms/step over %d steps '
+            '| %s', label, ZOO_BATCH, ZOO_BATCH * ZOO_TIMED / elapsed, 1e3 * elapsed / ZOO_TIMED,
+            ZOO_TIMED, card)
 
 
 def main():
@@ -681,8 +950,9 @@ def main():
     FLAGS.override(synthetic_data=True, summ_step=10 ** 9, save_step=10 ** 9,
                    resnet_stem_s2d=True, rand_seed=0)
 
-    log('phase 3 reference: small QAT step, card vs CPU')
-    phase_reference(FLAGS, ModelHelper, UniformQuantLearner)
+    log('phase 3 reference: small QAT step, card vs CPU (ResNet-50 @ 64)')
+    phase_reference(FLAGS, lambda: ModelHelper(resnet_size=50), UniformQuantLearner,
+                    ilsvrc_image_size=64)
 
     with FLAGS.scope(batch_size=BATCH, batch_size_eval=BATCH, nb_smpls_train=4096,
                      nb_smpls_eval=512, compute_dtype='bfloat16', bn_stats_subsample=1,
@@ -754,6 +1024,29 @@ def main():
             'exact BN, s2d stem, 4-bit weights, half the input channels of every conv kernel '
             'with more than 16 masked', BATCH)
         runs[COMPOSED_RUN] = phase_composed(learner, card)
+    del learner
+    torch.cuda.empty_cache()
+
+    from pocketflow_tpu_torch.nets import convnet_at_fmnist, lenet_at_cifar10, resnet_at_cifar10
+    log('phase 10 reference: small QAT step of ResNet-20 @ CIFAR-10, card vs CPU')
+    phase_reference(FLAGS, resnet_at_cifar10.ModelHelper, UniformQuantLearner)
+
+    log('phase 11 fake-quant kernels vs plain at the model zoo\'s shapes')
+    zoo_shapes = {}
+    for name, helper in (('ResNet-20', resnet_at_cifar10.ModelHelper),
+                         ('ConvNet', convnet_at_fmnist.ModelHelper),
+                         ('LeNet', lenet_at_cifar10.ModelHelper)):
+        with FLAGS.scope(compute_dtype='float32'):
+            site_learner = UniformQuantLearner(None, helper(), device=device)
+        zoo_shapes[name] = site_learner.statistics['weight_shapes']
+    phase_zoo_kernels(fq, zoo_shapes, device)
+
+    with tempfile.TemporaryDirectory(prefix='pf_zoo_') as work_dir:
+        log('phase 12 the model zoo through main.main at full width: ResNet-20 @ CIFAR-10 at '
+            'batch %d (full-prec, then QAT from it with distillation), ConvNet, LeNet', ZOO_BATCH)
+        runs.update(phase_zoo_path(FLAGS, work_dir, card))
+        log('phase 13 ResNet-20 @ CIFAR-10 steps timed, batch %d', ZOO_BATCH)
+        phase_zoo_timing(FLAGS, work_dir, card)
 
     # each kernel's launches in the run that drives it: the main path for the
     # grouped K1', the 8-bit-activation route for K1' itself, the

@@ -189,7 +189,11 @@ FLAGS.DEFINE_float('nb_epochs_rat', 1.0, 'ratio of total number of training epoc
 FLAGS.DEFINE_float('momentum', 0.9, 'momentum coefficient')
 FLAGS.DEFINE_float('loss_w_dcy', 2e-4, 'weight decaying loss coefficient')
 
+FLAGS.DEFINE_string('data_disk', 'local', 'data disk type: local (hdfs is not ported)')
 FLAGS.DEFINE_integer('prefetch_size', 8, 'batches prefetched ahead of device')
+
+FLAGS.DEFINE_float('loss_w_dst', 4.0, 'distillation loss weight')
+FLAGS.DEFINE_float('tempr_dst', 4.0, 'distillation temperature')
 
 FLAGS.DEFINE_string('compute_dtype', 'bfloat16',
                     'activation compute dtype: bfloat16 | float32')
@@ -199,3 +203,5 @@ FLAGS.DEFINE_integer('rand_seed', 0, 'global PRNG seed')
 FLAGS.DEFINE_integer('bn_stats_subsample', 1,
                      'compute BN batch statistics from the leading 1/S of the '
                      'batch (ghost-BN; 1 = exact)')
+FLAGS.DEFINE_string('remat_blocks', 'none',
+                    "residual-block rematerialization: only 'none' is ported")

@@ -29,8 +29,24 @@ FLAGS.DEFINE_integer('batch_size', None, 'batch size per chip for training (over
 FLAGS.DEFINE_integer('batch_size_eval', None, 'batch size for evaluation (override)')
 FLAGS.DEFINE_string('data_dir_local', None, 'data directory - local')
 FLAGS.DEFINE_string('synthetic_task', 'blobs',
-                    'synthetic-data task: `blobs` (fast-saturating smoke data); '
-                    '`hard` is not ported yet')
+                    'synthetic-data task: `blobs` (fast-saturating smoke data) or '
+                    '`hard` (non-saturating noisy-template classification)')
+FLAGS.DEFINE_float('synthetic_snr', 0.25,
+                   'hard task: per-pixel template amplitude over unit noise')
+FLAGS.DEFINE_float('synthetic_label_noise', 0.1,
+                   'hard task: fraction of TRAIN labels flipped uniformly '
+                   '(eval labels stay clean)')
+
+
+def resolve_data_dir() -> Optional[str]:
+    """The local data directory (``--data_dir_local``); the port reads local
+    disks only."""
+    disk = FLAGS.get('data_disk') or 'local'
+    if disk != 'local':
+        raise NotImplementedError(
+            "--data_disk=%s is not ported yet (ROADMAP 'Modules to port', item 25: "
+            'datasets/remote_fs.py)' % disk)
+    return FLAGS.get('data_dir_local')
 
 
 @dataclass(frozen=True)
@@ -111,17 +127,27 @@ class AbstractDataset(ABC):
         """First ``n`` raw images without building the iterator pipeline."""
         if not hasattr(self, '_cached_arrays'):
             self._cached_arrays = self._load_arrays()
-        return np.asarray(self._cached_arrays[0][:n])
+        images = self._cached_arrays[0]
+        return np.asarray(images[np.arange(min(n, len(images)), dtype=np.int64)])
+
+    def peek_batch(self, n: int = 2) -> Dict[str, np.ndarray]:
+        """First ``n`` raw rows as a batch dict (labels kept), without
+        building the iterator pipeline."""
+        if not hasattr(self, '_cached_arrays'):
+            self._cached_arrays = self._load_arrays()
+        images, labels = self._cached_arrays
+        idx = np.arange(min(n, len(images)), dtype=np.int64)
+        return {'image': np.asarray(images[idx]), 'label': np.asarray(labels[idx])}
 
     # -- synthetic data ---------------------------------------------------
 
     def synthesize_arrays(self, nb_smpls: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
         """Deterministic learnable synthetic data: per-class sinusoid patterns
-        with noise; the same seeds and arrays as the JAX package."""
-        if FLAGS.get('synthetic_task') != 'blobs':
-            raise NotImplementedError(
-                "--synthetic_task=%s is not ported yet (ROADMAP 'Modules to port', "
-                'item 12)' % FLAGS.get('synthetic_task'))
+        with noise; the same seeds and arrays as the JAX package.  With
+        --synthetic_task=hard, the noisy-template task of
+        ``synthesize_arrays_hard``."""
+        if FLAGS.get('synthetic_task') == 'hard':
+            return self.synthesize_arrays_hard(nb_smpls)
         spec = self.spec
         n = nb_smpls or (spec.nb_smpls_train if self.is_train else spec.nb_smpls_eval)
         h, w, c = spec.image_shape
@@ -138,6 +164,53 @@ class AbstractDataset(ABC):
         images = base[..., None] + noise  # broadcast over channels
         images = np.broadcast_to(images, (n, h, w, c))
         return np.clip(images, 0, 255).astype(np.uint8), labels
+
+    def synthesize_arrays_hard(self, nb_smpls: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Non-saturating task: a sample of class k is ``snr * T_k + N(0, 1)``
+        per pixel, T_k a fixed smooth random template (low-res Gaussian,
+        bilinearly upsampled, zero mean, unit RMS); train labels flipped with
+        probability --synthetic_label_noise.  The same seeds and arrays as
+        the JAX package."""
+        spec = self.spec
+        n = nb_smpls or (spec.nb_smpls_train if self.is_train else spec.nb_smpls_eval)
+        h, w, c = spec.image_shape
+        n = max(64, min(n, 16384, (1 << 28) // (h * w * c)))
+        snr = float(FLAGS.get('synthetic_snr') or 0.25)
+        label_noise = float(FLAGS.get('synthetic_label_noise') or 0.0)
+        nb_classes = spec.nb_classes
+
+        # class templates: fixed seed, shared by both subsets
+        trng = np.random.default_rng(777)
+        lo = max(4, h // 4), max(4, w // 4)
+        tmpl_lo = trng.standard_normal((nb_classes, lo[0], lo[1], c)).astype(np.float32)
+        yi = np.linspace(0, lo[0] - 1, h)
+        xi = np.linspace(0, lo[1] - 1, w)
+        y0 = np.clip(yi.astype(int), 0, lo[0] - 2)
+        x0 = np.clip(xi.astype(int), 0, lo[1] - 2)
+        wy = (yi - y0)[None, :, None, None].astype(np.float32)
+        wx = (xi - x0)[None, None, :, None].astype(np.float32)
+        t = (tmpl_lo[:, y0][:, :, x0] * (1 - wy) * (1 - wx)
+             + tmpl_lo[:, y0 + 1][:, :, x0] * wy * (1 - wx)
+             + tmpl_lo[:, y0][:, :, x0 + 1] * (1 - wy) * wx
+             + tmpl_lo[:, y0 + 1][:, :, x0 + 1] * wy * wx)
+        t -= t.mean(axis=(1, 2, 3), keepdims=True)
+        t /= np.sqrt((t ** 2).mean(axis=(1, 2, 3), keepdims=True)) + 1e-8
+
+        srng = np.random.default_rng(24601 + (0 if self.is_train else 1))
+        labels_clean = srng.integers(0, nb_classes, size=(n,), dtype=np.int32)
+        images = snr * t[labels_clean]
+        for beg in range(0, n, 1024):  # noise in chunks bounds peak host memory
+            end = min(n, beg + 1024)
+            images[beg:end] += srng.standard_normal((end - beg, h, w, c), dtype=np.float32)
+        labels = labels_clean
+        if self.is_train and label_noise > 0.0:
+            flip = srng.random(n) < label_noise
+            shift = srng.integers(1, nb_classes, size=(n,), dtype=np.int32)
+            labels = np.where(flip, (labels_clean + shift) % nb_classes,
+                              labels_clean).astype(np.int32)
+        # 1 sigma of noise = 40 counts
+        images = np.clip(127.5 + 40.0 * images, 0, 255).astype(np.uint8)
+        return images, labels
 
     # -- pipeline -------------------------------------------------------------
 

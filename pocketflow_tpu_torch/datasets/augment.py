@@ -8,11 +8,12 @@ deterministic paths.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def normalize(images: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
@@ -25,6 +26,22 @@ def random_flip_lr(images: torch.Tensor, generator: torch.Generator) -> torch.Te
     """Per-sample horizontal flip with probability 1/2; images [B,H,W,C]."""
     flip = torch.rand(images.shape[0], generator=generator, device=images.device) < 0.5
     return torch.where(flip[:, None, None, None], images.flip(2), images)
+
+
+def pad_random_crop(images: torch.Tensor, generator: Optional[torch.Generator], pad: int = 4,
+                    offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Zero-pad by `pad` on each side, then crop each sample back to its
+    size at a random (row, column) offset in [0, 2 * pad]; images [B,H,W,C].
+    `offsets` ([2, B] ints, rows then columns) replaces the draw."""
+    batch, height, width, _ = images.shape
+    if offsets is None:
+        offsets = torch.randint(0, 2 * pad + 1, (2, batch), generator=generator,
+                                device=images.device)
+    padded = F.pad(images, (0, 0, pad, pad, pad, pad))
+    rows = offsets[0].to(images.device)[:, None] + torch.arange(height, device=images.device)
+    cols = offsets[1].to(images.device)[:, None] + torch.arange(width, device=images.device)
+    b = torch.arange(batch, device=images.device)[:, None, None]
+    return padded[b, rows[:, :, None], cols[:, None, :]]
 
 
 def _bilinear_sample(images: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:

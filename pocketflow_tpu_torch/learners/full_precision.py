@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner, TrainState
+from pocketflow_tpu_torch.learners.distillation_helper import DistillationHelper
 
 
 class FullPrecLearner(AbstractLearner):
@@ -12,15 +13,16 @@ class FullPrecLearner(AbstractLearner):
 
     def __init__(self, sm_writer, model_helper, device='cuda'):
         super().__init__(sm_writer, model_helper, device)
+        self.helper_dst = None
         if FLAGS.enbl_dst:
-            raise NotImplementedError(
-                "--enbl_dst is not ported yet (ROADMAP 'Modules to port', item 13)")
+            self.helper_dst = DistillationHelper(model_helper, self.device)
 
     def train(self) -> TrainState:
         state, tx, _ = self.init_state()
         if FLAGS.enbl_warm_start:
             state = self.warm_start(state)
-        train_step = self.build_train_step(tx)
+        loss_extra = self.helper_dst.loss_extra_fn() if self.helper_dst else None
+        train_step = self.build_train_step(tx, loss_extra_fn=loss_extra)
         eval_step = self.build_eval_step()
         state = self.run_train_loop(
             state, train_step, eval_fn=lambda s: self.run_eval_loop(s, eval_step))

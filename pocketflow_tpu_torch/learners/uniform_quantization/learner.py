@@ -18,6 +18,7 @@ import torch
 from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core import schedules
 from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner, Sgd, TrainState
+from pocketflow_tpu_torch.learners.distillation_helper import DistillationHelper
 from pocketflow_tpu_torch.learners.uniform_quantization import utils as uq_utils
 
 FLAGS.DEFINE_boolean('uql_enbl_rl_agent', False, 'UQL: enable RL bit search')
@@ -55,9 +56,9 @@ class UniformQuantLearner(AbstractLearner):
 
     def __init__(self, sm_writer, model_helper, device='cuda'):
         super().__init__(sm_writer, model_helper, device)
+        self.helper_dst = None
         if FLAGS.enbl_dst:
-            raise NotImplementedError(
-                "--enbl_dst is not ported yet (ROADMAP 'Modules to port', item 13)")
+            self.helper_dst = DistillationHelper(model_helper, self.device)
         # discover quant sites with one eval-mode pass over two synthetic
         # images (only the shapes matter)
         sample = torch.from_numpy(self.dataset_train.synthesize_arrays(2)[0][:2])
@@ -100,7 +101,8 @@ class UniformQuantLearner(AbstractLearner):
         return state, tx, schedule
 
     def build_quant_train_step(self, tx):
-        return self.build_train_step(tx, policy_fn=self._policy_fn())
+        loss_extra = self.helper_dst.loss_extra_fn() if self.helper_dst else None
+        return self.build_train_step(tx, policy_fn=self._policy_fn(), loss_extra_fn=loss_extra)
 
     def build_quant_eval_step(self):
         return self.build_eval_step(policy_fn=self._policy_fn())

@@ -1,29 +1,34 @@
 """Entry point of the PyTorch port (counterpart of the repository's main.py).
 
-Selects the model helper by ``--model`` (or a positional name) and runs the
-learner chosen by ``--learner`` on one CUDA device.
+Selects the model helper by ``--model`` (or a positional name), applies the
+model's dataset entries of ``--path_conf``, and runs the learner chosen by
+``--learner`` on one CUDA device.
 
 Usage:
-    python -m pocketflow_tpu_torch.main --model=resnet_at_ilsvrc12 --learner=uniform \\
-        --synthetic_data --nb_epochs_rat=0.001 [--exec_mode=train|eval] [flags...]
+    python -m pocketflow_tpu_torch.main --model=resnet_at_cifar10 --learner=uniform \\
+        --data_dir_local=/data/cifar10 [--exec_mode=train|eval] [flags...]
 """
 
 import importlib
 import sys
 
 MODELS = {
+    'convnet_at_fmnist': 'pocketflow_tpu_torch.nets.convnet_at_fmnist',
+    'lenet_at_cifar10': 'pocketflow_tpu_torch.nets.lenet_at_cifar10',
+    'resnet_at_cifar10': 'pocketflow_tpu_torch.nets.resnet_at_cifar10',
     'resnet_at_ilsvrc12': 'pocketflow_tpu_torch.nets.resnet_at_ilsvrc12',
 }
 
 # model helpers of the JAX package that wait for a later slice
-NOT_PORTED = ('convnet_at_fmnist', 'lenet_at_cifar10', 'resnet_at_cifar10',
-              'mobilenet_at_ilsvrc12', 'vgg_at_pascalvoc', 'faster_rcnn_at_pascalvoc')
+NOT_PORTED = ('mobilenet_at_ilsvrc12', 'vgg_at_pascalvoc', 'faster_rcnn_at_pascalvoc')
 
 
 def main(argv=None, device='cuda'):
+    """Run the learner on `device`; returns the learner."""
     from pocketflow_tpu_torch.config import FLAGS
     from pocketflow_tpu_torch.core.metrics import SummaryWriter, get_logger
     from pocketflow_tpu_torch.learners import create_learner
+    from pocketflow_tpu_torch.utils.path_args import apply_path_conf
     # register the flags of every ported module before parsing
     import pocketflow_tpu_torch.learners.uniform_quantization.learner  # noqa: F401
     for module in MODELS.values():
@@ -40,10 +45,11 @@ def main(argv=None, device='cuda'):
             raise SystemExit('unrecognized flag %r (see --help)' % arg)
     if model_name in NOT_PORTED:
         raise NotImplementedError(
-            "model %r is not ported yet (ROADMAP 'Modules to port', items 12 and 19-24)"
+            "model %r is not ported yet (ROADMAP 'Modules to port', items 19 and 24)"
             % model_name)
     if model_name not in MODELS:
         raise SystemExit('unknown model %r' % model_name)
+    apply_path_conf(model_name)
 
     log = get_logger()
     log.info('model = %s | learner = %s | exec_mode = %s',
@@ -60,6 +66,7 @@ def main(argv=None, device='cuda'):
             raise ValueError('unrecognized execution mode: ' + FLAGS.exec_mode)
     finally:
         sm_writer.close()
+    return learner
 
 
 if __name__ == '__main__':

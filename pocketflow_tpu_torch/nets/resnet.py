@@ -1,4 +1,4 @@
-"""ResNet modules for ILSVRC-12 (counterpart of pocketflow_tpu/nets/resnet.py).
+"""ResNet modules for CIFAR-10 and ILSVRC-12 (counterpart of pocketflow_tpu/nets/resnet.py).
 
 Module names equal the Flax names (``conv_init``, ``stage1_block0/conv1``,
 ``bn1/bn/scale``, ``fc``), so quant sites, the bridge from JAX parameters and
@@ -13,8 +13,17 @@ from typing import Optional
 import torch
 from torch import nn
 
+from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.nn.layers import (
-    BatchNorm, PFConv, PFDense, global_avg_pool, max_pool, relu, set_paths)
+    BatchNorm, PFConv, PFDense, global_avg_pool, max_pool, relu, reset_parameters, set_paths)
+
+
+def _refuse_remat():
+    """Block rematerialization (--remat_blocks) is not ported."""
+    if (FLAGS.get('remat_blocks') or 'none') != 'none':
+        raise NotImplementedError(
+            "--remat_blocks=%s is not ported yet (ROADMAP 'Modules to port', item 19: "
+            'maybe_remat)' % FLAGS.remat_blocks)
 
 
 class BasicBlock(nn.Module):
@@ -73,6 +82,39 @@ class BottleneckBlock(nn.Module):
         return relu(y + shortcut)
 
 
+class ResNetCifar(nn.Module):
+    """ResNet-(6n+2) for CIFAR: a 3x3 stem, 3 stages of n BasicBlocks at
+    widths 16/32/64, global average pool and dense.  Takes NHWC images and
+    returns fp32 logits."""
+
+    def __init__(self, nb_blocks: int, nb_classes: int = 10,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        _refuse_remat()
+        self.conv_init = PFConv(3, 16, (3, 3), use_bias=False, dtype=dtype)
+        self.bn_init = BatchNorm(16, dtype=dtype)
+        in_features = 16
+        for stage, width in enumerate((16, 32, 64)):
+            for block in range(nb_blocks):
+                strides = (2, 2) if (stage > 0 and block == 0) else (1, 1)
+                self.add_module('stage%d_block%d' % (stage + 1, block),
+                                BasicBlock(in_features, width, strides, dtype))
+                in_features = width
+        self.fc = PFDense(in_features, nb_classes, dtype=dtype)
+        set_paths(self)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        reset_parameters(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view with channels-last strides
+        x = relu(self.bn_init(self.conv_init(x)))
+        for name, module in self.named_children():
+            if name.startswith('stage'):
+                x = module(x)
+        return self.fc(global_avg_pool(x)).to(torch.float32)
+
+
 # block-size table (reference resnet_at_ilsvrc12.py:36-58)
 IMAGENET_CONFIGS = {
     18: (BasicBlock, (2, 2, 2, 2)),
@@ -101,6 +143,7 @@ class ResNetImageNet(nn.Module):
     def __init__(self, resnet_size: int = 50, nb_classes: int = 1001,
                  dtype: torch.dtype = torch.bfloat16, stem_space_to_depth: bool = False):
         super().__init__()
+        _refuse_remat()
         block_cls, stage_sizes = IMAGENET_CONFIGS[resnet_size]
         self.dtype = dtype
         self.stem_space_to_depth = stem_space_to_depth
@@ -121,10 +164,7 @@ class ResNetImageNet(nn.Module):
         set_paths(self)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """Draw every parameter anew, in module order, from `generator`."""
-        for module in self.modules():
-            if module is not self and hasattr(module, 'reset_parameters'):
-                module.reset_parameters(generator)
+        reset_parameters(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.stem_space_to_depth:

@@ -12,7 +12,7 @@ from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core import schedules
 from pocketflow_tpu_torch.datasets.ilsvrc12 import Ilsvrc12Dataset
 from pocketflow_tpu_torch.nets.abstract_model_helper import AbstractModelHelper
-from pocketflow_tpu_torch.nets.resnet import ResNetImageNet
+from pocketflow_tpu_torch.nets.resnet import IMAGENET_CONFIGS, ResNetImageNet
 
 FLAGS.DEFINE_boolean('resnet_stem_s2d', False,
                      'fold the 7x7/s2 stem into a space-to-depth 4x4 conv')
@@ -26,7 +26,13 @@ class ModelHelper(AbstractModelHelper):
 
     def __init__(self, data_format='channels_last', resnet_size=None):
         super().__init__(data_format)
+        # --resnet_size defaults to 20 (resnet_at_cifar10's flag), which has no
+        # ILSVRC-12 configuration: name the sizes there are
         self.resnet_size = resnet_size or FLAGS.get('resnet_size') or 50
+        if self.resnet_size not in IMAGENET_CONFIGS:
+            raise ValueError('resnet_size=%r has no ILSVRC-12 configuration; pass '
+                             '--resnet_size with one of %s'
+                             % (self.resnet_size, sorted(IMAGENET_CONFIGS)))
         self.model_name = 'resnet_%d' % self.resnet_size
         self.dataset_train = Ilsvrc12Dataset(is_train=True)
         self.dataset_eval = Ilsvrc12Dataset(is_train=False)

@@ -108,6 +108,13 @@ def set_paths(root: nn.Module):
             module.path = name.replace('.', '/')
 
 
+def reset_parameters(root: nn.Module, generator: Optional[torch.Generator] = None):
+    """Draw every parameter under `root` anew, in module order, from `generator`."""
+    for module in root.modules():
+        if module is not root and hasattr(module, 'reset_parameters'):
+            module.reset_parameters(generator)
+
+
 # ---------------------------------------------------------------------------
 # Initializers (flax.linen.initializers, drawn from an explicit generator)
 # ---------------------------------------------------------------------------
@@ -146,7 +153,8 @@ def same_pad(x: torch.Tensor, kernel: Sequence[int], strides: Sequence[int],
 
 
 class PFConv(nn.Module):
-    """2D convolution with weight/activation interception; 'SAME' padding.
+    """2D convolution with weight/activation interception; 'SAME' or
+    'VALID' padding.
 
     The kernel is an HWIO fp32 parameter; variance_scaling(2.0, 'fan_out')
     initialization as in the JAX package.
@@ -154,10 +162,13 @@ class PFConv(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel_size: Tuple[int, int] = (3, 3),
                  strides: Tuple[int, int] = (1, 1), use_bias: bool = True,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, padding: str = 'SAME'):
         super().__init__()
+        if padding not in ('SAME', 'VALID'):
+            raise ValueError('unknown padding %r' % (padding,))
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
+        self.padding = padding
         self.dtype = dtype
         self.path = ''
         self.kernel = nn.Parameter(torch.empty(*self.kernel_size, in_features, features))
@@ -171,7 +182,8 @@ class PFConv(nn.Module):
                 self.bias.zero_()
 
     def conv_fn(self, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-        x = same_pad(x, self.kernel_size, self.strides)
+        if self.padding == 'SAME':
+            x = same_pad(x, self.kernel_size, self.strides)
         return F.conv2d(x, kernel.permute(3, 2, 0, 1), stride=self.strides)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -314,3 +326,10 @@ def max_pool(x: torch.Tensor, window: Tuple[int, int] = (2, 2),
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(2, 3))
+
+
+def flatten_hwc(x: torch.Tensor) -> torch.Tensor:
+    """Flatten NCHW activations to [B, H*W*C] in H, W, C order: the order in
+    which the JAX package flattens its NHWC activations, so that a dense
+    kernel's rows line up with it."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)

@@ -18,6 +18,14 @@ settings of bench.py and chip_smoke.py), with the flags below on top:
                  than 16 of them masked, masked gradients, and the masks
                  re-applied after each update
 
+and ResNet-20 @ CIFAR-10 at batch 128, bf16, synthetic CIFAR-10 (the
+chip smoke's runs A-C):
+
+    r20-full-prec  FullPrecLearner
+    r20-qat        UniformQuantLearner, 4-bit weights
+    r20-qat-dst    r20-qat with distillation from a teacher of random weights
+    r20-act8-dst   r20-qat-dst with --uql_activation_bits=8
+
 For each variant: 3 warm-up steps, then 3 windows of 10 steps timed on the
 host clock and ended by torch.cuda.synchronize(); then 5 steps under
 torch.profiler (device activity only), reported per step: the device
@@ -61,7 +69,12 @@ VARIANTS = {
     'split': ('uniform', {'uql_use_buckets': True, 'uql_bucket_type': 'split'}),
     'act8': ('uniform', {'uql_activation_bits': 8}),
     'pruned-qat': ('uniform', {}),
+    'r20-full-prec': ('full-prec', {}),
+    'r20-qat': ('uniform', {}),
+    'r20-qat-dst': ('uniform', {}),
+    'r20-act8-dst': ('uniform', {'uql_activation_bits': 8}),
 }
+R20_BATCH = 128
 BATCH = 256
 NB_WARMUP, NB_WINDOWS, NB_STEPS, NB_PROFILED = 3, 3, 10, 5
 NB_BATCHES = 4
@@ -146,10 +159,20 @@ def _profile(fn, nb_steps: int):
 def profile_variant(name: str) -> dict:
     from pocketflow_tpu_torch.config import FLAGS
     from pocketflow_tpu_torch.learners import create_learner
-    from pocketflow_tpu_torch.nets.resnet_at_ilsvrc12 import ModelHelper
+    from pocketflow_tpu_torch.nets import resnet_at_cifar10, resnet_at_ilsvrc12
     learner_name, flags = VARIANTS[name]
-    with FLAGS.scope(**flags):
-        learner = create_learner(None, ModelHelper(resnet_size=50), learner_name, device='cuda')
+    batch_size = R20_BATCH if name.startswith('r20-') else BATCH
+    with FLAGS.scope(batch_size=batch_size, batch_size_eval=batch_size,
+                     nb_smpls_train=16 * batch_size, **flags):
+        if name.startswith('r20-'):
+            helper = resnet_at_cifar10.ModelHelper(resnet_size=20)
+        else:
+            helper = resnet_at_ilsvrc12.ModelHelper(resnet_size=50)
+        learner = create_learner(None, helper, learner_name, device='cuda')
+        if name.endswith('-dst'):
+            from pocketflow_tpu_torch.learners.distillation_helper import DistillationHelper
+            teacher = learner.create_model().state_dict()
+            learner.helper_dst = DistillationHelper(helper, learner.device, teacher)
         if name == 'pruned-qat':
             from pocketflow_tpu_torch.learners.weight_sparsification.pruned_qat import (
                 build_pruned_qat_step, channel_masks)
@@ -184,8 +207,9 @@ def profile_variant(name: str) -> dict:
             ms.append(1e3 * (time.perf_counter() - start) / NB_STEPS)
         loss = float(metrics['loss'])
         result = {
+            'batch_size': batch_size,
             'ms_per_step': ms,
-            'img_per_s': [BATCH * 1e3 / m for m in ms],
+            'img_per_s': [batch_size * 1e3 / m for m in ms],
             'loss': loss,
             'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
         }
@@ -280,11 +304,21 @@ def profile_kernels(weight_shapes, repeats: int = 2, passes: int = 10) -> dict:
     return out, by_name
 
 
+def resnet50_weight_shapes():
+    """The 52 quantized weight shapes of the QAT ResNet-50 step."""
+    from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
+    from pocketflow_tpu_torch.nets.resnet_at_ilsvrc12 import ModelHelper
+    return UniformQuantLearner(None, ModelHelper(resnet_size=50),
+                               device='cuda').statistics['weight_shapes']
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--variants',
                         default='qat,full-prec,ghost-bn-8,channel,split,act8,pruned-qat')
     parser.add_argument('--out', default='')
+    parser.add_argument('--skip_kernels', action='store_true',
+                        help='profile the variants only, not the kernels one by one')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_step: needs a CUDA device')
@@ -294,6 +328,7 @@ def main(argv=None):
     from pocketflow_tpu_torch.config import FLAGS
     # register the flags set below
     import pocketflow_tpu_torch.learners.uniform_quantization.learner  # noqa: F401
+    import pocketflow_tpu_torch.nets.resnet_at_cifar10  # noqa: F401
     import pocketflow_tpu_torch.nets.resnet_at_ilsvrc12  # noqa: F401
     FLAGS.override(synthetic_data=True, summ_step=10 ** 9, save_step=10 ** 9,
                    resnet_stem_s2d=True, rand_seed=0, batch_size=BATCH, batch_size_eval=BATCH,
@@ -313,16 +348,13 @@ def main(argv=None):
                        'device_events_per_step', 'by_category_ms_per_step')})
         print('%s %s' % (name, json.dumps(brief)), flush=True)
         torch.cuda.empty_cache()
-    from pocketflow_tpu_torch.nets.resnet_at_ilsvrc12 import ModelHelper
-    from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
-    weight_shapes = UniformQuantLearner(None, ModelHelper(resnet_size=50),
-                                        device='cuda').statistics['weight_shapes']
-    report['kernels_device_ms_per_pass'], report['kernels_device_ms_by_name'] = profile_kernels(
-        weight_shapes)
-    for label, values in report['kernels_device_ms_per_pass'].items():
-        print('device ms %-48s %s' % (label, ['%.4f' % v for v in values]), flush=True)
-        print('    by kernel %s' % {name: round(ms, 4) for name, ms in
-                                    report['kernels_device_ms_by_name'][label].items()})
+    if not args.skip_kernels:
+        report.update(zip(('kernels_device_ms_per_pass', 'kernels_device_ms_by_name'),
+                          profile_kernels(resnet50_weight_shapes())))
+        for label, values in report['kernels_device_ms_per_pass'].items():
+            print('device ms %-48s %s' % (label, ['%.4f' % v for v in values]), flush=True)
+            print('    by kernel %s' % {name: round(ms, 4) for name, ms in
+                                        report['kernels_device_ms_by_name'][label].items()})
     if args.out:
         with open(args.out, 'w') as fout:
             json.dump(report, fout, indent=1)

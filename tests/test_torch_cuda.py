@@ -29,6 +29,11 @@ from pocketflow_tpu_torch.ops import fake_quant as tfq
 from pocketflow_tpu_torch.ops import matmul as tmm
 
 
+# bn_relu_matmul_stats' column sums against float64 sums of the bf16 z and w:
+# about five times the kernel's readings on an H100 (s 2.1e-7, ss 3.9e-7)
+K3_S_TOL64, K3_SS_TOL64 = 1e-6, 2e-6
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -371,6 +376,29 @@ def test_bn_relu_matmul_stats_kernel_is_exact_on_exact_sums(cuda, m, k, n):
     assert float(want[2].max()) < 2 ** 24
     for g, v in zip(got, want):
         assert torch.equal(g, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('m', [802816, 801816])
+def test_bn_relu_matmul_stats_against_float64_sums(cuda, m):
+    """s and ss against the column sums of y and y^2 taken in float64 from
+    the bf16 z and w (each product exact in float64), at fused_mm_proto's
+    shape and a ragged M: the kernel's and the fp32 plain version's errors
+    (printed), the kernel's within K3_S_TOL64 of the column's sum of |y| and
+    K3_SS_TOL64 relative."""
+    k, n = 256, 64
+    x, w = _matmul_inputs(cuda, m, k, n)
+    scale, shift = torch.full((k,), 1.1, device=cuda), torch.full((k,), 0.1, device=cuda)
+    _, s, ss = tmm.bn_relu_matmul_stats(x, w, scale, shift)
+    _, plain_s, plain_ss = tmm._bn_relu_matmul_stats_plain(x, w, scale, shift)
+    z = torch.relu(x.float() * scale + shift).to(torch.bfloat16)
+    y64 = z.double() @ w.double()
+    s64, ss64, abs64 = y64.sum(0), y64.square().sum(0), y64.abs().sum(0)
+    errors = {name: (float(((a.double() - s64).abs() / abs64).max()),
+                     float(((b.double() - ss64).abs() / ss64).max()))
+              for name, (a, b) in (('kernel', (s, ss)), ('plain', (plain_s, plain_ss)))}
+    print('M=%d against float64 sums: %s' % (m, errors))
+    assert errors['kernel'][0] <= K3_S_TOL64 and errors['kernel'][1] <= K3_SS_TOL64
 
 
 @pytest.mark.gpu

@@ -57,9 +57,11 @@ def test_port_imports_no_jax():
 
 def test_every_port_flag_exists_in_jax_registry_with_same_default():
     import pocketflow_tpu  # noqa: F401  (registers the JAX package's whole flag surface)
+    import pocketflow_tpu.utils.path_args  # noqa: F401  (--path_conf, defined for main.py)
     from pocketflow_tpu.config import FLAGS as JFLAGS
-    import pocketflow_tpu_torch.learners.uniform_quantization.learner  # noqa: F401
-    import pocketflow_tpu_torch.nets.resnet_at_ilsvrc12  # noqa: F401
+    import importlib
+    for name in _port_modules():  # every flag the port defines
+        importlib.import_module(name)
     port = TFLAGS.defaults()
     port.pop('model', None)  # defined by either main() at call time
     missing = sorted(name for name in port if name not in JFLAGS)
@@ -168,7 +170,8 @@ def test_main_trains_baseline_then_qat_then_evaluates_on_cpu(tmp_path, monkeypat
     # JSONL summaries spare the test TensorBoard's imports
     monkeypatch.setattr(Ilsvrc12Dataset, '_load_arrays', lambda self: self.synthesize_arrays(64))
     monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
-    common = ['--model=resnet_at_ilsvrc12', '--synthetic_data', '--ilsvrc_image_size=32',
+    common = ['--model=resnet_at_ilsvrc12', '--resnet_size=50', '--synthetic_data',
+              '--ilsvrc_image_size=32',
               '--batch_size=4', '--batch_size_eval=16', '--nb_smpls_train=16',
               '--nb_smpls_eval=8', '--nb_epochs_rat=0.01', '--compute_dtype=float32',
               '--resnet_stem_s2d', '--summ_step=1', '--log_dir=%s' % (tmp_path / 'logs'),
@@ -188,4 +191,4 @@ def test_main_trains_baseline_then_qat_then_evaluates_on_cpu(tmp_path, monkeypat
         tags = {json.loads(line)['tag'] for line in fin}
     assert {'train/loss', 'train/accuracy', 'train/speed'} <= tags
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        port_main.main(['--model=convnet_at_fmnist'], device='cpu')
+        port_main.main(['--model=mobilenet_at_ilsvrc12'], device='cpu')

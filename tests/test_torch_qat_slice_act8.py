@@ -41,7 +41,9 @@ What the file catches, from broken copies of the port:
 * a zero gradient through the activations: the parameters
   (stage4_block2/bn3/bn/bias 1.16x its bound).
 A learning rate 5% off passes (step 2 projects at 0.81, the reruns at 0.75
-and 0.77): the files at 32 bits catch it.
+and 0.77): the files at 32 bits catch it, and so does
+tests/test_torch_qat_act8_exact.py, an 8-bit-activation step in a regime
+without level flips.
 """
 
 import pytest

@@ -6,6 +6,16 @@ tests/test_torch_qat_slice_act8.py (--uql_activation_bits=8: the 49
 activations through fake_quant_select) and tests/test_torch_masking.py (bench.py's composed pruned+QAT step: channel
 masks made with numpy and handed to both packages, masked gradients, the
 masks re-applied after each update), which run on separate test workers.
+`_run_small` takes the same steps for the small nets of the model zoo
+(tests/test_torch_cifar_step_*.py, tests/test_torch_qat_act8_exact.py), with
+a third JAX rerun in the spread: the same batch in reverse order, the same
+function with the sums in another order.  On ResNet-20 @ CIFAR-10 at batch 8
+the first layers' gradients cancel structurally (BN's backward), so that the
+rounding of the sums moves them by up to 1e-3 relative: against a float64
+evaluation of the port's step, the JAX fp32 step's conv_init gradient sits
+1.1e-3 away and the port's 1.3e-6, and the same JAX step with its batch
+reversed lands as far; inputs and parameters perturbed by 1e-7 do not
+excite it (2e-6).
 
 Size: --ilsvrc_image_size=64, batch 8, fp32, synthetic ILSVRC-12.  The
 augmentation is switched to its deterministic path on both learners'
@@ -78,6 +88,12 @@ SMALL = dict(ilsvrc_image_size=64, batch_size=BATCH, batch_size_eval=BATCH, nb_s
              # 1000 gives 0.1 * 8 / 256, the full-precision ResNet rate, so
              # that a step moves most tensors well past the tolerance
              lrn_rate_init=1000.0)
+# ResNet-20 @ CIFAR-10 for `_run_small`: the full-precision rate is
+# lrn_rate_init * batch / 128, the QAT finetune's 1e-3 of it; each is 0.1
+CIFAR_SMALL = dict(batch_size=BATCH, batch_size_eval=BATCH, nb_smpls_train=64,
+                   nb_smpls_eval=16, compute_dtype='float32', synthetic_data=True,
+                   rand_seed=0, resnet_size=20)
+CIFAR_RATE = {'full-prec': 1.6, 'uniform': 1600.0}
 RTOL, ATOL = 1e-4, 1e-5
 NOISE_FACTOR = 2.0
 PERTURBATION = 1e-7
@@ -277,6 +293,122 @@ def _run(buckets: bool, composed: bool = False, act_bits: int = 32):
                         if name.replace('.', '/') in out['masks']}}
             snapshot = jafter
         out['port_step'] = tstate.step
+    mesh_lib.reset_global_mesh()
+    return out
+
+
+def _run_small(jhelper_cls, thelper_cls, flags, learner='uniform', enbl_dst=False,
+               exclude_bn=True, prepare=None, nb_steps=NB_STEPS,
+               reruns=('images', 'params', 'order')):
+    """NB_STEPS train steps of a small net's learner ('full-prec' or
+    'uniform') against the JAX learner's, each from the JAX state, in the
+    record `_run` makes (for the step checks below; the eval part is
+    tests/test_torch_zoo.py's).  With `enbl_dst`, both learners distill from
+    one teacher: the bridged initial parameters, each scaled by 1 + 0.05
+    N(0, 1) (numpy, seed 2).  `prepare(params, images, labels)` may replace
+    the initial parameters and the train images before anything runs;
+    `exclude_bn` is the net's weight-decay rule; `reruns` names the JAX
+    reruns whose spread sets the floor (perturbed images, perturbed
+    parameters, the batch in reverse order)."""
+    from pocketflow_tpu.learners.distillation_helper import DistillationHelper as JDst
+    from pocketflow_tpu.learners.full_precision import FullPrecLearner as JFullPrec
+    from pocketflow_tpu_torch.learners.distillation_helper import DistillationHelper as TDst
+    from pocketflow_tpu_torch.learners.full_precision import FullPrecLearner as TFullPrec
+    mesh_lib.set_global_mesh(mesh_lib.build_mesh(jax.devices()[:1], ('data',), (1,)))
+    with JFLAGS.scope(**flags), TFLAGS.scope(**flags):
+        if learner == 'uniform':
+            jlearner = JLearner(None, jhelper_cls())
+            tlearner = TLearner(None, thelper_cls(), device='cpu')
+            (jstate, jtx, _), (tstate, ttx, _) = jlearner.init_state_quant(), \
+                tlearner.init_state_quant()
+        else:
+            jlearner = JFullPrec(None, jhelper_cls(), enbl_dst=False)
+            tlearner = TFullPrec(None, thelper_cls(), device='cpu')
+            (jstate, jtx, _), (tstate, ttx, _) = jlearner.init_state(), tlearner.init_state()
+        params0 = jax.tree_util.tree_map(np.array, jax.device_get(jstate.params))
+        stats0 = jax.tree_util.tree_map(np.array, jax.device_get(jstate.batch_stats))
+        extra = jax.tree_util.tree_map(np.array, jax.device_get(jstate.extra))
+        arrays, labels = jlearner.dataset_train.synthesize_arrays(64)
+        if prepare is not None:
+            params0, arrays, labels = prepare(params0, arrays, labels)
+        load_jax_numpy(tstate.model, params0, stats0)
+        out = {'port_sites': getattr(tlearner, 'statistics', None)}
+        for lrn in (jlearner, tlearner):
+            _deterministic_augment(lrn.dataset_train)
+        batches = [{'image': arrays[BATCH * i:BATCH * (i + 1)],
+                    'label': labels[BATCH * i:BATCH * (i + 1)]} for i in range(nb_steps)]
+        helper = jlearner.model_helper
+        jdst_fn = None
+        if enbl_dst:
+            rng = np.random.default_rng(2)
+            teacher = jax.tree_util.tree_map(
+                lambda a: (a * (1 + 0.05 * rng.standard_normal(a.shape))).astype(np.float32),
+                params0)
+            jdst_fn = JDst(helper, {'params': teacher, 'batch_stats': stats0}).loss_extra_fn()
+            weights, buffers = from_jax_numpy(teacher, stats0)
+            tlearner.helper_dst = TDst(tlearner.model_helper, 'cpu', {**weights, **buffers})
+            out['teacher'] = teacher
+
+        def jextra(s, o, i, l):  # the JAX step reports no loss: the CE as a metric
+            loss, metrics = (0.0, {}) if jdst_fn is None else jdst_fn(s, o, i, l)
+            return loss, {**metrics, 'ce': helper.softmax_cross_entropy(l, o)}
+
+        policy_fn = jlearner._policy_fn() if learner == 'uniform' else None
+        jstep = jlearner.build_train_step(jtx, policy_fn=policy_fn, loss_extra_fn=jextra)
+        if learner == 'uniform':
+            tstep = tlearner.build_quant_train_step(ttx)
+        else:
+            tstep = tlearner.build_train_step(
+                ttx, loss_extra_fn=tlearner.helper_dst.loss_extra_fn() if enbl_dst else None)
+
+        def jax_step(snapshot, index, image_noise=0.0, params=None, order=slice(None)):
+            params = snapshot['params'] if params is None else params
+            state = jstate.replace(
+                step=jnp.asarray(snapshot['step'], jnp.int32),
+                params=jax.tree_util.tree_map(jnp.asarray, params),
+                batch_stats=jax.tree_util.tree_map(jnp.asarray, snapshot['batch_stats']),
+                extra=jax.tree_util.tree_map(jnp.asarray, extra),
+                opt_state=jax.tree_util.tree_map(jnp.asarray, snapshot['opt_state']))
+            wd = float(helper.weight_decay_loss(params, exclude_bn=exclude_bn))
+            image = batches[index]['image'].astype(np.float32) * (1 + image_noise)
+            state, m = jstep(state, {'image': jnp.asarray(image[order]),
+                                     'label': jnp.asarray(batches[index]['label'][order])},
+                             jax.random.PRNGKey(index))
+            m = {k: float(v) for k, v in jax.device_get(m).items()}
+            m['loss'] = m.pop('ce') + wd + m.get('dst_loss', 0.0)
+            after = jax.device_get({'params': state.params, 'batch_stats': state.batch_stats,
+                                    'opt_state': state.opt_state})
+            after = jax.tree_util.tree_map(np.array, after)
+            after['step'] = snapshot['step'] + 1
+            return m, after
+
+        rng = np.random.default_rng(0)
+        snapshot = {'step': 0, 'params': params0, 'batch_stats': stats0,
+                    'opt_state': jax.tree_util.tree_map(
+                        np.array, jax.device_get(jlearner.init_opt_state(jtx, params0)))}
+        out['steps'] = []
+        for index in range(nb_steps):
+            jm, jafter = jax_step(snapshot, index)
+            noise = PERTURBATION * rng.standard_normal(batches[index]['image'].shape)
+            perturbed = jax.tree_util.tree_map(
+                lambda a: (a * (1 + PERTURBATION * rng.standard_normal(a.shape))
+                           ).astype(np.float32), snapshot['params'])
+            rerun_args = {'images': dict(image_noise=noise), 'params': dict(params=perturbed),
+                          'order': dict(order=slice(None, None, -1))}
+            rerun_steps = [jax_step(snapshot, index, **rerun_args[name]) for name in reruns]
+            _load_port_state(tstate, snapshot)
+            tstate, tm = tstep(tstate, tlearner.put_batch(batches[index]), None)
+            out['steps'].append({
+                'start': {**_flat(snapshot['params']), **_flat(snapshot['batch_stats'])},
+                'jax': (jm, {**_flat(jafter['params']), **_flat(jafter['batch_stats'])}),
+                'reruns': [(m, {**_flat(a['params']), **_flat(a['batch_stats'])})
+                           for m, a in rerun_steps],
+                'port': ({k: float(v) for k, v in tm.items()},
+                         {**{k: v.detach().numpy().copy() for k, v in tstate.params.items()},
+                          **{k: v.numpy().copy() for k, v in tstate.batch_stats.items()}})})
+            snapshot = jafter
+        out['port_step'] = tstate.step
+        out['batches'], out['params0'] = batches, params0
     mesh_lib.reset_global_mesh()
     return out
 
