@@ -19,6 +19,18 @@ on the card, and drives the port's paths:
     8-bit activations; D: channel buckets), ConvNet @ FMNIST and LeNet @
     CIFAR-10 under QAT, each with its launches counted per quantized forward
     (a global forward hook), its loss and eval metrics; runs A and B timed;
+  * the RL searches: a DDPG update on the card against the same update on
+    the CPU; weight sparsification through main.main (ResNet-20 @ CIFAR-10
+    from run A's baseline under the uniform protocol, run G, and the optimal
+    one, run H, a 2-roll-out DDPG search; ConvNet @ FMNIST uniform, run J),
+    each ending at its pruning ratio with every masked weight 0 and no kernel
+    launched; the uniform learner's RL bit search through main.main (run I:
+    2 roll-outs, each a copy of the baseline at the agent's per-layer bits,
+    layerwise-tuned and finetuned, then the finetune at the chosen bits),
+    with mixed bit widths in one grouped K1' launch pair a quantized forward;
+    a WS step with and without a mask refresh, a WS roll-out's steps,
+    masking.prune_update on ResNet-50's kernels and a bit-search roll-out
+    timed;
 
 and checks that each went through its kernels and never through a plain
 version.  Any failed phase raises and the script exits non-zero without its
@@ -42,7 +54,7 @@ pair; the per-site bucket ops are groups of one) the 7 steps under channel
 buckets, for matmul_bf16 the mm_shape_sweep experiment and for
 bn_relu_matmul_stats the fused_mm_proto experiment.  `launches_by_run` gives
 every kernel's count in each run, each counted from its own reset, the
-zoo's runs included.
+zoo's and the searches' runs included.
 """
 
 import json
@@ -138,6 +150,32 @@ ZOO_RUNS = [  # (label, model, flags, expected launches a quantized forward)
 # ones after fc3's relu (ConvNet 1024, LeNet 256 features)
 ZOO_ACT_SHAPES = [(128, 16, 32, 32), (128, 32, 16, 16), (128, 64, 8, 8), (128, 1024), (128, 256)]
 ZOO_TIMED_WARMUP, ZOO_TIMED = 5, 20
+# phase 14: the DDPG agent at the size of ResNet-20's weight-sparsification
+# search (22 maskable kernels: a state of 22 + 7 features), its buffer 22
+# transitions x --ws_nb_rlouts_min=50
+DDPG_S_DIMS, DDPG_BUF_SIZE = 29, 1100
+# phase 15: weight sparsification through main.main (ResNet-20 from run A's
+# baseline; ConvNet from scratch), 30-32 steps, a mask refresh every 3 steps
+WS_COMMON = ['--learner=weight-sparse', '--ws_prune_ratio=0.5', '--ws_mask_update_step=3']
+WS_RUNS = [
+    ('zoo run G: resnet_at_cifar10 weight-sparse, uniform 0.5, 30 steps', 'resnet_at_cifar10',
+     WS_COMMON + ['--ws_prune_ratio_prtl=uniform', '--nb_epochs_rat=0.012']),
+    ('zoo run H: resnet_at_cifar10 weight-sparse, optimal (2 roll-outs of 4 regression, 8 '
+     'finetune and 2 eval steps), 30 steps', 'resnet_at_cifar10',
+     WS_COMMON + ['--ws_prune_ratio_prtl=optimal', '--ws_nb_rlouts=2', '--ws_nb_rlouts_min=1',
+                  '--ws_nb_iters_rg=4', '--ws_nb_iters_ft=8', '--ws_nb_iters_feval=2',
+                  '--nb_epochs_rat=0.012']),
+    ('zoo run J: convnet_at_fmnist weight-sparse, uniform 0.5, synthetic FMNIST, 32 steps',
+     'convnet_at_fmnist', WS_COMMON + ['--ws_prune_ratio_prtl=uniform', '--synthetic_data',
+                                       '--nb_epochs_rat=0.02'])]
+WS_ROLLOUT_STEPS = 10  # steps of each part of the timed WS roll-out
+# phase 16: the RL bit search through main.main, then its finetune
+BIT_SEARCH_RUN = ('zoo run I: resnet_at_cifar10 uniform, RL bit search (2 roll-outs of 3 '
+                  'layerwise and 5 finetune steps), then 30 steps')
+BIT_SEARCH_ARGV = ['--learner=uniform', '--uql_enbl_rl_agent', '--uql_nb_rlouts=2',
+                   '--uql_tune_global_steps=5', '--uql_enbl_rl_layerwise_tune',
+                   '--uql_tune_layerwise_steps=3', '--nb_epochs_rat=0.05']
+BIT_ROLLOUT_STEPS = 20  # finetune steps of the timed bit-search roll-out
 # fp32 operations a fake-quant element costs: min, max; x - beta, / alpha,
 # * k, round, / k, * alpha, + beta
 FQ_OPS_PER_ELEMENT = 9
@@ -639,6 +677,7 @@ def phase_composed(learner, card):
 def phase_routes(FLAGS, learner, state, train_step, batches, card):
     """Phase 7: the other quantization routes, timed, each launching only
     its kernels.  Returns {run label: counters}."""
+    from pocketflow_tpu_torch.learners.uniform_quantization.bit_optimizer import BitOptimizer
     runs = {}
     # launches a step: each forward quantizes the 52 weights in one
     # grouped launch pair; on the 8-bit route each activation goes through
@@ -652,7 +691,7 @@ def phase_routes(FLAGS, learner, state, train_step, batches, card):
                dict(fake_quant_per_column_group=1))]
     for label, flags, per_step in routes:
         with FLAGS.scope(**flags):
-            state = learner.set_bits(state, *learner.choose_bits())
+            state = learner.set_bits(state, *BitOptimizer(learner, state).run())
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_counters()  # this route's launches are counted from here ...
@@ -776,8 +815,10 @@ def phase_zoo_kernels(fq, weight_shapes, device):
 
 class ForwardCounter:
     """Counts the forwards of the zoo's nets that run under a QuantPolicy
-    (the student's; the teacher runs under none), by a global forward
-    pre-hook, and records each learner's train-step metrics and eval means."""
+    (the student's and a roll-out's, alone or inside a layerwise tune's
+    CapturePolicy; the teacher and the regression targets run under none),
+    by a global forward pre-hook, and records each learner's train-step
+    metrics and eval means."""
 
     def __init__(self):
         from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner
@@ -811,13 +852,43 @@ class ForwardCounter:
     def _pre_hook(self, module, inputs):
         from pocketflow_tpu_torch.learners.uniform_quantization.utils import QuantPolicy
         from pocketflow_tpu_torch.nn.layers import current_policy
-        if type(module).__name__ in ZOO_NETS and isinstance(current_policy(), QuantPolicy):
+        policy = current_policy()
+        # a layerwise tune's forward runs the QuantPolicy inside a CapturePolicy
+        if type(module).__name__ in ZOO_NETS and (
+                isinstance(policy, QuantPolicy) or isinstance(getattr(policy, 'inner', None),
+                                                               QuantPolicy)):
             self.forwards += 1
 
     def close(self):
         self._hook.remove()
         for owner, name, fn in self._undo:
             setattr(owner, name, fn)
+
+
+def run_main(FLAGS, work_dir, model, argv):
+    """main.main(argv) for `model` on the card at the zoo's batch, on the
+    CIFAR-10 files under work_dir (checkpoints and logs there too), its
+    launches counted from a reset just before it to just after it.  Returns
+    (learner, ForwardCounter, counters, seconds)."""
+    from pocketflow_tpu_torch import main as port_main
+    argv = ['--model=%s' % model, '--data_dir_local=%s' % os.path.join(work_dir, 'cifar10'),
+            '--batch_size=%d' % ZOO_BATCH, '--nb_smpls_train=%d' % ZOO_TRAIN,
+            '--nb_smpls_eval=%d' % ZOO_EVAL, '--compute_dtype=bfloat16',
+            '--log_dir=%s' % os.path.join(work_dir, 'logs', model),
+            '--save_path=%s' % os.path.join(work_dir, model, 'models', 'model.ckpt'),
+            '--uql_save_quant_model_path=%s' % os.path.join(work_dir, model, 'uql', 'model.ckpt'),
+            '--uql_tune_save_path=%s' % os.path.join(work_dir, model, 'rl', 'model.ckpt')] + argv
+    counter = ForwardCounter()
+    start = time.perf_counter()
+    try:
+        with FLAGS.scope(**FLAGS.as_dict()):
+            reset_counters()  # this run's launches are counted from here ...
+            learner = port_main.main(argv, device='cuda')
+            torch.cuda.synchronize()
+            counts = counters()  # ... to here
+    finally:
+        counter.close()
+    return learner, counter, counts, time.perf_counter() - start
 
 
 def phase_zoo_path(FLAGS, work_dir, card):
@@ -827,7 +898,6 @@ def phase_zoo_path(FLAGS, work_dir, card):
     19 of K1' with the select a forward on the 8-bit run, no kernel on the
     full-precision run (the teacher's), no plain call anywhere.  Returns
     {run label: counters}."""
-    from pocketflow_tpu_torch import main as port_main
     from pocketflow_tpu_torch.tools import make_minimal_data
     t0 = time.perf_counter()
     make_minimal_data.main(['--dst_dir=%s' % work_dir, '--datasets=cifar10',
@@ -836,24 +906,7 @@ def phase_zoo_path(FLAGS, work_dir, card):
         ZOO_EVAL, time.perf_counter() - t0)
     runs = {}
     for label, model, argv, per_forward in ZOO_RUNS:
-        argv = ['--model=%s' % model, '--data_dir_local=%s' % os.path.join(work_dir, 'cifar10'),
-                '--batch_size=%d' % ZOO_BATCH, '--nb_smpls_train=%d' % ZOO_TRAIN,
-                '--nb_smpls_eval=%d' % ZOO_EVAL, '--compute_dtype=bfloat16',
-                '--log_dir=%s' % os.path.join(work_dir, 'logs', model),
-                '--save_path=%s' % os.path.join(work_dir, model, 'models', 'model.ckpt'),
-                '--uql_save_quant_model_path=%s' % os.path.join(work_dir, model, 'uql',
-                                                                 'model.ckpt')] + argv
-        counter = ForwardCounter()
-        start = time.perf_counter()
-        try:
-            with FLAGS.scope(**FLAGS.as_dict()):
-                reset_counters()  # this run's launches are counted from here ...
-                learner = port_main.main(argv, device='cuda')
-                torch.cuda.synchronize()
-                runs[label] = counters()  # ... to here
-        finally:
-            counter.close()
-        elapsed = time.perf_counter() - start
+        learner, counter, runs[label], elapsed = run_main(FLAGS, work_dir, model, argv)
         loss = float(counter.metrics['loss'])
         check(math.isfinite(loss), '%s: loss %r', label, loss)
         check(counter.evals and all(math.isfinite(v) for v in counter.evals[-1].values()),
@@ -880,6 +933,7 @@ def phase_zoo_timing(FLAGS, work_dir, card):
     """Runs A and B's steps timed at batch 128: ZOO_TIMED steps on 4 staged
     batches after ZOO_TIMED_WARMUP, host clock ended by a synchronize."""
     from pocketflow_tpu_torch.learners.full_precision import FullPrecLearner
+    from pocketflow_tpu_torch.learners.uniform_quantization.bit_optimizer import BitOptimizer
     from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
     from pocketflow_tpu_torch.nets.resnet_at_cifar10 import ModelHelper
     model_dir = os.path.join(work_dir, 'resnet_at_cifar10')
@@ -894,7 +948,7 @@ def phase_zoo_timing(FLAGS, work_dir, card):
                 state, tx, _ = learner.init_state_quant()
                 state, restored = learner.restore_baseline(state)
                 check(restored, 'run B: no baseline under %s', model_dir)
-                state = learner.set_bits(state, *learner.choose_bits())
+                state = learner.set_bits(state, *BitOptimizer(learner, state).run())
                 train_step = learner.build_quant_train_step(tx)
             else:
                 learner = FullPrecLearner(None, ModelHelper(), device='cuda')
@@ -916,6 +970,274 @@ def phase_zoo_timing(FLAGS, work_dir, card):
             ZOO_TIMED, card)
 
 
+def phase_ddpg(card):
+    """Phase 14: the DDPG agent on the card.  Two agents from one seed (the
+    same host-drawn networks), on the card and on the CPU; the CPU agent
+    takes two updates, the card agent a copy of its nets and Adam states (a
+    deep copy: the optimizer's load_state_dict keeps Adam's CPU step count as
+    the very tensor it was given), and both take one more update on the same
+    minibatch: every tensor of the state after it (nets, targets, Adam
+    moments) and both losses within rtol 1e-5 of the CPU's, on the L2 norm of
+    the difference.  Then a train update and an actions_noisy call timed on
+    the card."""
+    import copy
+    import numpy as np
+    from pocketflow_tpu_torch.rl_agents.ddpg.agent import DdpgAgent
+    rng = np.random.default_rng(0)
+    agents = {name: DdpgAgent(s_dims=DDPG_S_DIMS, a_dims=1, nb_rlouts=200,
+                              buf_size=DDPG_BUF_SIZE, seed=0, device=name)
+              for name in ('cuda', 'cpu')}
+    states = rng.uniform(size=(DDPG_BUF_SIZE + 1, DDPG_S_DIMS)).astype(np.float32)
+    actions, rewards = rng.uniform(size=(DDPG_BUF_SIZE, 1)), rng.normal(size=DDPG_BUF_SIZE)
+    for agent in agents.values():
+        agent.init()
+        agent.record(states[:-1], actions, rewards, np.zeros(DDPG_BUF_SIZE), states[1:])
+    cpu, gpu = agents['cpu'], agents['cuda']
+    for _ in range(2):
+        cpu.train()
+    for name in ('actor', 'critic', 'actor_tr', 'critic_tr', 'opt_actor', 'opt_critic'):
+        getattr(gpu, name).load_state_dict(copy.deepcopy(getattr(cpu, name).state_dict()))
+    batch = cpu.memory.sample(64)
+    out = {}
+    for name, agent in agents.items():
+        losses = agent._train(batch)
+        out[name] = {'actor_loss': losses[0].cpu().double(),
+                     'critic_loss': losses[1].cpu().double()}
+        for net in ('actor', 'critic', 'actor_tr', 'critic_tr'):
+            out[name].update({'%s.%s' % (net, k): v.detach().cpu().double()
+                              for k, v in getattr(agent, net).named_parameters()})
+        for opt, net in (('opt_actor', 'actor'), ('opt_critic', 'critic')):
+            for k, p in getattr(agent, net).named_parameters():
+                st = getattr(agent, opt).state[p]
+                out[name]['%s.%s.m' % (opt, k)] = st['exp_avg'].cpu().double()
+                out[name]['%s.%s.v' % (opt, k)] = st['exp_avg_sq'].cpu().double()
+    want, got = out['cpu'], out['cuda']
+    rel = {k: float((got[k] - w).norm() / w.norm().clamp_min(1e-30)) for k, w in want.items()}
+    worst = max(rel, key=rel.get)
+    log('  one update, card vs CPU from the same state: %d tensors and both losses, worst '
+        'relative L2 difference %.3g (%s), median %.3g; losses %.3g and %.3g relative (bound '
+        '1e-5)', len(want), rel[worst], worst, sorted(rel.values())[len(rel) // 2],
+        rel['actor_loss'], rel['critic_loss'])
+    check(rel[worst] <= 1e-5, 'DDPG update on the card differs from the CPU at %s', worst)
+    state_vec = states[:1]
+    train_ms = time_ms(gpu.train)
+    act_ms = time_ms(lambda: gpu.actions_noisy(state_vec))
+    log('  DDPG on the card (s_dims %d, batch 64, widths 64): a train update %.3f ms, an '
+        'actions_noisy call %.3f ms (CUDA events over 20 calls, the host side included) | %s',
+        DDPG_S_DIMS, train_ms, act_ms, card)
+
+
+def ws_masked_weights_zero(path):
+    """Every masked weight of the newest checkpoint under `path` is 0."""
+    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+    payload = ckpt_lib.restore_latest(path, map_location='cpu')
+    masks, model = payload['extra']['masks'], payload['model']
+    masked = [name for name, m in masks.items() if m.dim()]
+    check(masked and all(not torch.any(model[n][masks[n] == 0]) for n in masked),
+          'masked weights not zero in %s', path)
+    return len(masked)
+
+
+def phase_ws_path(FLAGS, work_dir, card):
+    """Phase 15: weight sparsification through main.main at full width:
+    runs G (uniform), H (optimal, 2 roll-outs) on ResNet-20 from run A's
+    baseline, J (ConvNet @ FMNIST, uniform); each ends with pr_msk at its
+    target, every masked weight exactly 0 and no kernel launched.  Returns
+    {run label: counters}."""
+    runs = {}
+    for label, model, argv in WS_RUNS:
+        ws_path = os.path.join(work_dir, model, label.split(':')[0].replace(' ', '_'), 'model.ckpt')
+        learner, counter, runs[label], elapsed = run_main(
+            FLAGS, work_dir, model, argv + ['--ws_save_path=%s' % ws_path])
+        ev = counter.evals[-1]
+        check(all(math.isfinite(v) for v in ev.values()), '%s: eval %s', label, ev)
+        check(runs[label] == no_launches() and counter.steps > 0, '%s: launches %s', label,
+              runs[label])
+        pairs = learner.var_names_n_prune_ratios
+        params = dict(learner.init_state()[0].model.named_parameters())
+        sizes = [params[name].numel() for name, _ in pairs]
+        target = sum(n * r for n, (_, r) in zip(sizes, pairs)) / sum(sizes)
+        check(target >= 0.5 - 0.01, '%s: overall ratio %.4f under the budget', label, target)
+        check(abs(ev['pr_msk'] - target) <= 0.02, '%s: pr_msk %.4f, target %.4f', label,
+              ev['pr_msk'], target)
+        nb_masked = ws_masked_weights_zero(ws_path)
+        log('  %s: %d steps, pr_msk %.4f (target %.4f), pr_trn %.4f, %d masked kernels exactly '
+            'zero where masked, loss %.4f, eval accuracy %.4f | launches %s | %.1f s', label,
+            counter.steps, ev['pr_msk'], target, ev['pr_trn'], nb_masked,
+            float(counter.metrics['loss']), ev['accuracy'], runs[label], elapsed)
+        if 'optimal' in label:
+            log('  %s: ratios %s', label, [round(r, 4) for _, r in pairs])
+    return runs
+
+
+def phase_ws_timing(FLAGS, work_dir, card):
+    """Phase 15, timed: a WS step of ResNet-20 at batch 128 without and with
+    a mask refresh (host clock over staged batches, ended by a synchronize);
+    masking.prune_update alone on ResNet-50's maskable kernels at bench.py's
+    shapes (CUDA events); one WS roll-out's regression, finetune and eval
+    steps."""
+    from pocketflow_tpu_torch.learners.weight_sparsification import masking
+    from pocketflow_tpu_torch.learners.weight_sparsification import pr_optimizer as pr
+    from pocketflow_tpu_torch.learners.weight_sparsification.learner import WeightSparseLearner
+    from pocketflow_tpu_torch.nets import resnet_at_cifar10, resnet_at_ilsvrc12
+    model_dir = os.path.join(work_dir, 'resnet_at_cifar10')
+    with FLAGS.scope(data_dir_local=os.path.join(work_dir, 'cifar10'), batch_size=ZOO_BATCH,
+                     nb_smpls_train=ZOO_TRAIN, compute_dtype='bfloat16', nb_epochs_rat=1.0,
+                     save_path=os.path.join(model_dir, 'models', 'model.ckpt')):
+        learner = WeightSparseLearner(None, resnet_at_cifar10.ModelHelper(), device='cuda')
+        state, tx, _ = learner.init_state()
+        state, restored = learner.restore_baseline(state)
+        check(restored, 'no ResNet-20 baseline under %s', model_dir)
+        params = dict(state.model.named_parameters())
+        ratios = {name: 0.5 for name in masking.maskable_paths(params)}
+        iterator = learner.dataset_train.build()
+        batches = [learner.put_batch(next(iterator)) for _ in range(4)]
+        times = {}
+        for label, flags in (('without a refresh', dict(ws_mask_update_step=10 ** 9)),
+                             ('with a refresh every step', dict(
+                                 ws_mask_update_step=1, ws_iter_ratio_beg=0.0,
+                                 ws_iter_ratio_end=1.0))):
+            with FLAGS.scope(**flags):
+                state, train_step = learner.build_sparse_train_step(tx, state, ratios)
+            for i in range(ZOO_TIMED_WARMUP):
+                state, metrics = train_step(state, batches[i % 4], learner.generator(i))
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for i in range(ZOO_TIMED):
+                state, metrics = train_step(state, batches[i % 4], learner.generator(i))
+            torch.cuda.synchronize()
+            times[label] = 1e3 * (time.perf_counter() - start) / ZOO_TIMED
+            check(math.isfinite(float(metrics['loss'])), 'WS step loss')
+        log('  WS step, ResNet-20 @ CIFAR-10, bf16, batch %d: %.3f ms without a refresh, %.3f ms '
+            'with a refresh every step (%d steps each) | %s', ZOO_BATCH,
+            times['without a refresh'], times['with a refresh every step'], ZOO_TIMED, card)
+
+        # one roll-out of the optimal protocol at the default ratios' kind
+        full = state.model
+        pruned = learner.create_model()
+        rollout = {}
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        masks = pr.rollout_init(full, pruned, ratios)
+        torch.cuda.synchronize()
+        rollout['init'] = 1e3 * (time.perf_counter() - start)
+        for part, nb, step in (
+                ('regression', WS_ROLLOUT_STEPS, lambda opt, b: pr.regression_step(
+                    learner, full, pruned, masks, opt, b)),
+                ('finetune', WS_ROLLOUT_STEPS, lambda opt, b: pr.finetune_step(
+                    learner, pruned, masks, opt, b)),
+                ('eval', WS_ROLLOUT_STEPS, lambda opt, b: pr.feval_step(learner, pruned, b))):
+            opt = (pr.regression_optimizer(pruned) if part == 'regression'
+                   else pr.finetune_optimizer(pruned))
+            step(opt, batches[0])
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for i in range(nb):
+                step(opt, batches[i % 4])
+            torch.cuda.synchronize()
+            rollout[part] = 1e3 * (time.perf_counter() - start) / nb
+        default = (rollout['init'] + 20 * rollout['regression'] + 400 * rollout['finetune']
+                   + 25 * rollout['eval'])
+        log('  WS roll-out, ResNet-20 b%d: init (load, masks) %.3f ms; a regression step %.3f ms, '
+            'a finetune step %.3f ms, an eval step %.3f ms (%d each); at the default 20/400/25 '
+            'steps a roll-out takes %.1f ms | %s', ZOO_BATCH, rollout['init'],
+            rollout['regression'], rollout['finetune'], rollout['eval'], WS_ROLLOUT_STEPS,
+            default, card)
+        del learner, state, pruned, batches
+
+    with FLAGS.scope(compute_dtype='bfloat16', ilsvrc_image_size=224, resnet_size=50):
+        model = resnet_at_ilsvrc12.ModelHelper(resnet_size=50).create_model()
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model = model.to('cuda')
+        params = dict(model.named_parameters())
+        extra = masking.build_mask_state(params)
+        names = masking.maskable_paths(params)
+        ratios = {name: 0.5 for name in names}
+        ms = time_ms(lambda: masking.prune_update(params, extra, 1000, 1000, ratios), 5)
+        nb = sum(params[n].numel() for n in names)
+    log('  masking.prune_update on ResNet-50\'s %d maskable kernels (%.1f M weights, fp32; '
+        'bisection above 65,536 elements): %.3f ms a refresh (CUDA events over 5) | %s',
+        len(names), nb / 1e6, ms, card)
+    del model, params, extra
+
+
+def phase_bit_search(FLAGS, work_dir, card):
+    """Phase 16: the RL bit search through main.main (run I, ResNet-20 from
+    run A's baseline, 2 roll-outs, each layerwise-tuned and finetuned): one
+    grouped K1' launch pair per quantized forward (a roll-out's, its
+    layerwise tune's, the final finetune's and the evals'), no plain call,
+    at least two bit widths within one launch, the chosen bits under the
+    budget.  Then one roll-out timed and the grouped K1' timed at the chosen
+    bits.  Returns {run label: counters}."""
+    import numpy as np
+    from pocketflow_tpu_torch.learners.uniform_quantization import bit_optimizer
+    from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
+    from pocketflow_tpu_torch.nets.resnet_at_cifar10 import ModelHelper
+    from pocketflow_tpu_torch.ops import fake_quant as fq
+    launches_bits, group = [], fq.fake_quant_group
+
+    def recording(xs, bits):
+        launches_bits.append(bits.detach().clone())
+        return group(xs, bits)
+
+    fq.fake_quant_group = recording
+    try:
+        learner, counter, counts, elapsed = run_main(FLAGS, work_dir, 'resnet_at_cifar10',
+                                                     BIT_SEARCH_ARGV)
+    finally:
+        fq.fake_quant_group = group
+    label = BIT_SEARCH_RUN
+    check(counts == no_launches(fake_quant_per_tensor_group=counter.forwards),
+          '%s: launches %s over %d quantized forwards', label, counts, counter.forwards)
+    check(len(launches_bits) == counter.forwards > counter.steps > 0, '%s: %d grouped calls, %d '
+          'forwards, %d steps', label, len(launches_bits), counter.forwards, counter.steps)
+    widths = [sorted({int(b) for b in bits.tolist()}) for bits in launches_bits]
+    check(any(len(w) >= 2 for w in widths), '%s: one bit width a launch: %s', label, widths)
+    bits = learner.optimal_w_bit_list
+    num_weights = learner.statistics['num_weights']
+    used = float(np.dot(bits, num_weights))
+    check(used <= 4 * sum(num_weights) and all(2 <= b <= 8 for b in bits),
+          '%s: bits %s over the budget', label, bits)
+    ev = counter.evals[-1]
+    check(all(math.isfinite(v) for v in ev.values()), '%s: eval %s', label, ev)
+    log('  %s: %d quantized forwards, %d grouped K1\' launch pairs, bit widths a launch %s; '
+        'chosen bits %s (%.3f bits a weight, budget 4) | eval %s | launches %s | %.1f s', label,
+        counter.forwards, counts['fake_quant_per_tensor_group'],
+        sorted({tuple(w) for w in widths}), bits, used / sum(num_weights),
+        {k: round(v, 4) for k, v in ev.items()}, counts, elapsed)
+
+    # one roll-out, timed, and the grouped K1' at the chosen bits
+    with FLAGS.scope(data_dir_local=os.path.join(work_dir, 'cifar10'), batch_size=ZOO_BATCH,
+                     nb_smpls_train=ZOO_TRAIN, compute_dtype='bfloat16', uql_weight_bits=4,
+                     uql_activation_bits=32, uql_use_buckets=False, uql_enbl_rl_agent=True,
+                     uql_enbl_rl_layerwise_tune=False, uql_tune_global_steps=BIT_ROLLOUT_STEPS,
+                     save_path=os.path.join(work_dir, 'resnet_at_cifar10', 'models', 'model.ckpt')):
+        learner = UniformQuantLearner(None, ModelHelper(), device='cuda')
+        state, _, _ = learner.init_state_quant()
+        state, restored = learner.restore_baseline(state)
+        check(restored, 'no ResNet-20 baseline')
+        optimizer = bit_optimizer.BitOptimizer(learner, state)
+        programs = optimizer.rollout_programs()
+        optimizer.rollout(bits, 0, programs)  # warm-up
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        accuracy = optimizer.rollout(bits, 1, programs)
+        rollout_ms = 1e3 * (time.perf_counter() - start)
+        check(math.isfinite(accuracy), 'roll-out accuracy %r', accuracy)
+        nb_feval = min(8, learner.dataset_train.spec.nb_smpls_val // ZOO_BATCH)
+        weights = learner._policy_fn()(state).weights
+        w_bits = torch.tensor(bits, dtype=torch.float32, device='cuda')
+        ms = time_ms(lambda: fq.fake_quant_per_tensor_group(weights, w_bits))
+        plain_ms = time_ms(lambda: [torch.where(b < 32, fq._quantize_math_torch(
+            w, fq._levels(b), None), w) for w, b in zip(weights, w_bits)])
+    log('  one bit-search roll-out, ResNet-20 b%d (copy, bits, %d finetune steps, %d eval '
+        'batches): %.1f ms, accuracy %.4f | the grouped K1\' over the 20 weights at the chosen '
+        'bits %s: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s) | %s', ZOO_BATCH,
+        BIT_ROLLOUT_STEPS, nb_feval, rollout_ms, accuracy, bits, ms, plain_ms,
+        *fq_bound(sum(w.numel() for w in weights)), card)
+    return {label: counts}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -927,6 +1249,8 @@ def main():
     device = torch.device('cuda')
 
     from pocketflow_tpu_torch.config import FLAGS
+    # every flag main.main defines, registered before any run's scope saves them
+    import pocketflow_tpu_torch.learners.weight_sparsification.learner  # noqa: F401
     from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
     from pocketflow_tpu_torch.nets.resnet_at_ilsvrc12 import ModelHelper
     from pocketflow_tpu_torch.ops import build
@@ -1047,6 +1371,16 @@ def main():
         runs.update(phase_zoo_path(FLAGS, work_dir, card))
         log('phase 13 ResNet-20 @ CIFAR-10 steps timed, batch %d', ZOO_BATCH)
         phase_zoo_timing(FLAGS, work_dir, card)
+        log('phase 14 the DDPG agent: an update on the card against the CPU, timed')
+        phase_ddpg(card)
+        log('phase 15 weight sparsification through main.main at full width: ResNet-20 @ '
+            'CIFAR-10 at batch %d (uniform, optimal), ConvNet @ FMNIST (uniform); then a WS '
+            'step, a roll-out and prune_update timed', ZOO_BATCH)
+        runs.update(phase_ws_path(FLAGS, work_dir, card))
+        phase_ws_timing(FLAGS, work_dir, card)
+        log('phase 16 the RL bit search through main.main: ResNet-20 @ CIFAR-10 at batch %d, '
+            'mixed per-layer bits through the grouped K1\'', ZOO_BATCH)
+        runs.update(phase_bit_search(FLAGS, work_dir, card))
 
     # each kernel's launches in the run that drives it: the main path for the
     # grouped K1', the 8-bit-activation route for K1' itself, the

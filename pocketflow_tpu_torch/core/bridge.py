@@ -11,6 +11,11 @@ rename from 'a/b/c' to 'a.b.c' with the layouts kept: conv kernels stay HWIO
 ``scale``/``bias`` parameters and ``mean``/``var`` running statistics.  Any
 other leaf raises, and ``load_jax_numpy`` raises on any port parameter or
 buffer left unset.
+
+The DDPG agent's networks take the same route: ``ddpg_params_from_jax``
+carries the Flax actor and critic params (``blocks/dense_i``, ``blocks/ln_i``,
+``dense_in``, ``ln_in``, ``head``) into the port's `Actor` and `Critic`, whose
+layers keep those names and Flax's [in, out] kernels.
 """
 
 from __future__ import annotations
@@ -61,7 +66,12 @@ def load_jax_numpy(model: torch.nn.Module, params: Mapping[str, Any],
     """Copy JAX params and batch_stats into `model` in place.  Raises on an
     unmapped key, a shape mismatch, or a port parameter/buffer left unset."""
     state_dict, buffers = from_jax_numpy(params, batch_stats)
-    values = {**state_dict, **buffers}
+    return _load_checked(model, {**state_dict, **buffers})
+
+
+def _load_checked(model: torch.nn.Module, values: Dict[str, torch.Tensor]) -> torch.nn.Module:
+    """load_state_dict(values, strict=True) after naming every entry left
+    unset, every entry with no counterpart and every shape mismatch."""
     target = model.state_dict()
     missing = sorted(set(target) - set(values))
     unexpected = sorted(set(values) - set(target))
@@ -74,3 +84,28 @@ def load_jax_numpy(model: torch.nn.Module, params: Mapping[str, Any],
                              % (name, tuple(value.shape), tuple(target[name].shape)))
     model.load_state_dict(values, strict=True)
     return model
+
+
+def ddpg_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map the params of a Flax DDPG actor or critic to the port's
+    state-dict names.  Raises KeyError on a leaf it does not map."""
+    state_dict = {}
+    for path, value in _flatten(params).items():
+        parts = path.split('/')
+        layer, leaf = (parts[-2] if len(parts) >= 2 else ''), parts[-1]
+        dense = (layer.startswith('dense_') or layer == 'head') and leaf in ('kernel', 'bias')
+        norm = layer.startswith('ln_') and leaf in ('scale', 'bias')
+        if not (dense or norm):
+            raise KeyError('bridge: unmapped DDPG parameter %r' % path)
+        state_dict['.'.join(parts)] = torch.from_numpy(np.array(value, np.float32))
+    return state_dict
+
+
+def ddpg_params_from_jax(actor: torch.nn.Module, critic: torch.nn.Module,
+                         actor_params: Mapping[str, Any], critic_params: Mapping[str, Any]):
+    """Copy the JAX agent's actor and critic params into the port's modules
+    in place.  Raises on an unmapped leaf, a shape mismatch, or a port
+    parameter left unset."""
+    for module, params in ((actor, actor_params), (critic, critic_params)):
+        _load_checked(module, ddpg_state_dict_from_jax(params))
+    return actor, critic

@@ -214,15 +214,28 @@ class AbstractDataset(ABC):
 
     # -- pipeline -------------------------------------------------------------
 
-    def build(self) -> Iterator[Dict[str, np.ndarray]]:
-        """Host batch iterator: dicts {'image': uint8 [B,H,W,C], 'label': int32 [B]}.
-        Train batches are shuffled every epoch; eval batches cycle through the
-        set seamlessly, so an eval loop can cover every sample equally."""
+    def build(self, enbl_trn_val_split: bool = False):
+        """Host batch iterator(s): dicts {'image': uint8 [B,H,W,C], 'label':
+        int32 [B]}.  Returns one iterator over the set, or, with
+        `enbl_trn_val_split`, (train_iter, val_iter): the first
+        min(nb_smpls_val, n // 5) samples, unshuffled, are the validation
+        part (the RL searches' rewards come from it, never from the eval
+        set) and the rest the train part.  Train batches are shuffled every
+        epoch; eval and validation batches cycle through their set
+        seamlessly, so a loop over them can cover every sample equally."""
         if not hasattr(self, '_cached_arrays'):
             self._cached_arrays = self._load_arrays()
         images, labels = self._cached_arrays
         self.nb_smpls_loaded = len(images)
-        batch_size, rng, shuffle = self.batch_size, self._rng, self.is_train
+        if enbl_trn_val_split:
+            nb_val = min(self.spec.nb_smpls_val, len(images) // 5)
+            val = self._make_iterator(images[:nb_val], labels[:nb_val], shuffle=False)
+            trn = self._make_iterator(images[nb_val:], labels[nb_val:], shuffle=self.is_train)
+            return trn, val
+        return self._make_iterator(images, labels, shuffle=self.is_train)
+
+    def _make_iterator(self, images, labels, shuffle: bool) -> Iterator[Dict[str, np.ndarray]]:
+        batch_size, rng = self.batch_size, self._rng
 
         def gen():
             n = len(images)

@@ -13,6 +13,7 @@ waits for the device, and only the loops read values back, every
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import inspect
 import os
@@ -316,6 +317,31 @@ class AbstractLearner(ABC):
         self.log.info('model restored from %s',
                       ckpt_lib.latest_checkpoint(os.path.dirname(save_path) or '.'))
         return target_state
+
+    def is_primary_worker(self) -> bool:
+        """Whether this process writes shared files (search checkpoints):
+        the port runs one process, which is the primary one."""
+        return True
+
+    def require_dp_only(self, phase: str):
+        """The JAX package refuses `phase` under tensor parallelism; the port
+        has no tensor parallelism, so every phase may run and this does
+        nothing.  Call sites keep it so that they read as the reference's."""
+        del phase
+
+    def copy_state(self, state: TrainState) -> TrainState:
+        """A state that shares no tensor with `state`: a new model with
+        copies of its parameters and buffers, a new optimizer of the same
+        kind with copies of its momentum, and a copy of `extra`.  A roll-out
+        of an RL search trains such a copy; the baseline it starts from
+        stays as it was."""
+        model = copy.deepcopy(state.model)
+        optimizer = type(state.optimizer)(model.parameters(), **state.optimizer.defaults)
+        # the optimizer casts loaded buffers with .to(), which can keep the
+        # very tensor: copy them first
+        optimizer.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+        return TrainState(step=state.step, model=model, optimizer=optimizer,
+                          extra=copy.deepcopy(state.extra))
 
     def set_extra(self, state: TrainState, extra: Any) -> TrainState:
         """Attach/replace the learner-specific `extra` tensors."""

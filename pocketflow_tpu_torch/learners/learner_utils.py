@@ -1,15 +1,14 @@
 """Learner factory (counterpart of pocketflow_tpu/learners/learner_utils.py).
 
-Maps the --learner flag to a learner class.  The port has ``full-prec`` and
-``uniform``; the other names of the JAX package raise NotImplementedError with
-the ROADMAP item that ports them.
+Maps the --learner flag to a learner class.  The port has ``full-prec``,
+``uniform`` and ``weight-sparse``; the other names of the JAX package raise
+NotImplementedError with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 # learner name -> ROADMAP item ('Modules to port') that ports it
 _NOT_PORTED = {
-    'weight-sparse': 'item 14',
     'uniform-tf': 'item 16',
     'non-uniform': 'item 17',
     'channel': 'item 18',
@@ -30,6 +29,9 @@ def create_learner(sm_writer, model_helper, learner_name=None, device='cuda'):
     if name == 'uniform':
         from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
         return UniformQuantLearner(sm_writer, model_helper, device)
+    if name == 'weight-sparse':
+        from pocketflow_tpu_torch.learners.weight_sparsification.learner import WeightSparseLearner
+        return WeightSparseLearner(sm_writer, model_helper, device)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             "learner %r is not ported yet (ROADMAP 'Modules to port', %s)"

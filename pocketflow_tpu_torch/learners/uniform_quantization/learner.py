@@ -1,8 +1,9 @@
 """Uniform-quantization (QAT) learner
 (counterpart of pocketflow_tpu/learners/uniform_quantization/learner.py).
 
-Flow: restore the pretrained full-precision baseline -> pick per-layer weight
-bits (uniform lists; the DDPG search waits) -> finetune ``uql_quant_epochs``
+Flow: restore the pretrained full-precision baseline -> BitOptimizer picks
+per-layer weight bits (uniform lists, or the DDPG search under a bit budget
+with --uql_enbl_rl_agent) -> finetune ``uql_quant_epochs``
 with the quantized forward -> evaluate.  The quantization is a `QuantPolicy`
 applied inside the train step, with per-layer bits as device tensors in
 ``TrainState.extra``; the fake-quant forward runs in the CUDA kernels of
@@ -20,8 +21,7 @@ from pocketflow_tpu_torch.core import schedules
 from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner, Sgd, TrainState
 from pocketflow_tpu_torch.learners.distillation_helper import DistillationHelper
 from pocketflow_tpu_torch.learners.uniform_quantization import utils as uq_utils
-
-FLAGS.DEFINE_boolean('uql_enbl_rl_agent', False, 'UQL: enable RL bit search')
+from pocketflow_tpu_torch.learners.uniform_quantization.bit_optimizer import BitOptimizer
 
 
 def setup_bnds_decay_rates(model_name: str, dataset_name: str):
@@ -93,7 +93,8 @@ class UniformQuantLearner(AbstractLearner):
     def init_state_quant(self, w_bit_list=None, a_bit_list=None):
         """Init state whose extra carries the per-layer bit tensors; the
         optimizer follows the quant-finetune schedule."""
-        extra = uq_utils.bits_state(self.statistics, w_bit_list, a_bit_list, self.device)
+        extra = uq_utils.bits_state(self.statistics, w_bit_list, a_bit_list,
+                                     device=self.device)
         state, _, _ = self.init_state(extra=extra)
         schedule, self.finetune_steps = self.quant_schedule()
         tx = Sgd(schedule, FLAGS.momentum)
@@ -108,17 +109,9 @@ class UniformQuantLearner(AbstractLearner):
         return self.build_eval_step(policy_fn=self._policy_fn())
 
     def set_bits(self, state: TrainState, w_bit_list, a_bit_list) -> TrainState:
-        extra = uq_utils.bits_state(self.statistics, w_bit_list, a_bit_list, self.device)
+        extra = uq_utils.bits_state(self.statistics, w_bit_list, a_bit_list,
+                                     device=self.device)
         return self.set_extra(state, extra)
-
-    def choose_bits(self) -> Tuple[List[int], List[int]]:
-        """BitOptimizer.run: uniform bit lists from the flags.  The DDPG
-        search under a bit budget is not ported yet."""
-        if FLAGS.uql_enbl_rl_agent:
-            raise NotImplementedError(
-                "--uql_enbl_rl_agent is not ported yet (ROADMAP 'Modules to port', item 16)")
-        return ([FLAGS.uql_weight_bits] * self.statistics['nb_matmuls'],
-                [FLAGS.uql_activation_bits] * self.statistics['nb_activations'])
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -127,7 +120,7 @@ class UniformQuantLearner(AbstractLearner):
     def train(self) -> TrainState:
         state, tx, _ = self.init_state_quant()
         state, _ = self.restore_baseline(state)  # pretrained baseline
-        self.optimal_w_bit_list, self.optimal_a_bit_list = self.choose_bits()
+        self.optimal_w_bit_list, self.optimal_a_bit_list = BitOptimizer(self, state).run()
         state = self.set_bits(state, self.optimal_w_bit_list, self.optimal_a_bit_list)
         self.log.info('optimal weight bits: %s', self.optimal_w_bit_list)
 

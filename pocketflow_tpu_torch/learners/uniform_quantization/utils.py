@@ -141,9 +141,11 @@ class QuantPolicy(CompressionPolicy):
         return fq.fake_quant_select(act, self.a_bits[idx])
 
 
-def bits_state(statistics: Dict[str, Any], w_bit_list=None, a_bit_list=None,
-               device='cpu') -> Dict[str, torch.Tensor]:
-    """The `extra` tensors holding the per-layer bit lists."""
+def bits_state(statistics: Dict[str, Any], w_bit_list=None, a_bit_list=None, *,
+               device) -> Dict[str, torch.Tensor]:
+    """The `extra` tensors holding the per-layer bit lists (None: the flags'
+    uniform bits), on `device`, which every caller names: a roll-out's bits
+    never land on the host by default."""
     w = w_bit_list if w_bit_list is not None \
         else [FLAGS.uql_weight_bits] * statistics['nb_matmuls']
     a = a_bit_list if a_bit_list is not None \

@@ -1,3 +1,3 @@
 """Weight sparsification (counterpart of pocketflow_tpu/learners/weight_sparsification):
-the masks and the pruning-ratio schedule; the learner and its ratio optimizer
-are not ported yet (ROADMAP 'Modules to port', item 14)."""
+the masks and the pruning-ratio schedule (masking.py), the per-layer ratios
+(pr_optimizer.py) and the learner (learner.py)."""

@@ -31,6 +31,7 @@ def main(argv=None, device='cuda'):
     from pocketflow_tpu_torch.utils.path_args import apply_path_conf
     # register the flags of every ported module before parsing
     import pocketflow_tpu_torch.learners.uniform_quantization.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.weight_sparsification.learner  # noqa: F401
     for module in MODELS.values():
         importlib.import_module(module)
 

@@ -25,6 +25,13 @@ chip smoke's runs A-C):
     r20-qat        UniformQuantLearner, 4-bit weights
     r20-qat-dst    r20-qat with distillation from a teacher of random weights
     r20-act8-dst   r20-qat-dst with --uql_activation_bits=8
+    r20-ws         WeightSparseLearner's step, uniform ratio 0.5, no mask
+                   refresh (masked gradients, the masks re-applied)
+    r20-ws-refresh r20-ws with a mask refresh (masking.prune_update) every step
+
+and the DDPG agent of the RL searches (`ddpg`: one `train` update a step,
+state 29 wide as ResNet-20's weight-sparsification search, batch 64, a full
+buffer of 1,100 transitions).
 
 For each variant: 3 warm-up steps, then 3 windows of 10 steps timed on the
 host clock and ended by torch.cuda.synchronize(); then 5 steps under
@@ -73,7 +80,12 @@ VARIANTS = {
     'r20-qat': ('uniform', {}),
     'r20-qat-dst': ('uniform', {}),
     'r20-act8-dst': ('uniform', {'uql_activation_bits': 8}),
+    'r20-ws': ('weight-sparse', {'ws_mask_update_step': 10 ** 9}),
+    'r20-ws-refresh': ('weight-sparse', {'ws_mask_update_step': 1, 'ws_iter_ratio_beg': 0.0,
+                                         'ws_iter_ratio_end': 1.0}),
+    'ddpg': (None, {}),
 }
+DDPG_S_DIMS, DDPG_BUF_SIZE, DDPG_BATCH = 29, 1100, 64
 R20_BATCH = 128
 BATCH = 256
 NB_WARMUP, NB_WINDOWS, NB_STEPS, NB_PROFILED = 3, 3, 10, 5
@@ -156,11 +168,36 @@ def _profile(fn, nb_steps: int):
     return _device_events(prof)
 
 
+def ddpg_step():
+    """(train_step, batch size) of a DDPG agent on the card with a full buffer
+    of random transitions (numpy, seed 0): one `train` update a step."""
+    import numpy as np
+    from pocketflow_tpu_torch.rl_agents.ddpg.agent import DdpgAgent
+    rng = np.random.default_rng(0)
+    agent = DdpgAgent(s_dims=DDPG_S_DIMS, a_dims=1, nb_rlouts=200, buf_size=DDPG_BUF_SIZE,
+                      seed=0, device='cuda')
+    agent.init()
+    states = rng.uniform(size=(DDPG_BUF_SIZE + 1, DDPG_S_DIMS))
+    agent.record(states[:-1], rng.uniform(size=(DDPG_BUF_SIZE, 1)),
+                 rng.normal(size=DDPG_BUF_SIZE), np.zeros(DDPG_BUF_SIZE), states[1:])
+
+    def train_step(state, batch, generator):
+        del batch, generator
+        actor_loss, critic_loss, _ = agent.train()
+        return state, {'loss': torch.tensor(actor_loss + critic_loss)}
+
+    return train_step, DDPG_BATCH
+
+
 def profile_variant(name: str) -> dict:
     from pocketflow_tpu_torch.config import FLAGS
     from pocketflow_tpu_torch.learners import create_learner
+    from pocketflow_tpu_torch.learners.weight_sparsification import masking
     from pocketflow_tpu_torch.nets import resnet_at_cifar10, resnet_at_ilsvrc12
     learner_name, flags = VARIANTS[name]
+    if learner_name is None:  # the DDPG agent
+        train_step, batch_size = ddpg_step()
+        return time_and_profile(name, train_step, None, [None], batch_size)
     batch_size = R20_BATCH if name.startswith('r20-') else BATCH
     with FLAGS.scope(batch_size=batch_size, batch_size_eval=batch_size,
                      nb_smpls_train=16 * batch_size, **flags):
@@ -182,38 +219,48 @@ def profile_variant(name: str) -> dict:
         elif learner_name == 'uniform':
             state, tx, _ = learner.init_state_quant()
             train_step = learner.build_quant_train_step(tx)
+        elif learner_name == 'weight-sparse':
+            state, tx, _ = learner.init_state()
+            params = dict(state.model.named_parameters())
+            state, train_step = learner.build_sparse_train_step(
+                tx, state, {n: 0.5 for n in masking.maskable_paths(params)})
         else:
             state, tx, _ = learner.init_state()
             train_step = learner.build_train_step(tx)
         iterator = learner.dataset_train.build()
         batches = [learner.put_batch(next(iterator)) for _ in range(NB_BATCHES)]
         del iterator
+        return time_and_profile(name, train_step, state, batches, batch_size, learner.generator)
 
-        def step(i):
-            nonlocal state, metrics
-            state, metrics = train_step(state, batches[i % NB_BATCHES], learner.generator(i))
 
-        metrics = None
-        for i in range(NB_WARMUP):
+def time_and_profile(name, train_step, state, batches, batch_size, generator=lambda i: None):
+    """Warm-up steps, NB_WINDOWS timed windows of NB_STEPS steps, then
+    NB_PROFILED steps under the profiler; the variant's record."""
+    def step(i):
+        nonlocal state, metrics
+        state, metrics = train_step(state, batches[i % len(batches)], generator(i))
+
+    metrics = None
+    for i in range(NB_WARMUP):
+        step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(NB_WINDOWS):
+        start = time.perf_counter()
+        for i in range(NB_STEPS):
             step(i)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ms = []
-        for _ in range(NB_WINDOWS):
-            start = time.perf_counter()
-            for i in range(NB_STEPS):
-                step(i)
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - start) / NB_STEPS)
-        loss = float(metrics['loss'])
-        result = {
-            'batch_size': batch_size,
-            'ms_per_step': ms,
-            'img_per_s': [batch_size * 1e3 / m for m in ms],
-            'loss': loss,
-            'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
-        }
-        result['profile'] = summarize(_profile(step, NB_PROFILED), NB_PROFILED)
+        ms.append(1e3 * (time.perf_counter() - start) / NB_STEPS)
+    loss = float(metrics['loss'])
+    result = {
+        'batch_size': batch_size,
+        'ms_per_step': ms,
+        'img_per_s': [batch_size * 1e3 / m for m in ms],
+        'loss': loss,
+        'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+    }
+    result['profile'] = summarize(_profile(step, NB_PROFILED), NB_PROFILED)
     if not torch.isfinite(torch.tensor(loss)):
         raise RuntimeError('%s: loss %r' % (name, loss))
     return result
@@ -328,6 +375,7 @@ def main(argv=None):
     from pocketflow_tpu_torch.config import FLAGS
     # register the flags set below
     import pocketflow_tpu_torch.learners.uniform_quantization.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.weight_sparsification.learner  # noqa: F401
     import pocketflow_tpu_torch.nets.resnet_at_cifar10  # noqa: F401
     import pocketflow_tpu_torch.nets.resnet_at_ilsvrc12  # noqa: F401
     FLAGS.override(synthetic_data=True, summ_step=10 ** 9, save_step=10 ** 9,

@@ -141,7 +141,7 @@ def test_learner_refuses_missing_cuda_and_unported_names():
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match='cuda'):
                 create_learner(None, helper, 'full-prec')
-        for name in ('weight-sparse', 'non-uniform', 'channel'):
+        for name in ('uniform-tf', 'non-uniform', 'channel'):
             with pytest.raises(NotImplementedError, match='ROADMAP'):
                 create_learner(None, helper, name, device='cpu')
         with pytest.raises(ValueError):
