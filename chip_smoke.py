@@ -31,6 +31,20 @@ on the card, and drives the port's paths:
     a WS step with and without a mask refresh, a WS roll-out's steps,
     masking.prune_update on ResNet-50's kernels and a bit-search roll-out
     timed;
+  * MobileNet @ ILSVRC-12 through main.main at full width (224x224, bf16,
+    batch 256): run K, the uniform-tf learner on v1 (8/8 bits, no launch
+    before its quant delay, then one grouped K2' launch pair a forward for
+    all 28 weights; every activation range the EMA of its batch's min and
+    max; BN frozen from step 10, its statistics bit-unchanged after), run L
+    (uniform-tf on v2), run M (the non-uniform learner on v1: 27 K1'
+    launches with the select a forward, at most 16 values in each quantized
+    kernel, codebooks that move), each regime's step time and every run's
+    peak memory; run N, the non-uniform RL bit search on ResNet-20 (each
+    roll-out's codebooks at its mixed bits, no launch); then K2' at v1's 28
+    weight shapes and K1' at its largest activations against their plain
+    versions, a small step of each new learner card vs CPU, and the two
+    plain ops (fake_quant_with_range, nonuniform_quant) card vs CPU and
+    timed;
 
 and checks that each went through its kernels and never through a plain
 version.  Any failed phase raises and the script exits non-zero without its
@@ -54,9 +68,10 @@ pair; the per-site bucket ops are groups of one) the 7 steps under channel
 buckets, for matmul_bf16 the mm_shape_sweep experiment and for
 bn_relu_matmul_stats the fused_mm_proto experiment.  `launches_by_run` gives
 every kernel's count in each run, each counted from its own reset, the
-zoo's and the searches' runs included.
+zoo's, the searches' and MobileNet's runs included.
 """
 
+import copy
 import json
 import math
 import os
@@ -126,7 +141,9 @@ K3_S_TOL64, K3_SS_TOL64 = 1e-6, 2e-6
 ZOO_BATCH, ZOO_TRAIN, ZOO_EVAL = 128, 1280, 512
 # each model's (quantized weights, activation sites), and the nets' classes
 ZOO_SITES = {'resnet_at_cifar10': (20, 19), 'convnet_at_fmnist': (2, 3), 'lenet_at_cifar10': (2, 3)}
-ZOO_NETS = ('ResNetCifar', 'ConvNet', 'LeNet')
+ZOO_NETS = ('ResNetCifar', 'ConvNet', 'LeNet', 'MobileNetV1', 'MobileNetV2')
+# the policies of a quantized forward (each learner's)
+QUANT_POLICIES = ('QuantPolicy', 'RangeQuantPolicy', 'NonUniformQuantPolicy')
 ZOO_RUNS = [  # (label, model, flags, expected launches a quantized forward)
     ('zoo run A: resnet_at_cifar10 full-prec, 30 steps', 'resnet_at_cifar10',
      ['--learner=full-prec', '--nb_epochs_rat=0.012'], {}),
@@ -176,6 +193,34 @@ BIT_SEARCH_ARGV = ['--learner=uniform', '--uql_enbl_rl_agent', '--uql_nb_rlouts=
                    '--uql_tune_global_steps=5', '--uql_enbl_rl_layerwise_tune',
                    '--uql_tune_layerwise_steps=3', '--nb_epochs_rat=0.05']
 BIT_ROLLOUT_STEPS = 20  # finetune steps of the timed bit-search roll-out
+# phase 17: MobileNet @ ILSVRC-12 through main.main at full width (depth
+# multiplier 1.0, 224x224, bf16, synthetic data): runs K (v1 uniform-tf, the
+# slice's main path: quantization from step UQTF_DELAY + 1, BN frozen from
+# step UQTF_FREEZE + 1), L (v2 uniform-tf) and M (v1 non-uniform)
+MB_BATCH, MB_EVAL = 256, 512
+UQTF_DELAY, UQTF_FREEZE, UQTF_STEPS, UQTF_V2_STEPS, NUQ_STEPS = 3, 9, 13, 6, 10
+MB_SITES = {1: (28, 27), 2: (53, 35)}  # (weights, relu6 sites), all layers
+MB_NUQ_WEIGHTS = 26  # non-uniform leaves the first and the last layer unquantized
+MB_RUNS = [  # (label, version, flags, steps)
+    ('mobilenet run K: v1 uniform-tf 8/8, quant delay %d, BN frozen from step %d, %d steps'
+     % (UQTF_DELAY, UQTF_FREEZE + 1, UQTF_STEPS), 1,
+     ['--learner=uniform-tf', '--uqtf_quant_delay=%d' % UQTF_DELAY,
+      '--uqtf_freeze_bn_delay=%d' % UQTF_FREEZE], UQTF_STEPS),
+    ('mobilenet run L: v2 uniform-tf 8/8, %d steps' % UQTF_V2_STEPS, 2,
+     ['--learner=uniform-tf'], UQTF_V2_STEPS),
+    ('mobilenet run M: v1 non-uniform, 4-bit kmeans codebooks, 8-bit activations, both trained, '
+     '%d steps' % NUQ_STEPS, 1,
+     ['--learner=non-uniform', '--nuql_weight_bits=4', '--nuql_init_style=kmeans',
+      '--nuql_activation_bits=8', '--nuql_opt_mode=both'], NUQ_STEPS)]
+# run N: the non-uniform learner's RL bit search on ResNet-20 from run A's
+# baseline (roll-outs at full-precision activations launch no kernel)
+NUQ_SEARCH_RUN = ('zoo run N: resnet_at_cifar10 non-uniform, RL bit search (2 roll-outs of 3 '
+                  'layerwise and 5 finetune steps), then 30 steps')
+NUQ_SEARCH_ARGV = ['--learner=non-uniform', '--nuql_enbl_rl_agent', '--nuql_nb_rlouts=2',
+                   '--nuql_tune_global_steps=5', '--nuql_enbl_rl_layerwise_tune',
+                   '--nuql_tune_layerwise_steps=3', '--nb_epochs_rat=0.05']
+# phase 18: MobileNet-v1's two largest activations at batch 256 (bf16)
+MB_ACT_SHAPES = [(256, 64, 112, 112), (256, 32, 112, 112)]
 # fp32 operations a fake-quant element costs: min, max; x - beta, / alpha,
 # * k, round, / k, * alpha, + beta
 FQ_OPS_PER_ELEMENT = 9
@@ -814,13 +859,14 @@ def phase_zoo_kernels(fq, weight_shapes, device):
 
 
 class ForwardCounter:
-    """Counts the forwards of the zoo's nets that run under a QuantPolicy
-    (the student's and a roll-out's, alone or inside a layerwise tune's
-    CapturePolicy; the teacher and the regression targets run under none),
-    by a global forward pre-hook, and records each learner's train-step
-    metrics and eval means."""
+    """Counts the forwards of the zoo's nets that run under a quantization
+    policy (the student's and a roll-out's, alone or inside a layerwise
+    tune's CapturePolicy; the teacher and the regression targets run under
+    none), by a global forward pre-hook, and records each learner's
+    train-step metrics and eval means.  `on_step(when, state)`, if given, is
+    called just 'before' and just 'after' each train step."""
 
-    def __init__(self):
+    def __init__(self, on_step=None):
         from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner
         self.forwards = self.steps = 0
         self.metrics, self.evals = None, []
@@ -832,9 +878,13 @@ class ForwardCounter:
             step_fn = build_train_step(learner, *args, **kwargs)
 
             def counted(state, batch, generator):
+                if on_step is not None:
+                    on_step('before', state)
                 state, metrics = step_fn(state, batch, generator)
                 counter.steps += 1
                 counter.metrics = metrics
+                if on_step is not None:
+                    on_step('after', state)
                 return state, metrics
             return counted
 
@@ -850,13 +900,12 @@ class ForwardCounter:
         self._hook = torch.nn.modules.module.register_module_forward_pre_hook(self._pre_hook)
 
     def _pre_hook(self, module, inputs):
-        from pocketflow_tpu_torch.learners.uniform_quantization.utils import QuantPolicy
         from pocketflow_tpu_torch.nn.layers import current_policy
         policy = current_policy()
-        # a layerwise tune's forward runs the QuantPolicy inside a CapturePolicy
-        if type(module).__name__ in ZOO_NETS and (
-                isinstance(policy, QuantPolicy) or isinstance(getattr(policy, 'inner', None),
-                                                               QuantPolicy)):
+        # a layerwise tune's forward runs the quantization policy inside a
+        # CapturePolicy
+        if type(module).__name__ in ZOO_NETS and any(
+                type(p).__name__ in QUANT_POLICIES for p in (policy, getattr(policy, 'inner', None))):
             self.forwards += 1
 
     def close(self):
@@ -865,20 +914,24 @@ class ForwardCounter:
             setattr(owner, name, fn)
 
 
-def run_main(FLAGS, work_dir, model, argv):
+def run_main(FLAGS, work_dir, model, argv, on_step=None):
     """main.main(argv) for `model` on the card at the zoo's batch, on the
     CIFAR-10 files under work_dir (checkpoints and logs there too), its
     launches counted from a reset just before it to just after it.  Returns
     (learner, ForwardCounter, counters, seconds)."""
     from pocketflow_tpu_torch import main as port_main
+    model_dir = os.path.join(work_dir, model)
     argv = ['--model=%s' % model, '--data_dir_local=%s' % os.path.join(work_dir, 'cifar10'),
             '--batch_size=%d' % ZOO_BATCH, '--nb_smpls_train=%d' % ZOO_TRAIN,
             '--nb_smpls_eval=%d' % ZOO_EVAL, '--compute_dtype=bfloat16',
             '--log_dir=%s' % os.path.join(work_dir, 'logs', model),
-            '--save_path=%s' % os.path.join(work_dir, model, 'models', 'model.ckpt'),
-            '--uql_save_quant_model_path=%s' % os.path.join(work_dir, model, 'uql', 'model.ckpt'),
-            '--uql_tune_save_path=%s' % os.path.join(work_dir, model, 'rl', 'model.ckpt')] + argv
-    counter = ForwardCounter()
+            '--save_path=%s' % os.path.join(model_dir, 'models', 'model.ckpt'),
+            '--uql_save_quant_model_path=%s' % os.path.join(model_dir, 'uql', 'model.ckpt'),
+            '--uql_tune_save_path=%s' % os.path.join(model_dir, 'rl', 'model.ckpt'),
+            '--uqtf_save_path=%s' % os.path.join(model_dir, 'uqtf', 'model.ckpt'),
+            '--nuql_save_quant_model_path=%s' % os.path.join(model_dir, 'nuql', 'model.ckpt'),
+            '--nuql_tune_save_path=%s' % os.path.join(model_dir, 'nuql_rl', 'model.ckpt')] + argv
+    counter = ForwardCounter(on_step)
     start = time.perf_counter()
     try:
         with FLAGS.scope(**FLAGS.as_dict()):
@@ -980,7 +1033,6 @@ def phase_ddpg(card):
     moments) and both losses within rtol 1e-5 of the CPU's, on the L2 norm of
     the difference.  Then a train update and an actions_noisy call timed on
     the card."""
-    import copy
     import numpy as np
     from pocketflow_tpu_torch.rl_agents.ddpg.agent import DdpgAgent
     rng = np.random.default_rng(0)
@@ -1238,6 +1290,591 @@ def phase_bit_search(FLAGS, work_dir, card):
     return {label: counts}
 
 
+class StepRecorder:
+    """`on_step` for run_main: the host time of each train step (ended by a
+    synchronize), the launch counts after it, and each step's BN running
+    statistics and activation ranges before and after it."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __call__(self, when, state):
+        torch.cuda.synchronize()
+        snapshot = {'t': time.perf_counter(), 'counts': counters(),
+                    'stats': [b.clone() for b in state.model.buffers()],
+                    'ranges': {k: state.extra[k].clone() for k in ('act_min', 'act_max')
+                               if k in (state.extra or {})}}
+        if when == 'before':
+            self.steps.append({'before': snapshot})
+        else:
+            self.steps[-1]['after'] = snapshot
+
+    def ms(self, index):
+        return 1e3 * (self.steps[index]['after']['t'] - self.steps[index]['before']['t'])
+
+    def launches(self, index, name):
+        return self.steps[index]['after']['counts'][name] - self.steps[index]['before']['counts'][name]
+
+
+def median(values):
+    values = sorted(values)
+    return values[len(values) // 2] if values else float('nan')
+
+
+def run_mobilenet(FLAGS, work_dir, label, version, argv, nb_steps, on_step=None):
+    """One MobileNet run through main.main at full width on the card: its
+    launches counted from a reset just before it to just after it, its peak
+    memory.  Returns (learner, ForwardCounter, counters, seconds, peak GiB)."""
+    run_dir = os.path.join(work_dir, 'mobilenet', label.split(':')[0].split()[-1])
+    argv = argv + ['--save_path=%s' % os.path.join(run_dir, 'models', 'model.ckpt'),
+                   '--uqtf_save_path=%s' % os.path.join(run_dir, 'uqtf', 'model.ckpt'),
+                   '--nuql_save_quant_model_path=%s' % os.path.join(run_dir, 'nuql', 'model.ckpt'),
+                   '--model=mobilenet_at_ilsvrc12', '--mobilenet_version=%d' % version,
+                   '--mobilenet_depth_mult=1.0', '--data_dir_local=',
+                   '--batch_size=%d' % MB_BATCH, '--batch_size_eval=%d' % MB_BATCH,
+                   '--nb_smpls_train=%d' % (MB_BATCH * nb_steps), '--nb_smpls_eval=%d' % MB_EVAL,
+                   '--uql_quant_epochs=1', '--nuql_quant_epochs=1', '--nb_epochs_rat=1']
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    learner, counter, counts, elapsed = run_main(FLAGS, work_dir, 'mobilenet_at_ilsvrc12', argv,
+                                                 on_step)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(counter.steps == nb_steps, '%s: %d steps', label, counter.steps)
+    loss = float(counter.metrics['loss'])
+    check(math.isfinite(loss), '%s: loss %r', label, loss)
+    check(counter.evals and all(math.isfinite(v) for v in counter.evals[-1].values()),
+          '%s: eval %s', label, counter.evals)
+    want_sites = MB_SITES[version] if 'uniform-tf' in label else (MB_NUQ_WEIGHTS,
+                                                                  MB_SITES[version][1])
+    stats = learner.statistics
+    check((stats['nb_matmuls'], stats['nb_activations']) == want_sites, '%s: sites %d/%d',
+          label, stats['nb_matmuls'], stats['nb_activations'])
+    return learner, counter, counts, elapsed, peak
+
+
+def phase_mobilenet_uqtf(FLAGS, work_dir, card):
+    """Runs K and L: the uniform-tf learner through main.main.  Run K: no
+    fake-quant launch in the steps before the quant delay, then one grouped
+    K2' launch pair (channel buckets, without the select) a forward for
+    all 28 weights; every site's range moved by exactly the EMA of its
+    batch (min, max) in every step, the delay's steps included; BN running
+    statistics that change in every step through UQTF_FREEZE and are
+    bit-unchanged after; the step time in each regime.  Run L: MobileNet-v2,
+    one grouped K2' pair a forward for its 53 weights.  Returns {label:
+    counters}."""
+    import numpy as np
+    from pocketflow_tpu_torch.learners.uniform_quantization_tf import learner as uqtf
+    runs = {}
+    batches, update = [], uqtf.RangeQuantPolicy.update_ranges
+
+    def recording_update(policy, ema):
+        batches.append(torch.stack([r for _, r in policy.batch_ranges]).float().cpu())
+        return update(policy, ema)
+
+    for label, version, argv, nb_steps in MB_RUNS[:2]:
+        recorder = StepRecorder()
+        batches.clear()
+        uqtf.RangeQuantPolicy.update_ranges = recording_update
+        try:
+            learner, counter, counts, elapsed, peak = run_mobilenet(
+                FLAGS, work_dir, label, version, argv, nb_steps, recorder)
+        finally:
+            uqtf.RangeQuantPolicy.update_ranges = update
+        runs[label] = counts
+        nb_eval = counter.forwards - counter.steps
+        check(nb_eval > 0, '%s: %d forwards for %d steps', label, counter.forwards, counter.steps)
+        delay = UQTF_DELAY if 'run K' in label else 0
+        freeze = UQTF_FREEZE if 'run K' in label else None
+        per_step = [recorder.launches(i, 'fake_quant_per_column_group') for i in range(nb_steps)]
+        check(per_step == [0] * delay + [1] * (nb_steps - delay), '%s: K2\' launches a step %s',
+              label, per_step)
+        check(counts == no_launches(fake_quant_per_column_group=nb_steps - delay + nb_eval),
+              '%s: launches %s (%d steps, %d eval forwards)', label, counts, nb_steps, nb_eval)
+        # the ranges: ema * old + (1 - ema) * this step's batch, in fp32
+        ema = np.float32(FLAGS.uqtf_ema_decay)
+        check(len(batches) == nb_steps, '%s: %d range updates', label, len(batches))
+        worst = 0.0
+        for i, batch in enumerate(batches):
+            before, after = recorder.steps[i]['before']['ranges'], recorder.steps[i]['after']['ranges']
+            for j, key in enumerate(('act_min', 'act_max')):
+                old = before[key].cpu().numpy()
+                want = ema * old + np.float32(1 - FLAGS.uqtf_ema_decay) * batch[:, j].numpy()
+                worst = max(worst, float(np.abs(after[key].cpu().numpy() - want).max()))
+        check(worst <= 1e-6, '%s: ranges off the EMA by %.3g', label, worst)
+        final = recorder.steps[-1]['after']['ranges']
+        moved = int(((final['act_min'] != 0) | (final['act_max'] != 6)).sum())
+        if freeze is not None:  # the frozen steps' activations sit well inside (0, 6)
+            check(moved == len(final['act_min']), '%s: %d of %d ranges moved off (0, 6)', label,
+                  moved, len(final['act_min']))
+        lo = [float(batches[-1][:, 0].min()), float(batches[-1][:, 0].max())]
+        hi = [float(batches[-1][:, 1].min()), float(batches[-1][:, 1].max())]
+        # BN running statistics: moved in every step before the freeze, not after
+        changed = [any(not torch.equal(a, b) for a, b in zip(s['before']['stats'],
+                                                            s['after']['stats']))
+                   for s in recorder.steps]
+        frozen_from = freeze if freeze is not None else nb_steps
+        check(changed == [True] * frozen_from + [False] * (nb_steps - frozen_from),
+              '%s: BN statistics changed in steps %s', label, changed)
+        regimes = [('before the delay (no fake-quant)', range(0, delay)),
+                   ('quantized, BN training', range(delay, frozen_from)),
+                   ('quantized, BN frozen', range(frozen_from, nb_steps))]
+        times = {name: [round(recorder.ms(i), 2) for i in idx] for name, idx in regimes if idx}
+        ev = counter.evals[-1]
+        log('  %s: %d steps, %d eval forwards, loss %.4f, eval %s | launches %s | peak memory '
+            '%.2f GiB | %.1f s (the run, its evals and its checkpoint)', label, counter.steps,
+            nb_eval, float(counter.metrics['loss']), {k: round(v, 4) for k, v in ev.items()},
+            counts, peak, elapsed)
+        log('  %s: K2\' launches a step %s; the ranges follow the EMA of the batch (min, max) in '
+            'every step (worst %.3g); after the run %d of %d sites off (0, 6), the last batch\'s '
+            'min in [%.4g, %.4g] and max in [%.4g, %.4g]; BN statistics changed in steps %s',
+            label, per_step, worst, moved, len(final['act_min']), *lo, *hi,
+            [i + 1 for i, c in enumerate(changed) if c])
+        log('  %s: step ms (synchronized each step) %s; medians %s | %s', label, times,
+            {name: median(v[1:] or v) for name, v in times.items()}, card)
+    return runs
+
+
+def phase_mobilenet_nuq(FLAGS, work_dir, card):
+    """Run M: the non-uniform learner on MobileNet-v1 through main.main: 27
+    K1' launches with the select a forward (8-bit activations), codebooks
+    that moved, every quantized kernel at most 16 distinct values; the
+    codebook init (kmeans) and a step timed.  Returns {label: counters}."""
+    from pocketflow_tpu_torch.learners.nonuniform_quantization import learner as nuq_learner
+    label, version, argv, nb_steps = MB_RUNS[2]
+    first = {}
+    recorder = StepRecorder()
+
+    def on_step(when, state):
+        if when == 'before' and not first:
+            first.update({p: c.detach().clone() for p, c in state.extra['codebooks'].items()})
+        if when == 'after':
+            first.setdefault('state', state)
+        recorder(when, state)
+
+    init_ms, build = [], nuq_learner.NonUniformQuantLearner._build_extra
+
+    def timed_build(learner, *args):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = build(learner, *args)
+        torch.cuda.synchronize()
+        init_ms.append(1e3 * (time.perf_counter() - start))
+        return out
+
+    nuq_learner.NonUniformQuantLearner._build_extra = timed_build
+    try:
+        learner, counter, counts, elapsed, peak = run_mobilenet(
+            FLAGS, work_dir, label, version, argv, nb_steps, on_step)
+    finally:
+        nuq_learner.NonUniformQuantLearner._build_extra = build
+    sites = MB_SITES[version][1]
+    check(counts == no_launches(fake_quant_per_tensor=sites * counter.forwards,
+                                fake_quant_per_tensor_select=sites * counter.forwards),
+          '%s: launches %s over %d quantized forwards', label, counts, counter.forwards)
+    per_step = [recorder.launches(i, 'fake_quant_per_tensor_select') for i in range(nb_steps)]
+    check(per_step == [sites] * nb_steps, '%s: K1\' launches a step %s', label, per_step)
+    state = first.pop('state')
+    books = state.extra['codebooks']
+    check(len(books) == MB_NUQ_WEIGHTS and all(c.shape[0] == 16 for c in books.values()),
+          '%s: codebooks %s', label, {p: tuple(c.shape) for p, c in books.items()})
+    moved = sum(not torch.equal(books[p].detach(), c) for p, c in first.items())
+    check(moved == len(books), '%s: %d of %d codebooks moved', label, moved, len(books))
+    policy = learner._policy_fn()(state)
+    weights = {m.path: m.kernel for m in state.model.modules() if hasattr(m, 'kernel')}
+    distinct = []
+    with torch.no_grad():
+        for path in books:
+            q = policy.process_weight(path, weights[path])
+            distinct.append(int(torch.unique(q).numel()))
+    check(max(distinct) <= 16, '%s: distinct values a kernel %s', label, distinct)
+    ev = counter.evals[-1]
+    log('  %s: %d steps, %d quantized forwards, loss %.4f, eval %s | launches %s | peak memory '
+        '%.2f GiB | %.1f s', label, counter.steps, counter.forwards,
+        float(counter.metrics['loss']), {k: round(v, 4) for k, v in ev.items()}, counts, peak,
+        elapsed)
+    log('  %s: %d of %d codebooks moved; distinct values a quantized kernel %d-%d; codebook '
+        'builds (kmeans, %d weights) %s ms; step ms (synchronized each step) %s, median %.2f | %s',
+        label, moved, len(books), min(distinct), max(distinct), len(books),
+        [round(t, 1) for t in init_ms], [round(recorder.ms(i), 2) for i in range(nb_steps)],
+        median([recorder.ms(i) for i in range(1, nb_steps)]), card)
+    return {label: counts}
+
+
+def phase_nuq_search(FLAGS, work_dir, card):
+    """Run N: the non-uniform learner's RL bit search through main.main on
+    ResNet-20 from run A's baseline: each roll-out's codebooks rebuilt at its
+    mixed bits (2^bits entries a layer), the chosen bits under the budget,
+    no kernel and no plain fake-quant (weights take their codebooks, the
+    activations stay at full precision).  Returns {label: counters}."""
+    import numpy as np
+    from pocketflow_tpu_torch.learners.nonuniform_quantization import learner as nuq_learner
+    cls = nuq_learner.NonUniformQuantLearner
+    seen, set_bits = [], cls.set_bits
+
+    def recording(learner, state, w_bits, a_bits):
+        state = set_bits(learner, state, w_bits, a_bits)
+        seen.append((list(w_bits), [c.shape[0] for c in state.extra['codebooks'].values()]))
+        return state
+
+    cls.set_bits = recording
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        learner, counter, counts, elapsed = run_main(FLAGS, work_dir, 'resnet_at_cifar10',
+                                                     NUQ_SEARCH_ARGV)
+    finally:
+        cls.set_bits = set_bits
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    label = NUQ_SEARCH_RUN
+    check(counts == no_launches(), '%s: launches %s', label, counts)
+    check(all(sizes == [2 ** b for b in bits] for bits, sizes in seen),
+          '%s: codebooks not at their bits: %s', label, seen)
+    mixed = [bits for bits, _ in seen if len(set(bits)) >= 2]
+    check(len(mixed) >= 2, '%s: %d mixed bit lists among %d', label, len(mixed), len(seen))
+    bits = learner.optimal_w_bit_list
+    num_weights = learner.statistics['num_weights']
+    used = float(np.dot(bits, num_weights))
+    check(used <= 4 * sum(num_weights) and all(2 <= b <= 8 for b in bits),
+          '%s: bits %s over the budget', label, bits)
+    check(counter.forwards > counter.steps > 0, '%s: %d forwards, %d steps', label,
+          counter.forwards, counter.steps)
+    ev = counter.evals[-1]
+    check(all(math.isfinite(v) for v in ev.values()), '%s: eval %s', label, ev)
+    log('  %s: %d set_bits calls (%d at mixed bits), codebooks at 2^bits entries each; chosen '
+        'bits %s (%.3f bits a weight, budget 4) | %d steps, %d quantized forwards | eval %s | '
+        'launches %s | peak memory %.2f GiB | %.1f s | %s', label, len(seen), len(mixed), bits,
+        used / sum(num_weights), counter.steps, counter.forwards,
+        {k: round(v, 4) for k, v in ev.items()}, counts, peak, elapsed, card)
+    return {label: counts}
+
+
+def mobilenet_act_shapes(FLAGS, version=1):
+    """The relu6 sites' activation shapes of MobileNet at full width and
+    MB_BATCH (one eval forward on the card, bf16)."""
+    from pocketflow_tpu_torch.nets.mobilenet_at_ilsvrc12 import ModelHelper
+    from pocketflow_tpu_torch.nn.layers import CompressionPolicy, compression
+    shapes = []
+
+    class Shapes(CompressionPolicy):
+        def process_act(self, path, act):
+            if path.startswith('act/'):
+                shapes.append(tuple(act.shape))
+            return act
+
+    with FLAGS.scope(compute_dtype='bfloat16', mobilenet_depth_mult=1.0):
+        model = ModelHelper(version=version).create_model().to('cuda').eval()
+        with torch.no_grad(), compression(Shapes()):
+            model(torch.zeros((MB_BATCH, 224, 224, 3), device='cuda'))
+    del model
+    return shapes
+
+
+def phase_mobilenet_kernels(FLAGS, fq, device, card):
+    """Phase 18, the kernels at MobileNet's shapes: K2' (channel buckets,
+    without the select, uniform-tf's route) at the 28 weight shapes of v1 at
+    8 bits, equal to the plain version tensor by tensor, and timed beside it;
+    K1' with the select on the two largest activations (bf16, 8 bits) against
+    the plain version and its select."""
+    from pocketflow_tpu_torch.learners.uniform_quantization_tf.learner import (
+        UniformQuantTFLearner)
+    from pocketflow_tpu_torch.nets.mobilenet_at_ilsvrc12 import ModelHelper
+    with FLAGS.scope(compute_dtype='float32', mobilenet_version=1, mobilenet_depth_mult=1.0,
+                     batch_size=MB_BATCH):
+        shapes = UniformQuantTFLearner(None, ModelHelper(), device=device).statistics[
+            'weight_shapes']
+    check(len(shapes) == MB_SITES[1][0], '%d weight shapes', len(shapes))
+    gen = torch.Generator(device=device).manual_seed(5)
+    weights = [torch.randn(s, generator=gen, device=device) * 0.05 for s in shapes]
+    bits = torch.full((len(weights),), 8.0, device=device)
+    k8 = fq._levels(bits[0])
+    got = fq.fake_quant_per_column_group(weights, bits, None, select=False)
+    for i, (w, g) in enumerate(zip(weights, got)):
+        check(torch.equal(g, fq._column_plain(w, k8, None)),
+              'K2\' differs from plain at MobileNet weight %d %s', i, tuple(w.shape))
+    ms = time_ms(lambda: fq.fake_quant_per_column_group(weights, bits, None, select=False))
+    plain_ms = time_ms(lambda: [fq._column_plain(w, k8, None) for w in weights])
+    bound_ms, bound_by = fq_bound(sum(w.numel() for w in weights))
+    views = sorted({(math.prod(s[:-1]), s[-1]) for s in shapes})
+    log('  K2\' (channel buckets, no select) at MobileNet-v1\'s %d weights, 8 bits, column views '
+        '%s: equal to plain, tensor by tensor | kernel %.4f ms (%.0f%% of the bound), plain %.4f '
+        'ms, bound %.4f ms (%s) | %s', len(weights), views, ms, 100 * bound_ms / ms, plain_ms,
+        bound_ms, bound_by, card)
+    bits8 = torch.tensor(8.0, device=device)
+    for shape in MB_ACT_SHAPES:
+        x = torch.relu(torch.randn(shape, generator=gen, device=device)).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        want = torch.where(bits8 < 32, fq._quantize_math_torch(x, k8, None).to(x.dtype), x)
+        got = fq.fake_quant_per_tensor(x, bits8, select=True)
+        check(got.stride() == x.stride(), 'K1\' lost the layout of %s', shape)
+        err, nd = compare(got, want, float((x.max().float() - x.min().float()) / k8))
+        del want, got
+        ms = time_ms(lambda: fq.fake_quant_per_tensor(x, bits8, select=True))
+        plain_ms = time_ms(lambda: torch.where(
+            bits8 < 32, fq._quantize_math_torch(x, k8, None).to(x.dtype), x), 5)
+        bound_ms, bound_by = fq_bound(x.numel(), 2)
+        log('  K1\' with the select, bf16 act %s, 8 bits: max|d|=%.3g n_diff=%d vs plain + select '
+            '| kernel %.4f ms (%.0f%% of the bound), plain + select %.4f ms, bound %.4f ms (%s)',
+            shape, err, nd, ms, 100 * bound_ms / ms, plain_ms, bound_ms, bound_by)
+        del x
+    torch.cuda.empty_cache()
+
+
+def phase_mobilenet_reference(FLAGS):
+    """Phase 18, the steps: a small MobileNet-v1 step of each new learner on
+    the card (kernels, fp32, no TF32) against the same step on the CPU (plain
+    versions) from the same seed, batch 8: uniform-tf with quantization on
+    (8-bit weights through K2'), and non-uniform (4-bit kmeans codebooks,
+    both trained).  The activations stay at 32 bits: below that a level a
+    rounding away from its edge flips between the two devices' sum orders
+    (~1e-6 apart) and the flips cascade through the layers and the small
+    batch's BN (16 bits moved the logits by 0.4%); the quantizers themselves
+    are held to the CPU bit for bit elsewhere in this phase.  Each device
+    builds its own kmeans codebooks (within 1e-3 of the CPU's largest entry:
+    an assignment flipped by a sum order in one of the 25 Lloyd steps moves
+    its cluster's mean); the card's step then starts from the CPU's, since
+    one assignment flipped by a sum order moves a weight by a whole level.
+    Bounds, as phases 3 and 10: the logits of a train-mode forward (before
+    the step) within 1e-3 (+1e-3 of the largest) and the train loss within
+    1e-3 relative; and the BN statistics and activation ranges after the
+    step within 1e-3 of their norm per tensor.  The step's update of the
+    parameters and codebooks (at a rate of 0.1) is reported beside the
+    CPU's own spread (two reruns: the batch reversed, its images perturbed
+    by 1e-7), not bounded: fp32 gradients of this net carry the convolution
+    libraries' error (mobilenet_grad_precision), which moves the update by
+    percents between the two devices."""
+    from pocketflow_tpu_torch.learners.nonuniform_quantization.learner import (
+        NonUniformQuantLearner)
+    from pocketflow_tpu_torch.learners.uniform_quantization_tf.learner import (
+        UniformQuantTFLearner)
+    from pocketflow_tpu_torch.nets.mobilenet_at_ilsvrc12 import ModelHelper
+    # MobileNet's quant finetune rate is 1e-4 * lrn_rate_init * batch / 128: 0.1
+    small = dict(batch_size=8, batch_size_eval=8, nb_smpls_train=64, nb_smpls_eval=8,
+                 compute_dtype='float32', ilsvrc_image_size=64, mobilenet_version=1,
+                 mobilenet_depth_mult=0.5, lrn_rate_init=16000.0)
+    noise = torch.randn((8, 64, 64, 3), generator=torch.Generator().manual_seed(7)).numpy()
+    runs = (('cpu', 'cpu'), ('reversed', 'cpu'), ('perturbed', 'cpu'), ('cuda', 'cuda'))
+    for name, cls, flags in (
+            ('uniform-tf', UniformQuantTFLearner, dict(uqtf_quant_delay=0,
+                                                       uqtf_activation_bits=32)),
+            ('non-uniform', NonUniformQuantLearner, dict(
+                nuql_weight_bits=4, nuql_init_style='kmeans', nuql_activation_bits=32,
+                nuql_opt_mode='both'))):
+        out, books_err = {}, 0.0
+        with FLAGS.scope(**small, **flags):
+            for run, device in runs:
+                learner = cls(None, ModelHelper(), device=device)
+                ds = learner.dataset_train
+                ds.augment_xy = lambda batch, gen, is_train, ds=ds: type(ds).augment_xy(
+                    ds, batch, gen, False)
+                state, tx, _ = learner.init_state_quant()
+                if name == 'uniform-tf':
+                    step = learner.build_qat_train_step(tx, freeze_bn=False)
+                    policy = learner._policy_fn()(state, enabled=True, record=False)
+                else:
+                    step = learner.build_quant_train_step(tx)
+                    policy = learner._policy_fn()(state)
+                    books = state.extra['codebooks']
+                    if run == 'cpu':
+                        cpu_books = {p: c.detach().clone() for p, c in books.items()}
+                    with torch.no_grad():
+                        for path, c in books.items():
+                            want = cpu_books[path]
+                            if device == 'cuda':
+                                books_err = max(books_err, float(
+                                    (c.cpu() - want).abs().max() / want.abs().max()))
+                            c.copy_(want)
+                images, labels = ds.synthesize_arrays(8)  # 64, the least it makes
+                images, labels = images[:8].astype('float32'), labels[:8]
+                if run == 'reversed':
+                    images, labels = images[::-1].copy(), labels[::-1].copy()
+                elif run == 'perturbed':
+                    images = images * (1 + 1e-7 * noise).astype('float32')
+                batch = learner.put_batch({'image': images, 'label': labels})
+                # a train-mode forward (eval BN's init statistics let a random
+                # net's activations fade to 0), its running statistics put back
+                saved = [b.clone() for b in state.model.buffers()]
+                with torch.no_grad():
+                    logits = learner.model_helper.forward_train(
+                        state.model, ds.augment(batch['image'], None, False), policy=policy)
+                    for b, value in zip(state.model.buffers(), saved):
+                        b.copy_(value)
+                trained = [p for p in state.model.parameters()] + list(
+                    state.extra.get('codebooks', {}).values())
+                before = [p.detach().cpu().clone() for p in trained]
+                _, metrics = step(state, batch, None)
+                update = torch.cat([(p.detach().cpu() - b).reshape(-1)
+                                    for p, b in zip(trained, before)]).double()
+                stats = {k: v.cpu() for k, v in state.model.named_buffers()}
+                stats.update({k: v.cpu() for k, v in state.extra.items()
+                              if k in ('act_min', 'act_max')})
+                out[run] = (logits.cpu(), float(metrics['loss']), update, stats)
+        want = out['cpu'][2]
+        distance = {run: float((out[run][2] - want).norm() / want.norm())
+                    for run in ('reversed', 'perturbed', 'cuda')}
+        update_err, spread = distance['cuda'], max(distance['reversed'], distance['perturbed'])
+        logit_err = float((out['cuda'][0] - out['cpu'][0]).abs().max())
+        scale = float(out['cpu'][0].abs().max())
+        rel = {k: float((out['cuda'][3][k] - v).norm() / v.norm().clamp_min(1e-12))
+               for k, v in out['cpu'][3].items()}
+        worst = max(rel, key=rel.get)
+        log('  MobileNet-v1 @ 64, depth 0.5, batch 8, %s: logits card vs CPU max|d| = %.3g (of '
+            '%.3g); train loss card %.6f, CPU %.6f; the update %.3g of its norm from the CPU\'s '
+            '(the CPU\'s reruns %.3g); BN statistics and ranges after the step, worst relative '
+            'L2 %.3g (%s)%s', name, logit_err, scale, out['cuda'][1], out['cpu'][1], update_err,
+            spread, rel[worst], worst,
+            '; kmeans codebooks card vs CPU %.3g of the largest' % books_err
+            if name == 'non-uniform' else '')
+        check(logit_err <= 1e-3 + 1e-3 * scale, '%s: logits disagree', name)
+        check(abs(out['cuda'][1] - out['cpu'][1]) <= 1e-3 * abs(out['cpu'][1]),
+              '%s: train loss disagrees', name)
+        check(rel[worst] <= 1e-3, '%s: state after the step disagrees at %s', name, worst)
+        check(books_err <= 1e-3, '%s: kmeans codebooks card vs CPU %.3g', name, books_err)
+
+
+def mobilenet_grad_precision():
+    """The gradients of a small MobileNet-v1 train step (depth 0.5, 64x64,
+    batch 8, random weights from seed 1) in fp32 on the card, with cuDNN and
+    with PyTorch's own convolutions, and in fp32 on the CPU, each against the
+    card's float64 gradients: relative L2 over all parameters at once, and
+    the worst tensor.  PyTorch's own CUDA convolutions must come within 1e-4
+    of float64; the libraries' (cuDNN, the CPU's) are reported."""
+    from pocketflow_tpu_torch.nets.mobilenet import MobileNetV1
+    gen = torch.Generator().manual_seed(0)
+    base = MobileNetV1(1001, 0.5, dtype=torch.float32)
+    base.reset_parameters(torch.Generator().manual_seed(1))
+    x = torch.randn((8, 64, 64, 3), generator=gen)
+    y = torch.randint(0, 1001, (8,), generator=gen)
+
+    def grads(device, dtype):
+        model = copy.deepcopy(base).to(device, dtype).train()
+        for module in model.modules():
+            if hasattr(module, 'dtype'):
+                module.dtype = dtype
+        loss = torch.nn.functional.cross_entropy(model(x.to(device, dtype)).to(dtype),
+                                                 y.to(device))
+        loss.backward()
+        return {n: p.grad.double().cpu() for n, p in model.named_parameters()}
+
+    ref = grads('cuda', torch.float64)
+    flat_ref = torch.cat([g.reshape(-1) for g in ref.values()])
+    errors = {}
+    for label, device, cudnn in (('cuDNN', 'cuda', True), ('PyTorch\'s CUDA convs', 'cuda', False),
+                                 ('CPU', 'cpu', True)):
+        with torch.backends.cudnn.flags(enabled=cudnn, benchmark=False, deterministic=False,
+                                        allow_tf32=False):
+            got = grads(device, torch.float32)
+        rel = {n: float((got[n] - g).norm() / g.norm()) for n, g in ref.items()}
+        worst = max(rel, key=rel.get)
+        errors[label] = float((torch.cat([got[n].reshape(-1) for n in ref]) - flat_ref).norm()
+                              / flat_ref.norm())
+        log('  fp32 gradients of MobileNet-v1 @ 64 (depth 0.5, batch 8), %s: %.3g of the card\'s '
+            'float64 gradients over all parameters, worst tensor %.3g (%s)', label,
+            errors[label], rel[worst], worst)
+    check(errors['PyTorch\'s CUDA convs'] <= 1e-4, 'fp32 gradients of PyTorch\'s CUDA convs '
+          '%.3g from float64', errors['PyTorch\'s CUDA convs'])
+
+
+def phase_plain_ops(FLAGS, card):
+    """Phase 18, the two plain ops (the reference has no kernel for either):
+    fake_quant_with_range on the card against the CPU (values and gradient
+    mask equal, four ranges) and timed over MobileNet-v1's 27 relu6 sites
+    at batch 256, forward and backward; nonuniform_quant on the card against
+    the CPU (values and the x gradient equal; each codebook entry's gradient
+    within 1e-6 of the sum of its terms' magnitudes: its sums are atomic on
+    the card, sequential on the CPU), and timed with the codebook init over
+    the 26 weights of run M.  The gradients are returned, not accumulated."""
+    from pocketflow_tpu_torch.learners.nonuniform_quantization import utils as nuq_utils
+    from pocketflow_tpu_torch.nets.mobilenet_at_ilsvrc12 import ModelHelper
+    from pocketflow_tpu_torch.ops import fake_quant as fq
+    from pocketflow_tpu_torch.ops import nonuniform_quant as nuq
+    gen = torch.Generator().manual_seed(6)
+    bits8 = torch.tensor(8.0)
+    x = (torch.randn((16, 32, 56, 56), generator=gen) * 2.5 + 1.0).to(torch.bfloat16)
+    for lo, hi in ((0.0, 6.0), (0.02, 6.1), (-1.3, 2.2), (0.5, 4.0)):
+        res = {}
+        for device in ('cpu', 'cuda'):
+            xd = x.to(device).clone().requires_grad_(True)
+            y = fq.fake_quant_with_range(xd, torch.tensor(lo, device=device),
+                                         torch.tensor(hi, device=device), bits8.to(device))
+            y.backward(torch.ones_like(y))
+            res[device] = (y.detach().cpu(), xd.grad.cpu())
+        check(torch.equal(res['cpu'][0], res['cuda'][0]) and torch.equal(res['cpu'][1],
+                                                                          res['cuda'][1]),
+              'fake_quant_with_range differs card vs CPU at [%g, %g]', lo, hi)
+    shapes = mobilenet_act_shapes(FLAGS)
+    check(len(shapes) == MB_SITES[1][1], '%d act sites', len(shapes))
+    acts = [torch.relu(torch.randn(s, device='cuda')).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True) for s in shapes]
+    lo, hi, b8 = (torch.tensor(v, device='cuda') for v in (0.0, 6.0, 8.0))
+    fwd_ms = time_ms(lambda: [fq.fake_quant_with_range(a, lo, hi, b8) for a in acts], 5)
+    grads = [torch.ones_like(a) for a in acts]
+
+    def fwd_bwd():
+        return torch.autograd.grad([fq.fake_quant_with_range(a, lo, hi, b8) for a in acts],
+                                   acts, grads)
+    both_ms = time_ms(fwd_bwd, 5)
+    largest = max(acts, key=lambda a: a.numel())
+    site_ms = time_ms(lambda: fq.fake_quant_with_range(largest, lo, hi, b8), 5)
+    nbytes = sum(a.numel() for a in acts) * 2
+    log('  fake_quant_with_range (plain by design): card equal to the CPU at 4 ranges (values, '
+        'gradient mask) | over the 27 relu6 sites of MobileNet-v1 at batch %d (%.2f GB of bf16 '
+        'activations): forward %.3f ms, forward + backward %.3f ms a step; the largest site %s '
+        'forward %.3f ms (bound %.4f ms, bytes: read and written once) | %s', MB_BATCH,
+        nbytes / 1e9, fwd_ms, both_ms, tuple(largest.shape), site_ms,
+        bound(4 * largest.numel(), {})[0], card)
+    del acts, grads
+    torch.cuda.empty_cache()
+
+    w = torch.randn((1, 1, 512, 1024), generator=gen) * 0.05
+    g = torch.randn(w.shape, generator=gen)
+    for bucket_type, c_cols in ((None, 1), ('channel', 1024), ('split', -(-w.numel() // 256))):
+        c0 = torch.sort(torch.rand((16, c_cols), generator=gen), dim=0).values
+        res = {}
+        for device, grad in (('cpu', g.abs()), ('cpu', g), ('cuda', g)):
+            wd = w.to(device).clone().requires_grad_(True)
+            c = c0.to(device).clone().requires_grad_(True)
+            y = nuq.nonuniform_quant(wd, c, bucket_type, 256)
+            y.backward(grad.to(device))
+            res['abs' if grad is not g else device] = (y.detach().cpu(), wd.grad.cpu(),
+                                                       c.grad.cpu())
+        dc_err = float(((res['cuda'][2] - res['cpu'][2]).abs()
+                        / res['abs'][2].clamp_min(1e-30)).max())
+        dc_rel = float((res['cuda'][2] - res['cpu'][2]).norm() / res['cpu'][2].norm())
+        check(torch.equal(res['cpu'][0], res['cuda'][0]) and torch.equal(res['cpu'][1],
+                                                                          res['cuda'][1])
+              and dc_err <= 1e-6, 'nonuniform_quant differs card vs CPU (%s buckets): dc %.3g',
+              bucket_type, dc_err)
+        log('  nonuniform_quant (plain by design), %s buckets, (1, 1, 512, 1024) at 16 entries: '
+            'card equal to the CPU (values, x gradient); codebook gradient within %.3g of each '
+            'entry\'s sum of |terms| (%.3g relative L2)', bucket_type, dc_err, dc_rel)
+    with FLAGS.scope(compute_dtype='bfloat16', mobilenet_version=1, mobilenet_depth_mult=1.0,
+                     nuql_use_buckets=False, nuql_init_style='kmeans'):
+        model = ModelHelper().create_model()
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model = model.to('cuda')
+        modules = [m for m in model.modules() if hasattr(m, 'kernel')][1:-1]
+        paths = [m.path for m in modules]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        books = nuq_utils.init_codebooks(model, paths, [4] * len(paths))
+        torch.cuda.synchronize()
+        init_ms = 1e3 * (time.perf_counter() - start)
+    kernels = [m.kernel for m in modules]
+    grads = [torch.ones_like(k) for k in kernels]
+    leaves = kernels + [books[p] for p in paths]
+
+    def nuq_step():
+        return torch.autograd.grad([nuq.nonuniform_quant(k, books[p], None, 256)
+                                    for k, p in zip(kernels, paths)], leaves, grads)
+    fwd_ms = time_ms(lambda: [nuq.nonuniform_quant(k, books[p], None, 256)
+                              for k, p in zip(kernels, paths)], 5)
+    both_ms = time_ms(nuq_step, 5)
+    log('  MobileNet-v1\'s %d quantized weights (%.2f M), 4 bits, no buckets: codebook init '
+        '(kmeans: 25 Lloyd steps each) %.1f ms; nonuniform_quant forward %.3f ms, forward + '
+        'backward %.3f ms a step | %s', len(paths), sum(k.numel() for k in kernels) / 1e6,
+        init_ms, fwd_ms, both_ms, card)
+    del model, books, grads
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1250,7 +1887,10 @@ def main():
 
     from pocketflow_tpu_torch.config import FLAGS
     # every flag main.main defines, registered before any run's scope saves them
+    import pocketflow_tpu_torch.learners.nonuniform_quantization.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.uniform_quantization_tf.learner  # noqa: F401
     import pocketflow_tpu_torch.learners.weight_sparsification.learner  # noqa: F401
+    import pocketflow_tpu_torch.nets.mobilenet_at_ilsvrc12  # noqa: F401
     from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
     from pocketflow_tpu_torch.nets.resnet_at_ilsvrc12 import ModelHelper
     from pocketflow_tpu_torch.ops import build
@@ -1381,6 +2021,22 @@ def main():
         log('phase 16 the RL bit search through main.main: ResNet-20 @ CIFAR-10 at batch %d, '
             'mixed per-layer bits through the grouped K1\'', ZOO_BATCH)
         runs.update(phase_bit_search(FLAGS, work_dir, card))
+        torch.cuda.empty_cache()
+        log('phase 17 MobileNet @ ILSVRC-12 through main.main at full width (depth 1.0, 224x224, '
+            'bf16, batch %d, synthetic data): uniform-tf on v1 (run K, the slice\'s main path) '
+            'and v2 (run L), non-uniform on v1 (run M); the non-uniform RL bit search on '
+            'ResNet-20 (run N)', MB_BATCH)
+        runs.update(phase_mobilenet_uqtf(FLAGS, work_dir, card))
+        runs.update(phase_mobilenet_nuq(FLAGS, work_dir, card))
+        runs.update(phase_nuq_search(FLAGS, work_dir, card))
+    torch.cuda.empty_cache()
+    log('phase 18 MobileNet\'s shapes on the card: K2\' at the 28 weights of v1, K1\' with the '
+        'select at its largest activations, a small step of each new learner card vs CPU, the '
+        'two plain ops card vs CPU and timed')
+    phase_mobilenet_kernels(FLAGS, fq, device, card)
+    phase_mobilenet_reference(FLAGS)
+    mobilenet_grad_precision()
+    phase_plain_ops(FLAGS, card)
 
     # each kernel's launches in the run that drives it: the main path for the
     # grouped K1', the 8-bit-activation route for K1' itself, the

@@ -12,6 +12,9 @@ rename from 'a/b/c' to 'a.b.c' with the layouts kept: conv kernels stay HWIO
 other leaf raises, and ``load_jax_numpy`` raises on any port parameter or
 buffer left unset.
 
+A learner's ``state.extra`` goes through ``extra_from_jax`` (the uniform-tf
+ranges, the activation bits, the non-uniform codebooks).
+
 The DDPG agent's networks take the same route: ``ddpg_params_from_jax``
 carries the Flax actor and critic params (``blocks/dense_i``, ``blocks/ln_i``,
 ``dense_in``, ``ln_in``, ``head``) into the port's `Actor` and `Critic`, whose
@@ -84,6 +87,24 @@ def _load_checked(model: torch.nn.Module, values: Dict[str, torch.Tensor]) -> to
                              % (name, tuple(value.shape), tuple(target[name].shape)))
     model.load_state_dict(values, strict=True)
     return model
+
+
+def extra_from_jax(extra: Mapping[str, Any], device='cpu') -> Dict[str, Any]:
+    """Map a JAX learner's ``state.extra`` (numpy) to the port's: the
+    uniform-tf learner's activation ranges ``act_min``/``act_max``, the
+    activation bits ``a_bits``, and the non-uniform learner's ``codebooks``
+    (path -> [k, nb_buckets], each a leaf that requires grad).  Raises
+    KeyError on an entry it does not map."""
+    out = {}
+    for key, value in extra.items():
+        if key in ('act_min', 'act_max', 'a_bits'):
+            out[key] = torch.tensor(np.array(value, np.float32), device=device)
+        elif key == 'codebooks':
+            out[key] = {path: torch.tensor(np.array(c, np.float32), device=device,
+                                           requires_grad=True) for path, c in value.items()}
+        else:
+            raise KeyError('bridge: unmapped extra entry %r' % key)
+    return out
 
 
 def ddpg_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -18,7 +18,7 @@ import dataclasses
 import inspect
 import os
 from abc import ABC, abstractmethod
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,8 +66,15 @@ class Sgd:
         self.schedule = schedule
         self.momentum = momentum
 
-    def init(self, model: torch.nn.Module) -> torch.optim.SGD:
-        return torch.optim.SGD(model.parameters(), lr=self.schedule(0), momentum=self.momentum,
+    def init(self, model: torch.nn.Module, extra_leaves: Sequence[torch.Tensor] = ()
+             ) -> torch.optim.SGD:
+        """The optimizer over `model`'s parameters and, in a second group,
+        `extra_leaves`: trainable tensors of a learner's `extra` (the
+        non-uniform learner's codebooks)."""
+        groups = [{'params': list(model.parameters())}]
+        if extra_leaves:
+            groups.append({'params': list(extra_leaves)})
+        return torch.optim.SGD(groups, lr=self.schedule(0), momentum=self.momentum,
                                dampening=0.0, nesterov=False, weight_decay=0.0)
 
     def update(self, optimizer: torch.optim.Optimizer, step: int):
@@ -152,13 +159,16 @@ class AbstractLearner(ABC):
                          policy_fn: Optional[Callable[[TrainState], Optional[CompressionPolicy]]] = None,
                          loss_extra_fn: Optional[Callable] = None,
                          grad_transform_fn: Optional[Callable] = None,
-                         post_update_fn: Optional[Callable] = None):
+                         post_update_fn: Optional[Callable] = None,
+                         frozen_bn: bool = False):
         """Build the train step ``step_fn(state, batch, generator) -> (state, metrics)``.
 
         * policy_fn(state)        -> CompressionPolicy for this step (or None)
         * loss_extra_fn(state, outputs, images, labels) -> (extra_loss, extra_metrics)
         * grad_transform_fn(state) -> None; edits the parameters' .grad in place
         * post_update_fn(state)   -> state
+        * frozen_bn: the forward runs in eval mode (BN normalizes with its
+          running statistics and leaves them unchanged), gradients included
         """
         helper = self.model_helper
         augment_xy = self.dataset_train.augment_xy
@@ -168,9 +178,12 @@ class AbstractLearner(ABC):
                     generator: Optional[torch.Generator]):
             images, labels = augment_xy(batch, generator, True)
             policy = policy_fn(state) if policy_fn is not None else None
-            outputs = helper.forward_train(
-                state.model, images, policy=policy,
-                labels=labels if self.forward_w_labels else None)
+            if frozen_bn:
+                outputs = helper.forward_eval(state.model, images, policy=policy)
+            else:
+                outputs = helper.forward_train(
+                    state.model, images, policy=policy,
+                    labels=labels if self.forward_w_labels else None)
             params = state.params.items()
             if loss_takes_step:
                 loss, metrics = helper.calc_loss(labels, outputs, params, step=state.step)
@@ -331,17 +344,21 @@ class AbstractLearner(ABC):
 
     def copy_state(self, state: TrainState) -> TrainState:
         """A state that shares no tensor with `state`: a new model with
-        copies of its parameters and buffers, a new optimizer of the same
-        kind with copies of its momentum, and a copy of `extra`.  A roll-out
-        of an RL search trains such a copy; the baseline it starts from
-        stays as it was."""
-        model = copy.deepcopy(state.model)
-        optimizer = type(state.optimizer)(model.parameters(), **state.optimizer.defaults)
+        copies of its parameters and buffers, a copy of `extra`, and a new
+        optimizer of the same kind over the copies of the tensors it trains
+        (the model's parameters, and any trainable leaves of `extra`), with
+        copies of its momentum.  A roll-out of an RL search trains such a
+        copy; the baseline it starts from stays as it was."""
+        copies = {}  # id of each tensor copied -> its copy
+        model = copy.deepcopy(state.model, copies)
+        extra = copy.deepcopy(state.extra, copies)
+        groups = [{**group, 'params': [copies[id(p)] for p in group['params']]}
+                  for group in state.optimizer.param_groups]
+        optimizer = type(state.optimizer)(groups, **state.optimizer.defaults)
         # the optimizer casts loaded buffers with .to(), which can keep the
         # very tensor: copy them first
         optimizer.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
-        return TrainState(step=state.step, model=model, optimizer=optimizer,
-                          extra=copy.deepcopy(state.extra))
+        return TrainState(step=state.step, model=model, optimizer=optimizer, extra=extra)
 
     def set_extra(self, state: TrainState, extra: Any) -> TrainState:
         """Attach/replace the learner-specific `extra` tensors."""

@@ -48,21 +48,27 @@ def tune_seed(rand_seed: int, idx_rlout: int, step: int) -> int:
 
 
 class BitOptimizer:
-    """Chooses the per-layer (weight, activation) bit lists of the uniform
-    quantization learner."""
+    """Chooses the per-layer (weight, activation) bit lists of a quantization
+    learner.  ``prefix`` names its flags (``<prefix>_<name>``) and its search
+    checkpoint: 'uql' for the uniform learner, 'nuql' for the non-uniform
+    one; the search is the same."""
 
-    def __init__(self, learner, baseline_state):
+    def __init__(self, learner, baseline_state, prefix: str = 'uql'):
         self.learner = learner
         self.baseline_state = baseline_state
         self.statistics = learner.statistics
+        self.prefix = prefix
         self.log = get_logger()
         self.total_num_weights = sum(self.statistics['num_weights'])
-        self.total_bits = self.total_num_weights * FLAGS.uql_equivalent_bits
+        self.total_bits = self.total_num_weights * self._f('equivalent_bits')
+
+    def _f(self, name: str):
+        return getattr(FLAGS, '%s_%s' % (self.prefix, name))
 
     def run(self) -> Tuple[List[int], List[int]]:
-        if not FLAGS.uql_enbl_rl_agent:
-            return ([FLAGS.uql_weight_bits] * self.statistics['nb_matmuls'],
-                    [FLAGS.uql_activation_bits] * self.statistics['nb_activations'])
+        if not self._f('enbl_rl_agent'):
+            return ([self._f('weight_bits')] * self.statistics['nb_matmuls'],
+                    [self._f('activation_bits')] * self.statistics['nb_activations'])
         return self._calc_optimal_bits()
 
     # ------------------------------------------------------------------
@@ -75,20 +81,20 @@ class BitOptimizer:
 
         rl_helper = RLHelper(
             self.total_bits, stats['num_weights'], stats['weight_shapes'],
-            random_layers=FLAGS.uql_enbl_random_layers, seed=FLAGS.rand_seed,
-            bit_min=FLAGS.uql_w_bit_min, bit_max=FLAGS.uql_w_bit_max)
+            random_layers=self._f('enbl_random_layers'), seed=FLAGS.rand_seed,
+            bit_min=self._f('w_bit_min'), bit_max=self._f('w_bit_max'))
         agent = DdpgAgent(
-            s_dims=rl_helper.s_dims, a_dims=1, nb_rlouts=FLAGS.uql_nb_rlouts,
-            buf_size=nb_layers * max(1, FLAGS.uql_nb_rlouts // 4),
-            a_min=0.0, a_max=FLAGS.uql_w_bit_max - FLAGS.uql_w_bit_min,
+            s_dims=rl_helper.s_dims, a_dims=1, nb_rlouts=self._f('nb_rlouts'),
+            buf_size=nb_layers * max(1, self._f('nb_rlouts') // 4),
+            a_min=0.0, a_max=self._f('w_bit_max') - self._f('w_bit_min'),
             seed=FLAGS.rand_seed, device=learner.device)
         agent.init()
 
         programs = self.rollout_programs()
 
         # resume a preempted search from its latest checkpoint
-        search_path = os.path.join(os.path.dirname(FLAGS.uql_tune_save_path) or '.',
-                                   'ddpg_search_uql.npz')
+        search_path = os.path.join(os.path.dirname(self._f('tune_save_path')) or '.',
+                                   'ddpg_search_%s.npz' % self.prefix)
         reward_opt, w_bits_opt, idx_beg = -np.inf, None, 0
         if agent.restore_search(search_path):
             extras = agent.restored_extras
@@ -99,7 +105,7 @@ class BitOptimizer:
                 w_bits_opt = [int(b) for b in arr_best]
             self.log.info('resumed bit search from %s at rlout #%d', search_path, idx_beg)
 
-        for idx_rlout in range(idx_beg, FLAGS.uql_nb_rlouts):
+        for idx_rlout in range(idx_beg, self._f('nb_rlouts')):
             # 1. per-layer bits, the layers visited in a random order or not
             rl_helper.reset()
             agent.init_rlout()
@@ -135,9 +141,10 @@ class BitOptimizer:
                 agent.save_search(search_path, extras={
                     'idx_rlout': idx_rlout, 'reward_best': reward_opt,
                     'w_bits_best': np.asarray(w_bits_opt, np.int32)})
-        if w_bits_opt is None:  # no roll-out ran (uql_nb_rlouts=0)
-            self.log.warning('no rollout chose the bits; falling back to uniform uql_weight_bits')
-            w_bits_opt = [FLAGS.uql_weight_bits] * nb_layers
+        if w_bits_opt is None:  # no roll-out ran (<prefix>_nb_rlouts=0)
+            self.log.warning('no rollout chose the bits; falling back to uniform %s_weight_bits',
+                             self.prefix)
+            w_bits_opt = [self._f('weight_bits')] * nb_layers
         # one process: its decision is the primary's (the JAX package
         # broadcasts process 0's bits here)
         return [int(b) for b in w_bits_opt], fp_a_bits
@@ -165,11 +172,11 @@ class BitOptimizer:
         train_step, eval_step, train_iter, val_iter = programs
         state = learner.set_bits(learner.copy_state(self.baseline_state), w_bit_list,
                                  [32] * self.statistics['nb_activations'])
-        if FLAGS.uql_enbl_rl_layerwise_tune:
+        if self._f('enbl_rl_layerwise_tune'):
             self.layerwise_tune(state, train_iter,
-                                max(1, FLAGS.uql_tune_layerwise_steps // learner.nb_workers))
-        if FLAGS.uql_enbl_rl_global_tune:
-            for step in range(max(1, FLAGS.uql_tune_global_steps // learner.nb_workers)):
+                                max(1, self._f('tune_layerwise_steps') // learner.nb_workers))
+        if self._f('enbl_rl_global_tune'):
+            for step in range(max(1, self._f('tune_global_steps') // learner.nb_workers)):
                 seed = tune_seed(FLAGS.rand_seed, idx_rlout, step)
                 state, _ = train_step(state, learner.put_batch(next(train_iter)),
                                       learner.generator(seed))

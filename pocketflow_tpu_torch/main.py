@@ -15,12 +15,13 @@ import sys
 MODELS = {
     'convnet_at_fmnist': 'pocketflow_tpu_torch.nets.convnet_at_fmnist',
     'lenet_at_cifar10': 'pocketflow_tpu_torch.nets.lenet_at_cifar10',
+    'mobilenet_at_ilsvrc12': 'pocketflow_tpu_torch.nets.mobilenet_at_ilsvrc12',
     'resnet_at_cifar10': 'pocketflow_tpu_torch.nets.resnet_at_cifar10',
     'resnet_at_ilsvrc12': 'pocketflow_tpu_torch.nets.resnet_at_ilsvrc12',
 }
 
 # model helpers of the JAX package that wait for a later slice
-NOT_PORTED = ('mobilenet_at_ilsvrc12', 'vgg_at_pascalvoc', 'faster_rcnn_at_pascalvoc')
+NOT_PORTED = ('vgg_at_pascalvoc', 'faster_rcnn_at_pascalvoc')
 
 
 def main(argv=None, device='cuda'):
@@ -30,7 +31,9 @@ def main(argv=None, device='cuda'):
     from pocketflow_tpu_torch.learners import create_learner
     from pocketflow_tpu_torch.utils.path_args import apply_path_conf
     # register the flags of every ported module before parsing
+    import pocketflow_tpu_torch.learners.nonuniform_quantization.learner  # noqa: F401
     import pocketflow_tpu_torch.learners.uniform_quantization.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.uniform_quantization_tf.learner  # noqa: F401
     import pocketflow_tpu_torch.learners.weight_sparsification.learner  # noqa: F401
     for module in MODELS.values():
         importlib.import_module(module)
@@ -46,7 +49,7 @@ def main(argv=None, device='cuda'):
             raise SystemExit('unrecognized flag %r (see --help)' % arg)
     if model_name in NOT_PORTED:
         raise NotImplementedError(
-            "model %r is not ported yet (ROADMAP 'Modules to port', items 19 and 24)"
+            "model %r is not ported yet (ROADMAP 'Modules to port', item 24)"
             % model_name)
     if model_name not in MODELS:
         raise SystemExit('unknown model %r' % model_name)

@@ -93,8 +93,13 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+_SIX = torch.tensor(6.0)  # a CPU scalar: promotes like a Python number, on any device
+
+
 def relu6(x: torch.Tensor) -> torch.Tensor:
-    y = torch.clamp(x, 0.0, 6.0)
+    """min(relu(x), 6) as the JAX package computes it: at x = 6 the minimum
+    passes half the gradient (a clamp would pass all of it)."""
+    y = torch.minimum(F.relu(x), _SIX)
     policy = current_policy()
     if policy is not None:
         y = policy.process_act('act/%d' % policy._next_act_index(), y)
@@ -102,7 +107,8 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
 
 
 def set_paths(root: nn.Module):
-    """Give every PF layer under `root` its Flax-style path ('a/b/c')."""
+    """Give every PF layer under `root` its Flax-style path ('a/b/c');
+    PFDepthwiseConv is a PFConv."""
     for name, module in root.named_modules():
         if isinstance(module, (PFConv, PFDense)):
             module.path = name.replace('.', '/')
@@ -201,6 +207,28 @@ class PFConv(nn.Module):
         if policy is not None:
             y = policy.process_act(self.path, y)
         return y.to(self.dtype)
+
+
+class PFDepthwiseConv(PFConv):
+    """Depthwise 2D convolution (channel multiplier 1), as in MobileNet.
+
+    The kernel is an HWIO parameter of shape (kh, kw, 1, channels), the JAX
+    package's layout, so the bridge and the channel-bucket view ([kh*kw,
+    channels]) match; variance_scaling(2.0, 'fan_out') reads fan_out as
+    kh*kw*channels, as Flax does for this shape.  The forward is a grouped
+    cuDNN conv on the permuted kernel.
+    """
+
+    def __init__(self, channels: int, kernel_size: Tuple[int, int] = (3, 3),
+                 strides: Tuple[int, int] = (1, 1), use_bias: bool = False,
+                 dtype: torch.dtype = torch.bfloat16, padding: str = 'SAME'):
+        super().__init__(1, channels, kernel_size, strides, use_bias, dtype, padding)
+
+    def conv_fn(self, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+        if self.padding == 'SAME':
+            x = same_pad(x, self.kernel_size, self.strides)
+        return F.conv2d(x, kernel.permute(3, 2, 0, 1), stride=self.strides,
+                        groups=kernel.shape[-1])
 
 
 class PFDense(nn.Module):
@@ -322,6 +350,18 @@ def max_pool(x: torch.Tensor, window: Tuple[int, int] = (2, 2),
     elif padding != 'VALID':
         raise ValueError('unknown padding %r' % padding)
     return F.max_pool2d(x, window, strides)
+
+
+def avg_pool(x: torch.Tensor, window: Tuple[int, int] = (2, 2),
+             strides: Optional[Tuple[int, int]] = None, padding: str = 'VALID') -> torch.Tensor:
+    """Average pooling; 'SAME' pads with zeros that count in the mean, as
+    Flax's avg_pool does."""
+    strides = strides or window
+    if padding == 'SAME':
+        x = same_pad(x, window, strides)
+    elif padding != 'VALID':
+        raise ValueError('unknown padding %r' % padding)
+    return F.avg_pool2d(x, window, strides)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

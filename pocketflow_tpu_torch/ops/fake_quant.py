@@ -427,12 +427,13 @@ class _FakeQuantGroup(torch.autograd.Function):
 
 class _FakeQuantColumnGroup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, bits, bucket_size, *xs):
-        return tuple(fake_quant_per_column_group([x.contiguous() for x in xs], bits, bucket_size))
+    def forward(ctx, bits, bucket_size, select, *xs):
+        return tuple(fake_quant_per_column_group([x.contiguous() for x in xs], bits, bucket_size,
+                                                 select))
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, None, *grads)
+        return (None, None, None, *grads)
 
 
 class _FakeQuantBucket(torch.autograd.Function):
@@ -471,19 +472,21 @@ def fake_quant_group(xs: Sequence[torch.Tensor], bits: torch.Tensor) -> List[tor
 
 
 def fake_quant_bucket_group(xs: Sequence[torch.Tensor], bits: torch.Tensor, bucket_type: str,
-                            bucket_size: int) -> List[torch.Tensor]:
-    """Bucketed fake-quantization of each xs[t] at bits[t] with STE, xs[t]
-    itself where bits[t] >= 32 (the select of the per-site route), all
+                            bucket_size: int, select: bool = True) -> List[torch.Tensor]:
+    """Bucketed fake-quantization of each xs[t] at bits[t] with STE, all
     tensors in one kernel launch pair: 'channel' buckets (per output
     channel, the last axis) or 'split' buckets of bucket_size, each tensor's
-    result equal to fake_quant_channel_bucket's or fake_quant_split_bucket's."""
+    result equal to fake_quant_channel_bucket's or fake_quant_split_bucket's.
+    With `select`, xs[t] itself where bits[t] >= 32 (the select of the
+    per-site route); without it every tensor is quantized, as the per-site
+    ops quantize."""
     if bucket_type == 'channel':
         size = None
     elif bucket_type == 'split':
         size = int(bucket_size)
     else:
         raise ValueError('unrecognized bucket type: ' + bucket_type)
-    return list(_FakeQuantColumnGroup.apply(bits, size, *xs))
+    return list(_FakeQuantColumnGroup.apply(bits, size, select, *xs))
 
 
 def fake_quant_split_bucket(x: torch.Tensor, bits: torch.Tensor, bucket_size: int) -> torch.Tensor:
@@ -497,6 +500,44 @@ def fake_quant_channel_bucket(x: torch.Tensor, bits: torch.Tensor) -> torch.Tens
     scale per column.  For HWIO conv kernels and [c_in, c_out] dense kernels
     the last axis is c_out."""
     return _FakeQuantBucket.apply(x, bits, None)
+
+
+def _nudged_range(range_min: torch.Tensor, range_max: torch.Tensor, bits: torch.Tensor):
+    """TF FakeQuantWithMinMaxVars' zero-point nudge: (min, max) shifted so
+    that the zero point lands on the integer grid, and the scale.  Returns
+    fp32 (nudged_min, nudged_max, scale)."""
+    k = _levels(bits)
+    scale = (range_max - range_min).to(torch.float32) / k + EPS
+    zero_point = torch.round(torch.clamp(-range_min.to(torch.float32) / scale, min=0.0).minimum(k))
+    return -zero_point * scale, (k - zero_point) * scale, scale
+
+
+class _FakeQuantWithRange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, range_min, range_max, bits):
+        nmin, nmax, scale = _nudged_range(range_min, range_max, bits)
+        x32 = x.to(torch.float32)
+        q = torch.round((torch.minimum(torch.maximum(x32, nmin), nmax) - nmin) / scale)
+        # the gradient's mask: the x of the input dtype against the fp32
+        # bounds, compared in fp32
+        ctx.save_for_backward((x32 >= nmin) & (x32 <= nmax))
+        return (q * scale + nmin).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        in_range, = ctx.saved_tensors
+        return g * in_range.to(g.dtype), None, None, None
+
+
+def fake_quant_with_range(x: torch.Tensor, range_min: torch.Tensor, range_max: torch.Tensor,
+                          bits: torch.Tensor) -> torch.Tensor:
+    """Fake-quantize against an externally tracked range (the moving-average
+    (min, max) of the uniform-tf learner), with the zero-point nudge of
+    FakeQuantWithMinMaxVars: clip to the nudged range, round half to even on
+    its grid.  The STE passes the gradient only where nudged_min <= x <=
+    nudged_max.  Plain PyTorch on every device: the reference leaves this op
+    to XLA and has no kernel for it."""
+    return _FakeQuantWithRange.apply(x, range_min, range_max, bits)
 
 
 # ---------------------------------------------------------------------------

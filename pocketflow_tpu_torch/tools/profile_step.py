@@ -29,6 +29,19 @@ chip smoke's runs A-C):
                    refresh (masked gradients, the masks re-applied)
     r20-ws-refresh r20-ws with a mask refresh (masking.prune_update) every step
 
+and MobileNet-v1 @ ILSVRC-12 at depth multiplier 1.0, 224x224, bf16, batch
+256, synthetic data (the chip smoke's runs K and M):
+
+    mbv1-full-prec   FullPrecLearner: no fake-quant (the uniform-tf step
+                     before its quant delay does the same work)
+    mbv1-uqtf        UniformQuantTFLearner's step, 8/8 bits, past the quant
+                     delay: one grouped K2' launch pair for the 28 weights,
+                     fake_quant_with_range on the 27 relu6 outputs, BN training
+    mbv1-uqtf-frozen the same step with BN frozen (the eval-mode forward)
+    mbv1-nuq         NonUniformQuantLearner's step: 4-bit codebooks on 26
+                     weights, 8-bit activations (K1' with the select on each
+                     of the 27 relu6 outputs), weights and codebooks trained
+
 and the DDPG agent of the RL searches (`ddpg`: one `train` update a step,
 state 29 wide as ResNet-20's weight-sparsification search, batch 64, a full
 buffer of 1,100 transitions).
@@ -51,6 +64,10 @@ fused_mm_proto's shape, beside matmul_bf16 and cuBLAS on the same x and w.
 Each is the profiler's kernel records of 10
 passes, summed and divided by 10, in two repeats, and the last repeat
 kernel by kernel.
+
+With --depthwise, MobileNet-v1's 13 depthwise convs alone at batch 256
+(bf16, channels-last): their device time forward and forward + backward
+(CUDA events), and one pass's device time by kernel.
 
 Prints one JSON object as its last line and writes it to --out if given.  A
 variant named twice (to time two variants in turns, A B B A) is reported
@@ -83,6 +100,11 @@ VARIANTS = {
     'r20-ws': ('weight-sparse', {'ws_mask_update_step': 10 ** 9}),
     'r20-ws-refresh': ('weight-sparse', {'ws_mask_update_step': 1, 'ws_iter_ratio_beg': 0.0,
                                          'ws_iter_ratio_end': 1.0}),
+    'mbv1-full-prec': ('full-prec', {}),
+    'mbv1-uqtf': ('uniform-tf', {'uqtf_quant_delay': 0}),
+    'mbv1-uqtf-frozen': ('uniform-tf', {'uqtf_quant_delay': 0}),
+    'mbv1-nuq': ('non-uniform', {'nuql_weight_bits': 4, 'nuql_init_style': 'kmeans',
+                                 'nuql_activation_bits': 8, 'nuql_opt_mode': 'both'}),
     'ddpg': (None, {}),
 }
 DDPG_S_DIMS, DDPG_BUF_SIZE, DDPG_BATCH = 29, 1100, 64
@@ -96,6 +118,8 @@ CATEGORIES = (
     ('fake-quant kernels', ('tensor_minmax', 'tensor_quantize', 'minmax_partials',
                             'group_quantize', 'column_group_partials', 'column_group_quantize')),
     ('batch norm', ('batch_norm',)),
+    # cuDNN's depthwise kernels: conv2d_c1_k1_nhwc, dgrad2d_..., wgrad2d_...
+    ('depthwise conv', ('depthwise', 'c1_k1_nhwc')),
     ('optimizer (foreach)', ('multi_tensor_apply', 'foreach')),
     ('conv/matmul (cuDNN, cuBLAS)', ('xmma', 'gemm', 'nvjet', 'cutlass', 'cudnn', 'conv2d',
                                      'implicit_convolve', 'sm90_', 'sm80_')),
@@ -193,7 +217,7 @@ def profile_variant(name: str) -> dict:
     from pocketflow_tpu_torch.config import FLAGS
     from pocketflow_tpu_torch.learners import create_learner
     from pocketflow_tpu_torch.learners.weight_sparsification import masking
-    from pocketflow_tpu_torch.nets import resnet_at_cifar10, resnet_at_ilsvrc12
+    from pocketflow_tpu_torch.nets import mobilenet_at_ilsvrc12, resnet_at_cifar10, resnet_at_ilsvrc12
     learner_name, flags = VARIANTS[name]
     if learner_name is None:  # the DDPG agent
         train_step, batch_size = ddpg_step()
@@ -203,6 +227,8 @@ def profile_variant(name: str) -> dict:
                      nb_smpls_train=16 * batch_size, **flags):
         if name.startswith('r20-'):
             helper = resnet_at_cifar10.ModelHelper(resnet_size=20)
+        elif name.startswith('mbv1-'):
+            helper = mobilenet_at_ilsvrc12.ModelHelper(version=1, depth_mult=1.0)
         else:
             helper = resnet_at_ilsvrc12.ModelHelper(resnet_size=50)
         learner = create_learner(None, helper, learner_name, device='cuda')
@@ -216,9 +242,12 @@ def profile_variant(name: str) -> dict:
             state, tx, _ = learner.init_state_quant()
             state, train_step = build_pruned_qat_step(learner, tx, state,
                                                       channel_masks(state.model))
-        elif learner_name == 'uniform':
+        elif learner_name in ('uniform', 'non-uniform'):
             state, tx, _ = learner.init_state_quant()
             train_step = learner.build_quant_train_step(tx)
+        elif learner_name == 'uniform-tf':
+            state, tx, _ = learner.init_state_quant()
+            train_step = learner.build_qat_train_step(tx, freeze_bn=name.endswith('-frozen'))
         elif learner_name == 'weight-sparse':
             state, tx, _ = learner.init_state()
             params = dict(state.model.named_parameters())
@@ -351,6 +380,50 @@ def profile_kernels(weight_shapes, repeats: int = 2, passes: int = 10) -> dict:
     return out, by_name
 
 
+def depthwise_ms(nb_reps: int = 10) -> dict:
+    """MobileNet-v1's 13 depthwise convs alone at depth multiplier 1.0,
+    224x224, batch BATCH, bf16 channels-last inputs: the device ms of all of
+    them forward, and forward + backward (input and kernel gradients), by
+    CUDA events over nb_reps passes, and one pass's device ms by kernel name
+    (the profiler's records)."""
+    from pocketflow_tpu_torch.core.cuda_timing import time_ms
+    from pocketflow_tpu_torch.nets.mobilenet_at_ilsvrc12 import ModelHelper
+    from pocketflow_tpu_torch.nn.layers import PFDepthwiseConv
+    model = ModelHelper(version=1, depth_mult=1.0).create_model()
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to('cuda').eval()
+    shapes = {}
+
+    def record(module, args):
+        shapes[module] = tuple(args[0].shape)
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, PFDepthwiseConv)]
+    with torch.no_grad():
+        model(torch.zeros((BATCH, 224, 224, 3), device='cuda'))
+    for hook in hooks:
+        hook.remove()
+    layers = [(m, torch.randn(shape, device='cuda', dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)) for m, shape in shapes.items()]
+
+    def forward():
+        return [m.conv_fn(x, m.kernel.to(torch.bfloat16)) for m, x in layers]
+
+    grads = [torch.randn_like(y) for y in forward()]
+    wrt = [x for _, x in layers] + [m.kernel for m, _ in layers]
+
+    def forward_backward(_=None):  # the gradients returned, not accumulated into .grad
+        return torch.autograd.grad(forward(), wrt, grads)
+
+    out = {'layers': len(layers), 'input_shapes': [list(s) for s in shapes.values()],
+           'forward_ms': time_ms(forward, nb_reps),
+           'forward_backward_ms': time_ms(forward_backward, nb_reps), 'by_kernel_ms': {}}
+    for name, s, e in _profile(forward_backward, 1):
+        name = name.replace('(anonymous namespace)::', '').split('(')[0][:100]
+        out['by_kernel_ms'][name] = out['by_kernel_ms'].get(name, 0.0) + (e - s) / 1e3
+    return out
+
+
 def resnet50_weight_shapes():
     """The 52 quantized weight shapes of the QAT ResNet-50 step."""
     from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
@@ -366,6 +439,8 @@ def main(argv=None):
     parser.add_argument('--out', default='')
     parser.add_argument('--skip_kernels', action='store_true',
                         help='profile the variants only, not the kernels one by one')
+    parser.add_argument('--depthwise', action='store_true',
+                        help="time MobileNet-v1's depthwise convs alone at batch 256")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_step: needs a CUDA device')
@@ -374,8 +449,11 @@ def main(argv=None):
 
     from pocketflow_tpu_torch.config import FLAGS
     # register the flags set below
+    import pocketflow_tpu_torch.learners.nonuniform_quantization.learner  # noqa: F401
     import pocketflow_tpu_torch.learners.uniform_quantization.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.uniform_quantization_tf.learner  # noqa: F401
     import pocketflow_tpu_torch.learners.weight_sparsification.learner  # noqa: F401
+    import pocketflow_tpu_torch.nets.mobilenet_at_ilsvrc12  # noqa: F401
     import pocketflow_tpu_torch.nets.resnet_at_cifar10  # noqa: F401
     import pocketflow_tpu_torch.nets.resnet_at_ilsvrc12  # noqa: F401
     FLAGS.override(synthetic_data=True, summ_step=10 ** 9, save_step=10 ** 9,
@@ -396,6 +474,9 @@ def main(argv=None):
                        'device_events_per_step', 'by_category_ms_per_step')})
         print('%s %s' % (name, json.dumps(brief)), flush=True)
         torch.cuda.empty_cache()
+    if args.depthwise:
+        report['depthwise'] = depthwise_ms()
+        print('depthwise %s' % json.dumps(report['depthwise']), flush=True)
     if not args.skip_kernels:
         report.update(zip(('kernels_device_ms_per_pass', 'kernels_device_ms_by_name'),
                           profile_kernels(resnet50_weight_shapes())))

@@ -141,7 +141,7 @@ def test_learner_refuses_missing_cuda_and_unported_names():
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match='cuda'):
                 create_learner(None, helper, 'full-prec')
-        for name in ('uniform-tf', 'non-uniform', 'channel'):
+        for name in ('channel', 'dis-chn-pruned', 'chn-pruned-gpu'):
             with pytest.raises(NotImplementedError, match='ROADMAP'):
                 create_learner(None, helper, name, device='cpu')
         with pytest.raises(ValueError):
@@ -191,4 +191,4 @@ def test_main_trains_baseline_then_qat_then_evaluates_on_cpu(tmp_path, monkeypat
         tags = {json.loads(line)['tag'] for line in fin}
     assert {'train/loss', 'train/accuracy', 'train/speed'} <= tags
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        port_main.main(['--model=mobilenet_at_ilsvrc12'], device='cpu')
+        port_main.main(['--model=vgg_at_pascalvoc'], device='cpu')
