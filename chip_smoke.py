@@ -45,6 +45,20 @@ on the card, and drives the port's paths:
     versions, a small step of each new learner card vs CPU, and the two
     plain ops (fake_quant_with_range, nonuniform_quant) card vs CPU and
     timed;
+  * the channel-pruning family through main.main (no fake-quant kernel):
+    ResNet-20 @ CIFAR-10 at batch 128 from run A's baseline, run O (the LASSO
+    pruner, uniform 0.5, with distillation: each of the 20 prunable convs at
+    ceil(0.5 c_in) channels within the LASSO's tolerance), P (chn-pruned-rmt:
+    exactly round(0.5 c_in)), Q (chn-pruned-gpu: >= 40% of each middle
+    layer's channels zeroed, head and tail kept), R (dis-chn-pruned: exactly
+    half, the auxiliary heads trained), every masked input channel 0 after
+    the finetune; MobileNet-v1 at 224, batch 256, run S: the AMC search
+    (2 roll-outs, each timed by part) under a 0.5 FLOPs budget over the 13
+    pointwise convs, its top-k in ddpg_search.npz, then the finetune; then
+    the pruner's solvers card vs CPU at MobileNet's 1024->1024 and
+    ResNet-20's 64->64 layers (the same channels, kernels within
+    CP_KERNEL_TOL), a LASSO solve and a whole layer timed, and a CPG PGD step
+    and a DCP grad-norm step card vs CPU;
 
 and checks that each went through its kernels and never through a plain
 version.  Any failed phase raises and the script exits non-zero without its
@@ -219,6 +233,39 @@ NUQ_SEARCH_RUN = ('zoo run N: resnet_at_cifar10 non-uniform, RL bit search (2 ro
 NUQ_SEARCH_ARGV = ['--learner=non-uniform', '--nuql_enbl_rl_agent', '--nuql_nb_rlouts=2',
                    '--nuql_tune_global_steps=5', '--nuql_enbl_rl_layerwise_tune',
                    '--nuql_tune_layerwise_steps=3', '--nb_epochs_rat=0.05']
+# phase 19: the channel-pruning family through main.main on ResNet-20 from
+# run A's baseline; iteration counts cut from their defaults (logged):
+# cp_nb_batches 30 -> 10, cpr_nb_smpls 5000 -> 1280 (10 batches),
+# cpg_nb_iters_layer 1000 -> 50, dcp_nb_iters_block 10000 -> 2,
+# dcp_nb_iters_layer 500 -> 1
+CP_RUNS = [  # (label, learner, save-path flag, argv)
+    ('zoo run O: resnet_at_cifar10 channel (LASSO), uniform 0.5 + distillation, 25 finetune '
+     'steps', 'channel', 'cp_channel_pruned_path',
+     ['--cp_prune_option=uniform', '--cp_uniform_preserve_ratio=0.5', '--enbl_dst',
+      '--cp_nb_batches=10', '--nb_epochs_rat=0.05']),
+    ('zoo run P: resnet_at_cifar10 chn-pruned-rmt, ratio 0.5, 30 steps', 'chn-pruned-rmt',
+     'cpr_save_path', ['--cpr_prune_ratio=0.5', '--cpr_nb_smpls=1280', '--nb_epochs_rat=0.012']),
+    ('zoo run Q: resnet_at_cifar10 chn-pruned-gpu, ratio 0.5 (50 PGD + 50 reconstruction '
+     'steps), 30 steps', 'chn-pruned-gpu', 'cpg_save_path',
+     ['--cpg_prune_ratio=0.5', '--cpg_nb_iters_layer=50', '--nb_epochs_rat=0.012']),
+    ('zoo run R: resnet_at_cifar10 dis-chn-pruned, ratio 0.5 (2 block-FT and 1 layer-FT step), '
+     '30 steps', 'dis-chn-pruned', 'dcp_save_path',
+     ['--dcp_prune_ratio=0.5', '--dcp_nb_iters_block=2', '--dcp_nb_iters_layer=1',
+      '--nb_epochs_rat=0.012'])]
+# phase 20: MobileNet-v1 at 224, depth 1.0, bf16, batch 256: the AMC search
+# (2 roll-outs, 2 batches sampled a layer: cp_nb_rlouts 200 -> 2,
+# cp_nb_batches 30 -> 2), then the prune at the best ratios and 5 finetune steps
+AMC_RUN = ('mobilenet run S: v1 channel, AMC search (2 roll-outs) under a 0.5 FLOPs budget, '
+           'then 5 finetune steps')
+AMC_TRAIN, AMC_STEPS = 1280, 5
+# phase 21: the LASSO pruner's solvers card vs CPU from the same X and Y
+# (rows: MobileNet's layer at one batch of 256 x 10 points, ResNet-20's at
+# 10 batches of 128 x 10), then timed on the card at the default 30 batches
+CP_LAYERS = [('MobileNet-v1 1x1 1024->1024', (1, 1, 1024, 1024), 2560, 256 * 10 * 30),
+             ('ResNet-20 3x3 64->64', (3, 3, 64, 64), 12800, 128 * 10 * 30)]
+# the reconstructed kernels card vs CPU: float64 solves on P and X products
+# that differ only in the fp32 sums' order
+CP_KERNEL_TOL = 1e-5
 # phase 18: MobileNet-v1's two largest activations at batch 256 (bf16)
 MB_ACT_SHAPES = [(256, 64, 112, 112), (256, 32, 112, 112)]
 # fp32 operations a fake-quant element costs: min, max; x - beta, / alpha,
@@ -1875,6 +1922,312 @@ def phase_plain_ops(FLAGS, card):
     del model, books, grads
 
 
+def cp_checkpoint_masks(path):
+    """{kernel name: [c_in] mask} of the newest checkpoint under `path`, after
+    checking that every masked input channel of its kernel is exactly 0."""
+    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+    payload = ckpt_lib.restore_latest(path, map_location='cpu')
+    masks, model = payload['extra']['masks'], payload['model']
+    out = {}
+    for name, mask in masks.items():
+        if mask.dim():
+            chn = mask.reshape(-1)
+            check(not torch.any(model[name][:, :, chn == 0, :]),
+                  'masked input channels of %s not zero in %s', name, path)
+            out[name] = chn
+    return out
+
+
+def phase_cp_path(FLAGS, work_dir, card):
+    """Phase 19: runs O-R through main.main on ResNet-20 @ CIFAR-10 at batch
+    128 from run A's baseline, each to its channel counts with every masked
+    input channel exactly 0 after its finetune, a finite loss and eval, and
+    no kernel launched; each run timed (its prune phase: from main.main's
+    call to the first finetune step), its peak memory.  Returns {run label:
+    counters}."""
+    from pocketflow_tpu_torch.learners.discr_channel_pruning import learner as dcp
+    inits, reset = [], dcp.AuxHead.reset_parameters
+
+    def recording(head, generator=None):  # each auxiliary head's initial values
+        reset(head, generator)
+        inits.append((head, [p.detach().clone() for p in head.parameters()]))
+
+    runs = {}
+    for label, name, save_flag, argv in CP_RUNS:
+        save = os.path.join(work_dir, 'resnet_at_cifar10', label.split(':')[0].split()[-1],
+                            'model.ckpt')
+        first_step = []
+        dcp.AuxHead.reset_parameters = recording
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            start = time.perf_counter()
+            learner, counter, runs[label], elapsed = run_main(
+                FLAGS, work_dir, 'resnet_at_cifar10',
+                ['--learner=%s' % name, '--%s=%s' % (save_flag, save),
+                 '--cp_best_path=%s' % save] + argv,
+                on_step=lambda when, state: first_step.append(time.perf_counter())
+                if when == 'before' and not first_step else None)
+        finally:
+            dcp.AuxHead.reset_parameters = reset
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        loss = float(counter.metrics['loss'])
+        ev = counter.evals[-1]
+        check(math.isfinite(loss) and all(math.isfinite(v) for v in ev.values()),
+              '%s: loss %r, eval %s', label, loss, ev)
+        check(runs[label] == no_launches() and counter.steps > 0, '%s: launches %s, %d steps',
+              label, runs[label], counter.steps)
+        masks = cp_checkpoint_masks(save)
+        kept = {n: (int(m.sum()), m.numel()) for n, m in masks.items()}
+        if name == 'channel':
+            paths = [s['path'].replace('/', '.') + '.kernel' for s in learner.specs]
+            check(sorted(kept) == sorted(paths) and len(paths) == 20, '%s: masks %s', label,
+                  sorted(kept))
+            # the LASSO's band is +-1% of c_in, widened by a channel whenever the
+            # alpha bracket collapses
+            off = {n: k - math.ceil(0.5 * c) for n, (k, c) in kept.items()}
+            check(all(abs(d) <= 2 for d in off.values()), '%s: kept %s', label, kept)
+            timings = {k: round(v, 3) for k, v in learner.pruner.timings.items()}
+        elif name == 'chn-pruned-rmt':
+            check(len(kept) == 20 and all(k == round(0.5 * c) for k, c in kept.values()),
+                  '%s: kept %s', label, kept)
+            timings = {k: round(v, 3) for k, v in learner.pruner.timings.items()}
+        elif name == 'chn-pruned-gpu':
+            names = learner.prunable_paths(dict(learner.init_state()[0].model.named_parameters()))
+            check(sorted(kept) == sorted(names) and len(names) == 21, '%s: masks %s', label,
+                  sorted(kept))
+            ends = (names[0], names[-1])
+            check(all(kept[n][0] == kept[n][1] for n in ends), '%s: head/tail pruned %s', label,
+                  {n: kept[n] for n in ends})
+            check(all(1 - k / c >= 0.4 for n, (k, c) in kept.items() if n not in ends),
+                  '%s: kept %s', label, kept)
+            timings = {}
+        else:
+            pruned = {n: kc for n, kc in kept.items() if n != 'conv_init.kernel'}
+            check(len(pruned) == 20 and all(c - k == c // 2 for k, c in pruned.values())
+                  and kept['conv_init.kernel'][0] == 3, '%s: kept %s', label, kept)
+            heads = [(h, i) for h, i in inits if any(h is x for x in learner.aux_heads.values())]
+            check(len(heads) == len(learner.aux_heads) == 3 and all(
+                any(not torch.equal(p.detach().cpu(), v.cpu()) for p, v in zip(h.parameters(), i))
+                for h, i in heads), '%s: auxiliary heads untrained', label)
+            timings = {}
+        prune_s = (first_step[0] - start) if first_step else float('nan')
+        log('  %s: kept/c_in %s | %d finetune steps, loss %.4f, eval %s | launches %s | %.1f s, '
+            'of which the set-up and prune phase %.2f s %s, peak memory %.3f GiB | %s', label,
+            {n[:-len('.kernel')]: '%d/%d' % kc for n, kc in kept.items()}, counter.steps, loss,
+            {k: round(v, 4) for k, v in ev.items()}, runs[label], elapsed, prune_s, timings,
+            peak, card)
+    return runs
+
+
+def phase_mobilenet_amc(FLAGS, work_dir, card):
+    """Phase 20, run S: MobileNet-v1 at 224, depth 1.0, bf16, batch 256,
+    random weights from seed 0, through main.main: the AMC search over the 13
+    pointwise convs (2 roll-outs, rewards from the train split's held-out
+    part) under a 0.5 FLOPs budget, its top-k in ddpg_search.npz, then the
+    prune at the best ratios and 5 finetune steps with every masked input
+    channel exactly 0 and no kernel launched.  Each roll-out timed by part
+    (sampling, LASSO, ridge, fast eval), the finetune steps, the peak memory.
+    Returns {run label: counters}."""
+    import numpy as np
+    run_dir = os.path.join(work_dir, 'mobilenet', 'S')
+    save = os.path.join(run_dir, 'cp', 'model.ckpt')
+    argv = ['--learner=channel', '--cp_prune_option=auto', '--cp_preserve_ratio=0.5',
+            '--cp_nb_rlouts=2', '--cp_nb_rlouts_min=1', '--cp_nb_batches=2',
+            '--cp_channel_pruned_path=%s' % save, '--cp_best_path=%s' % save,
+            '--save_path=%s' % os.path.join(run_dir, 'models', 'model.ckpt'),
+            '--model=mobilenet_at_ilsvrc12', '--mobilenet_version=1',
+            '--mobilenet_depth_mult=1.0', '--data_dir_local=', '--batch_size=%d' % MB_BATCH,
+            '--batch_size_eval=%d' % MB_BATCH, '--nb_smpls_train=%d' % AMC_TRAIN,
+            '--nb_smpls_eval=%d' % MB_EVAL, '--nb_epochs_rat=0.05']
+    recorder = StepRecorder()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    learner, counter, counts, elapsed = run_main(FLAGS, work_dir, 'mobilenet_at_ilsvrc12', argv,
+                                                 recorder)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    label = AMC_RUN
+    loss = float(counter.metrics['loss'])
+    ev = counter.evals[-1]
+    check(math.isfinite(loss) and all(math.isfinite(v) for v in ev.values()),
+          '%s: loss %r, eval %s', label, loss, ev)
+    check(counts == no_launches() and counter.steps == AMC_STEPS, '%s: launches %s, %d steps',
+          label, counts, counter.steps)
+    specs = learner.specs
+    check(len(specs) == 13 and all(s['path'].endswith('/pw') and s['kernel_shape'][:2] == (1, 1)
+                                   for s in specs), '%s: specs %s', label,
+          [s['path'] for s in specs])
+    search = np.load(os.path.join(run_dir, 'cp', 'ddpg_search.npz'))
+    ratios = np.asarray(search['x_ratios_best'], np.float64)
+    flops = np.asarray([s['flops'] for s in specs])
+    preserved = float(np.sum(flops * ratios) / np.sum(flops))
+    topk = search['x_ratios_topk']
+    check(int(search['x_idx_rlout']) == 1 and 1 <= topk.shape[0] <= 2 and topk.shape[1] == 13
+          and search['x_rewards_topk'].shape[0] == topk.shape[0],
+          '%s: search checkpoint %s', label, {k: search[k].shape for k in search.files})
+    check(preserved <= 0.5 + 1e-6, '%s: preserved FLOPs %.4f over the budget', label, preserved)
+    masks = cp_checkpoint_masks(save)
+    kept = np.asarray([float(masks[s['path'].replace('/', '.') + '.kernel'].sum())
+                       / s['kernel_shape'][2] for s in specs])
+    times = learner.rollout_times
+    check(len(times) == 2, '%s: %d roll-outs timed', label, len(times))
+    log('  %s: best ratios %s, preserved FLOPs %.4f of the 13 pointwise convs (budget 0.5; the '
+        'kept channels %.4f), top-k rewards %s | %d finetune steps %s ms, loss %.4f, eval %s | '
+        'launches %s | %.1f s, peak memory %.2f GiB | %s', label,
+        [round(float(r), 3) for r in ratios], preserved, float(np.sum(flops * kept) / np.sum(flops)),
+        [round(float(r), 4) for r in search['x_rewards_topk']], counter.steps,
+        [round(recorder.ms(i), 2) for i in range(len(recorder.steps))], loss,
+        {k: round(v, 4) for k, v in ev.items()}, counts, elapsed, peak, card)
+    for i, t in enumerate(times):
+        log('  %s roll-out %d: %.3f s = sampling %.3f + LASSO %.3f + ridge %.3f + fast eval %.3f '
+            '(+ %.3f s of copies and bookkeeping) | %s', label, i, t['total'], t['sample'],
+            t['lasso'], t['ridge'], t['feval'],
+            t['total'] - t['sample'] - t['lasso'] - t['ridge'] - t['feval'], card)
+    return {label: counts}
+
+
+def _cp_layer_data(shape, nb_rows, device, seed=0):
+    """(kernel HWIO, X [n, c_in, h, w], Y [n, c_out]) of one conv: ReLU
+    inputs, channel weights spread over two decades (a clear LASSO order),
+    Y = the conv's output plus 1% noise."""
+    h, w, c_in, c_out = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    scale = torch.logspace(-2, 0, c_in, device=device)[torch.randperm(c_in, generator=gen,
+                                                                       device=device)]
+    kernel = torch.randn(shape, generator=gen, device=device) * scale[None, None, :, None]
+    X = torch.relu(torch.randn((nb_rows, c_in, h, w), generator=gen, device=device))
+    Y = torch.einsum('pchw,hwco->po', X, kernel)
+    Y = Y + 0.01 * Y.std() * torch.randn(Y.shape, generator=gen, device=device)
+    return kernel, X, Y
+
+
+def phase_cp_solvers(FLAGS, card):
+    """Phase 21, the solvers: select_channels + prune_layer at 0.5 from the
+    same X and Y on the card and on the CPU, at MobileNet's 1x1 1024->1024
+    and ResNet-20's 3x3 64->64 layers: the same channel set, the
+    reconstructed kernels within CP_KERNEL_TOL of the CPU's norm.  Then, on
+    the card at the default 30 batches' rows: one LASSO solve (CUDA events)
+    and the whole layer (host clock ended by a synchronize)."""
+    from pocketflow_tpu_torch.learners.channel_pruning import channel_pruner as cp
+    for label, shape, nb_rows, nb_rows_full in CP_LAYERS:
+        spec = {'path': label, 'kernel_shape': shape}
+        with FLAGS.scope(cp_lasso_nb_iters=300, rand_seed=0, cp_lasso=True):
+            kernel, X, Y = _cp_layer_data(shape, nb_rows, 'cpu')
+            out = {}
+            for device in ('cpu', 'cuda'):
+                pruner = cp.ChannelPruner(None, [spec])
+                start = time.perf_counter()
+                out[device] = pruner.prune_layer(spec, kernel.to(device), X.to(device),
+                                                 Y.to(device), 0.5)
+                out[device + '_s'] = time.perf_counter() - start
+            (k_cpu, i_cpu), (k_gpu, i_gpu) = out['cpu'], out['cuda']
+            err = float((k_gpu.cpu() - k_cpu).norm() / k_cpu.norm())
+            check(torch.equal(i_gpu.cpu(), i_cpu), '%s: channels card vs CPU differ', label)
+            check(err <= CP_KERNEL_TOL, '%s: kernel card vs CPU %.3g', label, err)
+
+            kernel, X, Y = _cp_layer_data(shape, nb_rows_full, 'cuda')
+            pruner = cp.ChannelPruner(None, [spec])
+            pruner.prune_layer(spec, kernel, X, Y, 0.5)  # warm-up
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            _, idxs = pruner.prune_layer(spec, kernel, X, Y, 0.5)
+            torch.cuda.synchronize()
+            layer_s = time.perf_counter() - start
+            P, y = cp.lasso_inputs(X, Y, kernel)
+            problem = cp.lasso_problem(P, y)
+            solve_ms = time_ms(lambda: pruner.solver(problem, 1e-3))
+            gram_ms = time_ms(lambda: cp.lasso_problem(P, y))
+            del P, y, problem, X, Y
+        log('  %s: %d rows, %d of %d channels kept, the same on both, kernel card vs CPU %.3g '
+            'of its norm (bound %g); prune_layer CPU %.2f s, card %.3f s | at %d rows on the '
+            'card: a LASSO solve (300 iterations) %.3f ms, the Gram form (P %d x %d) %.3f ms, '
+            'the whole layer %.3f s (%d channels kept) | %s', label, nb_rows, int(i_cpu.sum()),
+            shape[2], err, CP_KERNEL_TOL, out['cpu_s'], out['cuda_s'], nb_rows_full, solve_ms,
+            min(400, nb_rows_full // 20) * shape[3], shape[2], gram_ms, layer_s,
+            int(idxs.sum()), card)
+        torch.cuda.empty_cache()
+
+
+def phase_cp_steps(FLAGS):
+    """Phase 21, the steps: a CPG PGD step (ResNet-20 @ CIFAR-10, fp32,
+    batch 8) and a DCP grad-norm step (ConvNet @ FMNIST, conv2 half masked,
+    one auxiliary head) on the card against the CPU from the same seed, as
+    phase 18 holds the other learners' steps: the forward quantities (the
+    PGD step's 21 regression losses of a copy 10% off the full model, the
+    DCP selection loss) within 1e-3 relative; the update and the gradient norms reported beside the CPU's
+    own spread (the batch reversed), not bounded (fp32 convolution
+    gradients differ between the devices' libraries)."""
+    from pocketflow_tpu_torch.learners.channel_pruning.learner import kernel_masks
+    from pocketflow_tpu_torch.learners.channel_pruning_gpu import learner as cpg
+    from pocketflow_tpu_torch.learners.discr_channel_pruning import learner as dcp
+    from pocketflow_tpu_torch.nets import convnet_at_fmnist, resnet_at_cifar10
+    small = dict(batch_size=8, batch_size_eval=8, nb_smpls_train=64, nb_smpls_eval=8,
+                 compute_dtype='float32', rand_seed=0)
+    runs = (('cpu', 'cpu'), ('reversed', 'cpu'), ('cuda', 'cuda'))
+    pgd, norms = {}, {}
+    with FLAGS.scope(**small):
+        for run, device in runs:
+            learner = cpg.ChannelPrunedGpuLearner(None, resnet_at_cifar10.ModelHelper(),
+                                                  device=device)
+            full = learner.init_state()[0].model
+            pruned = copy.deepcopy(full)
+            names = learner.prunable_paths(dict(full.named_parameters()))
+            # the pruned copy starts 10% off the full model (host-drawn), so
+            # that the regression losses before the step are not 0
+            gen = torch.Generator().manual_seed(5)
+            with torch.no_grad():
+                for p in pruned.parameters():
+                    p.mul_(1 + 0.1 * torch.randn(p.shape, generator=gen).to(device))
+            images, labels = learner.dataset_train.synthesize_arrays(64)
+            images, labels = images[:8].astype('float32'), labels[:8]
+            if run == 'reversed':
+                images, labels = images[::-1].copy(), labels[::-1].copy()
+            batch = learner.put_batch({'image': images, 'label': labels})
+            lrn = torch.full((len(names),), 0.05, device=device)
+            pct = torch.linspace(10.0, 60.0, len(names), device=device)
+            losses = cpg.pgd_step(learner, full, pruned, names, lrn, pct, batch)
+            params, start = dict(pruned.named_parameters()), dict(full.named_parameters())
+            update = torch.cat([(params[n] - start[n]).detach().reshape(-1) for n in names])
+            pgd[run] = (losses.cpu().double(), update.cpu().double())
+
+            learner = dcp.DisChnPrunedLearner(None, convnet_at_fmnist.ModelHelper(),
+                                              device=device)
+            full = learner.init_state()[0].model
+            model = copy.deepcopy(full)
+            chn = torch.ones(32)
+            chn[16:] = 0.0
+            masks = kernel_masks(model, {'conv2': chn})
+            with torch.no_grad():
+                dict(model.named_parameters())['conv2.kernel'].mul_(masks['conv2.kernel'])
+            head = dcp.AuxHead(64, 10)
+            head.reset_parameters(torch.Generator().manual_seed(3))
+            heads = {'conv2': head.to(device)}
+            images, labels = learner.dataset_train.synthesize_arrays(64)
+            images, labels = images[:8].astype('float32'), labels[:8]
+            if run == 'reversed':
+                images, labels = images[::-1].copy(), labels[::-1].copy()
+            batch = learner.put_batch({'image': images, 'label': labels})
+            x, y = learner.dataset_train.augment_xy(batch, None, False)
+            with torch.no_grad():
+                loss, _ = dcp.selection_loss(learner, full, model, heads, ['conv2'], x, y,
+                                             [1.0, 0.0], 'conv2')
+            g = dcp.grad_norm_step(learner, full, model, heads, ['conv2'], batch, 'conv2',
+                                   [1.0, 0.0])
+            norms[run] = (float(loss), g.cpu().double())
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    loss_err = rel(pgd['cuda'][0], pgd['cpu'][0])
+    sel_err = abs(norms['cuda'][0] - norms['cpu'][0]) / abs(norms['cpu'][0])
+    log('  CPG PGD step, ResNet-20 @ 32, fp32, batch 8: the 21 regression losses card vs CPU '
+        '%.3g relative (bound 1e-3); the update %.3g of its norm from the CPU\'s (the CPU\'s '
+        'reversed batch %.3g) | DCP grad-norm step, ConvNet: selection loss card vs CPU %.3g '
+        'relative (bound 1e-3); the gradient norms %.3g (the CPU\'s reversed batch %.3g), '
+        'argmax card %d, CPU %d', loss_err, rel(pgd['cuda'][1], pgd['cpu'][1]),
+        rel(pgd['reversed'][1], pgd['cpu'][1]), sel_err, rel(norms['cuda'][1], norms['cpu'][1]),
+        rel(norms['reversed'][1], norms['cpu'][1]), int(norms['cuda'][1].argmax()),
+        int(norms['cpu'][1].argmax()))
+    check(loss_err <= 1e-3, 'CPG regression losses card vs CPU %.3g', loss_err)
+    check(sel_err <= 1e-3, 'DCP selection loss card vs CPU %.3g', sel_err)
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1887,6 +2240,10 @@ def main():
 
     from pocketflow_tpu_torch.config import FLAGS
     # every flag main.main defines, registered before any run's scope saves them
+    import pocketflow_tpu_torch.learners.channel_pruning.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.channel_pruning_gpu.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.channel_pruning_rmt.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.discr_channel_pruning.learner  # noqa: F401
     import pocketflow_tpu_torch.learners.nonuniform_quantization.learner  # noqa: F401
     import pocketflow_tpu_torch.learners.uniform_quantization_tf.learner  # noqa: F401
     import pocketflow_tpu_torch.learners.weight_sparsification.learner  # noqa: F401
@@ -2029,14 +2386,27 @@ def main():
         runs.update(phase_mobilenet_uqtf(FLAGS, work_dir, card))
         runs.update(phase_mobilenet_nuq(FLAGS, work_dir, card))
         runs.update(phase_nuq_search(FLAGS, work_dir, card))
+        torch.cuda.empty_cache()
+        log('phase 18 MobileNet\'s shapes on the card: K2\' at the 28 weights of v1, K1\' with '
+            'the select at its largest activations, a small step of each new learner card vs '
+            'CPU, the two plain ops card vs CPU and timed')
+        phase_mobilenet_kernels(FLAGS, fq, device, card)
+        phase_mobilenet_reference(FLAGS)
+        mobilenet_grad_precision()
+        phase_plain_ops(FLAGS, card)
+        torch.cuda.empty_cache()
+        log('phase 19 the channel-pruning family through main.main: ResNet-20 @ CIFAR-10 at '
+            'batch %d from run A\'s baseline (runs O-R)', ZOO_BATCH)
+        runs.update(phase_cp_path(FLAGS, work_dir, card))
+        torch.cuda.empty_cache()
+        log('phase 20 the AMC search through main.main: MobileNet-v1 @ 224, depth 1.0, bf16, '
+            'batch %d (run S)', MB_BATCH)
+        runs.update(phase_mobilenet_amc(FLAGS, work_dir, card))
     torch.cuda.empty_cache()
-    log('phase 18 MobileNet\'s shapes on the card: K2\' at the 28 weights of v1, K1\' with the '
-        'select at its largest activations, a small step of each new learner card vs CPU, the '
-        'two plain ops card vs CPU and timed')
-    phase_mobilenet_kernels(FLAGS, fq, device, card)
-    phase_mobilenet_reference(FLAGS)
-    mobilenet_grad_precision()
-    phase_plain_ops(FLAGS, card)
+    log('phase 21 the channel pruner\'s solvers card vs CPU, timed; a CPG PGD step and a DCP '
+        'grad-norm step card vs CPU')
+    phase_cp_solvers(FLAGS, card)
+    phase_cp_steps(FLAGS)
 
     # each kernel's launches in the run that drives it: the main path for the
     # grouped K1', the 8-bit-activation route for K1' itself, the

@@ -18,12 +18,21 @@ ranges, the activation bits, the non-uniform codebooks).
 The DDPG agent's networks take the same route: ``ddpg_params_from_jax``
 carries the Flax actor and critic params (``blocks/dense_i``, ``blocks/ln_i``,
 ``dense_in``, ``ln_in``, ``head``) into the port's `Actor` and `Critic`, whose
-layers keep those names and Flax's [in, out] kernels.
+layers keep those names and Flax's [in, out] kernels.  A search checkpoint
+the JAX package wrote keeps the port's npz layout except its 'state' entry
+(Flax bytes of the agent): ``search_extras_from_jax`` reads the search's own
+entries (roll-out index, best reward and ratios, top-k) from it.
+
+The discrimination-aware learner's auxiliary heads (``gamma``, ``beta``,
+``fc/kernel`` [in, out], ``fc/bias`` a head site) go through
+``aux_heads_from_jax``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+import os
+import zipfile
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -130,3 +139,39 @@ def ddpg_params_from_jax(actor: torch.nn.Module, critic: torch.nn.Module,
     for module, params in ((actor, actor_params), (critic, critic_params)):
         _load_checked(module, ddpg_state_dict_from_jax(params))
     return actor, critic
+
+
+def search_extras_from_jax(path: str) -> Optional[Dict[str, np.ndarray]]:
+    """The caller's entries ('x_...', without the prefix) of a search
+    checkpoint the JAX package wrote, or None when `path` is missing,
+    unreadable, or the port's own file (its 'state' is a ``torch.save``
+    zip, which the agent restores itself)."""
+    if not path.endswith('.npz'):
+        path = path + '.npz'
+    if not os.path.exists(path):
+        return None
+    try:
+        blob = np.load(path)
+        if blob['state'][:2].tobytes() == b'PK':
+            return None
+        return {k[2:]: np.array(blob[k]) for k in blob.files if k.startswith('x_')}
+    except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+        return None  # corrupt or truncated: the search starts afresh
+
+
+def aux_heads_from_jax(heads: Mapping[str, torch.nn.Module], params: Mapping[str, Any]):
+    """Copy the JAX auxiliary heads' params ({site: {'gamma', 'beta', 'fc':
+    {'kernel', 'bias'}}}) into the port's heads (site -> AuxHead) in place.
+    Raises on a missing or extra site, an unmapped leaf, a shape mismatch,
+    or a parameter left unset."""
+    if set(heads) != set(params):
+        raise KeyError('bridge: head sites %s in the port, %s in JAX'
+                       % (sorted(heads), sorted(params)))
+    for site, head in heads.items():
+        state_dict = {}
+        for path, value in _flatten(params[site]).items():
+            if path not in ('gamma', 'beta', 'fc/kernel', 'fc/bias'):
+                raise KeyError('bridge: unmapped head parameter %r of %s' % (path, site))
+            state_dict[path.replace('/', '.')] = torch.from_numpy(np.array(value, np.float32))
+        _load_checked(head, state_dict)
+    return heads

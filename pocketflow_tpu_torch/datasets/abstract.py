@@ -123,6 +123,11 @@ class AbstractDataset(ABC):
         out = self.augment_batch(batch, generator, is_train)
         return out['image'], out['label']
 
+    def augment_images(self, batch, generator: Optional[torch.Generator], is_train: bool):
+        """The augmented images of a device batch, labels dropped: for the
+        steps that only need pixels (feature capture, regression)."""
+        return self.augment_batch(batch, generator, is_train)['image']
+
     def peek_images(self, n: int = 2) -> np.ndarray:
         """First ``n`` raw images without building the iterator pipeline."""
         if not hasattr(self, '_cached_arrays'):

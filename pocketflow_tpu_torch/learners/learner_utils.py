@@ -1,20 +1,12 @@
 """Learner factory (counterpart of pocketflow_tpu/learners/learner_utils.py).
 
-Maps the --learner flag to a learner class.  The port has ``full-prec``,
-``uniform``, ``uniform-tf``, ``non-uniform`` and ``weight-sparse``; the
-channel-pruning names of the JAX package raise NotImplementedError with the
-ROADMAP item that ports them.
+Maps the --learner flag to a learner class: every learner of the JAX
+package (``full-prec``, ``uniform``, ``uniform-tf``, ``non-uniform``,
+``weight-sparse``, ``channel``, ``chn-pruned-gpu``, ``chn-pruned-rmt``,
+``dis-chn-pruned``).
 """
 
 from __future__ import annotations
-
-# learner name -> ROADMAP item ('Modules to port') that ports it
-_NOT_PORTED = {
-    'channel': 'item 18',
-    'chn-pruned-gpu': 'item 18',
-    'chn-pruned-rmt': 'item 18',
-    'dis-chn-pruned': 'item 18',
-}
 
 
 def create_learner(sm_writer, model_helper, learner_name=None, device='cuda'):
@@ -39,8 +31,19 @@ def create_learner(sm_writer, model_helper, learner_name=None, device='cuda'):
     if name == 'weight-sparse':
         from pocketflow_tpu_torch.learners.weight_sparsification.learner import WeightSparseLearner
         return WeightSparseLearner(sm_writer, model_helper, device)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            "learner %r is not ported yet (ROADMAP 'Modules to port', %s)"
-            % (name, _NOT_PORTED[name]))
+    if name == 'channel':
+        from pocketflow_tpu_torch.learners.channel_pruning.learner import ChannelPrunedLearner
+        return ChannelPrunedLearner(sm_writer, model_helper, device)
+    if name == 'chn-pruned-gpu':
+        from pocketflow_tpu_torch.learners.channel_pruning_gpu.learner import (
+            ChannelPrunedGpuLearner)
+        return ChannelPrunedGpuLearner(sm_writer, model_helper, device)
+    if name == 'chn-pruned-rmt':
+        from pocketflow_tpu_torch.learners.channel_pruning_rmt.learner import (
+            ChannelPrunedRmtLearner)
+        return ChannelPrunedRmtLearner(sm_writer, model_helper, device)
+    if name == 'dis-chn-pruned':
+        from pocketflow_tpu_torch.learners.discr_channel_pruning.learner import (
+            DisChnPrunedLearner)
+        return DisChnPrunedLearner(sm_writer, model_helper, device)
     raise ValueError('unrecognized learner name: ' + name)

@@ -175,6 +175,25 @@ def apply_masks_(params: Tensors, masks: Tensors):
                             [masks[n].to(params[n].dtype) for n in names])
 
 
+def masked_update_hooks(model: torch.nn.Module):
+    """(grad_transform_fn, post_update_fn) for a train step that keeps
+    ``state.extra['masks']``: the maskable parameters' gradients masked in
+    place after the backward, and the masks re-applied after each update.
+    The step updates `model`'s parameters in place, so they are looked up
+    once, here."""
+    params = dict(model.named_parameters())
+    maskable = {name: params[name] for name in maskable_paths(params)}
+
+    def grad_transform(state):
+        mask_gradients_({n: p.grad for n, p in maskable.items()}, state.extra['masks'])
+
+    def post_update(state):
+        apply_masks_(maskable, state.extra['masks'])
+        return state
+
+    return grad_transform, post_update
+
+
 def masks_from_ratios(params: Tensors, ratios: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Masks at explicit per-layer ratios (the ratio optimizer's roll-outs)."""
     out = {}

@@ -36,21 +36,11 @@ def channel_masks(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tens
 def build_pruned_qat_step(learner, tx, state, masks: Dict[str, torch.Tensor]):
     """bench.py's composed pruned+QAT step from the learner's hooks: the QAT
     policy, the gradients of the maskable kernels masked in place, and the
-    masks re-applied to the parameters after each update.  The masks go into
-    ``state.extra['masks']``.  The step updates the model's parameters in
-    place, so the maskable ones are looked up once, here.  Returns (state,
-    train_step)."""
+    masks re-applied to the parameters after each update
+    (``masking.masked_update_hooks``).  The masks go into
+    ``state.extra['masks']``.  Returns (state, train_step)."""
     state = learner.set_extra(state, {**state.extra, 'masks': masks})
-    params = dict(state.model.named_parameters())
-    maskable = {name: params[name] for name in masking.maskable_paths(params)}
-
-    def grad_transform(s):
-        masking.mask_gradients_({n: p.grad for n, p in maskable.items()}, s.extra['masks'])
-
-    def post_update(s):
-        masking.apply_masks_(maskable, s.extra['masks'])
-        return s
-
+    grad_transform, post_update = masking.masked_update_hooks(state.model)
     return state, learner.build_train_step(tx, policy_fn=learner._policy_fn(),
                                            grad_transform_fn=grad_transform,
                                            post_update_fn=post_update)

@@ -30,7 +30,11 @@ def main(argv=None, device='cuda'):
     from pocketflow_tpu_torch.core.metrics import SummaryWriter, get_logger
     from pocketflow_tpu_torch.learners import create_learner
     from pocketflow_tpu_torch.utils.path_args import apply_path_conf
-    # register the flags of every ported module before parsing
+    # register the flags of every learner before parsing
+    import pocketflow_tpu_torch.learners.channel_pruning.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.channel_pruning_gpu.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.channel_pruning_rmt.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.discr_channel_pruning.learner  # noqa: F401
     import pocketflow_tpu_torch.learners.nonuniform_quantization.learner  # noqa: F401
     import pocketflow_tpu_torch.learners.uniform_quantization.learner  # noqa: F401
     import pocketflow_tpu_torch.learners.uniform_quantization_tf.learner  # noqa: F401

@@ -134,16 +134,23 @@ def test_profile_step_summarizes_device_events():
 
 
 def test_learner_refuses_missing_cuda_and_unported_names():
-    from pocketflow_tpu_torch.learners import create_learner
+    """create_learner refuses a missing card and an unknown name, and builds
+    every learner of the JAX package on the CPU, the four channel-pruning
+    ones included (none is left unported)."""
+    from pocketflow_tpu_torch.learners import create_learner, learner_utils
     from pocketflow_tpu_torch.nets.resnet_at_ilsvrc12 import ModelHelper
     with TFLAGS.scope(ilsvrc_image_size=32, synthetic_data=True):
         helper = ModelHelper(resnet_size=18)
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match='cuda'):
                 create_learner(None, helper, 'full-prec')
-        for name in ('channel', 'dis-chn-pruned', 'chn-pruned-gpu'):
-            with pytest.raises(NotImplementedError, match='ROADMAP'):
-                create_learner(None, helper, name, device='cpu')
+        classes = {'channel': 'ChannelPrunedLearner', 'chn-pruned-gpu': 'ChannelPrunedGpuLearner',
+                   'chn-pruned-rmt': 'ChannelPrunedRmtLearner',
+                   'dis-chn-pruned': 'DisChnPrunedLearner'}
+        for name, cls in classes.items():
+            learner = create_learner(None, helper, name, device='cpu')
+            assert type(learner).__name__ == cls and learner.device.type == 'cpu'
+        assert not hasattr(learner_utils, '_NOT_PORTED')
         with pytest.raises(ValueError):
             create_learner(None, helper, 'no-such-learner', device='cpu')
 
