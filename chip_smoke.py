@@ -59,6 +59,18 @@ on the card, and drives the port's paths:
     ResNet-20's 64->64 layers (the same channels, kernels within
     CP_KERNEL_TOL), a LASSO solve and a whole layer timed, and a CPG PGD step
     and a DCP grad-norm step card vs CPU;
+  * the deployment path through tools/export_cli.main and tools/serving.main
+    (no fake-quant kernel): run T exports the main path's ResNet-50 state
+    ('plain' and 'quant'), serves it in bf16 and in int8 (PTQ calibrated on
+    2 batches, every site int8, the int32 accumulators of every distinct
+    contraction shape equal to the CPU's from the same codes), with both
+    latencies at batch 256 and the top-1 agreement; run U shrinks run S's
+    channel-pruned MobileNet-v1 across its depthwise chains
+    ('chn-pruned-residual': scattered back, the dense logits exactly; the
+    width-mapped net within SHRUNK_FP32_TOL / SHRUNK_BF16_TOL of them, with
+    fewer parameters), its FLOPs audit and the dense and shrunk nets'
+    latencies in bf16 and int8; run V shrinks run O's ResNet-20 and serves
+    it through serving.main;
 
 and checks that each went through its kernels and never through a plain
 version.  Any failed phase raises and the script exits non-zero without its
@@ -93,6 +105,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from pocketflow_tpu_torch.core.cuda_timing import (
@@ -275,6 +288,28 @@ FQ_OPS_PER_ELEMENT = 9
 # N past a column tile), beside the experiments' shapes
 MATMUL_RAGGED = [(1, 8, 8), (129, 8, 8), (1000, 8, 8), (129, 40, 24), (1000, 72, 136),
                  (1000, 200, 264), (777, 520, 72), (30000, 72, 264)]
+
+# phase 22: the deployment path through the CLIs' main(argv) on the card.
+# Run T serves phase 6's ResNet-50 state (224, bf16, batch 256) in bf16 and
+# in int8 (PTQ calibrated on SERVE_CALIB batches); run U shrinks run S's
+# channel-pruned MobileNet-v1 (224, depth 1.0, bf16, batch 256) across its
+# depthwise chains; run V shrinks run O's ResNet-20 across residual merges.
+# Latency: the reference's protocol (distinct staged inputs, a warm-up, the
+# timed calls between two CUDA events), cut from 100 + 100 calls
+SERVE_BATCH, SERVE_CALIB, SERVE_WARMUP, SERVE_TIMED = 256, 2, 5, 20
+# the width-mapped net against the dense one (its logits, and each block's
+# kept output channels), largest |delta| over the largest |value|: in fp32
+# (cuDNN without TF32) the sums differ only in their order; in bf16 an
+# activation may round to the neighbouring bf16 value, one of 2^8 of it
+SHRUNK_FP32_TOL, SHRUNK_BF16_TOL = 1e-4, 5e-2
+# int8_matmul card vs CPU at (M, K, N) off what cuBLASLt's int8 GEMM takes
+INT8_GRID = ((1, 17, 40, 200704), (8, 14, 16, 27, 32, 96), (8, 20, 40, 62, 1001))
+SERVE_RUNS = {'T': 'serving run T: resnet_at_ilsvrc12 ResNet-50 from phase 6, plain and quant '
+                   'export, bf16 and int8 serving',
+              'U': 'serving run U: mobilenet_at_ilsvrc12 v1 from run S, chn-pruned-residual '
+                   'export, dense and shrunk serving in bf16 and int8',
+              'V': 'serving run V: resnet_at_cifar10 from run O, chn-pruned-residual export and '
+                   'serving.main'}
 
 
 def log(msg, *args):
@@ -2228,6 +2263,282 @@ def phase_cp_steps(FLAGS):
     check(sel_err <= 1e-3, 'DCP selection loss card vs CPU %.3g', sel_err)
 
 
+def int8_accumulators_card_vs_cpu(model, weight_q, scales, images):
+    """Every distinct (kernel, input, strides, padding) shape of `model`'s
+    int8 contractions in an eval forward of `images` on the card, contracted
+    again on the CPU from the same codes: the int32 accumulators must be
+    equal.  Returns the number of shapes."""
+    from pocketflow_tpu_torch.nn.layers import compression
+    from pocketflow_tpu_torch.ops import int8_ops
+    seen = {}
+
+    class Recorder(int8_ops.Int8ServingPolicy):
+        def run_contraction(self, path, x, kernel, contract_fn):
+            def recorded(xq, codes, acc_dtype):
+                acc = contract_fn(xq, codes, acc_dtype)
+                layer = getattr(contract_fn, '__self__', None)
+                key = (tuple(codes.shape), tuple(xq.shape), getattr(layer, 'strides', None),
+                       getattr(layer, 'padding', None))
+                seen.setdefault(key, (contract_fn, xq, codes, acc))
+                return acc
+            return super().run_contraction(path, x, kernel, recorded)
+
+    with torch.no_grad(), compression(Recorder(weight_q, scales)):
+        model.eval()(images)
+    for key, (contract_fn, xq, codes, acc) in seen.items():
+        check(acc.dtype == torch.int32 and acc.is_cuda, 'accumulators %s on %s', acc.dtype,
+              acc.device)
+        want = contract_fn(xq.cpu(), codes.cpu(), torch.int32)
+        check(torch.equal(acc.cpu(), want), 'int8 accumulators card != CPU at %s', key)
+    return len(seen)
+
+
+def int8_matmul_grid_card_vs_cpu():
+    """int8_matmul at odd shapes (M <= 16, K and N off the multiples cuBLASLt
+    takes: widths a shrink leaves) on the card against the CPU, bit for bit.
+    Returns the number of shapes."""
+    from pocketflow_tpu_torch.ops import int8_ops
+    shapes = [(m, k, n) for m in INT8_GRID[0] for k in INT8_GRID[1] for n in INT8_GRID[2]]
+    for m, k, n in shapes:
+        gen = torch.Generator().manual_seed(m + k + n)
+        a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+        check(torch.equal(int8_ops.int8_matmul(a.cuda(), b.cuda()).cpu(),
+                          int8_ops.int8_matmul(a, b)), 'int8_matmul card != CPU at %s', (m, k, n))
+    return len(shapes)
+
+
+def serving_images(helper, nb):
+    """`nb` synthetic eval images of `helper`'s dataset, augmented on the card."""
+    ds = helper.build_dataset_eval()
+    return ds.augment(torch.from_numpy(ds.synthesize_arrays(nb)[0][:nb]).cuda(), None, False)
+
+
+def serving_times(model, policies, shape):
+    """{name: ms} of the eval forward under each policy (None: the float
+    path), measured in turns a, b, ..., b, a: the reference protocol with
+    SERVE_WARMUP + SERVE_TIMED calls."""
+    from pocketflow_tpu_torch.tools.benchmark import calc_inference_time
+    times = {name: [] for name in policies}
+    for name in list(policies) + list(reversed(policies)):
+        times[name].append(calc_inference_time(model, shape, SERVE_WARMUP, SERVE_TIMED,
+                                               policy=policies[name])['latency_ms'])
+    return times
+
+
+def top1_agreement(model, policy, images):
+    from pocketflow_tpu_torch.nn.layers import compression
+    with torch.no_grad():
+        ref = model(images).float()
+        with compression(policy):
+            out = model(images).float()
+    check(torch.isfinite(ref).all() and torch.isfinite(out).all(), 'non-finite logits')
+    return float((ref.argmax(-1) == out.argmax(-1)).float().mean())
+
+
+def logits_delta(a, b, images):
+    """max |a(x) - b(x)| / max |a(x)|."""
+    with torch.no_grad():
+        ya, yb = a(images).float(), b(images).float()
+    check(torch.isfinite(ya).all() and torch.isfinite(yb).all(), 'non-finite logits')
+    return float((ya - yb).abs().max() / ya.abs().max())
+
+
+def shrunk_deltas(dense, shrunk, manifest, images):
+    """(logits, (worst, block)): max |dense - shrunk| / max |dense| of the
+    logits, and the worst over the blocks whose output channels a component
+    kept, the dense net's kept channels against the shrunk net's."""
+    kept = {c['producers'][0].split('/')[0]: c['kept_channels'] for c in manifest['components']
+            if len(c['producers']) == 1}
+    outs = {}
+    hooks = [module.register_forward_hook(
+        lambda mod, inp, out, key=(tag, name): outs.__setitem__(key, out.float()))
+        for tag, net in (('dense', dense), ('shrunk', shrunk))
+        for name, module in net.named_children() if name in kept]
+    try:
+        logits = logits_delta(dense, shrunk, images)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    worst = (0.0, None)
+    for name, channels in kept.items():
+        want = outs['dense', name][:, channels]
+        delta = float((want - outs['shrunk', name]).abs().max() / want.abs().max().clamp_min(1e-30))
+        worst = max(worst, (delta, name), key=lambda d: d[0])
+    return logits, worst
+
+
+def phase_serving(FLAGS, work_dir, serve_ckpt, card):
+    """Phase 22: runs T, U and V through export_cli.main and serving.main on
+    the card (see SERVE_RUNS), no kernel launched.  Returns {run label:
+    counters}."""
+    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+    from pocketflow_tpu_torch.core.bridge import load_jax_numpy, to_jax_numpy
+    from pocketflow_tpu_torch.nets import mobilenet_at_ilsvrc12, resnet_at_ilsvrc12
+    from pocketflow_tpu_torch.ops import int8_ops
+    from pocketflow_tpu_torch.tools import export as export_lib
+    from pocketflow_tpu_torch.tools import export_cli, serving, shrink_graph
+    out_dir = os.path.join(work_dir, 'export')
+    runs = {}
+
+    # run T: ResNet-50 from phase 6's state
+    t_flags = ['--export_model=resnet_at_ilsvrc12', '--resnet_size=50', '--resnet_stem_s2d',
+               '--synthetic_data', '--compute_dtype=bfloat16']
+    with FLAGS.scope(**FLAGS.as_dict()):
+        reset_counters()
+        start = time.perf_counter()
+        artifacts = {mode: export_cli.main(t_flags + [
+            '--ckpt_path=%s' % serve_ckpt, '--export_mode=%s' % mode, '--uql_weight_bits=8',
+            '--output_path=%s' % os.path.join(out_dir, 'T', mode)]) for mode in ('plain', 'quant')}
+        export_s = time.perf_counter() - start
+        served = serving.main(t_flags + ['--artifact=%s' % artifacts['plain'],
+                                         '--serve_batch=%d' % SERVE_BATCH])
+        check(np.isfinite(served['logits']).all() and served['logits'].shape == (2, 1001),
+              'run T: serving.main logits %s', served['logits'].shape)
+        helper = resnet_at_ilsvrc12.ModelHelper(resnet_size=50)
+        model = serving.load_serving_model(artifacts['plain'], helper.create_model().cuda())
+        quant = serving.load_serving_model(artifacts['quant'], helper.create_model().cuda())
+        images = serving_images(helper, SERVE_BATCH * (SERVE_CALIB + 1))
+        calib = list(images[:SERVE_BATCH * SERVE_CALIB].split(SERVE_BATCH))
+        images = images[SERVE_BATCH * SERVE_CALIB:]
+        start = time.perf_counter()
+        scales = int8_ops.calibrate(model, calib)
+        weight_q = int8_ops.quantize_model_weights(model)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - start
+        coverage = int8_ops.verify_quant_coverage(model, images[:2], weight_q, scales)
+        check(len(weight_q) == len(scales) == NB_WEIGHT_SITES + 2
+              and coverage == {'unquantized_weights': [], 'uncalibrated': []},
+              'run T: %d weights, %d scales, coverage %s', len(weight_q), len(scales), coverage)
+        policy = int8_ops.Int8ServingPolicy(weight_q, scales)
+        nb_shapes = int8_accumulators_card_vs_cpu(model, weight_q, scales, images[:2])
+        nb_grid = int8_matmul_grid_card_vs_cpu()
+        agree = top1_agreement(model, policy, images)
+        quant_delta = logits_delta(model, quant, images)
+        times = serving_times(model, {'bf16': None, 'int8': policy},
+                              (SERVE_BATCH,) + tuple(images.shape[1:]))
+        runs[SERVE_RUNS['T']] = counters()
+    check(runs[SERVE_RUNS['T']] == no_launches(), 'run T: launches %s', runs[SERVE_RUNS['T']])
+    log('  %s: plain and quant export %.1f s; serving.main bf16 %.3f ms a batch of %d (%.1f '
+        'img/s, %d + %d calls); int8: %d sites int8 (coverage complete), calibration on %d '
+        'batches %.2f s, int32 accumulators card == CPU at all %d distinct contraction shapes '
+        '(batch 2) and %d odd int8_matmul shapes, top-1 agreement with bf16 %.4f on %d images; '
+        'the 8-bit quant artifact\'s logits %.3e of the largest from the plain one\'s | %s',
+        SERVE_RUNS['T'], export_s, served['latency_ms'], SERVE_BATCH,
+        served['throughput_per_sec'], 100, 100, len(weight_q), SERVE_CALIB, calib_s, nb_shapes,
+        nb_grid, agree, SERVE_BATCH, quant_delta, card)
+    log('  run T latency at batch %d (ms, %d calls after %d, in turns): bf16 %s, int8 %s; '
+        'int8/bf16 %.3f | %s', SERVE_BATCH, SERVE_TIMED, SERVE_WARMUP,
+        [round(t, 3) for t in times['bf16']], [round(t, 3) for t in times['int8']],
+        median(times['int8']) / median(times['bf16']), card)
+    del model, quant, images, calib, weight_q, policy
+    torch.cuda.empty_cache()
+
+    # run U: MobileNet-v1 from run S's channel-pruned checkpoint
+    s_ckpt = os.path.join(work_dir, 'mobilenet', 'S', 'cp', 'model.ckpt')
+    u_flags = ['--export_model=mobilenet_at_ilsvrc12', '--mobilenet_version=1',
+               '--mobilenet_depth_mult=1.0', '--synthetic_data', '--compute_dtype=bfloat16']
+    with FLAGS.scope(**FLAGS.as_dict()):
+        reset_counters()
+        start = time.perf_counter()
+        artifact = export_cli.main(u_flags + [
+            '--ckpt_path=%s' % s_ckpt, '--export_mode=chn-pruned-residual',
+            '--output_path=%s' % os.path.join(out_dir, 'U', 'shrunk')])
+        export_s = time.perf_counter() - start
+        with open(artifact + '.manifest.json') as fin:
+            manifest = json.load(fin)
+        helper = mobilenet_at_ilsvrc12.ModelHelper(version=1, depth_mult=1.0)
+        dense = helper.create_model()
+        dense.load_state_dict(ckpt_lib.restore_latest(s_ckpt, map_location='cpu')['model'])
+        dense = dense.cuda().eval()
+        shrunk = serving.load_serving_model(artifact, helper.create_model().cuda())
+        through_dw = [c for c in manifest['components'] if len(c['kept_channels'])
+                      < c['orig_channels'] and set(c['consumers']) & set(manifest['depthwise'])]
+        nb_dense = sum(p.numel() for p in dense.parameters())
+        nb_shrunk = sum(p.numel() for p in shrunk.parameters())
+        check(through_dw and nb_shrunk < nb_dense, 'run U: no producer shrunk across a '
+              'depthwise chain (%d components), %d vs %d parameters',
+              len(manifest['components']), nb_shrunk, nb_dense)
+        images = serving_images(helper, SERVE_BATCH * (SERVE_CALIB + 1))
+        calib = list(images[:SERVE_BATCH * SERVE_CALIB].split(SERVE_BATCH))
+        images = images[SERVE_BATCH * SERVE_CALIB:]
+        # the shrunk tree scattered back to dense: the dense net's logits exactly
+        packed = export_lib.unpack_quantized(export_lib.load_packed(artifact))
+        params, stats = to_jax_numpy(dense)
+        expanded = load_jax_numpy(dense.clone(), *shrink_graph.expand_to_dense(
+            packed, manifest, params, stats)).cuda().eval()
+        with torch.no_grad():
+            check(torch.equal(expanded(images), dense(images)),
+                  'run U: scattered-back logits differ from the dense net\'s')
+        deltas = {'bf16': shrunk_deltas(dense, shrunk, manifest, images)}
+        fp32 = {}
+        for name, net in (('dense', dense), ('shrunk', shrunk)):
+            fp32[name] = net.clone(dtype=torch.float32)
+            fp32[name].load_state_dict(net.state_dict())
+            fp32[name] = fp32[name].cuda().eval()
+        deltas['fp32'] = shrunk_deltas(fp32['dense'], fp32['shrunk'], manifest, images)
+        del fp32, expanded
+        for dtype, tol in (('bf16', SHRUNK_BF16_TOL), ('fp32', SHRUNK_FP32_TOL)):
+            check(max(deltas[dtype][0], deltas[dtype][1][0]) <= tol, 'run U: shrunk net %s '
+                  'from the dense one in %s (bound %.0e)', deltas[dtype], dtype, tol)
+        shape = (SERVE_BATCH,) + tuple(images.shape[1:])
+        times, agree = {}, {}
+        for name, net in (('dense', dense), ('shrunk', shrunk)):
+            policy = int8_ops.Int8ServingPolicy(int8_ops.quantize_model_weights(net),
+                                                int8_ops.calibrate(net, calib))
+            agree[name] = top1_agreement(net, policy, images)
+            times.update({'%s %s' % (name, k): v for k, v in serving_times(
+                net, {'bf16': None, 'int8': policy}, shape).items()})
+        runs[SERVE_RUNS['U']] = counters()
+    check(runs[SERVE_RUNS['U']] == no_launches(), 'run U: launches %s', runs[SERVE_RUNS['U']])
+    audit = manifest['flops_audit']
+    log('  %s: export %.1f s; %d components, %d through depthwise chains, channels kept %s | '
+        'parameters %d -> %d; FLOPs audit (conv + dense) %.4e -> %.4e (-%.2f%%); scattered back '
+        'to dense: logits equal at batch %d; shrunk vs dense, of the largest: logits %.3e, '
+        'the worst block\'s kept channels %.3e (%s) in bf16 (bound %.0e), %.3e and %.3e (%s) '
+        'in fp32 (bound %.0e); int8 top-1 agreement with bf16 %s | %s',
+        SERVE_RUNS['U'], export_s, len(manifest['components']), len(through_dw),
+        ['%d/%d' % (len(c['kept_channels']), c['orig_channels']) for c in manifest['components']],
+        nb_dense, nb_shrunk, audit['flops_before'], audit['flops_after'],
+        100 * audit['reduction'], SERVE_BATCH, deltas['bf16'][0], deltas['bf16'][1][0],
+        deltas['bf16'][1][1], SHRUNK_BF16_TOL, deltas['fp32'][0], deltas['fp32'][1][0],
+        deltas['fp32'][1][1], SHRUNK_FP32_TOL, agree, card)
+    log('  run U latency at batch %d (ms, %d calls after %d, in turns; int8 skips the depthwise '
+        'convs): %s; shrunk/dense bf16 %.3f, int8 %.3f | %s', SERVE_BATCH, SERVE_TIMED,
+        SERVE_WARMUP, {k: [round(t, 3) for t in v] for k, v in times.items()},
+        median(times['shrunk bf16']) / median(times['dense bf16']),
+        median(times['shrunk int8']) / median(times['dense int8']), card)
+    del dense, shrunk, images, calib
+    torch.cuda.empty_cache()
+
+    # run V: ResNet-20 @ CIFAR-10 from run O's channel-pruned checkpoint
+    o_ckpt = os.path.join(work_dir, 'resnet_at_cifar10', 'O', 'model.ckpt')
+    v_flags = ['--export_model=resnet_at_cifar10', '--compute_dtype=bfloat16',
+               '--nosynthetic_data', '--data_dir_local=%s' % os.path.join(work_dir, 'cifar10')]
+    with FLAGS.scope(**FLAGS.as_dict()):
+        reset_counters()
+        artifact = export_cli.main(v_flags + [
+            '--ckpt_path=%s' % o_ckpt, '--export_mode=chn-pruned-residual',
+            '--output_path=%s' % os.path.join(out_dir, 'V', 'shrunk')])
+        served = serving.main(v_flags + ['--artifact=%s' % artifact,
+                                         '--serve_batch=%d' % ZOO_BATCH])
+        with open(artifact + '.manifest.json') as fin:
+            manifest = json.load(fin)
+        check(manifest['components'] and np.isfinite(served['logits']).all(),
+              'run V: %d components, logits %s', len(manifest['components']), served['logits'])
+        runs[SERVE_RUNS['V']] = counters()
+    check(runs[SERVE_RUNS['V']] == no_launches(), 'run V: launches %s', runs[SERVE_RUNS['V']])
+    merged = [c for c in manifest['components'] if len(c['producers']) > 1]
+    log('  %s: %d components (%d joining producers across residual merges: %s), channels kept '
+        '%s; FLOPs audit -%.2f%%; serving.main %.3f ms a batch of %d | %s', SERVE_RUNS['V'],
+        len(manifest['components']), len(merged),
+        ['%s %d/%d' % ('+'.join(c['producers']), len(c['kept_channels']), c['orig_channels'])
+         for c in merged], ['%d/%d' % (len(c['kept_channels']), c['orig_channels'])
+                            for c in manifest['components']],
+        100 * manifest['flops_audit']['reduction'], served['latency_ms'], ZOO_BATCH, card)
+    return runs
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2255,6 +2566,7 @@ def main():
     from pocketflow_tpu_torch.ops import matmul as mm
 
     card = card_line()
+    serve_dir = tempfile.TemporaryDirectory(prefix='pf_serve_')  # removed at exit
     log('phase 1 device: %s | %s | torch %s cuda %s', card, torch.cuda.get_device_name(0),
         torch.__version__, torch.version.cuda)
 
@@ -2326,6 +2638,8 @@ def main():
         check(counters() == no_launches(fake_quant_per_tensor_group=1),
               'eval step launches %s', counters())
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        serve_ckpt = os.path.join(serve_dir.name, 'models', 'model.ckpt')
+        learner.save_model(state, serve_ckpt)  # phase 22's run T serves this state
         log('  step %d loss %.4f acc %.4f | eval %s', state.step, loss,
             float(metrics['accuracy']), ev)
         log('  %.2f img/s, %.2f ms/step over %d steps, peak memory %.2f GiB | %s',
@@ -2402,11 +2716,18 @@ def main():
         log('phase 20 the AMC search through main.main: MobileNet-v1 @ 224, depth 1.0, bf16, '
             'batch %d (run S)', MB_BATCH)
         runs.update(phase_mobilenet_amc(FLAGS, work_dir, card))
-    torch.cuda.empty_cache()
-    log('phase 21 the channel pruner\'s solvers card vs CPU, timed; a CPG PGD step and a DCP '
-        'grad-norm step card vs CPU')
-    phase_cp_solvers(FLAGS, card)
-    phase_cp_steps(FLAGS)
+        torch.cuda.empty_cache()
+        log('phase 21 the channel pruner\'s solvers card vs CPU, timed; a CPG PGD step and a '
+            'DCP grad-norm step card vs CPU')
+        phase_cp_solvers(FLAGS, card)
+        phase_cp_steps(FLAGS)
+        torch.cuda.empty_cache()
+        log('phase 22 the deployment path through export_cli.main and serving.main: ResNet-50 '
+            'from phase 6 in bf16 and int8 (run T), MobileNet-v1 from run S shrunk across its '
+            'depthwise chains (run U), ResNet-20 from run O shrunk across residual merges (run '
+            'V), batch %d', SERVE_BATCH)
+        runs.update(phase_serving(FLAGS, work_dir, serve_ckpt, card))
+    serve_dir.cleanup()
 
     # each kernel's launches in the run that drives it: the main path for the
     # grouped K1', the 8-bit-activation route for K1' itself, the

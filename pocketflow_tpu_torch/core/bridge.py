@@ -12,6 +12,11 @@ rename from 'a/b/c' to 'a.b.c' with the layouts kept: conv kernels stay HWIO
 other leaf raises, and ``load_jax_numpy`` raises on any port parameter or
 buffer left unset.
 
+``to_jax_numpy`` is the way back: a port model's parameters and running
+statistics as the Flax ``params`` and ``batch_stats`` trees (nested dicts of
+float32 numpy arrays, keys sorted), on which the export tools work, so that
+an artifact the port writes has the keys of one the JAX package writes.
+
 A learner's ``state.extra`` goes through ``extra_from_jax`` (the uniform-tf
 ranges, the activation bits, the non-uniform codebooks).
 
@@ -79,6 +84,37 @@ def load_jax_numpy(model: torch.nn.Module, params: Mapping[str, Any],
     unmapped key, a shape mismatch, or a port parameter/buffer left unset."""
     state_dict, buffers = from_jax_numpy(params, batch_stats)
     return _load_checked(model, {**state_dict, **buffers})
+
+
+def _nest(tree: Dict[str, Any], parts, value):
+    for part in parts[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[parts[-1]] = value
+
+
+def _sorted_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return {key: _sorted_tree(value) if isinstance(value, dict) else value
+            for key, value in sorted(tree.items())}
+
+
+def to_jax_numpy(model: torch.nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(params, batch_stats) of `model` as Flax trees of float32 numpy arrays:
+    'stage1_block0.bn1.bn.scale' goes to params/stage1_block0/bn1/bn/scale,
+    the buffer 'stage1_block0.bn1.bn.mean' to batch_stats/stage1_block0/bn1/bn/mean.
+    Raises KeyError on an entry ``from_jax_numpy`` would not map back."""
+    params: Dict[str, Any] = {}
+    batch_stats: Dict[str, Any] = {}
+    for name, value in model.named_parameters():
+        parts = name.split('.')
+        if parts[-1] not in _PARAM_LEAVES or (parts[-1] == 'scale' and parts[-2:-1] != ['bn']):
+            raise KeyError('bridge: unmapped port parameter %r' % name)
+        _nest(params, parts, value.detach().to('cpu', torch.float32).numpy().copy())
+    for name, value in model.named_buffers():
+        parts = name.split('.')
+        if parts[-1] not in _STAT_LEAVES or parts[-2:-1] != ['bn']:
+            raise KeyError('bridge: unmapped port buffer %r' % name)
+        _nest(batch_stats, parts, value.detach().to('cpu', torch.float32).numpy().copy())
+    return _sorted_tree(params), _sorted_tree(batch_stats)
 
 
 def _load_checked(model: torch.nn.Module, values: Dict[str, torch.Tensor]) -> torch.nn.Module:

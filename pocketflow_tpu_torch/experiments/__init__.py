@@ -1,6 +1,7 @@
-"""A/B experiments of the port's hand-written matmul kernels on one GPU
+"""Experiments on one GPU: A/B runs of the port's hand-written matmul kernels
 (counterparts of the JAX package's experiments/fused_mm_proto.py,
-conv1x1_ab.py and mm_shape_sweep.py).  Each is an entry point,
+conv1x1_ab.py and mm_shape_sweep.py) and the int8 GEMM's shape probe
+(int_mm_probe.py).  Each is an entry point,
 ``python -m pocketflow_tpu_torch.experiments.<name>``, whose ``main(argv)``
 also returns its results, and each needs a CUDA device."""
 

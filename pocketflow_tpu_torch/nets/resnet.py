@@ -4,11 +4,18 @@ Module names equal the Flax names (``conv_init``, ``stage1_block0/conv1``,
 ``bn1/bn/scale``, ``fc``), so quant sites, the bridge from JAX parameters and
 checkpoints all resolve by the same paths.  Layer calls follow the Flax
 order, which fixes both the weight-site order and the 'act/<idx>' ids.
+
+``width_map`` (module path -> output channels, as
+``tools/shrink_graph.width_map_from_packed`` gives it) builds the physically
+smaller net that serves a channel-shrunk export: every conv takes its
+producer's mapped width as its input width.  Whether a block has a shortcut
+conv (or, in MobileNet-v2, a residual add) follows the dense net's widths, so
+a shrink can never add or drop one.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -26,22 +33,44 @@ def _refuse_remat():
             'maybe_remat)' % FLAGS.remat_blocks)
 
 
+def _w(width_map: Optional[Dict[str, int]], path: str, default: int) -> int:
+    """The output width of the module at `path` (counterpart of the JAX
+    package's ``_w``, keyed by the same full module paths)."""
+    return int(width_map.get(path, default)) if width_map else default
+
+
+class WidthMapped:
+    """A net built from keyword arguments kept in ``config``; ``clone``
+    builds it again with some of them changed (``width_map=...`` for the
+    shrunk serving net, as Flax's ``model.clone``)."""
+
+    def clone(self, **changes) -> nn.Module:
+        return type(self)(**{**self.config, **changes})
+
+
 class BasicBlock(nn.Module):
+    """Two 3x3 convs and the shortcut.  `in_features` is the producer's
+    width; `projection` (default: a stride or a width change) says whether
+    the shortcut is a 1x1 conv."""
     expansion = 1
 
     def __init__(self, in_features: int, features: int, strides=(1, 1),
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, width_map=None, path: str = '',
+                 projection: Optional[bool] = None):
         super().__init__()
-        self.conv1 = PFConv(in_features, features, (3, 3), strides, use_bias=False, dtype=dtype)
-        self.bn1 = BatchNorm(features, dtype=dtype)
-        self.conv2 = PFConv(features, features, (3, 3), use_bias=False, dtype=dtype)
-        self.bn2 = BatchNorm(features, dtype=dtype)
-        if tuple(strides) != (1, 1) or in_features != features:
-            self.conv_sc = PFConv(in_features, features, (1, 1), strides, use_bias=False,
-                                  dtype=dtype)
-            self.bn_sc = BatchNorm(features, dtype=dtype)
-        else:
-            self.conv_sc = None
+        if projection is None:
+            projection = tuple(strides) != (1, 1) or in_features != features
+        width = _w(width_map, path + '/conv1', features)
+        self.out_features = _w(width_map, path + '/conv2', features)
+        self.conv1 = PFConv(in_features, width, (3, 3), strides, use_bias=False, dtype=dtype)
+        self.bn1 = BatchNorm(width, dtype=dtype)
+        self.conv2 = PFConv(width, self.out_features, (3, 3), use_bias=False, dtype=dtype)
+        self.bn2 = BatchNorm(self.out_features, dtype=dtype)
+        self.conv_sc = None
+        if projection:
+            sc = _w(width_map, path + '/conv_sc', self.out_features)
+            self.conv_sc = PFConv(in_features, sc, (1, 1), strides, use_bias=False, dtype=dtype)
+            self.bn_sc = BatchNorm(sc, dtype=dtype)
 
     def forward(self, x):
         shortcut = x
@@ -53,24 +82,30 @@ class BasicBlock(nn.Module):
 
 
 class BottleneckBlock(nn.Module):
-    """Bottleneck of width `features`; the output has 4x as many channels."""
+    """Bottleneck of width `features`; the output has 4x as many channels.
+    `in_features` and `projection` as in BasicBlock."""
     expansion = 4
 
     def __init__(self, in_features: int, features: int, strides=(1, 1),
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, width_map=None, path: str = '',
+                 projection: Optional[bool] = None):
         super().__init__()
-        out = 4 * features
-        self.conv1 = PFConv(in_features, features, (1, 1), use_bias=False, dtype=dtype)
-        self.bn1 = BatchNorm(features, dtype=dtype)
-        self.conv2 = PFConv(features, features, (3, 3), strides, use_bias=False, dtype=dtype)
-        self.bn2 = BatchNorm(features, dtype=dtype)
-        self.conv3 = PFConv(features, out, (1, 1), use_bias=False, dtype=dtype)
-        self.bn3 = BatchNorm(out, dtype=dtype)
-        if tuple(strides) != (1, 1) or in_features != out:
-            self.conv_sc = PFConv(in_features, out, (1, 1), strides, use_bias=False, dtype=dtype)
-            self.bn_sc = BatchNorm(out, dtype=dtype)
-        else:
-            self.conv_sc = None
+        if projection is None:
+            projection = tuple(strides) != (1, 1) or in_features != 4 * features
+        w1 = _w(width_map, path + '/conv1', features)
+        w2 = _w(width_map, path + '/conv2', features)
+        self.out_features = _w(width_map, path + '/conv3', 4 * features)
+        self.conv1 = PFConv(in_features, w1, (1, 1), use_bias=False, dtype=dtype)
+        self.bn1 = BatchNorm(w1, dtype=dtype)
+        self.conv2 = PFConv(w1, w2, (3, 3), strides, use_bias=False, dtype=dtype)
+        self.bn2 = BatchNorm(w2, dtype=dtype)
+        self.conv3 = PFConv(w2, self.out_features, (1, 1), use_bias=False, dtype=dtype)
+        self.bn3 = BatchNorm(self.out_features, dtype=dtype)
+        self.conv_sc = None
+        if projection:
+            sc = _w(width_map, path + '/conv_sc', self.out_features)
+            self.conv_sc = PFConv(in_features, sc, (1, 1), strides, use_bias=False, dtype=dtype)
+            self.bn_sc = BatchNorm(sc, dtype=dtype)
 
     def forward(self, x):
         shortcut = x
@@ -82,24 +117,31 @@ class BottleneckBlock(nn.Module):
         return relu(y + shortcut)
 
 
-class ResNetCifar(nn.Module):
+class ResNetCifar(WidthMapped, nn.Module):
     """ResNet-(6n+2) for CIFAR: a 3x3 stem, 3 stages of n BasicBlocks at
     widths 16/32/64, global average pool and dense.  Takes NHWC images and
     returns fp32 logits."""
 
     def __init__(self, nb_blocks: int, nb_classes: int = 10,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 width_map: Optional[Dict[str, int]] = None):
         super().__init__()
         _refuse_remat()
-        self.conv_init = PFConv(3, 16, (3, 3), use_bias=False, dtype=dtype)
-        self.bn_init = BatchNorm(16, dtype=dtype)
-        in_features = 16
+        self.config = dict(nb_blocks=nb_blocks, nb_classes=nb_classes, dtype=dtype,
+                           width_map=width_map)
+        self.width_map = width_map
+        in_features = _w(width_map, 'conv_init', 16)
+        self.conv_init = PFConv(3, in_features, (3, 3), use_bias=False, dtype=dtype)
+        self.bn_init = BatchNorm(in_features, dtype=dtype)
+        dense_in = 16
         for stage, width in enumerate((16, 32, 64)):
             for block in range(nb_blocks):
                 strides = (2, 2) if (stage > 0 and block == 0) else (1, 1)
-                self.add_module('stage%d_block%d' % (stage + 1, block),
-                                BasicBlock(in_features, width, strides, dtype))
-                in_features = width
+                name = 'stage%d_block%d' % (stage + 1, block)
+                module = BasicBlock(in_features, width, strides, dtype, width_map, name,
+                                    projection=strides != (1, 1) or dense_in != width)
+                self.add_module(name, module)
+                in_features, dense_in = module.out_features, width
         self.fc = PFDense(in_features, nb_classes, dtype=dtype)
         set_paths(self)
 
@@ -132,7 +174,7 @@ def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // block, w // block, c * block * block)
 
 
-class ResNetImageNet(nn.Module):
+class ResNetImageNet(WidthMapped, nn.Module):
     """ResNet-v1 for ILSVRC-12 (7x7 stem, 4 stages).
 
     Takes NHWC images, as the JAX model does, and returns fp32 logits.
@@ -141,25 +183,33 @@ class ResNetImageNet(nn.Module):
     """
 
     def __init__(self, resnet_size: int = 50, nb_classes: int = 1001,
-                 dtype: torch.dtype = torch.bfloat16, stem_space_to_depth: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, stem_space_to_depth: bool = False,
+                 width_map: Optional[Dict[str, int]] = None):
         super().__init__()
         _refuse_remat()
+        self.config = dict(resnet_size=resnet_size, nb_classes=nb_classes, dtype=dtype,
+                           stem_space_to_depth=stem_space_to_depth, width_map=width_map)
+        self.width_map = width_map
         block_cls, stage_sizes = IMAGENET_CONFIGS[resnet_size]
         self.dtype = dtype
         self.stem_space_to_depth = stem_space_to_depth
+        in_features = _w(width_map, 'conv_init', 64)
         if stem_space_to_depth:
-            self.conv_init = PFConv(12, 64, (4, 4), (1, 1), use_bias=False, dtype=dtype)
+            self.conv_init = PFConv(12, in_features, (4, 4), (1, 1), use_bias=False, dtype=dtype)
         else:
-            self.conv_init = PFConv(3, 64, (7, 7), (2, 2), use_bias=False, dtype=dtype)
-        self.bn_init = BatchNorm(64, dtype=dtype)
-        in_features = 64
+            self.conv_init = PFConv(3, in_features, (7, 7), (2, 2), use_bias=False, dtype=dtype)
+        self.bn_init = BatchNorm(in_features, dtype=dtype)
+        dense_in = 64
         for stage, nb_blocks in enumerate(stage_sizes):
             width = 64 * (2 ** stage)
             for block in range(nb_blocks):
                 strides = (2, 2) if (stage > 0 and block == 0) else (1, 1)
-                self.add_module('stage%d_block%d' % (stage + 1, block),
-                                block_cls(in_features, width, strides, dtype))
-                in_features = width * block_cls.expansion
+                name = 'stage%d_block%d' % (stage + 1, block)
+                out = width * block_cls.expansion
+                module = block_cls(in_features, width, strides, dtype, width_map, name,
+                                   projection=strides != (1, 1) or dense_in != out)
+                self.add_module(name, module)
+                in_features, dense_in = module.out_features, out
         self.fc = PFDense(in_features, nb_classes, dtype=dtype)
         set_paths(self)
 

@@ -187,7 +187,15 @@ class PFConv(nn.Module):
             with torch.no_grad():
                 self.bias.zero_()
 
-    def conv_fn(self, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    def conv_fn(self, x: torch.Tensor, kernel: torch.Tensor,
+                acc_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The convolution of NCHW `x` with the HWIO `kernel`.  With
+        `acc_dtype` (torch.int32), x and kernel hold int8 codes and the sums
+        are exact int32 accumulators (ops/int8_ops.py), as JAX's
+        ``preferred_element_type``."""
+        if acc_dtype is not None:
+            from pocketflow_tpu_torch.ops.int8_ops import int8_conv2d
+            return int8_conv2d(x, kernel, self.strides, self.padding)
         if self.padding == 'SAME':
             x = same_pad(x, self.kernel_size, self.strides)
         return F.conv2d(x, kernel.permute(3, 2, 0, 1), stride=self.strides)
@@ -224,7 +232,11 @@ class PFDepthwiseConv(PFConv):
                  dtype: torch.dtype = torch.bfloat16, padding: str = 'SAME'):
         super().__init__(1, channels, kernel_size, strides, use_bias, dtype, padding)
 
-    def conv_fn(self, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    def conv_fn(self, x: torch.Tensor, kernel: torch.Tensor,
+                acc_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        if acc_dtype is not None:
+            from pocketflow_tpu_torch.ops.int8_ops import int8_conv2d
+            return int8_conv2d(x, kernel, self.strides, self.padding, groups=x.shape[1])
         if self.padding == 'SAME':
             x = same_pad(x, self.kernel_size, self.strides)
         return F.conv2d(x, kernel.permute(3, 2, 0, 1), stride=self.strides,
@@ -251,7 +263,13 @@ class PFDense(nn.Module):
                 self.bias.zero_()
 
     @staticmethod
-    def dense_fn(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    def dense_fn(x: torch.Tensor, kernel: torch.Tensor,
+                 acc_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """x @ kernel; with `acc_dtype` as PFConv.conv_fn."""
+        if acc_dtype is not None:
+            from pocketflow_tpu_torch.ops.int8_ops import int8_matmul
+            out = int8_matmul(x.reshape(-1, x.shape[-1]), kernel)
+            return out.reshape(*x.shape[:-1], kernel.shape[-1])
         return x @ kernel
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
