@@ -71,6 +71,18 @@ on the card, and drives the port's paths:
     fewer parameters), its FLOPs audit and the dense and shrunk nets'
     latencies in bf16 and int8; run V shrinks run O's ResNet-20 and serves
     it through serving.main;
+  * data parallelism on torch.distributed (phase 23): K1''s global-range
+    route (pass 1 alone, the (-min, max) pair all-reduced, pass 2 from it)
+    against the fused K1' and the plain version at the main path's
+    activations, timed; run W, the main path at world size 1 in an NCCL
+    group with --enbl_multi_gpu, bit-equal to the same steps without a
+    group and with no collective; run X, two ranks sharing the card over
+    gloo (NCCL refuses two ranks on one device) at batch 256 each on the
+    main and the 8-bit-activation routes, bit-identical, their collectives
+    counted, within a bound of one rank at batch 512 set by that rank's
+    reruns from parameters one ulp away; run Y, main.main on two ranks
+    (ResNet-20 weight sparsification, the optimal search): equal ratios on
+    both, one checkpoint, written by rank 0;
 
 and checks that each went through its kernels and never through a plain
 version.  Any failed phase raises and the script exits non-zero without its
@@ -91,8 +103,10 @@ before them and read just after, before the eval step), for
 fake_quant_per_tensor (K1' with the select folded in) the 7 steps with 8-bit
 activations, for fake_quant_per_column_group (K2', all weights in one launch
 pair; the per-site bucket ops are groups of one) the 7 steps under channel
-buckets, for matmul_bf16 the mm_shape_sweep experiment and for
-bn_relu_matmul_stats the fused_mm_proto experiment.  `launches_by_run` gives
+buckets, for fake_quant_per_tensor_global (K1''s global-range route) rank
+0's 3 steps of run X at 8-bit activations, for matmul_bf16 the
+mm_shape_sweep experiment and for bn_relu_matmul_stats the fused_mm_proto
+experiment.  `launches_by_run` gives
 every kernel's count in each run, each counted from its own reset, the
 zoo's, the searches' and MobileNet's runs included.
 """
@@ -118,6 +132,9 @@ KERNELS = {
                               'pocketflow_tpu/ops/fake_quant.py:84 (_fq_pallas_2d)'),
     'fake_quant_per_tensor_group': ('fake_quant.cu', 'pocketflow_tpu/ops/fake_quant.py:84 '
                                     '(_fq_pallas_2d; grouped route, all weights at once)'),
+    'fake_quant_per_tensor_global': ('fake_quant.cu', 'pocketflow_tpu/ops/fake_quant.py:84 '
+                                     '(_fq_pallas_2d; global-range route under data '
+                                     'parallelism: pass 1, the range all-reduced, pass 2)'),
     'fake_quant_per_column_group': ('fake_quant.cu', 'pocketflow_tpu/ops/fake_quant.py:108 '
                                     '(_fq_pallas_cols_grid; all weights at once, or one)'),
     'matmul_bf16': ('matmul.cu', 'experiments/conv1x1_ab.py:123 (make_pallas); '
@@ -310,6 +327,33 @@ SERVE_RUNS = {'T': 'serving run T: resnet_at_ilsvrc12 ResNet-50 from phase 6, pl
                    'export, dense and shrunk serving in bf16 and int8',
               'V': 'serving run V: resnet_at_cifar10 from run O, chn-pruned-residual export and '
                    'serving.main'}
+
+
+# phase 23: data parallelism on torch.distributed.  Run W: DP_STEPS main-path
+# steps at world size 1 in a one-rank NCCL group; run X: DP_WORLD ranks that
+# share the card over gloo (NCCL refuses two ranks on one device), each at
+# the main path's batch, the main route and the 8-bit-activation route, held
+# to one rank at the global batch: the parameters (one vector), the BN
+# statistics (one vector) and the losses each within DP_NOISE_FACTOR x the
+# largest distance of the one rank's reruns from parameters one fp32 ulp
+# away (DP_PERTURBATIONS); run Y: main.main on DP_WORLD ranks (run H's
+# search at the zoo's batch a rank)
+DP_STEPS, DP_WORLD = 3, 2
+DP_NOISE_FACTOR = 2.0
+DP_PERTURBATIONS = ('up', 'down', 'mixed')
+DP_RANK_TIMEOUT = 600
+DP_FLAGS = dict(batch_size=BATCH, batch_size_eval=BATCH, nb_smpls_train=4096, nb_smpls_eval=512,
+                compute_dtype='bfloat16', bn_stats_subsample=1, uql_weight_bits=4,
+                uql_activation_bits=32)
+DP_ROUTES = [('main', {}), ('act8', dict(uql_activation_bits=8))]
+DP_RUN_W = ('data-parallel run W: %d main-path steps, world 1 in an NCCL group, '
+            '--enbl_multi_gpu' % DP_STEPS)
+DP_RUN_X = {'main': 'data-parallel run X: %d main-path steps, %d ranks on one card over gloo, '
+                    'batch %d a rank' % (DP_STEPS, DP_WORLD, BATCH),
+            'act8': 'data-parallel run X: %d steps at --uql_activation_bits=8, %d ranks on one '
+                    'card over gloo, batch %d a rank' % (DP_STEPS, DP_WORLD, BATCH)}
+DP_RUN_Y = ('data-parallel run Y: main.main on %d ranks over gloo, resnet_at_cifar10 '
+            'weight-sparse optimal (2 roll-outs), batch %d a rank' % (DP_WORLD, ZOO_BATCH))
 
 
 def log(msg, *args):
@@ -1002,17 +1046,7 @@ def run_main(FLAGS, work_dir, model, argv, on_step=None):
     launches counted from a reset just before it to just after it.  Returns
     (learner, ForwardCounter, counters, seconds)."""
     from pocketflow_tpu_torch import main as port_main
-    model_dir = os.path.join(work_dir, model)
-    argv = ['--model=%s' % model, '--data_dir_local=%s' % os.path.join(work_dir, 'cifar10'),
-            '--batch_size=%d' % ZOO_BATCH, '--nb_smpls_train=%d' % ZOO_TRAIN,
-            '--nb_smpls_eval=%d' % ZOO_EVAL, '--compute_dtype=bfloat16',
-            '--log_dir=%s' % os.path.join(work_dir, 'logs', model),
-            '--save_path=%s' % os.path.join(model_dir, 'models', 'model.ckpt'),
-            '--uql_save_quant_model_path=%s' % os.path.join(model_dir, 'uql', 'model.ckpt'),
-            '--uql_tune_save_path=%s' % os.path.join(model_dir, 'rl', 'model.ckpt'),
-            '--uqtf_save_path=%s' % os.path.join(model_dir, 'uqtf', 'model.ckpt'),
-            '--nuql_save_quant_model_path=%s' % os.path.join(model_dir, 'nuql', 'model.ckpt'),
-            '--nuql_tune_save_path=%s' % os.path.join(model_dir, 'nuql_rl', 'model.ckpt')] + argv
+    argv = zoo_argv(work_dir, model, argv)
     counter = ForwardCounter(on_step)
     start = time.perf_counter()
     try:
@@ -1024,6 +1058,22 @@ def run_main(FLAGS, work_dir, model, argv, on_step=None):
     finally:
         counter.close()
     return learner, counter, counts, time.perf_counter() - start
+
+
+def zoo_argv(work_dir, model, argv):
+    """main.main's argv for `model` at the zoo's batch on the CIFAR-10 files
+    under work_dir, with checkpoints and logs there too, then `argv`."""
+    model_dir = os.path.join(work_dir, model)
+    return ['--model=%s' % model, '--data_dir_local=%s' % os.path.join(work_dir, 'cifar10'),
+            '--batch_size=%d' % ZOO_BATCH, '--nb_smpls_train=%d' % ZOO_TRAIN,
+            '--nb_smpls_eval=%d' % ZOO_EVAL, '--compute_dtype=bfloat16',
+            '--log_dir=%s' % os.path.join(work_dir, 'logs', model),
+            '--save_path=%s' % os.path.join(model_dir, 'models', 'model.ckpt'),
+            '--uql_save_quant_model_path=%s' % os.path.join(model_dir, 'uql', 'model.ckpt'),
+            '--uql_tune_save_path=%s' % os.path.join(model_dir, 'rl', 'model.ckpt'),
+            '--uqtf_save_path=%s' % os.path.join(model_dir, 'uqtf', 'model.ckpt'),
+            '--nuql_save_quant_model_path=%s' % os.path.join(model_dir, 'nuql', 'model.ckpt'),
+            '--nuql_tune_save_path=%s' % os.path.join(model_dir, 'nuql_rl', 'model.ckpt')] + argv
 
 
 def phase_zoo_path(FLAGS, work_dir, card):
@@ -2539,6 +2589,382 @@ def phase_serving(FLAGS, work_dir, serve_ckpt, card):
     return runs
 
 
+def dp_snapshot(state) -> dict:
+    """A state's parameters and BN statistics, copied to the host."""
+    return {name: t.detach().cpu().clone()
+            for name, t in {**state.params, **state.batch_stats}.items()}
+
+
+def dp_checksum(snapshot: dict) -> str:
+    import hashlib
+    digest = hashlib.sha256()
+    for name in sorted(snapshot):
+        data = snapshot[name].contiguous().view(torch.uint8).numpy()
+        digest.update(name.encode() + data.tobytes())
+    return digest.hexdigest()
+
+
+def dp_global_batches(learner):
+    """DP_STEPS host batches of DP_WORLD x BATCH synthetic ILSVRC-12 images,
+    the same on every rank whatever its shard."""
+    arrays, labels = learner.dataset_train.synthesize_arrays(DP_STEPS * DP_WORLD * BATCH)
+    n = DP_WORLD * BATCH
+    return [{'image': arrays[np.arange(i * n, (i + 1) * n) % len(arrays)],
+             'label': labels[np.arange(i * n, (i + 1) * n) % len(labels)]}
+            for i in range(DP_STEPS)]
+
+
+def dp_steps(learner, init_path, host_batches, perturb=None):
+    """DP_STEPS quantized train steps of `learner` (the route of the flags in
+    scope) from the state at init_path (with `perturb`, every parameter one
+    fp32 ulp away from it: 'up', 'down', or 'mixed', each element's way
+    drawn from a seeded generator), on this rank's rows of host_batches: the
+    losses (the ranks' mean), the state after them, the launches and
+    collectives of the steps, the peak memory and the host seconds a step."""
+    from pocketflow_tpu_torch.core import mesh
+    from pocketflow_tpu_torch.learners.uniform_quantization.bit_optimizer import BitOptimizer
+    state, tx, _ = learner.init_state_quant()
+    payload = torch.load(init_path, map_location=learner.device, weights_only=True)
+    state.model.load_state_dict(payload['model'])
+    if perturb:
+        gen = torch.Generator(device=learner.device).manual_seed(11)
+        with torch.no_grad():
+            for param in state.model.parameters():
+                if perturb == 'mixed':
+                    way = torch.where(torch.rand(param.shape, generator=gen,
+                                                 device=param.device) < 0.5, -math.inf, math.inf)
+                else:
+                    way = torch.full_like(param, math.inf if perturb == 'up' else -math.inf)
+                param.copy_(torch.nextafter(param, way))
+    state = learner.set_bits(state, *BitOptimizer(learner, state).run())
+    step = learner.build_quant_train_step(tx)
+    batches = [learner.put_batch(mesh.shard_batch(b)) for b in host_batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    mesh.reset_counters()  # the steps' launches and collectives from here ...
+    start = time.perf_counter()
+    losses = []
+    for i, batch in enumerate(batches):
+        state, metrics = step(state, batch, learner.generator(i))
+        losses.append(metrics['loss'].detach().float())
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - start) / len(batches)
+    out = dict(launches=counters(), collectives=mesh.counters())  # ... to here
+    losses = torch.stack(losses)
+    mesh.all_reduce_mean_([losses])
+    out.update(losses=losses.tolist(), end=dp_snapshot(state), seconds=seconds,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    out['checksum'] = dp_checksum(out['end'])
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_learner(flags):
+    """The main path's learner (ResNet-50 @224, bf16, exact BN, s2d stem,
+    4-bit weights) at the per-rank batch of `flags`, on cuda:0."""
+    from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
+    from pocketflow_tpu_torch.nets.resnet_at_ilsvrc12 import ModelHelper
+    from pocketflow_tpu_torch.config import FLAGS
+    with FLAGS.scope(**flags):
+        return UniformQuantLearner(None, ModelHelper(resnet_size=50),
+                                   device=torch.device('cuda', 0))
+
+
+def dp_rank_x(init_path, flags):
+    """Run X on one rank (two share cuda:0 over gloo): each route's steps."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from pocketflow_tpu_torch.config import FLAGS
+    import pocketflow_tpu_torch.learners.uniform_quantization.learner  # noqa: F401
+    import pocketflow_tpu_torch.nets.resnet_at_ilsvrc12  # noqa: F401
+    FLAGS.override(synthetic_data=True, summ_step=10 ** 9, save_step=10 ** 9,
+                   resnet_stem_s2d=True, rand_seed=0)
+    with FLAGS.scope(**flags):
+        learner = dp_learner(flags)
+        host_batches = dp_global_batches(learner)
+        out = {}
+        for route, route_flags in DP_ROUTES:
+            with FLAGS.scope(**route_flags):
+                out[route] = dp_steps(learner, init_path, host_batches)
+    return out
+
+
+def dp_main_rank(argv):
+    """main.main(argv) on one rank of run Y (cuda:0, over gloo): the ratios
+    it chose and the checkpoint files it wrote."""
+    from pocketflow_tpu_torch import main as port_main
+    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    save, writes = ckpt_lib.torch.save, []
+
+    def counted_save(obj, path, *args, **kwargs):
+        writes.append(str(path))
+        return save(obj, path, *args, **kwargs)
+
+    ckpt_lib.torch.save = counted_save
+    try:
+        learner = port_main.main(list(argv), device='cuda:0')
+    finally:
+        ckpt_lib.torch.save = save
+    return {'pairs': learner.var_names_n_prune_ratios, 'writes': writes}
+
+
+def phase_dp_kernel(fq, device, card):
+    """Phase 23a: K1''s global-range route (pass 1 alone, the (-min, max)
+    pair all-reduced, pass 2 from it) at world size 1 against the fused K1'
+    and the plain version, at the main path's activations in bf16 and a
+    ragged fp32 tensor, bits 2-32, with and without the select; pass 1's
+    pair against torch.aminmax; pass 2 from a wider range against the plain
+    version from it; then timed beside the fused kernel and the bound."""
+    gen = torch.Generator(device=device).manual_seed(23)
+
+    def act(shape):
+        return torch.relu(torch.randn(shape, generator=gen, device=device)).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    cases = [('bf16 act %s channels-last' % (shape,), act(shape)) for shape in ACT_SHAPES]
+    cases.append(('fp32 ragged n=%d' % RAGGED_N[1],
+                  torch.randn(RAGGED_N[1], generator=gen, device=device)))
+    max_err = 0.0
+    for label, x in cases:
+        lo, hi = torch.aminmax(x.float())
+        wide = torch.stack([-(lo - 0.5 * (hi - lo)), hi + 0.25 * (hi - lo)])
+        for bits_value in (2, 4, 8, 16, 32):
+            bits = torch.tensor(float(bits_value), device=device)
+            k = fq._levels(bits)
+            plain = fq._quantize_math_torch(x, k, None).to(x.dtype)
+            plain_wide = fq._quantize_in_range(x.float(), k, -wide[0], wide[1]).to(x.dtype)
+            for select in (False, True):
+                got = fq.fake_quant_per_tensor_global(x, bits, select)
+                check(got.stride() == x.stride() and torch.equal(
+                    got, fq.fake_quant_per_tensor(x, bits, select)),
+                    'global-range route differs from the fused K1\' at %s, %d bits, select %s',
+                    label, bits_value, select)
+                want = torch.where(bits < 32, plain, x) if select else plain
+                err, _ = compare(got, want, float((hi - lo) / k))
+                max_err = max(max_err, err)
+                if not (select and bits_value >= 32):
+                    check(torch.equal(fq.tensor_minmax(x, bits, select), torch.stack([-lo, hi])),
+                          'pass 1 of %s is not (-min, max)', label)
+                from_range = fq.tensor_from_range(x, bits, wide, select)
+                want = torch.where(bits < 32, plain_wide, x) if select else plain_wide
+                check(torch.equal(from_range, want), 'pass 2 from a given range differs from '
+                      'the plain version at %s, %d bits, select %s', label, bits_value, select)
+            del plain, plain_wide, got, from_range, want
+        log('  %s: the global-range route equals the fused K1\' at bits 2-32 with and without '
+            'the select; pass 2 from (%.4g, %.4g) equals the plain version', label,
+            float(-wide[0]), float(wide[1]))
+    del cases
+    bits = torch.tensor(8.0, device=device)
+    k = fq._levels(bits)
+    result = None
+    for shape in ACT_SHAPES:
+        x = act(shape)
+
+        def plain_route():
+            lo_hi = torch.stack(torch.aminmax(x.float()))
+            return torch.where(bits < 32, fq._quantize_in_range(
+                x.float(), k, lo_hi[0], lo_hi[1]).to(x.dtype), x)
+
+        ms = time_ms(lambda: fq.fake_quant_per_tensor_global(x, bits, select=True))
+        fused_ms = time_ms(lambda: fq.fake_quant_per_tensor(x, bits, select=True))
+        plain_ms = time_ms(plain_route, 5)
+        bound_ms, bound_by = fq_bound(x.numel(), 2)
+        log('  fake_quant_per_tensor_global with the select, bf16 act %s, 8 bits, world 1: '
+            '%.4f ms a call (%.0f%% of the bound), fused K1\' %.4f ms, plain %.4f ms, bound '
+            '%.4f ms (%s) | %s', shape, ms, 100 * bound_ms / ms, fused_ms, plain_ms, bound_ms,
+            bound_by, card)
+        if result is None:  # the line reports the largest activation
+            result = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None, fused_ms=fused_ms)
+        del x
+    return {'fake_quant_per_tensor_global': result}
+
+
+def phase_dp_world1(FLAGS, card):
+    """Phase 23b, run W: DP_STEPS main-path steps without a process group,
+    then the same steps from the same initial state with --enbl_multi_gpu in
+    a one-rank NCCL group: the loss, every parameter and BN statistic bit-
+    equal, no collective, one grouped K1' launch a forward.  cuDNN runs its
+    deterministic algorithms in both (its default weight gradients may sum
+    in any order).  Returns {run label: counters}."""
+    import torch.distributed as dist
+    from pocketflow_tpu_torch.core import mesh
+    runs, results, host_batches = {}, [], None
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for grouped in (False, True):
+        store = os.path.join(tempfile.mkdtemp(prefix='pf_dp_'), 'store')
+        if grouped:
+            dist.init_process_group('nccl', init_method='file://' + store, world_size=1, rank=0)
+        try:
+            with FLAGS.scope(**DP_FLAGS, enbl_multi_gpu=grouped):
+                learner = dp_learner(DP_FLAGS)
+                state, tx, _ = learner.init_state_quant()
+                step = learner.build_quant_train_step(tx)
+                if host_batches is None:
+                    iterator = learner.dataset_train.build()
+                    host_batches = [next(iterator) for _ in range(DP_STEPS)]
+                start = dp_snapshot(state)
+                reset_counters()
+                mesh.reset_counters()  # the run's launches and collectives from here ...
+                losses = []
+                for i, batch in enumerate(host_batches):
+                    state, metrics = step(state, learner.put_batch(batch), learner.generator(i))
+                    losses.append(metrics['loss'].detach())
+                torch.cuda.synchronize()
+                results.append(dict(launches=counters(), collectives=mesh.counters(),
+                                    world=mesh.num_workers(), start=start,
+                                    losses=[float(v) for v in losses], end=dp_snapshot(state)))
+                del learner, state, step, tx
+                torch.cuda.empty_cache()
+        finally:
+            if grouped:
+                dist.destroy_process_group()
+    torch.backends.cudnn.deterministic = deterministic
+    alone, grouped = results
+    runs[DP_RUN_W] = grouped['launches']
+    check(grouped['world'] == 1, 'run W: world %d', grouped['world'])
+    check(all(torch.equal(alone['start'][k], grouped['start'][k]) for k in alone['start']),
+          'run W: the initial states differ')
+    check(alone['losses'] == grouped['losses'], 'run W: losses %s vs %s', grouped['losses'],
+          alone['losses'])
+    differ = [k for k in alone['end'] if not torch.equal(alone['end'][k], grouped['end'][k])]
+    check(not differ, 'run W: %d tensors differ after %d steps (%s)', len(differ), DP_STEPS,
+          differ[:3])
+    check(grouped['collectives'] == {'all_reduce': 0, 'broadcast': 0, 'barrier': 0},
+          'run W: collectives %s', grouped['collectives'])
+    check(grouped['launches'] == no_launches(fake_quant_per_tensor_group=DP_STEPS),
+          'run W: launches %s', grouped['launches'])
+    log('  run W: %d steps in a one-rank NCCL group with --enbl_multi_gpu bit-equal to the '
+        'same steps without a group (losses %s, %d tensors), collectives %s, launches %s',
+        DP_STEPS, ['%.6f' % v for v in grouped['losses']], len(alone['end']),
+        grouped['collectives'], grouped['launches'])
+    return runs
+
+
+def dp_errors(got, want, reruns):
+    """For the parameters and for the BN statistics, each as one vector:
+    (||got - want||, the largest ||rerun - want||); and per tensor, the
+    largest ratio of ||got - want|| to its reruns' largest distance and the
+    number of tensors past DP_NOISE_FACTOR x that distance."""
+    def dist(a, keys):
+        return math.sqrt(sum(float(torch.sum((a[k] - want[k]).double() ** 2)) for k in keys))
+    groups = {'parameters': [k for k in want if not k.endswith(('/mean', '/var'))],
+              'BN statistics': [k for k in want if k.endswith(('/mean', '/var'))]}
+    out = {name: (dist(got, keys), max(dist(r, keys) for r in reruns))
+           for name, keys in groups.items()}
+    ratios = [dist(got, [k]) / max(max(dist(r, [k]) for r in reruns), 1e-30) for k in want]
+    return out, max(ratios), sum(ratio > DP_NOISE_FACTOR for ratio in ratios)
+
+
+def phase_dp_two_ranks(FLAGS, work_dir, card):
+    """Phase 23c, run X: one rank at the global batch (DP_WORLD x BATCH) for
+    each route, and again from parameters one ulp up (the bound's spread);
+    then DP_WORLD ranks on cuda:0 over gloo at BATCH each, from the same
+    saved state on the same global batches split by rows: bit-identical
+    ranks, within the bound of the one rank, the collectives of a step
+    counted.  Returns {run label: rank 0's counters}."""
+    from pocketflow_tpu_torch.nn.layers import BatchNorm
+    from pocketflow_tpu_torch.tools import launch
+    init_path = os.path.join(work_dir, 'dp_init.pt')
+    flags1 = dict(DP_FLAGS, batch_size=DP_WORLD * BATCH)
+    ref = {}
+    with FLAGS.scope(**flags1):
+        learner = dp_learner(flags1)
+        nb_bn = sum(isinstance(m, BatchNorm) for m in learner.model_helper.create_model().modules())
+        state, _, _ = learner.init_state_quant()
+        torch.save({'model': state.model.state_dict()}, init_path)
+        del state
+        host_batches = dp_global_batches(learner)
+        for route, route_flags in DP_ROUTES:
+            with FLAGS.scope(**route_flags):
+                ref[route] = (dp_steps(learner, init_path, host_batches),
+                              [dp_steps(learner, init_path, host_batches, perturb=way)
+                               for way in DP_PERTURBATIONS])
+            log('  run X, one rank at batch %d, %s: losses %s, %.1f ms a step, peak %.2f GiB',
+                DP_WORLD * BATCH, route, ['%.6f' % v for v in ref[route][0]['losses']],
+                1e3 * ref[route][0]['seconds'], ref[route][0]['peak_gib'])
+        del learner
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    ranks = launch.spawn('chip_smoke:dp_rank_x', DP_WORLD,
+                         {'init_path': init_path, 'flags': DP_FLAGS}, backend='gloo',
+                         timeout=DP_RANK_TIMEOUT, work_dir=os.path.join(work_dir, 'dp_x'),
+                         threads=0)
+    log('  run X: %d ranks spawned and joined in %.1f s', DP_WORLD, time.perf_counter() - start)
+    runs = {}
+    for route, _ in DP_ROUTES:
+        label = DP_RUN_X[route]
+        outs = [r[route] for r in ranks]
+        runs[label] = outs[0]['launches']
+        one, reruns = ref[route]
+        check(len({o['checksum'] for o in outs}) == 1, 'run X %s: ranks differ', route)
+        check(outs[0]['losses'] == outs[1]['losses'], 'run X %s: rank losses differ', route)
+        per_step = {'all_reduce': 1 + 2 * nb_bn + (NB_ACT_SITES if route == 'act8' else 0),
+                    'broadcast': 0, 'barrier': 0}
+        want = {k: DP_STEPS * v for k, v in per_step.items()}
+        check(all(o['collectives'] == want for o in outs), 'run X %s: collectives %s, '
+              'expected %s', route, outs[0]['collectives'], want)
+        launches = dict(fake_quant_per_tensor_group=DP_STEPS)
+        if route == 'act8':
+            launches['fake_quant_per_tensor_global'] = DP_STEPS * NB_ACT_SITES
+        check(all(o['launches'] == no_launches(**launches) for o in outs),
+              'run X %s: launches %s', route, outs[0]['launches'])
+        groups, worst, nb_past = dp_errors(outs[0]['end'], one['end'], [r['end'] for r in reruns])
+        groups['loss'] = (max(abs(a - b) for a, b in zip(outs[0]['losses'], one['losses'])),
+                          max(abs(a - b) for r in reruns
+                              for a, b in zip(r['losses'], one['losses'])))
+        log('  run X %s: %d ranks bit-identical (sha256 %s...), losses %s (one rank %s); '
+            'against one rank at batch %d, distance / the largest of %d 1-ulp reruns\' (%s): '
+            '%s; per tensor the largest ratio %.3f, %d of %d past %.0fx; collectives a step '
+            '%s; launches %s; %.1f ms a step (gloo, 102 MB of gradients through the host: a '
+            'correctness run), peak %.2f / %.2f GiB a rank | %s', route, DP_WORLD,
+            outs[0]['checksum'][:12], ['%.6f' % v for v in outs[0]['losses']],
+            ['%.6f' % v for v in one['losses']], DP_WORLD * BATCH, len(reruns),
+            ', '.join(DP_PERTURBATIONS),
+            '; '.join('%s %.4g / %.4g' % (k, *v) for k, v in groups.items()), worst, nb_past,
+            len(one['end']), DP_NOISE_FACTOR, per_step, outs[0]['launches'],
+            1e3 * max(o['seconds'] for o in outs), outs[0]['peak_gib'], outs[1]['peak_gib'],
+            card)
+        for name, (err, spread) in groups.items():
+            check(err <= DP_NOISE_FACTOR * spread, 'run X %s: %s %.4g from one rank, past %.0fx '
+                  'the 1-ulp reruns\' %.4g', route, name, err, DP_NOISE_FACTOR, spread)
+    return runs
+
+
+def phase_dp_main(FLAGS, work_dir, card):
+    """Phase 23d, run Y: main.main on DP_WORLD ranks on cuda:0 over gloo,
+    ResNet-20 @ CIFAR-10 weight-sparse (optimal, run H's flags) from run A's
+    baseline: equal ratios on every rank, one checkpoint written by rank 0,
+    every masked weight 0.  Returns {run label: {}} (launches: none)."""
+    from pocketflow_tpu_torch.tools import launch
+    ws_path = os.path.join(work_dir, 'dp_y', 'ws', 'model.ckpt')
+    argv = zoo_argv(work_dir, 'resnet_at_cifar10', WS_RUNS[1][2] + [
+        '--ws_save_path=%s' % ws_path, '--enbl_multi_gpu'])
+    start = time.perf_counter()
+    ranks = launch.spawn('chip_smoke:dp_main_rank', DP_WORLD, {'argv': argv}, backend='gloo',
+                         timeout=DP_RANK_TIMEOUT, work_dir=os.path.join(work_dir, 'dp_y'),
+                         threads=0)
+    elapsed = time.perf_counter() - start
+    pairs = [r['pairs'] for r in ranks]
+    check(all(p == pairs[0] for p in pairs) and pairs[0], 'run Y: ratios differ: %s', pairs)
+    files = sorted(os.listdir(os.path.dirname(ws_path)))
+    ckpts = [f for f in files if f.endswith('.pt')]
+    check(len(ckpts) == 1 and 'checkpoint.json' in files, 'run Y: files %s', files)
+    writes = [[w for w in r['writes'] if w.startswith(ws_path) and w.endswith('.pt.tmp')]
+              for r in ranks]
+    check(len(writes[0]) == 1 and not any(writes[1:]), 'run Y: checkpoint writes %s', writes)
+    nb_masked = ws_masked_weights_zero(ws_path)
+    log('  run Y: %d ranks chose equal ratios %s; one checkpoint (%s) written by rank 0 only; '
+        '%d masked kernels zero where masked | %.1f s | %s', DP_WORLD,
+        [round(r, 4) for _, r in pairs[0]], ckpts[0], nb_masked, elapsed, card)
+    return {DP_RUN_Y: no_launches()}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2727,12 +3153,25 @@ def main():
             'depthwise chains (run U), ResNet-20 from run O shrunk across residual merges (run '
             'V), batch %d', SERVE_BATCH)
         runs.update(phase_serving(FLAGS, work_dir, serve_ckpt, card))
+        torch.cuda.empty_cache()
+        t23 = time.perf_counter()
+        log('phase 23 data parallelism on torch.distributed: K1\'\'s global-range route (23a), '
+            'run W (world 1 under NCCL), run X (%d ranks on the card over gloo, batch %d a '
+            'rank, the main and act8 routes), run Y (main.main on %d ranks)', DP_WORLD, BATCH,
+            DP_WORLD)
+        kernels.update(phase_dp_kernel(fq, device, card))
+        torch.cuda.empty_cache()
+        runs.update(phase_dp_world1(FLAGS, card))
+        runs.update(phase_dp_two_ranks(FLAGS, work_dir, card))
+        runs.update(phase_dp_main(FLAGS, work_dir, card))
+        log('  phase 23: %.1f s', time.perf_counter() - t23)
     serve_dir.cleanup()
 
     # each kernel's launches in the run that drives it: the main path for the
     # grouped K1', the 8-bit-activation route for K1' itself, the
     # channel-bucket route for K2', an experiment for each matmul kernel
     own_run = {'fake_quant_per_tensor_group': MAIN_RUN, 'fake_quant_per_tensor': ACT8_RUN,
+               'fake_quant_per_tensor_global': DP_RUN_X['act8'],
                'fake_quant_per_column_group': CHANNEL_RUN,
                'matmul_bf16': next(label for label in runs if 'mm_shape_sweep' in label),
                'bn_relu_matmul_stats': next(label for label in runs if 'fused_mm_proto' in label)}

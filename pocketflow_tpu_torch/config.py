@@ -4,8 +4,12 @@ The registry is a copy, not an import: ``pocketflow_tpu`` imports jax when it
 loads, and this package must not.  Flag names and defaults equal the JAX
 package's, so a CLI recipe written for one runs unchanged on the other
 (``tests/test_torch_package.py`` holds the two registries together).  Only the
-flags this package reads are defined here; each module defines its own, as in
-the JAX package.
+flags this package reads are defined here, and the reference's global flags
+that the JAX package defines and ignores (``debug``, ``model_http_url``,
+``save_path_eval``, the HDFS and tf.data knobs), which the port ignores too,
+so that a command with one of them runs as it does without it; each module
+defines its own, as in the JAX package.  ``enbl_multi_gpu`` is one of them:
+data parallelism follows the launcher's process group (``core/mesh.py``).
 
     from pocketflow_tpu_torch.config import FLAGS
     with FLAGS.scope(batch_size=32, learner='uniform'):
@@ -175,11 +179,17 @@ FLAGS = FlagRegistry()
 
 # core framework flags read by the port (names & defaults of pocketflow_tpu/config.py)
 FLAGS.DEFINE_string('log_dir', './logs', 'logging directory')
+FLAGS.DEFINE_boolean('enbl_multi_gpu', False,
+                     'enable multi-chip data-parallel training (mesh "data" axis)')
 FLAGS.DEFINE_string('learner', 'full-prec', 'learner name')
+FLAGS.DEFINE_boolean('debug', False, 'debug-level logging')
 FLAGS.DEFINE_string('exec_mode', 'train', 'execution mode: train / eval')
+FLAGS.DEFINE_string('model_http_url', None, 'HTTP/HTTPS url for remote model files')
 FLAGS.DEFINE_integer('summ_step', 100, 'summarization step size')
 FLAGS.DEFINE_integer('save_step', 10000, 'model saving step size')
 FLAGS.DEFINE_string('save_path', './models/model.ckpt', "model's save path")
+FLAGS.DEFINE_string('save_path_eval', './models_eval/model.ckpt',
+                    "model's save path for evaluation")
 FLAGS.DEFINE_boolean('enbl_dst', False, 'enable the distillation loss for training')
 FLAGS.DEFINE_boolean('enbl_warm_start', False, 'enable warm start for training')
 
@@ -190,6 +200,11 @@ FLAGS.DEFINE_float('momentum', 0.9, 'momentum coefficient')
 FLAGS.DEFINE_float('loss_w_dcy', 2e-4, 'weight decaying loss coefficient')
 
 FLAGS.DEFINE_string('data_disk', 'local', 'data disk type: local (hdfs is not ported)')
+FLAGS.DEFINE_string('data_hdfs_host', None, 'HDFS host (unused on TPU rebuild)')
+FLAGS.DEFINE_integer('nb_threads', 8, 'number of parallel data-loading threads')
+FLAGS.DEFINE_integer('buffer_size', 1024, 'shuffle buffer size')
+FLAGS.DEFINE_integer('cycle_length', 4, 'number of input files read concurrently')
+FLAGS.DEFINE_integer('nb_smpls_per_batch', 128, 'number of samples per batch (alias)')
 FLAGS.DEFINE_integer('prefetch_size', 8, 'batches prefetched ahead of device')
 
 FLAGS.DEFINE_float('loss_w_dst', 4.0, 'distillation loss weight')
@@ -205,3 +220,6 @@ FLAGS.DEFINE_integer('bn_stats_subsample', 1,
                      'batch (ghost-BN; 1 = exact)')
 FLAGS.DEFINE_string('remat_blocks', 'none',
                     "residual-block rematerialization: only 'none' is ported")
+FLAGS.DEFINE_string('mesh_shape', '', 'comma "axis:size" list, e.g. "data:8" (empty = all devices on data axis)')
+FLAGS.DEFINE_boolean('enbl_tensor_parallel', False,
+                     "shard large kernels' last axis over the 'model' mesh axis")

@@ -15,6 +15,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from pocketflow_tpu_torch.core import mesh
+
 INDEX = 'checkpoint.json'
 
 
@@ -23,10 +25,14 @@ def _index_path(save_dir: str) -> str:
 
 
 def save(save_path: str, payload: Dict[str, Any], step: int) -> str:
-    """Write `payload` to ``<save_path>-<step>.pt`` (atomically) and index it."""
+    """Write `payload` to ``<save_path>-<step>.pt`` (atomically) and index it;
+    under data parallelism only rank 0 writes, and every rank returns the
+    path (the caller's barrier makes the file visible to all)."""
+    path = '%s-%d.pt' % (save_path, step)
+    if not mesh.is_primary_worker():
+        return path
     save_dir = os.path.dirname(save_path) or '.'
     os.makedirs(save_dir, exist_ok=True)
-    path = '%s-%d.pt' % (save_path, step)
     torch.save(payload, path + '.tmp')
     os.replace(path + '.tmp', path)
     tmp_index = _index_path(save_dir) + '.tmp'

@@ -7,6 +7,10 @@
 // (body _fq_tensor_kernel): one (alpha, beta) for the whole tensor; with
 // `select` it also takes the quant policy's select on bits < 32 (its design
 // note is above its kernels below).
+// pf_fake_quant_tensor_minmax and pf_fake_quant_tensor_from_range are its
+// global-range route under data parallelism: pass 1 alone leaves the
+// tensor's (-min, max) in a device buffer, which the caller all-reduces (MAX)
+// across the ranks, and pass 2 quantizes against the range in that buffer.
 // pf_fake_quant_tensor_group is a second route of _fq_pallas_2d: many fp32
 // tensors, each with its own (alpha, beta) and bits, in one pair of launches.
 // pf_fake_quant_columns_group replaces _fq_pallas_cols_grid (body
@@ -168,11 +172,12 @@ __device__ __forceinline__ void pack_minmax(const Pack<T, W>& v, float& lo, floa
   }
 }
 
-// Pass 1: the (min, max) of x into s->range.
+// Pass 1: the (min, max) of x into s->range, and (-min, max) into neg_range
+// where it is not null (the global-range route all-reduces it with MAX).
 template <typename T, int W>
 __global__ void __launch_bounds__(kThreads, 4)
 tensor_minmax(const T* __restrict__ x, int64_t n, const float* __restrict__ bits, int select,
-              TensorScratch* __restrict__ s) {
+              TensorScratch* __restrict__ s, float2* __restrict__ neg_range) {
   if (select && *bits >= 32.0f) return;  // pass 2 copies; nothing reads the range
   using P = Pack<T, W>;
   const P* xp = reinterpret_cast<const P*>(x);
@@ -215,6 +220,7 @@ tensor_minmax(const T* __restrict__ x, int64_t n, const float* __restrict__ bits
   block_minmax(lo, hi);
   if (threadIdx.x == 0) {
     s->range = make_float2(lo, hi);
+    if (neg_range != nullptr) *neg_range = make_float2(-lo, hi);
     s->done = 0;
   }
 }
@@ -281,14 +287,20 @@ struct ByValue {  // a bf16 input's output, from the table by input bits
   }
 };
 
-// (alpha, beta, k) from pass 1's range and the bits.
+// (alpha, beta, k) from the range and the bits.
 struct Scale {
   float alpha, beta, k;
 };
 
-__device__ __forceinline__ Scale tensor_scale(const TensorScratch* s, float bits) {
-  const float2 range = s->range;
+__device__ __forceinline__ Scale tensor_scale(float2 range, float bits) {
   return {__fadd_rn(__fsub_rn(range.y, range.x), kEps), range.x, __fsub_rn(exp2f(bits), 1.0f)};
+}
+
+// The (min, max) pass 2 quantizes against: pass 1's (the scratch's range),
+// or a given (-min, max) (neg_lo; negation is exact, so both give one range).
+__device__ __forceinline__ float2 load_range(const float2* range, int neg_lo) {
+  const float2 r = *range;
+  return make_float2(neg_lo ? -r.x : r.x, r.y);
 }
 
 // Pass 2 for fp32: quantize x into out through the table of outputs by
@@ -298,14 +310,14 @@ template <int W>
 __global__ void __launch_bounds__(kThreads, 4)
 tensor_quantize_f32(const float* __restrict__ x, float* __restrict__ out, int64_t n,
                     const float* __restrict__ bits, int select,
-                    const TensorScratch* __restrict__ s) {
+                    const float2* __restrict__ range, int neg_lo) {
   __shared__ float by_level[kMaxTableLevels];
   const float b = *bits;
   if (select && b >= 32.0f) {
     quantize_walk<float, W>(x, out, n, kThreads, Copy<float>());
     return;
   }
-  const Scale q = tensor_scale(s, b);
+  const Scale q = tensor_scale(load_range(range, neg_lo), b);
   // the table holds levels 0 .. table_top; -1: no table
   const float table_top =
       q.k >= 0.0f && q.k < static_cast<float>(kMaxTableLevels) ? floorf(q.k) : -1.0f;
@@ -323,15 +335,16 @@ template <int W>
 __global__ void __launch_bounds__(kLutThreads, 1)
 tensor_quantize_bf16(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
                      int64_t n, const float* __restrict__ bits, int select,
-                     const TensorScratch* __restrict__ s) {
+                     const float2* __restrict__ range, int neg_lo) {
   extern __shared__ unsigned short by_value[];
   const float b = *bits;
   if (select && b >= 32.0f) {
     quantize_walk<__nv_bfloat16, W>(x, out, n, kLutThreads, Copy<__nv_bfloat16>());
     return;
   }
-  const Scale q = tensor_scale(s, b);
-  const float lo = s->range.x, hi = s->range.y;
+  const float2 r = load_range(range, neg_lo);
+  const Scale q = tensor_scale(r, b);
+  const float lo = r.x, hi = r.y;
   for (int v = threadIdx.x; v < kBf16Values; v += kLutThreads) {
     const float f = __uint_as_float(static_cast<unsigned>(v) << 16);
     if (!(f < lo || f > hi)) {  // in range, or a NaN
@@ -385,45 +398,89 @@ int persistent_grid(int device, int per_sm, int threads, int64_t units) {
   return grid > 1 ? static_cast<int>(grid) : 1;
 }
 
-// Both passes on the current device; 0 or a CUDA error (a launch setting
-// that could not be read launches nothing).
-template <typename T, int W>
-int launch_tensor_w(const T* x, T* out, int64_t n, TensorScratch* s, const float* bits,
-                    int select, cudaStream_t stream) {
+// The current device (< kMaxDevices), or -1 with the error left for
+// cudaGetLastError.
+int current_device() {
   int device = 0;
-  if (cudaGetDevice(&device) != cudaSuccess) return static_cast<int>(cudaGetLastError());
-  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  const int minmax_per_sm = blocks_per_sm<tensor_minmax<T, W>>(device, kThreads, 0);
-  int quantize_per_sm;
-  if constexpr (sizeof(T) == 2) {  // bf16
-    quantize_per_sm = blocks_per_sm<tensor_quantize_bf16<W>>(device, kLutThreads,
-                                                             kBf16TableBytes);
-  } else {
-    quantize_per_sm = blocks_per_sm<tensor_quantize_f32<W>>(device, kThreads, 0);
-  }
-  if (!minmax_per_sm || !quantize_per_sm) return static_cast<int>(cudaGetLastError());
+  if (cudaGetDevice(&device) != cudaSuccess) return -1;
+  return device < kMaxDevices ? device : -1;
+}
+
+// Pass 1 on the current device: the range into s->range (and (-min, max)
+// into neg_range where it is not null); 0 or a CUDA error (a launch
+// setting that could not be read launches nothing).
+template <typename T, int W>
+int launch_minmax_w(const T* x, int64_t n, TensorScratch* s, const float* bits, int select,
+                    float2* neg_range, cudaStream_t stream) {
+  const int device = current_device();
+  if (device < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int per_sm = blocks_per_sm<tensor_minmax<T, W>>(device, kThreads, 0);
+  if (!per_sm) return static_cast<int>(cudaGetLastError());
+  tensor_minmax<T, W><<<persistent_grid(device, per_sm, kThreads, n / W), kThreads, 0,
+                        stream>>>(x, n, bits, select, s, neg_range);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pass 2 on the current device against the range at `range` (neg_lo: it
+// holds (-min, max)); 0 or a CUDA error.
+template <typename T, int W>
+int launch_quantize_w(const T* x, T* out, int64_t n, const float* bits, int select,
+                      const float2* range, int neg_lo, cudaStream_t stream) {
+  const int device = current_device();
+  if (device < 0) return static_cast<int>(cudaErrorInvalidDevice);
   const int64_t units = n / W;
-  tensor_minmax<T, W><<<persistent_grid(device, minmax_per_sm, kThreads, units), kThreads, 0,
-                        stream>>>(x, n, bits, select, s);
-  if constexpr (sizeof(T) == 2) {
-    tensor_quantize_bf16<W><<<persistent_grid(device, quantize_per_sm, kLutThreads, units),
-                              kLutThreads, kBf16TableBytes, stream>>>(x, out, n, bits, select, s);
+  if constexpr (sizeof(T) == 2) {  // bf16
+    const int per_sm = blocks_per_sm<tensor_quantize_bf16<W>>(device, kLutThreads,
+                                                              kBf16TableBytes);
+    if (!per_sm) return static_cast<int>(cudaGetLastError());
+    tensor_quantize_bf16<W><<<persistent_grid(device, per_sm, kLutThreads, units), kLutThreads,
+                              kBf16TableBytes, stream>>>(x, out, n, bits, select, range, neg_lo);
   } else {
-    tensor_quantize_f32<W><<<persistent_grid(device, quantize_per_sm, kThreads, units), kThreads,
-                             0, stream>>>(x, out, n, bits, select, s);
+    const int per_sm = blocks_per_sm<tensor_quantize_f32<W>>(device, kThreads, 0);
+    if (!per_sm) return static_cast<int>(cudaGetLastError());
+    tensor_quantize_f32<W><<<persistent_grid(device, per_sm, kThreads, units), kThreads, 0,
+                             stream>>>(x, out, n, bits, select, range, neg_lo);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Both passes (the fused route): pass 2 reads pass 1's range from the scratch.
 template <typename T>
 int launch_tensor(const void* x, void* out, int64_t n, TensorScratch* s, const float* bits,
                   int select, cudaStream_t stream) {
-  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
-  if (aligned) return launch_tensor_w<T, 16 / sizeof(T)>(xt, ot, n, s, bits, select, stream);
-  return launch_tensor_w<T, 1>(xt, ot, n, s, bits, select, stream);
+  constexpr int kW = 16 / sizeof(T);
+  int err;
+  if (aligned16(x) && aligned16(out)) {
+    err = launch_minmax_w<T, kW>(xt, n, s, bits, select, nullptr, stream);
+    return err ? err : launch_quantize_w<T, kW>(xt, ot, n, bits, select, &s->range, 0, stream);
+  }
+  err = launch_minmax_w<T, 1>(xt, n, s, bits, select, nullptr, stream);
+  return err ? err : launch_quantize_w<T, 1>(xt, ot, n, bits, select, &s->range, 0, stream);
+}
+
+template <typename T>
+int launch_minmax(const void* x, int64_t n, TensorScratch* s, const float* bits, int select,
+                  float2* neg_range, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  if (aligned16(x)) {
+    return launch_minmax_w<T, 16 / sizeof(T)>(xt, n, s, bits, select, neg_range, stream);
+  }
+  return launch_minmax_w<T, 1>(xt, n, s, bits, select, neg_range, stream);
+}
+
+template <typename T>
+int launch_from_range(const void* x, void* out, int64_t n, const float* bits, int select,
+                      const float2* neg_range, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (aligned16(x) && aligned16(out)) {
+    return launch_quantize_w<T, 16 / sizeof(T)>(xt, ot, n, bits, select, neg_range, 1, stream);
+  }
+  return launch_quantize_w<T, 1>(xt, ot, n, bits, select, neg_range, 1, stream);
 }
 
 // Grouped per-tensor kernels: T fp32 tensors in one pair of launches.
@@ -711,6 +768,31 @@ int pf_fake_quant_tensor(const void* x, void* out, int64_t n, int is_bf16, void*
 }
 
 int pf_fake_quant_tensor_scratch_bytes() { return static_cast<int>(sizeof(TensorScratch)); }
+
+// The global-range route, pass 1: x, n, is_bf16, scratch, bits and select as
+// for pf_fake_quant_tensor; neg_range: two fp32 on the device, set to
+// (-min(x), max(x)) (left as they are where select and bits >= 32).
+int pf_fake_quant_tensor_minmax(const void* x, int64_t n, int is_bf16, void* scratch,
+                                const float* bits, int select, float* neg_range, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  TensorScratch* sc = static_cast<TensorScratch*>(scratch);
+  float2* r = reinterpret_cast<float2*>(neg_range);
+  if (is_bf16) return launch_minmax<__nv_bfloat16>(x, n, sc, bits, select, r, s);
+  return launch_minmax<float>(x, n, sc, bits, select, r, s);
+}
+
+// The global-range route, pass 2: out = the fake-quant of x against the
+// range (-neg_range[0], neg_range[1]) (two fp32 on the device, 8-byte
+// aligned), which holds every element of x (bf16 reads its outputs from a
+// table of the values in the range), or x where select and bits >= 32.
+int pf_fake_quant_tensor_from_range(const void* x, void* out, int64_t n, int is_bf16,
+                                    const float* neg_range, const float* bits, int select,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float2* r = reinterpret_cast<const float2*>(neg_range);
+  if (is_bf16) return launch_from_range<__nv_bfloat16>(x, out, n, bits, select, r, s);
+  return launch_from_range<float>(x, out, n, bits, select, r, s);
+}
 
 // A group of T fp32 tensors.  entries: T GroupEntry on the device (x, the
 // output's offset in `out` in elements, a multiple of 4; n >= 1; the first

@@ -6,6 +6,11 @@ background thread); every per-pixel op runs on the device inside the train
 step through the dataset's ``augment``, so batches cross PCIe as uint8.
 Per-dataset sample counts, class counts and batch sizes live in a
 `DatasetSpec`; the flags of the same names override them when set.
+
+Under data parallelism each rank reads its own shard of a set, train and
+eval alike: ``images[shard_id::nb_shards]``, shuffled with the seed
+``rand_seed + 977 * shard_id`` (+ 31337 for eval), as the JAX package
+shards by process.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from pocketflow_tpu_torch.config import FLAGS
+from pocketflow_tpu_torch.core import mesh
 
 FLAGS.DEFINE_integer('nb_classes', None, '# of classes (override)')
 FLAGS.DEFINE_integer('nb_smpls_train', None, '# of samples for training (override)')
@@ -98,8 +104,11 @@ class AbstractDataset(ABC):
     def __init__(self, is_train: bool):
         self.is_train = is_train
         self.spec = self.SPEC.with_flag_overrides()
+        self.shard_id = mesh.worker_rank()
+        self.nb_shards = mesh.num_workers()
         self.batch_size = self.spec.batch_size if is_train else self.spec.batch_size_eval
-        self._rng = np.random.default_rng(FLAGS.rand_seed + (0 if is_train else 31337))
+        self._rng = np.random.default_rng(FLAGS.rand_seed + 977 * self.shard_id
+                                          + (0 if is_train else 31337))
 
     # -- subclass interface ---------------------------------------------------
 
@@ -232,6 +241,9 @@ class AbstractDataset(ABC):
             self._cached_arrays = self._load_arrays()
         images, labels = self._cached_arrays
         self.nb_smpls_loaded = len(images)
+        if self.nb_shards > 1:  # this rank's disjoint shard, train and eval
+            images = images[self.shard_id::self.nb_shards]
+            labels = labels[self.shard_id::self.nb_shards]
         if enbl_trn_val_split:
             nb_val = min(self.spec.nb_smpls_val, len(images) // 5)
             val = self._make_iterator(images[:nb_val], labels[:nb_val], shuffle=False)
@@ -247,7 +259,7 @@ class AbstractDataset(ABC):
             order = np.arange(n)
             if shuffle:
                 rng.shuffle(order)
-                if n < batch_size:
+                if n < batch_size:  # a short shard is tiled to one batch
                     order = np.resize(order, batch_size)
                     n = batch_size
                 pos = 0

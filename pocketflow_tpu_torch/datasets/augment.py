@@ -3,7 +3,9 @@
 
 Random ops draw from an explicit ``torch.Generator`` on the images' device.
 Its numbers differ from ``jax.random``'s, so parity tests compare the
-deterministic paths.
+deterministic paths.  Under data parallelism every rank's generator is seeded
+alike and each draw is made for the global batch, of which a rank takes its
+rows: two ranks at batch B augment as one rank at 2B does.
 """
 
 from __future__ import annotations
@@ -15,6 +17,18 @@ import math
 import torch
 import torch.nn.functional as F
 
+from pocketflow_tpu_torch.core import mesh
+
+
+def _draw(sample, batch: int) -> torch.Tensor:
+    """sample(n) -> [..., n] draws for the global batch; this rank's `batch`
+    columns of them."""
+    world = mesh.num_workers()
+    if world == 1:
+        return sample(batch)
+    rank = mesh.worker_rank()
+    return sample(batch * world)[..., rank * batch:(rank + 1) * batch]
+
 
 def normalize(images: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
     mean = torch.tensor(mean, dtype=torch.float32, device=images.device)
@@ -24,7 +38,8 @@ def normalize(images: torch.Tensor, mean: Sequence[float], std: Sequence[float])
 
 def random_flip_lr(images: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Per-sample horizontal flip with probability 1/2; images [B,H,W,C]."""
-    flip = torch.rand(images.shape[0], generator=generator, device=images.device) < 0.5
+    flip = _draw(lambda n: torch.rand(n, generator=generator, device=images.device),
+                 images.shape[0]) < 0.5
     return torch.where(flip[:, None, None, None], images.flip(2), images)
 
 
@@ -35,8 +50,8 @@ def pad_random_crop(images: torch.Tensor, generator: Optional[torch.Generator], 
     `offsets` ([2, B] ints, rows then columns) replaces the draw."""
     batch, height, width, _ = images.shape
     if offsets is None:
-        offsets = torch.randint(0, 2 * pad + 1, (2, batch), generator=generator,
-                                device=images.device)
+        offsets = _draw(lambda n: torch.randint(0, 2 * pad + 1, (2, n), generator=generator,
+                                                device=images.device), batch)
     padded = F.pad(images, (0, 0, pad, pad, pad, pad))
     rows = offsets[0].to(images.device)[:, None] + torch.arange(height, device=images.device)
     cols = offsets[1].to(images.device)[:, None] + torch.arange(width, device=images.device)
@@ -77,7 +92,8 @@ def random_crop_resize(images: torch.Tensor, generator: torch.Generator,
     device = images.device
 
     def uniform(lo, hi):
-        return lo + (hi - lo) * torch.rand(batch, generator=generator, device=device)
+        return lo + (hi - lo) * _draw(
+            lambda n: torch.rand(n, generator=generator, device=device), batch)
 
     area = uniform(*area_range)
     aspect = torch.exp(uniform(math.log(aspect_range[0]), math.log(aspect_range[1])))

@@ -7,7 +7,20 @@ host-side step count and the learner's `extra` tensors.  A train step is a
 plain function of (state, device batch, generator) that updates the state in
 place and returns it with its metrics as device tensors: nothing in a step
 waits for the device, and only the loops read values back, every
-``summ_step``.  Single device: there is no mesh, and ghost-BN sees one shard.
+``summ_step``.
+
+Data parallelism (``core/mesh.py``): one process per device, each with a
+replica of the state, broadcast from rank 0 after it is made or restored,
+and its rows of the global batch (``per-chip batch x world``, which sets
+the learning rate).  A step all-reduces the mean of every gradient after
+the backward (one coalesced call), before any gradient transform, so that
+every rank applies the same update to the same bits; BN takes its
+statistics over the global batch (``nn/layers.py``) and per-tensor
+activation ranges are global (``ops/fake_quant.py``).  Explicit all-reduces
+rather than ``DistributedDataParallel``: ``TrainState.params`` keys
+parameters by module path, ``copy_state`` deep-copies the model for every
+roll-out, and frozen teachers and auxiliary heads leave parameters without
+gradients.
 """
 
 from __future__ import annotations
@@ -25,17 +38,24 @@ import torch
 
 from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+from pocketflow_tpu_torch.core import mesh
 from pocketflow_tpu_torch.core.metrics import ProgressMonitor, SummaryWriter, get_logger
 from pocketflow_tpu_torch.core.schedules import Schedule
 from pocketflow_tpu_torch.nn.layers import CompressionPolicy
 
 
 def resolve_device(device) -> torch.device:
-    """The device a learner runs on; a CUDA device must exist."""
+    """The device a learner runs on; a CUDA device must exist.  Under data
+    parallelism a CUDA device without an index is the rank's own,
+    ``cuda:LOCAL_RANK``; one with an index is kept (two ranks may share a
+    card)."""
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('device %s requested but torch.cuda.is_available() is False'
                            % device)
+    if device.type == 'cuda' and device.index is None and mesh.num_workers() > 1:
+        from pocketflow_tpu_torch.utils.devices import rank_device
+        device = rank_device()
     return device
 
 
@@ -106,13 +126,17 @@ class AbstractLearner(ABC):
 
         self.dataset_train = self.build_dataset_train()
         self.dataset_eval = self.build_dataset_eval()
-        self.nb_workers = 1
+        self.nb_workers = mesh.num_workers()
         self.batch_size_per_chip = self.dataset_train.spec.batch_size
-        self.global_batch_size = self.batch_size_per_chip
+        self.global_batch_size = self.batch_size_per_chip * self.nb_workers
         self.dataset_train.batch_size = self.batch_size_per_chip
         self.dataset_eval.batch_size = self.dataset_eval.spec.batch_size_eval
 
         self._seeds = np.random.default_rng(FLAGS.rand_seed)
+        # tensor parallelism: --enbl_tensor_parallel with a "model" mesh axis
+        # > 1, which mesh_axes refuses until it is ported
+        self.enbl_tp = (bool(FLAGS.get('enbl_tensor_parallel'))
+                        and mesh.mesh_axes().get(mesh.MODEL_AXIS, 1) > 1)
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -129,6 +153,16 @@ class AbstractLearner(ABC):
     # ------------------------------------------------------------------
     # shared helpers
     # ------------------------------------------------------------------
+
+    def require_dp_only(self, phase: str):
+        """Fail loudly if a host-surgery search phase runs under tensor
+        parallelism, as the JAX package does: search data-parallel, then
+        fine-tune the resulting checkpoint under TP."""
+        if self.enbl_tp:
+            raise NotImplementedError(
+                '%s does not support tensor parallelism during %s; run with '
+                '--mesh_model_parallel=1 and fine-tune the resulting '
+                'checkpoint under TP' % (type(self).__name__, phase))
 
     def next_seed(self) -> int:
         return int(self._seeds.integers(0, 2 ** 62))
@@ -153,7 +187,18 @@ class AbstractLearner(ABC):
         tx = Sgd(schedule, FLAGS.momentum)
         model = self.create_model()
         state = TrainState(step=0, model=model, optimizer=tx.init(model), extra=extra)
-        return state, tx, schedule
+        return self.broadcast_state(state), tx, schedule
+
+    def broadcast_state(self, state: TrainState) -> TrainState:
+        """Rank 0's parameters, buffers, optimizer buffers and `extra` on every
+        rank, in place (nothing at world size 1)."""
+        if self.nb_workers > 1:
+            mesh.broadcast_module_(state.model)
+            mesh.broadcast_from_primary([buf for group in state.optimizer.state.values()
+                                         for buf in group.values()
+                                         if isinstance(buf, torch.Tensor)])
+            state.extra = mesh.broadcast_from_primary(state.extra)
+        return state
 
     def build_train_step(self, tx: Sgd,
                          policy_fn: Optional[Callable[[TrainState], Optional[CompressionPolicy]]] = None,
@@ -195,6 +240,9 @@ class AbstractLearner(ABC):
                 metrics = {**metrics, **extra_metrics}
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            # the gradient of the global batch's mean loss, before any transform
+            mesh.all_reduce_grads_([p for group in state.optimizer.param_groups
+                                    for p in group['params']])
             if grad_transform_fn is not None:
                 grad_transform_fn(state)
             tx.update(state.optimizer, state.step)
@@ -258,21 +306,33 @@ class AbstractLearner(ABC):
         save_path = save_path or FLAGS.save_path
         iterator = iterator if iterator is not None else self.dataset_train.build()
         iterator = self.device_prefetch(iterator)
-        monitor = ProgressMonitor(self.sm_writer, self.dataset_train.batch_size, 1,
+        monitor = ProgressMonitor(self.sm_writer if self.is_primary_worker() else None,
+                                  self.dataset_train.batch_size, self.nb_workers,
                                   prefix=log_prefix)
+        # every rank draws alike: the augmentation takes its rows of draws
+        # made for the global batch
         base_seed = self.next_seed()
         for idx_iter in range(state.step, nb_iters):
             batch = next(iterator)
             state, metrics = train_step(state, batch, self.generator(base_seed + idx_iter))
             if (idx_iter + 1) % FLAGS.summ_step == 0:
-                monitor.report(idx_iter + 1, FLAGS.summ_step,
-                               {k: float(v) for k, v in metrics.items() if v.dim() == 0})
+                monitor.report(idx_iter + 1, FLAGS.summ_step, self.global_scalars(metrics))
             if (idx_iter + 1) % FLAGS.save_step == 0:
                 self.save_model(state, save_path)
                 if eval_fn is not None:
                     eval_fn(state)
-        self.save_model(state, save_path)
+        self.save_model(state, save_path)  # its barrier ends the loop on every rank
         return state
+
+    def global_scalars(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """The scalar metrics of a step as floats, each its mean over the
+        ranks (one all-reduce)."""
+        keys = [k for k, v in metrics.items() if v.dim() == 0]
+        if not keys:
+            return {}
+        values = torch.stack([metrics[k].detach().to(torch.float64) for k in keys])
+        mesh.all_reduce_mean_([values])
+        return dict(zip(keys, values.tolist()))
 
     def run_eval_loop(self, state: TrainState, eval_step, nb_batches: Optional[int] = None,
                       log_prefix: str = 'eval') -> Dict[str, float]:
@@ -280,23 +340,31 @@ class AbstractLearner(ABC):
         if nb_batches is None:
             nb_smpls = getattr(self.dataset_eval, 'nb_smpls_loaded',
                                self.dataset_eval.spec.nb_smpls_eval)
-            # the iterator cycles the set seamlessly: pick the smallest
-            # k >= ceil-coverage with k*bs an exact multiple of nb_smpls
-            # (searching a bounded window), so every sample counts equally
-            # often; otherwise ceil coverage
-            per_step = self.dataset_eval.batch_size
+            # each global step takes a batch from every rank's disjoint
+            # shard, and the iterators cycle their shards seamlessly: pick
+            # the smallest k >= ceil-coverage with k*bs*world an exact
+            # multiple of nb_smpls (searching a bounded window), so every
+            # sample counts equally often; otherwise ceil coverage.  The
+            # exact multiple needs equal shards, so it is claimed only when
+            # the world divides nb_smpls
+            per_step = self.dataset_eval.batch_size * self.nb_workers
             base = max(1, -(-nb_smpls // per_step))
             nb_batches = base
-            for k in range(base, min(base * 8, base + 64) + 1):
-                if (k * per_step) % nb_smpls == 0:
-                    nb_batches = k
-                    break
+            if nb_smpls % self.nb_workers == 0:
+                for k in range(base, min(base * 8, base + 64) + 1):
+                    if (k * per_step) % nb_smpls == 0:
+                        nb_batches = k
+                        break
         totals: Dict[str, torch.Tensor] = {}
         for _ in range(nb_batches):
             metrics = eval_step(state, self.put_batch(next(iterator)))
             for key, value in metrics.items():
                 if value.dim() == 0:
                     totals[key] = totals.get(key, 0.0) + value.double()
+        if totals and self.nb_workers > 1:  # the global totals, one all-reduce
+            keys = list(totals)
+            summed = mesh.all_reduce_sum_(torch.stack([totals[k] for k in keys]))
+            totals = {k: v / self.nb_workers for k, v in zip(keys, summed)}
         means = {k: float(v) / nb_batches for k, v in totals.items()}
         self.log.info('%s: %s', log_prefix,
                       ' | '.join('%s = %.4f' % kv for kv in means.items()))
@@ -307,19 +375,23 @@ class AbstractLearner(ABC):
     # ------------------------------------------------------------------
 
     def save_model(self, state: TrainState, save_path: Optional[str] = None) -> str:
+        """Rank 0 writes the checkpoint; every rank waits for it."""
         save_path = save_path or FLAGS.save_path
         path = ckpt_lib.save(save_path, {
             'step': state.step,
             'model': state.model.state_dict(),
             'optimizer': state.optimizer.state_dict(),
             'extra': state.extra}, state.step)
-        self.log.info('model saved to %s', path)
+        mesh.auto_barrier()
+        if self.is_primary_worker():
+            self.log.info('model saved to %s', path)
         return path
 
     def restore_model(self, target_state: TrainState,
                       save_path: Optional[str] = None) -> Optional[TrainState]:
         """Load the newest checkpoint under `save_path` into `target_state`."""
         save_path = save_path or FLAGS.save_path
+        mesh.auto_barrier()  # no rank reads a file another is writing
         payload = ckpt_lib.restore_latest(save_path, map_location=self.device)
         if payload is None:
             return None
@@ -327,20 +399,16 @@ class AbstractLearner(ABC):
         target_state.optimizer.load_state_dict(payload['optimizer'])
         target_state.step = int(payload['step'])
         target_state.extra = payload['extra']
+        self.broadcast_state(target_state)
         self.log.info('model restored from %s',
                       ckpt_lib.latest_checkpoint(os.path.dirname(save_path) or '.'))
         return target_state
 
-    def is_primary_worker(self) -> bool:
-        """Whether this process writes shared files (search checkpoints):
-        the port runs one process, which is the primary one."""
-        return True
-
-    def require_dp_only(self, phase: str):
-        """The JAX package refuses `phase` under tensor parallelism; the port
-        has no tensor parallelism, so every phase may run and this does
-        nothing.  Call sites keep it so that they read as the reference's."""
-        del phase
+    @staticmethod
+    def is_primary_worker(scope: str = 'global') -> bool:
+        """Whether this process writes shared files (checkpoints, search
+        state): rank 0 ('global'), or LOCAL_RANK 0 ('local')."""
+        return mesh.is_primary_worker(scope)
 
     def copy_state(self, state: TrainState) -> TrainState:
         """A state that shares no tensor with `state`: a new model with
@@ -371,10 +439,12 @@ class AbstractLearner(ABC):
         baseline checkpoint, keeping this learner's step, optimizer and extra.
         Returns (state, restored?)."""
         save_path = save_path or FLAGS.save_path
+        mesh.auto_barrier()
         payload = ckpt_lib.restore_latest(save_path, map_location=self.device)
         if payload is None:
             return state, False
         state.model.load_state_dict(payload['model'])
+        mesh.broadcast_module_(state.model)
         self.log.info('baseline params restored from %s',
                       ckpt_lib.latest_checkpoint(os.path.dirname(save_path) or '.'))
         return state, True

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from pocketflow_tpu_torch.config import FLAGS
+from pocketflow_tpu_torch.core import mesh
 from pocketflow_tpu_torch.core.bridge import search_extras_from_jax
 from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner, Sgd, TrainState
 from pocketflow_tpu_torch.learners.channel_pruning import channel_pruner as cp_lib
@@ -252,6 +253,10 @@ class ChannelPrunedLearner(AbstractLearner):
                           path, int(idxs.sum()), c_in, ratio)
             if FLAGS.cp_finetune or FLAGS.cp_retrain:
                 self._group_finetune(pruned, chn_masks, batches)
+        # each rank sampled its own shard, so its channels and kernels may
+        # differ: rank 0's parameters, BN statistics and masks on every rank
+        mesh.broadcast_module_(cur)
+        chn_masks = mesh.broadcast_from_primary(chn_masks)
         masks = kernel_masks(cur, chn_masks)
         return self.set_extra(pruned, {'masks': masks}), masks
 
@@ -374,8 +379,8 @@ class ChannelPrunedLearner(AbstractLearner):
                              else 'uniform cp_preserve_ratio')
             best_ratios = (ratios if ratios is not None
                            else [FLAGS.cp_preserve_ratio] * len(self.specs))
-        # one process: its decision is the primary's (the JAX package
-        # broadcasts process 0's ratios here)
+        # under data parallelism rank 0's decision wins
+        best_ratios = mesh.broadcast_from_primary(np.asarray(best_ratios, np.float32))
         return [float(r) for r in best_ratios]
 
     # ------------------------------------------------------------------

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from pocketflow_tpu_torch.config import FLAGS
+from pocketflow_tpu_torch.core import mesh
 from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner, TrainState
 from pocketflow_tpu_torch.learners.capture import capture_forward
 from pocketflow_tpu_torch.learners.distillation_helper import DistillationHelper
@@ -104,6 +105,7 @@ def pgd_step(learner, full: torch.nn.Module, pruned: torch.nn.Module, names: Lis
     params = dict(pruned.named_parameters())
     losses = reg_losses(full, pruned, images, names)
     grads = torch.autograd.grad(losses.sum(), [params[n] for n in names])
+    mesh.all_reduce_mean_(grads)
     with torch.no_grad():
         for idx, (name, g) in enumerate(zip(names, grads)):
             p = params[name]
@@ -154,6 +156,7 @@ def recon_step(learner, full: torch.nn.Module, pruned: torch.nn.Module, names: L
     params = dict(pruned.named_parameters())
     losses = reg_losses(full, pruned, images, names)
     grads = torch.autograd.grad(losses.sum(), [params[n] for n in names])
+    mesh.all_reduce_mean_(grads)
     optimizer.step([g * masks[n].to(g.dtype) for n, g in zip(names, grads)])
     return losses.detach()
 
@@ -251,6 +254,10 @@ class ChannelPrunedGpuLearner(AbstractLearner):
                       np.round(losses.cpu().numpy(), 3).tolist())
         # pruned channels exactly zero after the reconstruction
         masking.apply_masks_(params, masks)
+        # the PGD losses (so the adaptive rates and the shrinkage) came from
+        # each rank's own shard: rank 0's result on every rank
+        mesh.broadcast_module_(pruned.model)
+        masks = mesh.broadcast_from_primary(masks)
         state = self.set_extra(pruned, {'masks': masks})
         return state, masks
 

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from pocketflow_tpu_torch.config import FLAGS
+from pocketflow_tpu_torch.core import mesh
 from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner, TrainState
 from pocketflow_tpu_torch.learners.channel_pruning import channel_pruner as cp_lib
 from pocketflow_tpu_torch.learners.channel_pruning.learner import kernel_masks
@@ -179,6 +180,9 @@ class ChannelPrunedRmtLearner(AbstractLearner):
                 chn_masks[path] = idxs.to(torch.float32)
                 self.log.info('layer %s: kept %d/%d channels', path, int(idxs.sum()),
                               spec['kernel_shape'][2])
+        # each rank sampled its own shard: rank 0's kernels and channels on all
+        mesh.broadcast_module_(cur)
+        chn_masks = mesh.broadcast_from_primary(chn_masks)
         return self.set_extra(pruned, {'masks': kernel_masks(cur, chn_masks)})
 
     # ------------------------------------------------------------------

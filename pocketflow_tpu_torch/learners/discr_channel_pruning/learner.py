@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from pocketflow_tpu_torch.config import FLAGS
+from pocketflow_tpu_torch.core import mesh
 from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner, TrainState
 from pocketflow_tpu_torch.learners.capture import (
     CapturePolicy, capture_forward, capture_forward_with_output)
@@ -152,6 +153,7 @@ def block_ft_step(learner, full, model, heads, head_sites, masks, optimizer, bat
     loss = loss + learner.model_helper.softmax_cross_entropy(labels, logits)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    mesh.all_reduce_grads_([p for group in optimizer.param_groups for p in group['params']])
     masking.mask_gradients_({n: p.grad for n, p in model.named_parameters()}, masks)
     optimizer.step()
 
@@ -166,6 +168,7 @@ def grad_norm_step(learner, full, model, heads, head_sites, batch, layer_path,
                              block_onehot, layer_path)
     kernel = _kernel(dict(model.named_parameters()), layer_path)
     grad, = torch.autograd.grad(loss, [kernel])
+    mesh.all_reduce_mean_([grad])
     return torch.sqrt(torch.sum(torch.square(grad.to(torch.float32)), dim=(0, 1, 3)))
 
 
@@ -179,6 +182,7 @@ def layer_ft_step(learner, full, model, heads, head_sites, masks, optimizer, bat
     name = layer_path.replace('/', '.') + '.kernel'
     kernel = dict(model.named_parameters())[name]
     grad, = torch.autograd.grad(loss, [kernel])
+    mesh.all_reduce_mean_([grad])
     kernel.grad = grad * masks[name].to(grad.dtype)
     optimizer.step()
     kernel.grad = None
@@ -293,6 +297,9 @@ class DisChnPrunedLearner(AbstractLearner):
                     prune_ratio = 1.0 - float(np.count_nonzero(host_masks[path])) / nb_chns
                 self.log.info('layer %s: prune_ratio = %.4f', path, prune_ratio)
 
+        # rank 0's parameters and channel choices on every rank
+        mesh.broadcast_module_(pruned.model)
+        host_masks.update(mesh.broadcast_from_primary(host_masks))
         masks = device_masks()
         masking.apply_masks_(params, masks)
         return self.set_extra(pruned, {'masks': masks})

@@ -79,7 +79,7 @@ class NonUniformQuantPolicy(CompressionPolicy):
     def process_act(self, path, act):
         if not path.startswith('act/') or not self.quant_acts or self.a_bits.shape[0] == 0:
             return act
-        return fq.fake_quant_select(act, self.a_bits[int(path.split('/')[1])])
+        return fq.fake_quant_act_select(act, self.a_bits[int(path.split('/')[1])])
 
 
 @torch.no_grad()

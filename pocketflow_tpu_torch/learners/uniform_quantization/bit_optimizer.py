@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from pocketflow_tpu_torch.config import FLAGS
+from pocketflow_tpu_torch.core import mesh
 from pocketflow_tpu_torch.core.metrics import get_logger
 from pocketflow_tpu_torch.learners.abstract_learner import Sgd
 from pocketflow_tpu_torch.learners.capture import capture_forward
@@ -145,8 +146,8 @@ class BitOptimizer:
             self.log.warning('no rollout chose the bits; falling back to uniform %s_weight_bits',
                              self.prefix)
             w_bits_opt = [self._f('weight_bits')] * nb_layers
-        # one process: its decision is the primary's (the JAX package
-        # broadcasts process 0's bits here)
+        # under data parallelism rank 0's decision wins
+        w_bits_opt = mesh.broadcast_from_primary(np.asarray(w_bits_opt, np.float32))
         return [int(b) for b in w_bits_opt], fp_a_bits
 
     # ------------------------------------------------------------------
@@ -207,5 +208,6 @@ class BitOptimizer:
                 outs[p].to(torch.float32) - targets[p].to(torch.float32))) for p in targets)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            mesh.all_reduce_grads_(state.model.parameters())
             optimizer.step()
         return state

@@ -138,7 +138,7 @@ class QuantPolicy(CompressionPolicy):
             return act
         idx = int(path.split('/')[1])  # call-order site id assigned by relu()
         # bits >= 32 means full precision: the select is inside the op
-        return fq.fake_quant_select(act, self.a_bits[idx])
+        return fq.fake_quant_act_select(act, self.a_bits[idx])
 
 
 def bits_state(statistics: Dict[str, Any], w_bit_list=None, a_bit_list=None, *,

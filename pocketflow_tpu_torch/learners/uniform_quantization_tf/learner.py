@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from pocketflow_tpu_torch.config import FLAGS
+from pocketflow_tpu_torch.core import mesh
 from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner, Sgd, TrainState
 from pocketflow_tpu_torch.learners.distillation_helper import DistillationHelper
 from pocketflow_tpu_torch.learners.uniform_quantization import utils as uq_utils
@@ -112,12 +113,15 @@ class RangeQuantPolicy(CompressionPolicy):
 
     def update_ranges(self, ema: float):
         """act_min, act_max <- ema * old + (1 - ema) * this forward's batch
-        (min, max), in place on the device, every site at once."""
+        (min, max), in place on the device, every site at once (the global
+        batch's under data parallelism: one all-reduce for all sites)."""
         idxs = [idx for idx, _ in self.batch_ranges]
         if idxs != list(range(self.act_min.shape[0])):
             raise RuntimeError('the forward recorded activation sites %s, not each of the %d '
                                'once in order' % (idxs, self.act_min.shape[0]))
         batch = torch.stack([r for _, r in self.batch_ranges]).to(torch.float32)
+        # under data parallelism, each site's range over the global batch
+        mesh.all_reduce_minmax_(batch)
         with torch.no_grad():
             for i, ranges in enumerate((self.act_min, self.act_max)):
                 ranges.copy_(ema * ranges + (1 - ema) * batch[:, i])

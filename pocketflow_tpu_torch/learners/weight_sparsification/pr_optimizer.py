@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from pocketflow_tpu_torch.config import FLAGS
+from pocketflow_tpu_torch.core import mesh
 from pocketflow_tpu_torch.core.metrics import get_logger
 from pocketflow_tpu_torch.learners.capture import capture_forward, regression_paths_filter
 from pocketflow_tpu_torch.learners.weight_sparsification import masking
@@ -101,6 +102,7 @@ def regression_step(learner, full_model: torch.nn.Module, pruned: torch.nn.Modul
     for name, grad in zip(names, grads):
         grad = torch.zeros_like(params[name]) if grad is None else grad
         params[name].grad = grad * masks[name].to(grad.dtype)
+    mesh.all_reduce_grads_(params[n] for n in names)
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
     return loss.detach()
@@ -123,6 +125,7 @@ def finetune_step(learner, pruned: torch.nn.Module, masks: Dict[str, torch.Tenso
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     params = dict(pruned.named_parameters())
+    mesh.all_reduce_grads_(params.values())
     masking.mask_gradients_({n: p.grad for n, p in params.items()}, masks)
     optimizer.step()
     return loss.detach()
@@ -265,6 +268,8 @@ class PROptimizer:
                              else 'uniform ws_prune_ratio')
             ratios_best = (ratios if ratios is not None
                            else {p: float(FLAGS.ws_prune_ratio) for p in paths})
-        # one process: its decision is the primary's (the JAX package
-        # broadcasts process 0's ratios here)
-        return [(p, float(ratios_best[p])) for p in paths]
+        # under data parallelism the ranks' rewards come from their own
+        # shards and their best ratios may differ: rank 0's decision wins
+        ratios = mesh.broadcast_from_primary(
+            np.asarray([ratios_best[p] for p in paths], np.float32))
+        return [(p, float(ratios[i])) for i, p in enumerate(paths)]

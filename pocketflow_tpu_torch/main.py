@@ -2,11 +2,13 @@
 
 Selects the model helper by ``--model`` (or a positional name), applies the
 model's dataset entries of ``--path_conf``, and runs the learner chosen by
-``--learner`` on one CUDA device.
+``--learner`` on one CUDA device, or data-parallel on one device a process
+when launched with torchrun (``core/mesh.py``).
 
 Usage:
     python -m pocketflow_tpu_torch.main --model=resnet_at_cifar10 --learner=uniform \\
         --data_dir_local=/data/cifar10 [--exec_mode=train|eval] [flags...]
+    torchrun --nproc_per_node=N -m pocketflow_tpu_torch.main ... --enbl_multi_gpu
 """
 
 import importlib
@@ -25,8 +27,13 @@ NOT_PORTED = ('vgg_at_pascalvoc', 'faster_rcnn_at_pascalvoc')
 
 
 def main(argv=None, device='cuda'):
-    """Run the learner on `device`; returns the learner."""
+    """Run the learner on `device`; returns the learner.  Under torchrun's
+    environment the process joins its group first (a group the caller made
+    is kept; one made here is destroyed at the end), and a CUDA `device`
+    without an index becomes ``cuda:LOCAL_RANK``."""
+    import torch.distributed as dist
     from pocketflow_tpu_torch.config import FLAGS
+    from pocketflow_tpu_torch.core import mesh
     from pocketflow_tpu_torch.core.metrics import SummaryWriter, get_logger
     from pocketflow_tpu_torch.learners import create_learner
     from pocketflow_tpu_torch.utils.path_args import apply_path_conf
@@ -58,12 +65,15 @@ def main(argv=None, device='cuda'):
     if model_name not in MODELS:
         raise SystemExit('unknown model %r' % model_name)
     apply_path_conf(model_name)
+    owns_group = not (dist.is_available() and dist.is_initialized())
+    owns_group = mesh.distributed_init(device) and owns_group
 
     log = get_logger()
     log.info('model = %s | learner = %s | exec_mode = %s',
              model_name, FLAGS.learner, FLAGS.exec_mode)
     module = importlib.import_module(MODELS[model_name])
-    sm_writer = SummaryWriter(FLAGS.log_dir)
+    # summaries from rank 0 only
+    sm_writer = SummaryWriter(FLAGS.log_dir) if mesh.is_primary_worker() else None
     try:
         learner = create_learner(sm_writer, module.ModelHelper(), device=device)
         if FLAGS.exec_mode == 'train':
@@ -73,7 +83,10 @@ def main(argv=None, device='cuda'):
         else:
             raise ValueError('unrecognized execution mode: ' + FLAGS.exec_mode)
     finally:
-        sm_writer.close()
+        if sm_writer is not None:
+            sm_writer.close()
+        if owns_group:
+            dist.destroy_process_group()
     return learner
 
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pocketflow_tpu_torch.config import FLAGS
+from pocketflow_tpu_torch.core import mesh
 
 # ---------------------------------------------------------------------------
 # Compression policy context
@@ -308,6 +309,65 @@ class _BNVariables(nn.Module):
             self.var.fill_(1.0)
 
 
+def _channel_sums(*tensors: torch.Tensor) -> torch.Tensor:
+    """Each NCHW tensor summed over all but the channel axis, concatenated."""
+    return torch.cat([t.sum(dim=(0, 2, 3)) for t in tensors])
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BN over the global batch of all ranks (exact sync-BN).
+
+    Forward: the local fp32 (or wider) sums of x and x^2 and the count in
+    one buffer, one all-reduce, then Flax's statistics (mean, biased variance
+    max(0, E[x^2] - mean^2)) and y = (x - mean) * rstd * scale + bias in
+    fp32, cast to the compute dtype.  Backward: one all-reduce of the sums of
+    dy and dy * x_hat; the input's gradient takes the global sums, the scale's
+    and bias's gradients the local ones (the gradient all-reduce of the step
+    averages them).  ``torch.nn.SyncBatchNorm`` does not run on the CPU and
+    moves the running variance with the unbiased estimate."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, epsilon, dtype):
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = x.shape[1]
+        packed = torch.cat([_channel_sums(x32, x32.square()),
+                            x32.new_full((1,), x32.numel() // c)])
+        mesh.all_reduce_sum_(packed)
+        count = packed[2 * c:]
+        mean = packed[:c] / count
+        var = torch.clamp(packed[c:2 * c] / count - mean.square(), min=0.0)
+        rstd = torch.rsqrt(var + epsilon)
+        y = ((x32 - mean[:, None, None]) * (rstd * scale)[:, None, None]
+             + bias[:, None, None]).to(dtype)
+        ctx.save_for_backward(x, scale, mean, rstd, count)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, scale, mean, rstd, count = ctx.saved_tensors
+        c = x.shape[1]
+        dy32 = dy.to(mean.dtype)
+        x_hat = (x.to(mean.dtype) - mean[:, None, None]) * rstd[:, None, None]
+        local = _channel_sums(dy32, dy32 * x_hat)
+        total = mesh.all_reduce_sum_(local.clone())
+        dx = (dy32 - (total[:c] / count)[:, None, None]
+              - x_hat * (total[c:] / count)[:, None, None]) * (scale * rstd)[:, None, None]
+        return dx.to(x.dtype), local[c:], local[:c], None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the ranks, whose gradient is the sum of the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return mesh.all_reduce_sum_(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return mesh.all_reduce_sum_(g.clone())
+
+
 class BatchNorm(nn.Module):
     """Batch normalization over the channel axis of NCHW tensors.
 
@@ -317,6 +377,11 @@ class BatchNorm(nn.Module):
     variance (``nn.BatchNorm2d`` would use the unbiased one).  Eval mode
     normalizes with the running statistics.  ``--bn_stats_subsample=S`` takes
     the statistics from the leading 1/S of the batch (ghost-BN).
+
+    Under data parallelism the batch is the global one: the statistics are
+    all-reduced (``_SyncBatchNorm``; ghost-BN takes the leading
+    batch // S samples of each rank's rows, as the JAX package takes them of
+    each data shard).  At world size 1 no collective runs.
     """
 
     def __init__(self, features: int, momentum: float = 0.997, epsilon: float = 1e-5,
@@ -338,21 +403,36 @@ class BatchNorm(nn.Module):
             return torch.native_batch_norm(x.to(self.dtype), v.scale, v.bias, v.mean, v.var,
                                            False, 0.0, self.epsilon)[0]
         sub = int(FLAGS.get('bn_stats_subsample') or 1)
-        if sub <= 1 or x.shape[0] < 2 * sub:
+        world = mesh.num_workers()
+        if sub <= 1 or x.shape[0] * world < 2 * sub:
+            if world > 1:
+                y, mean, var = _SyncBatchNorm.apply(x, v.scale, v.bias, self.epsilon,
+                                                    self.dtype)
+                self._update_running(mean, var)
+                return y
             # one fused pass: output, batch mean and 1/sqrt(biased var + eps)
             y, mean, invstd = torch.native_batch_norm(
                 x.to(self.dtype), v.scale, v.bias, None, None, True, 0.0, self.epsilon)
             self._update_running(mean, invstd.detach().double().pow(-2).sub(self.epsilon).float())
             return y
-        return self._ghost(x, sub)
+        return self._ghost(x, sub, world)
 
-    def _ghost(self, x: torch.Tensor, sub: int) -> torch.Tensor:
-        """Statistics from the leading batch // S samples (single device: one
-        data shard), normalization in the compute dtype as in the JAX package."""
+    def _ghost(self, x: torch.Tensor, sub: int, world: int) -> torch.Tensor:
+        """Statistics from the leading batch // S samples of this rank's rows
+        (at world size W, of each rank's, all-reduced), normalization in the
+        compute dtype as in the JAX package."""
         v = self.bn
-        xs = x[:x.shape[0] // sub].to(torch.float32)
-        mean = xs.mean(dim=(0, 2, 3))
-        var = xs.square().mean(dim=(0, 2, 3)) - mean.square()
+        if world == 1:
+            xs = x[:x.shape[0] // sub].to(torch.float32)
+            mean = xs.mean(dim=(0, 2, 3))
+            var = xs.square().mean(dim=(0, 2, 3)) - mean.square()
+        else:
+            xs = x[:max(1, x.shape[0] // sub)].to(torch.float32)
+            c = x.shape[1]
+            packed = _AllReduceSum.apply(torch.cat([
+                _channel_sums(xs, xs.square()), xs.new_full((1,), xs.numel() // c)]))
+            mean = packed[:c] / packed[2 * c:]
+            var = packed[c:2 * c] / packed[2 * c:] - mean.square()
         self._update_running(mean.detach(), var.detach())
         rstd = torch.rsqrt(var + self.epsilon)
         inv = (rstd * v.scale).to(self.dtype)

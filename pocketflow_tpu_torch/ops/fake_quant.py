@@ -19,7 +19,10 @@ on bits < 32 too: the activations), ``fake_quant_per_tensor_group`` (many
 fp32 tensors at their own bits in one launch pair: the train step's
 weights) and ``fake_quant_per_column_group`` (the bucket routes' weights in
 one launch pair; a group of one, without the select, is the per-site bucket
-ops' route).  Dispatch is by device: a CPU
+ops' route).  Under data parallelism an activation's range is the global
+batch's: ``fake_quant_per_tensor_global`` runs K1''s pass 1 alone, all-reduces
+the (min, max) across the ranks, then runs pass 2 from that range (the fused
+``fake_quant_per_tensor`` stays the route at world size 1).  Dispatch is by device: a CPU
 tensor takes the plain PyTorch version (``_quantize_math_torch``), a CUDA
 tensor launches the kernel, anything else raises.  No call falls back from
 one to the other.  The module-level counters count kernel launches and plain
@@ -35,12 +38,15 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from pocketflow_tpu_torch.core import mesh
+
 EPS = 1e-10
 
 # launches of the CUDA kernels (select_launches: those of the per-tensor
 # kernel with the select), and calls of the plain version (CPU tensors)
 tensor_kernel_launches = 0
 select_launches = 0
+global_range_launches = 0
 group_kernel_launches = 0
 column_group_launches = 0
 plain_calls = 0
@@ -48,14 +54,15 @@ plain_calls = 0
 
 def reset_counters():
     global tensor_kernel_launches, select_launches, group_kernel_launches
-    global column_group_launches, plain_calls
+    global column_group_launches, plain_calls, global_range_launches
     tensor_kernel_launches = select_launches = group_kernel_launches = 0
-    column_group_launches = plain_calls = 0
+    column_group_launches = plain_calls = global_range_launches = 0
 
 
 def counters() -> dict:
     return {'fake_quant_per_tensor': tensor_kernel_launches,
             'fake_quant_per_tensor_select': select_launches,
+            'fake_quant_per_tensor_global': global_range_launches,
             'fake_quant_per_tensor_group': group_kernel_launches,
             'fake_quant_per_column_group': column_group_launches,
             'plain': plain_calls}
@@ -77,6 +84,12 @@ def _quantize_math_torch(x: torch.Tensor, k: torch.Tensor, axis: Optional[int]) 
     else:
         w_max = x32.amax(dim=axis, keepdim=True)
         w_min = x32.amin(dim=axis, keepdim=True)
+    return _quantize_in_range(x32, k, w_min, w_max)
+
+
+def _quantize_in_range(x32: torch.Tensor, k: torch.Tensor, w_min: torch.Tensor,
+                       w_max: torch.Tensor) -> torch.Tensor:
+    """The affine quantization of fp32 x32 against the range (w_min, w_max)."""
     alpha = w_max - w_min + EPS
     beta = w_min
     normalized = (x32 - beta) / alpha
@@ -103,6 +116,10 @@ def _library() -> ctypes.CDLL:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.pf_fake_quant_tensor.argtypes = [ptr, ptr, i64, i32, ptr, ptr, i32, ptr]
         lib.pf_fake_quant_tensor.restype = i32
+        lib.pf_fake_quant_tensor_minmax.argtypes = [ptr, i64, i32, ptr, ptr, i32, ptr, ptr]
+        lib.pf_fake_quant_tensor_minmax.restype = i32
+        lib.pf_fake_quant_tensor_from_range.argtypes = [ptr, ptr, i64, i32, ptr, ptr, i32, ptr]
+        lib.pf_fake_quant_tensor_from_range.restype = i32
         lib.pf_fake_quant_tensor_group.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr]
         lib.pf_fake_quant_tensor_group.restype = i32
         lib.pf_fake_quant_columns_group.argtypes = [ptr, ptr, i32, ptr, i32, ptr, ptr, ptr]
@@ -181,6 +198,73 @@ def fake_quant_per_tensor(x: torch.Tensor, bits: torch.Tensor,
     _check_launch(err, 'fake_quant_per_tensor')
     tensor_kernel_launches += 1
     select_launches += int(select)
+    return out
+
+
+def fake_quant_per_tensor_global(x: torch.Tensor, bits: torch.Tensor,
+                                 select: bool = False) -> torch.Tensor:
+    """fake_quant_per_tensor(x, bits, select) against the range of x over
+    every rank's rows (core/mesh.py), x's own at world size 1: K1''s pass 1
+    (``tensor_minmax``: (-min, max) into a device buffer), one MAX all-reduce
+    of that pair, pass 2 from it (``tensor_from_range``), all on the current
+    stream, with no wait on the host.  The plain version takes
+    torch.aminmax, the same all-reduce and _quantize_in_range."""
+    global global_range_launches, plain_calls
+    if x.device.type == 'cpu':
+        plain_calls += 1
+        x32 = x.to(torch.float32)
+        lo_hi = mesh.all_reduce_minmax_(torch.stack(torch.aminmax(x32)))
+        q = _quantize_in_range(x32, _levels(bits), lo_hi[0], lo_hi[1]).to(x.dtype)
+        return torch.where(bits < 32, q, x) if select else q
+    neg_range = tensor_minmax(x, bits, select)
+    mesh.all_reduce_max_(neg_range)
+    out = tensor_from_range(x, bits, neg_range, select)
+    global_range_launches += 1
+    return out
+
+
+def _check_tensor(name: str, x: torch.Tensor, bits: torch.Tensor):
+    if x.device.type != 'cuda':
+        raise ValueError('%s: no kernel for device %s' % (name, x.device))
+    if x.dtype not in (torch.float32, torch.bfloat16) or not _dense(x) or x.numel() < 1:
+        raise ValueError('%s takes a non-empty dense fp32/bf16 tensor, got %s %s'
+                         % (name, x.dtype, tuple(x.shape)))
+    _check_bits(bits, x)
+
+
+def tensor_minmax(x: torch.Tensor, bits: torch.Tensor, select: bool = False) -> torch.Tensor:
+    """K1''s pass 1 alone on CUDA `x`: a [2] fp32 device tensor holding
+    (-min(x), max(x)) (unset where select and bits >= 32)."""
+    _check_tensor('tensor_minmax', x, bits)
+    neg_range = torch.empty(2, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device)
+    with torch.cuda.device(x.device):
+        err = _library().pf_fake_quant_tensor_minmax(
+            x.data_ptr(), x.numel(), int(x.dtype == torch.bfloat16),
+            _scratch(x.device, stream).data_ptr(), bits.data_ptr(), int(select),
+            neg_range.data_ptr(), stream.cuda_stream)
+    _check_launch(err, 'tensor_minmax')
+    return neg_range
+
+
+def tensor_from_range(x: torch.Tensor, bits: torch.Tensor, neg_range: torch.Tensor,
+                      select: bool = False) -> torch.Tensor:
+    """K1''s pass 2 alone on CUDA `x`: its fake-quant against the range
+    (-neg_range[0], neg_range[1]) ([2] fp32 on x's device), which must hold
+    every element of x (the global range does: the bf16 table covers only
+    the values in it), or x itself where select and bits >= 32; x's dtype
+    and memory layout."""
+    _check_tensor('tensor_from_range', x, bits)
+    if neg_range.device != x.device or neg_range.dtype != torch.float32 \
+            or tuple(neg_range.shape) != (2,) or not neg_range.is_contiguous():
+        raise ValueError('neg_range must be 2 contiguous float32 on %s' % x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _library().pf_fake_quant_tensor_from_range(
+            x.data_ptr(), out.data_ptr(), x.numel(), int(x.dtype == torch.bfloat16),
+            neg_range.data_ptr(), bits.data_ptr(), int(select),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(err, 'tensor_from_range')
     return out
 
 
@@ -415,6 +499,17 @@ class _FakeQuantSelect(torch.autograd.Function):
         return g, None
 
 
+class _FakeQuantSelectGlobal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bits):
+        return fake_quant_per_tensor_global(x if _dense(x) else x.contiguous(), bits,
+                                            select=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class _FakeQuantGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, bits, *xs):
@@ -462,6 +557,21 @@ def fake_quant_select(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     with the select inside.  The gradient is the identity on both sides of
     32, as both branches of the reference's where pass it through."""
     return _FakeQuantSelect.apply(x, bits)
+
+
+def fake_quant_select_global(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """fake_quant_select against the range of x over every rank's rows:
+    the activation route under data parallelism, where the JAX package
+    takes the min and max of a batch-sharded tensor."""
+    return _FakeQuantSelectGlobal.apply(x, bits)
+
+
+def fake_quant_act_select(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """The quant policies' activation op: fake_quant_select at world size 1,
+    fake_quant_select_global under data parallelism."""
+    if mesh.num_workers() > 1:
+        return fake_quant_select_global(x, bits)
+    return fake_quant_select(x, bits)
 
 
 def fake_quant_group(xs: Sequence[torch.Tensor], bits: torch.Tensor) -> List[torch.Tensor]:

@@ -415,3 +415,34 @@ def test_matmul_wrappers_count_launches_and_reject_bad_inputs(cuda):
         tmm.matmul_bf16(x.reshape(-1)[4:4 + 6400].reshape(100, 64), w)  # 8-byte aligned
     with pytest.raises(ValueError):
         tmm.bn_relu_matmul_stats(x, w, scale.cpu(), scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('bits', [2, 4, 8, 16, 32])
+@pytest.mark.parametrize('select', [False, True])
+@pytest.mark.parametrize('shape,dtype', [((8, 64, 56, 56), torch.bfloat16),
+                                         ((1025,), torch.float32),
+                                         ((3, 3, 64, 64), torch.float32),
+                                         ((2049,), torch.bfloat16)])
+def test_global_range_route_equals_fused_kernel_and_plain(cuda, bits, select, shape, dtype):
+    """K1''s global-range route (pass 1 alone, the pair all-reduced, pass 2
+    from it) at world size 1 equals the fused kernel bit for bit; pass 1
+    gives (-min, max); pass 2 from a given range that holds every element
+    equals the plain version from that range."""
+    x = _inputs(cuda, shape, dtype)
+    b = torch.tensor(float(bits), device=cuda)
+    tfq.reset_counters()
+    got = tfq.fake_quant_per_tensor_global(x, b, select)
+    assert tfq.counters()['fake_quant_per_tensor_global'] == 1
+    assert torch.equal(got, tfq.fake_quant_per_tensor(x, b, select))
+    lo, hi = torch.aminmax(x.float())
+    if not (select and bits >= 32):
+        assert torch.equal(tfq.tensor_minmax(x, b, select), torch.stack([-lo, hi]))
+    # a range wider than x's on both sides (pass 2 takes a range that holds
+    # every element, as the global one does)
+    neg_range = torch.stack([-(lo - 0.5), hi + 0.25])
+    want = tfq._quantize_in_range(x.float(), tfq._levels(b), -neg_range[0],
+                                  neg_range[1]).to(dtype)
+    if select:
+        want = torch.where(b < 32, want, x)
+    assert torch.equal(tfq.tensor_from_range(x, b, neg_range, select), want)
