@@ -83,6 +83,20 @@ on the card, and drives the port's paths:
     reruns from parameters one ulp away; run Y, main.main on two ranks
     (ResNet-20 weight sparsification, the optimal search): equal ratios on
     both, one checkpoint, written by rank 0;
+  * detection (phase 24) at 300x300, bf16, batch 32, synthetic VOC, through
+    main.main: SSD-VGG16 full-prec (run D1), uniform 4-bit (D2: one grouped
+    K1' launch a forward for its 33 weights) and with 8-bit activations
+    (D3: and K1' with the select at each of its 23 relu sites), each timed,
+    profiled (device busy time, idle share, layers; the matching and loss,
+    Faster R-CNN's proposal layer and ROI-align as named ranges) and D1, D2
+    evaluated with mAP (forward, decode, host NMS, VOC eval timed); the
+    grouped K1' at SSD's weights and K1' at its largest activation against
+    their plain versions; Faster R-CNN with a ResNet-50 trunk (D4) trained
+    and evaluated; BASELINE config #5 (D5): the channel learner on D4's
+    baseline on two ranks sharing the card over gloo (equal masks, pruned
+    mid-trunk channels zero, one checkpoint from rank 0, the gathered eval
+    equal to one rank's, detection by detection); an SSD QAT step and a
+    Faster R-CNN eval forward at 64x64, card against CPU;
 
 and checks that each went through its kernels and never through a plain
 version.  Any failed phase raises and the script exits non-zero without its
@@ -185,7 +199,8 @@ K3_S_TOL64, K3_SS_TOL64 = 1e-6, 2e-6
 ZOO_BATCH, ZOO_TRAIN, ZOO_EVAL = 128, 1280, 512
 # each model's (quantized weights, activation sites), and the nets' classes
 ZOO_SITES = {'resnet_at_cifar10': (20, 19), 'convnet_at_fmnist': (2, 3), 'lenet_at_cifar10': (2, 3)}
-ZOO_NETS = ('ResNetCifar', 'ConvNet', 'LeNet', 'MobileNetV1', 'MobileNetV2')
+ZOO_NETS = ('ResNetCifar', 'ConvNet', 'LeNet', 'MobileNetV1', 'MobileNetV2', 'SSDVGG',
+            'FasterRCNN')
 # the policies of a quantized forward (each learner's)
 QUANT_POLICIES = ('QuantPolicy', 'RangeQuantPolicy', 'NonUniformQuantPolicy')
 ZOO_RUNS = [  # (label, model, flags, expected launches a quantized forward)
@@ -354,6 +369,62 @@ DP_RUN_X = {'main': 'data-parallel run X: %d main-path steps, %d ranks on one ca
                     'card over gloo, batch %d a rank' % (DP_STEPS, DP_WORLD, BATCH)}
 DP_RUN_Y = ('data-parallel run Y: main.main on %d ranks over gloo, resnet_at_cifar10 '
             'weight-sparse optimal (2 roll-outs), batch %d a rank' % (DP_WORLD, ZOO_BATCH))
+
+
+# phase 24: detection at 300x300, bf16, the Pascal VOC spec's batch of 32 (a
+# rank), synthetic VOC (DET_TRAIN train and DET_EVAL eval images), through
+# main.main: SSD-VGG16 full-prec (run D1, the baseline of D2/D3), uniform
+# 4-bit (D2: one grouped K1' launch a forward for its 33 weights) and with
+# 8-bit activations (D3: and K1' with the select at each of its 23 relu
+# sites); Faster R-CNN with a ResNet-50 trunk, full-prec (D4: 300 proposals
+# from 1,024 pre-NMS, 128 ROIs an image); BASELINE config #5, the channel
+# learner on D4's baseline on DET_WORLD ranks sharing the card over gloo
+# (D5).  Each train run takes DET_STEPS steps: DET_WARMUP, a window of
+# DET_TIMED on the host clock, DET_PROFILED under the profiler (the device
+# only), DET_PROFILED more with the host's ops recorded (the named ranges).
+DET_WARMUP, DET_TIMED, DET_PROFILED = 2, 4, 2
+DET_STEPS = DET_WARMUP + DET_TIMED + 2 * DET_PROFILED
+DET_BATCH, DET_EVAL = 32, 64
+DET_TRAIN = DET_BATCH * DET_STEPS  # one quantization epoch is DET_STEPS steps
+DET_WORLD = 2
+SSD_SITES = (33, 23)  # quantized weights (35 less the first and the last), relu sites
+SSD_LAST = 'cls_head_5'  # the last quantized weight (box_head_5, the last kernel, is not)
+# nb_epochs_rat giving DET_STEPS (+ 0.5) steps of a model's full-precision
+# schedule (SSD 120 epochs, Faster R-CNN 25) over DET_TRAIN samples
+DET_RAT = {model: (DET_STEPS + 0.5) * DET_BATCH / (DET_TRAIN * epochs)
+           for model, epochs in (('vgg_at_pascalvoc', 120), ('faster_rcnn_at_pascalvoc', 25))}
+DET_QUANT = ['--learner=uniform', '--uql_weight_bits=4', '--uql_quant_epochs=1',
+             '--nb_epochs_rat=1']
+# D1's eval scores at the recipe's threshold (0.05): ~3,900 detections an
+# image pass it on the young net, 200 a class, and the host NMS takes ~40 s
+# for the 64 images; D2's eval scores at 0.1 to keep the phase short
+SSD_RUNS = [  # (label, argv, launches a quantized forward, argv of the eval after it)
+    ('detection run D1: vgg_at_pascalvoc full-prec, %d steps' % DET_STEPS,
+     ['--learner=full-prec', '--nb_epochs_rat=%r' % DET_RAT['vgg_at_pascalvoc']], {}, []),
+    ('detection run D2: vgg_at_pascalvoc uniform 4-bit, %d steps' % DET_STEPS, DET_QUANT,
+     dict(fake_quant_per_tensor_group=1), ['--ssd_score_threshold=0.1']),
+    ('detection run D3: vgg_at_pascalvoc uniform 4-bit, 8-bit activations, %d steps' % DET_STEPS,
+     DET_QUANT + ['--uql_activation_bits=8'],
+     dict(fake_quant_per_tensor_group=1, fake_quant_per_tensor=SSD_SITES[1],
+          fake_quant_per_tensor_select=SSD_SITES[1]), None)]
+FRCNN_RUN = ('detection run D4: faster_rcnn_at_pascalvoc ResNet-50 full-prec, %d steps'
+             % DET_STEPS)
+# at the recipe's rate (0.1 x 32 / 128) Faster R-CNN diverges from random
+# weights within 4 steps (loss 79 -> 3e19: the RPN heads' fan-out init puts
+# the first objectness logits at up to 322); the JAX package's own Faster
+# R-CNN smoke test trains at 0.01, as these runs do
+FRCNN_FLAGS = ['--frcnn_backbone=resnet50', '--lrn_rate_init=0.01',
+               '--nb_epochs_rat=%r' % DET_RAT['faster_rcnn_at_pascalvoc']]
+CONFIG5_RUN = ('detection run D5: BASELINE config #5, faster_rcnn_at_pascalvoc ResNet-50 '
+               'channel 0.5 on %d ranks over gloo, batch %d a rank' % (DET_WORLD, DET_BATCH))
+CONFIG5_FLAGS = ['--learner=channel', '--cp_prune_option=uniform',
+                 '--cp_uniform_preserve_ratio=0.5', '--cp_nb_batches=1',
+                 '--cp_nb_points_per_layer=10', '--cp_lasso_nb_iters=50',
+                 '--cp_nb_iters_ft_ratio=0.5', '--enbl_multi_gpu']
+# card vs CPU at 64x64, batch 4, fp32 without TF32 (24e): the losses within
+# 1e-3 relative, outputs within 1e-3 + 1e-3 of the largest
+DET_SMALL = dict(voc_image_size=64, batch_size=4, batch_size_eval=4, nb_smpls_train=64,
+                 nb_smpls_eval=8, compute_dtype='float32', nb_bboxs_max=8)
 
 
 def log(msg, *args):
@@ -1040,13 +1111,14 @@ class ForwardCounter:
             setattr(owner, name, fn)
 
 
-def run_main(FLAGS, work_dir, model, argv, on_step=None):
+def run_main(FLAGS, work_dir, model, argv, on_step=None, make_argv=None):
     """main.main(argv) for `model` on the card at the zoo's batch, on the
-    CIFAR-10 files under work_dir (checkpoints and logs there too), its
-    launches counted from a reset just before it to just after it.  Returns
-    (learner, ForwardCounter, counters, seconds)."""
+    CIFAR-10 files under work_dir (checkpoints and logs there too), or with
+    the argv `make_argv(work_dir, model, argv)` gives; its launches counted
+    from a reset just before it to just after it.  Returns (learner,
+    ForwardCounter, counters, seconds)."""
     from pocketflow_tpu_torch import main as port_main
-    argv = zoo_argv(work_dir, model, argv)
+    argv = (make_argv or zoo_argv)(work_dir, model, argv)
     counter = ForwardCounter(on_step)
     start = time.perf_counter()
     try:
@@ -2965,6 +3037,414 @@ def phase_dp_main(FLAGS, work_dir, card):
     return {DP_RUN_Y: no_launches()}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: detection
+# ---------------------------------------------------------------------------
+
+def det_argv(work_dir, model, argv):
+    """main.main's argv for a detector at phase 24's sizes (synthetic VOC),
+    its files under work_dir/detection/<model>, then `argv`."""
+    model_dir = os.path.join(work_dir, 'detection', model)
+    return ['--model=%s' % model, '--data_dir_local=', '--batch_size=%d' % DET_BATCH,
+            '--batch_size_eval=%d' % DET_BATCH, '--nb_smpls_train=%d' % DET_TRAIN,
+            '--nb_smpls_eval=%d' % DET_EVAL, '--compute_dtype=bfloat16', '--rand_seed=0',
+            '--summ_step=%d' % 10 ** 9, '--save_step=%d' % 10 ** 9,
+            '--log_dir=%s' % os.path.join(model_dir, 'logs'),
+            '--save_path=%s' % os.path.join(model_dir, 'models', 'model.ckpt'),
+            '--uql_save_quant_model_path=%s' % os.path.join(model_dir, 'uql', 'model.ckpt'),
+            '--cp_channel_pruned_path=%s' % os.path.join(model_dir, 'cp', 'model.ckpt')] + argv
+
+
+class DetStepProbe:
+    """`on_step` for run_main over a detection run of DET_STEPS steps: the
+    host time of the DET_TIMED steps after DET_WARMUP (synchronized at the
+    window's edges only); then DET_PROFILED steps under the profiler, the
+    device only (busy time, idle share, layers); then DET_PROFILED steps
+    with the host's ops recorded and the detection ranges named
+    (tools/profile_step.py), which slows the host."""
+
+    def __init__(self):
+        self.index, self.window_ms, self.profile = 0, None, None
+        self._t0 = self._stack = self._prof = None
+
+    def _start(self, ranges: bool):
+        import contextlib
+        from torch.profiler import ProfilerActivity, profile
+        from pocketflow_tpu_torch.tools import profile_step
+        self._stack = contextlib.ExitStack()
+        activities = [ProfilerActivity.CUDA]
+        if ranges:
+            self._stack.enter_context(profile_step.detection_ranges())
+            activities.append(ProfilerActivity.CPU)
+        self._prof = self._stack.enter_context(profile(activities=activities))
+
+    def __call__(self, when, state):
+        from pocketflow_tpu_torch.tools import profile_step
+        first_profiled = DET_WARMUP + DET_TIMED
+        if when == 'before':
+            if self.index == DET_WARMUP:
+                torch.cuda.synchronize()
+                self._t0 = time.perf_counter()
+            elif self.index == first_profiled:
+                torch.cuda.synchronize()
+                self.window_ms = 1e3 * (time.perf_counter() - self._t0) / DET_TIMED
+                self._start(ranges=False)
+            elif self.index == first_profiled + DET_PROFILED:
+                self._start(ranges=True)
+            return
+        self.index += 1
+        if self.index in (first_profiled + DET_PROFILED, DET_STEPS):
+            torch.cuda.synchronize()
+            self._stack.close()
+            if self.index < DET_STEPS:
+                self.profile = profile_step.summarize(profile_step.device_events(self._prof),
+                                                      DET_PROFILED)
+            else:
+                self.profile['by_range_ms_per_step'] = profile_step.range_times(
+                    self._prof, DET_PROFILED)
+
+
+def detection_list(helper):
+    """The detections a helper scored last, image by image, as (class,
+    score, box) tuples, and a checksum of its ground truths."""
+    import hashlib
+    dets = [[(d['class'], d['score'], tuple(float(v) for v in d['box'])) for d in image]
+            for image in helper._detections]
+    digest = hashlib.sha256(b''.join(np.asarray(g, np.float32).tobytes()
+                                     for g in helper._groundtruth)).hexdigest()
+    return dets, digest
+
+
+class MapRecorder:
+    """Records each learner.eval_map's result, the detections it scored and
+    its time by part (forward, decode, host NMS, VOC eval), while open."""
+
+    def __init__(self):
+        from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner
+        self.maps, self.detections, self.timings = [], [], []
+        eval_map = self._eval_map = AbstractLearner.eval_map
+        recorder = self
+
+        def recorded(learner, state, policy=None, timings=None):
+            timings = {} if timings is None else timings
+            recorder.maps.append(eval_map(learner, state, policy, timings))
+            recorder.timings.append(timings)
+            recorder.detections.append(detection_list(learner.model_helper))
+            return recorder.maps[-1]
+
+        AbstractLearner.eval_map = recorded
+
+    def close(self):
+        from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner
+        AbstractLearner.eval_map = self._eval_map
+
+
+def det_eval(FLAGS, work_dir, label, model, argv, per_forward, card):
+    """main.main(argv --exec_mode=eval) of a detector on the card: the eval
+    loop and the mAP over the eval set, its launches (per_forward a quantized
+    forward), its time by part.  Returns (label, counters)."""
+    recorder = MapRecorder()
+    try:
+        _, counter, counts, elapsed = run_main(FLAGS, work_dir, model,
+                                               argv + ['--exec_mode=eval'], None, det_argv)
+    finally:
+        recorder.close()
+    check(len(recorder.maps) == 1 and 'mAP' in recorder.maps[0]
+          and all(math.isfinite(v) for v in recorder.maps[0].values()),
+          '%s eval: mAP %s', label, recorder.maps)
+    want = no_launches(**{name: n * counter.forwards for name, n in per_forward.items()})
+    check(counts == want and (counter.forwards > 0) == bool(per_forward),
+          '%s eval: launches %s over %d quantized forwards', label, counts, counter.forwards)
+    dets, _ = recorder.detections[0]
+    times = recorder.timings[0]
+    log('  %s eval: mAP %.4f over %d images (%d detections; %d classes with an AP) | eval loss '
+        '%s | forward %.3f s, decode + copy %.3f s, host NMS %.3f s, VOC eval %.3f s | launches '
+        '%s | %.1f s (restore, eval loop, mAP) | %s', label, recorder.maps[0]['mAP'], len(dets),
+        sum(map(len, dets)), len(recorder.maps[0]) - 1,
+        {k: round(v, 4) for k, v in counter.evals[-1].items()}, times['forward'],
+        times['decode'], times['nms'], times['voc_eval'], counts, elapsed, card)
+    return label + ' (eval)', counts
+
+
+def det_train(FLAGS, work_dir, label, model, argv, per_forward, card, sites=None):
+    """A detector's train run through main.main on the card: DET_STEPS
+    steps, timed and profiled (DetStepProbe), its launches checked against
+    its quantized forwards, its peak memory.  Returns (learner, counters)."""
+    probe = DetStepProbe()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    learner, counter, counts, elapsed = run_main(FLAGS, work_dir, model, argv, probe, det_argv)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = float(counter.metrics['loss'])
+    check(counter.steps == DET_STEPS, '%s: %d steps', label, counter.steps)
+    check(math.isfinite(loss), '%s: loss %r', label, loss)
+    check(counter.evals and all(math.isfinite(v) for v in counter.evals[-1].values()),
+          '%s: eval %s', label, counter.evals)
+    want = no_launches(**{name: n * counter.forwards for name, n in per_forward.items()})
+    check(counts == want, '%s: launches %s over %d quantized forwards, expected %s', label,
+          counts, counter.forwards, want)
+    if per_forward:
+        stats = learner.statistics
+        check((stats['nb_matmuls'], stats['nb_activations']) == sites, '%s: sites %d/%d',
+              label, stats['nb_matmuls'], stats['nb_activations'])
+        check(stats['weight_paths'][-1] == SSD_LAST, '%s: last quantized %s', label,
+              stats['weight_paths'][-1])
+        check(counter.forwards > counter.steps, '%s: %d forwards, %d steps', label,
+              counter.forwards, counter.steps)
+    else:
+        check(counter.forwards == 0, '%s: %d quantized forwards', label, counter.forwards)
+    prof = probe.profile
+    log('  %s: %d steps (%d quantized forwards with the eval loop), loss %.4f, eval %s | '
+        'launches %s | %.2f ms a step over %d steps after %d (%.1f img/s), device busy %.2f of '
+        '%.2f ms a step (idle %.1f%%), %.0f device events a step, peak memory %.2f GiB | %.1f s '
+        '(the run, its eval loop and its checkpoint) | %s', label, counter.steps,
+        counter.forwards, loss, {k: round(v, 4) for k, v in counter.evals[-1].items()}, counts,
+        probe.window_ms, DET_TIMED, DET_WARMUP, DET_BATCH * 1e3 / probe.window_ms,
+        prof['busy_ms_per_step'], prof['window_ms_per_step'], 100 * prof['idle_share'],
+        prof['device_events_per_step'], peak, elapsed, card)
+    log('  %s: device ms a step by layer %s; by range %s', label,
+        {k: round(v, 3) for k, v in prof['by_category_ms_per_step'].items()},
+        {k: {kk: round(vv, 3) for kk, vv in v.items()}
+         for k, v in prof['by_range_ms_per_step'].items()})
+    return learner, counts
+
+
+def phase_det_ssd(FLAGS, work_dir, card):
+    """Phase 24a: SSD-VGG16 runs D1-D3 through main.main, each with its
+    launches a forward (none; one grouped K1'; and 23 K1' with the select),
+    D1 and D2 then evaluated with mAP.  Returns ({label: counters}, the
+    quantized weight shapes)."""
+    runs, shapes = {}, None
+    for label, argv, per_forward, eval_argv in SSD_RUNS:
+        learner, runs[label] = det_train(FLAGS, work_dir, label, 'vgg_at_pascalvoc', argv,
+                                         per_forward, card, SSD_SITES)
+        if per_forward:
+            shapes = learner.statistics['weight_shapes']
+        del learner
+        if eval_argv is not None:
+            eval_label, counts = det_eval(FLAGS, work_dir, label, 'vgg_at_pascalvoc',
+                                          argv + eval_argv, per_forward, card)
+            runs[eval_label] = counts
+        torch.cuda.empty_cache()
+    return runs, shapes
+
+
+def phase_det_kernels(fq, shapes, device, card):
+    """Phase 24b: the grouped K1' at SSD-300's 33 quantized weight shapes
+    (4 bits) bit-equal to the plain version and the per-tensor kernel,
+    tensor by tensor; K1' with the select on SSD's largest activation (bf16
+    32x64x300x300, 8 bits) against the plain version and its select; each
+    timed beside the plain version, with its bound."""
+    check(len(shapes) == SSD_SITES[0], '%d SSD weight shapes', len(shapes))
+    gen = torch.Generator(device=device).manual_seed(24)
+    weights = [torch.randn(s, generator=gen, device=device) * 0.05 for s in shapes]
+    bits = torch.full((len(weights),), 4.0, device=device)
+    k4 = fq._levels(bits[0])
+    got = fq.fake_quant_per_tensor_group(weights, bits)
+    for i, (w, g) in enumerate(zip(weights, got)):
+        check(torch.equal(g, fq._quantize_math_torch(w, k4, None)),
+              'grouped K1\' differs from plain at SSD weight %d %s', i, tuple(w.shape))
+        check(torch.equal(g, fq.fake_quant_per_tensor(w, bits[i])),
+              'grouped K1\' differs from the per-tensor kernel at SSD weight %d', i)
+    ms = time_ms(lambda: fq.fake_quant_per_tensor_group(weights, bits))
+    plain_ms = time_ms(lambda: [torch.where(b < 32, fq._quantize_math_torch(w, k4, None), w)
+                                for w, b in zip(weights, bits)])
+    nb = sum(w.numel() for w in weights)
+    bound_ms, bound_by = fq_bound(nb)
+    log('  grouped K1\' at SSD-300\'s %d quantized weights (%.1f M values), 4 bits: equal to '
+        'plain and to the per-tensor kernel, tensor by tensor | kernel %.4f ms (%.0f%% of the '
+        'bound), plain %.4f ms, bound %.4f ms (%s) | %s', len(weights), nb / 1e6, ms,
+        100 * bound_ms / ms, plain_ms, bound_ms, bound_by, card)
+    del weights, got
+    bits8 = torch.tensor(8.0, device=device)
+    k8 = fq._levels(bits8)
+    shape = (DET_BATCH, 64, 300, 300)
+    x = torch.relu(torch.randn(shape, generator=gen, device=device)).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    want = torch.where(bits8 < 32, fq._quantize_math_torch(x, k8, None).to(x.dtype), x)
+    got = fq.fake_quant_per_tensor(x, bits8, select=True)
+    check(got.stride() == x.stride(), 'K1\' lost the layout of %s', shape)
+    err, nd = compare(got, want, float((x.max().float() - x.min().float()) / k8))
+    del want, got
+    ms = time_ms(lambda: fq.fake_quant_per_tensor(x, bits8, select=True))
+    plain_ms = time_ms(lambda: torch.where(
+        bits8 < 32, fq._quantize_math_torch(x, k8, None).to(x.dtype), x), 5)
+    bound_ms, bound_by = fq_bound(x.numel(), 2)
+    log('  K1\' with the select, bf16 act %s (SSD\'s conv1 outputs), 8 bits: max|d|=%.3g '
+        'n_diff=%d vs plain + select | kernel %.4f ms (%.0f%% of the bound), plain + select %.4f '
+        'ms, bound %.4f ms (%s) | %s', shape, err, nd, ms, 100 * bound_ms / ms, plain_ms,
+        bound_ms, bound_by, card)
+    del x
+    torch.cuda.empty_cache()
+
+
+def phase_det_frcnn(FLAGS, work_dir, card):
+    """Phase 24c: Faster R-CNN (ResNet-50 trunk) run D4 through main.main,
+    then its eval with mAP; the proposal layer's and ROI-align's device time
+    and launches within the step come from the profiled steps."""
+    runs = {}
+    argv = FRCNN_FLAGS + ['--learner=full-prec']
+    learner, runs[FRCNN_RUN] = det_train(FLAGS, work_dir, FRCNN_RUN, 'faster_rcnn_at_pascalvoc',
+                                         argv, {}, card)
+    del learner
+    torch.cuda.empty_cache()
+    label, counts = det_eval(FLAGS, work_dir, FRCNN_RUN, 'faster_rcnn_at_pascalvoc', argv, {},
+                             card)
+    runs[label] = counts
+    return runs
+
+
+def det_rank(argv):
+    """main.main(argv) on one rank of run D5 (cuda:0, over gloo): the
+    checkpoint files it wrote, the mAP and detections of its eval_map, and at
+    each save the zero input channels of every conv kernel with at least 8."""
+    from pocketflow_tpu_torch import main as port_main
+    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+    from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    save, save_model = ckpt_lib.torch.save, AbstractLearner.save_model
+    record = {'writes': [], 'zeros': []}
+
+    def counted_save(obj, path, *args, **kwargs):
+        record['writes'].append(str(path))
+        return save(obj, path, *args, **kwargs)
+
+    def recorded_save_model(learner, state, *args, **kwargs):
+        zeros = {}
+        for name, param in state.params.items():
+            if name.endswith('/kernel') and param.dim() == 4 and param.shape[2] >= 8:
+                norms = param.detach().float().permute(2, 0, 1, 3).reshape(
+                    param.shape[2], -1).norm(dim=1)
+                zeros[name] = (norms == 0).cpu().numpy()
+        record['zeros'].append(zeros)
+        return save_model(learner, state, *args, **kwargs)
+
+    ckpt_lib.torch.save, AbstractLearner.save_model = counted_save, recorded_save_model
+    recorder = MapRecorder()
+    try:
+        port_main.main(list(argv), device='cuda:0')
+    finally:
+        ckpt_lib.torch.save, AbstractLearner.save_model = save, save_model
+        recorder.close()
+    record.update(maps=recorder.maps, detections=recorder.detections)
+    return record
+
+
+def phase_det_config5(FLAGS, work_dir, card):
+    """Phase 24d, run D5: BASELINE config #5 on DET_WORLD ranks sharing the
+    card over gloo: the channel learner's pipeline on Faster R-CNN
+    (ResNet-50) from D4's baseline (restore, LASSO selection, reconstruction,
+    finetune), then its eval on the ranks: pruned input channels zero in
+    mid-trunk kernels and equal on every rank, one checkpoint written by
+    rank 0, the mAP equal on every rank and to one rank's eval of the
+    checkpoint over the same set, the gathered detections that rank's."""
+    from pocketflow_tpu_torch.tools import launch
+    model = 'faster_rcnn_at_pascalvoc'
+    argv = det_argv(work_dir, model, FRCNN_FLAGS + CONFIG5_FLAGS)
+    cp_dir = os.path.join(work_dir, 'detection', model, 'cp')
+    start = time.perf_counter()
+    train = launch.spawn('chip_smoke:det_rank', DET_WORLD, {'argv': argv}, backend='gloo',
+                         timeout=DP_RANK_TIMEOUT, work_dir=os.path.join(work_dir, 'det_d5'),
+                         threads=0)
+    t_train = time.perf_counter() - start
+    # after D4's 10 steps the BN running statistics are far from the
+    # batches' (D4's eval loss ~1e6) and every foreground score is 0: score
+    # every class of 30 proposals an image, so that the gathered detections
+    # carry the comparison
+    argv_eval = argv + ['--exec_mode=eval', '--frcnn_score_threshold=-1',
+                        '--frcnn_nb_proposals=30']
+    evals = launch.spawn('chip_smoke:det_rank', DET_WORLD, {'argv': argv_eval},
+                         backend='gloo', timeout=DP_RANK_TIMEOUT,
+                         work_dir=os.path.join(work_dir, 'det_d5_eval'), threads=0)
+    t_eval = time.perf_counter() - start - t_train
+    zeros = [r['zeros'][-1] for r in train]
+    check(all(sorted(z) == sorted(zeros[0]) and all(np.array_equal(z[k], zeros[0][k])
+                                                    for k in z) for z in zeros),
+          'run D5: the ranks pruned different channels')
+    mid = {k: int(v.sum()) for k, v in zeros[0].items()
+           if k.startswith('backbone/') and 'conv_init' not in k and v.any()}
+    check(mid, 'run D5: no mid-trunk input channel is zero')
+    files = sorted(os.listdir(cp_dir))
+    writes = [[w for w in r['writes'] if w.startswith(cp_dir) and w.endswith('.pt.tmp')]
+              for r in train]
+    check(len([f for f in files if f.endswith('.pt')]) == 1 and len(writes[0]) == 1
+          and not any(writes[1:]), 'run D5: files %s, writes %s', files, writes)
+    maps = [r['maps'][-1] for r in evals]
+    check(all(m == maps[0] for m in maps) and 'mAP' in maps[0], 'run D5: mAP by rank %s', maps)
+    check(all(r['detections'][-1] == evals[0]['detections'][-1] for r in evals),
+          'run D5: the ranks gathered different detections')
+    recorder = MapRecorder()
+    try:
+        single = [a for a in argv_eval if a != '--enbl_multi_gpu']
+        run_main(FLAGS, work_dir, model, single, None, lambda w, m, a: a)
+    finally:
+        recorder.close()
+    check(recorder.maps[-1] == maps[0], 'run D5: 2-rank mAP %s, 1-rank %s', maps[0],
+          recorder.maps[-1])
+    check(recorder.detections[-1] == evals[0]['detections'][-1],
+          'run D5: the gathered detections differ from one rank\'s')
+    dets = recorder.detections[-1][0]
+    check(sum(map(len, dets)) > 0, 'run D5: no detection to compare')
+    log('  %s: equal masks on %d ranks, %d kernels with zero input channels (mid-trunk: %d '
+        'kernels, %d channels), one checkpoint (%s) from rank 0 | eval on %d ranks: mAP %.4f on '
+        'every rank and on one rank over the same %d images (%d detections, gathered = one '
+        'rank\'s) | %.1f s the pipeline, %.1f s the eval | %s', CONFIG5_RUN, DET_WORLD,
+        sum(v.any() for v in zeros[0].values()), len(mid), sum(mid.values()),
+        [f for f in files if f.endswith('.pt')][0], DET_WORLD, maps[0]['mAP'], len(dets),
+        sum(map(len, dets)), t_train, t_eval, card)
+    return {CONFIG5_RUN: no_launches()}
+
+
+def phase_det_reference(FLAGS, UniformQuantLearner):
+    """Phase 24e, card vs CPU at 64x64, batch 4, fp32 without TF32, from one
+    seed: an SSD-VGG16 QAT step (the grouped K1' on the card, the plain
+    version on the CPU): its loss within 1e-3 relative and its update within
+    1e-2 of the CPU's (relative L2); a Faster R-CNN (ResNet-50) eval forward:
+    the proposals' validity equal, every output within 1e-3 + 1e-3 of its
+    largest."""
+    from pocketflow_tpu_torch.learners.full_precision import FullPrecLearner
+    from pocketflow_tpu_torch.nets import faster_rcnn_at_pascalvoc, vgg_at_pascalvoc
+    out = {}
+    with FLAGS.scope(**DET_SMALL):
+        for device in ('cuda', 'cpu'):
+            learner = UniformQuantLearner(None, vgg_at_pascalvoc.ModelHelper(), device=device)
+            ds = learner.dataset_train
+            ds.augment_xy = lambda batch, gen, is_train, ds=ds: type(ds).augment_xy(
+                ds, batch, gen, False)
+            state, tx, _ = learner.init_state_quant()
+            before = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+            images, labels = ds.synthesize_detection_arrays(64)
+            batch = learner.put_batch({'image': images[:4], 'label': labels[:4]})
+            state, metrics = learner.build_quant_train_step(tx)(state, batch, None)
+            update = torch.cat([(v.detach().cpu() - before[k]).reshape(-1)
+                                for k, v in state.params.items()])
+            with FLAGS.scope(frcnn_backbone='resnet50'):
+                det = FullPrecLearner(None, faster_rcnn_at_pascalvoc.ModelHelper(), device=device)
+                dstate, _, _ = det.init_state()
+                with torch.no_grad():
+                    outputs = det.model_helper.forward_eval(
+                        dstate.model, ds.augment(batch['image'], None, False))
+            out[device] = (float(metrics['loss']), update,
+                           {k: v.detach().cpu() for k, v in outputs.items()})
+    (loss_gpu, up_gpu, o_gpu), (loss_cpu, up_cpu, o_cpu) = out['cuda'], out['cpu']
+    up_err = float((up_gpu - up_cpu).norm() / up_cpu.norm())
+    check(abs(loss_gpu - loss_cpu) <= 1e-3 * abs(loss_cpu), 'SSD loss card %r CPU %r',
+          loss_gpu, loss_cpu)
+    check(up_err <= 1e-2, 'SSD update card vs CPU %.3g relative', up_err)
+    check(torch.equal(o_gpu['proposal_valid'], o_cpu['proposal_valid']),
+          'Faster R-CNN proposal validity differs card vs CPU')
+    errs = {}
+    for key in ('obj_logits', 'rpn_deltas', 'proposals', 'cls_logits', 'box_deltas'):
+        largest = float(o_cpu[key].abs().max())
+        errs[key] = (float((o_gpu[key] - o_cpu[key]).abs().max()), largest)
+        check(errs[key][0] <= 1e-3 + 1e-3 * largest, 'Faster R-CNN %s card vs CPU %.3g (of %.3g)',
+              key, *errs[key])
+    log('  SSD QAT step card vs CPU: loss %.6f / %.6f, update within %.3g (relative L2); Faster '
+        'R-CNN eval forward card vs CPU: proposals\' validity equal, max|d| (of the largest) %s',
+        loss_gpu, loss_cpu, up_err, {k: '%.3g (%.3g)' % v for k, v in errs.items()})
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2984,7 +3464,9 @@ def main():
     import pocketflow_tpu_torch.learners.nonuniform_quantization.learner  # noqa: F401
     import pocketflow_tpu_torch.learners.uniform_quantization_tf.learner  # noqa: F401
     import pocketflow_tpu_torch.learners.weight_sparsification.learner  # noqa: F401
+    import pocketflow_tpu_torch.nets.faster_rcnn_at_pascalvoc  # noqa: F401
     import pocketflow_tpu_torch.nets.mobilenet_at_ilsvrc12  # noqa: F401
+    import pocketflow_tpu_torch.nets.vgg_at_pascalvoc  # noqa: F401
     from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
     from pocketflow_tpu_torch.nets.resnet_at_ilsvrc12 import ModelHelper
     from pocketflow_tpu_torch.ops import build
@@ -3165,6 +3647,19 @@ def main():
         runs.update(phase_dp_two_ranks(FLAGS, work_dir, card))
         runs.update(phase_dp_main(FLAGS, work_dir, card))
         log('  phase 23: %.1f s', time.perf_counter() - t23)
+        torch.cuda.empty_cache()
+        t24 = time.perf_counter()
+        log('phase 24 detection at 300x300, bf16, batch %d through main.main: SSD-VGG16 (runs '
+            'D1-D3: full-prec, uniform, 8-bit activations), the kernels at its shapes, Faster '
+            'R-CNN with a ResNet-50 trunk (run D4), BASELINE config #5 on %d ranks (run D5); '
+            'card vs CPU at 64x64', DET_BATCH, DET_WORLD)
+        det_runs, ssd_shapes = phase_det_ssd(FLAGS, work_dir, card)
+        runs.update(det_runs)
+        phase_det_kernels(fq, ssd_shapes, device, card)
+        runs.update(phase_det_frcnn(FLAGS, work_dir, card))
+        runs.update(phase_det_config5(FLAGS, work_dir, card))
+        phase_det_reference(FLAGS, UniformQuantLearner)
+        log('  phase 24: %.1f s', time.perf_counter() - t24)
     serve_dir.cleanup()
 
     # each kernel's launches in the run that drives it: the main path for the

@@ -8,7 +8,10 @@ dicts of numpy arrays) go through ``from_jax_numpy`` into the port.
 The port names its parameters after the Flax paths, so the mapping is a
 rename from 'a/b/c' to 'a.b.c' with the layouts kept: conv kernels stay HWIO
 (the policy quantizes them in that layout), dense kernels [in, out], BN
-``scale``/``bias`` parameters and ``mean``/``var`` running statistics.  Any
+``scale``/``bias`` parameters and ``mean``/``var`` running statistics, and
+SSD's ``l2norm_conv4_3/scale``.  The detectors map the same way (SSD-VGG's
+``vgg/...`` trunk and heads, Faster R-CNN's ``backbone/...``,
+``lateral0/1``, the RPN convs and the fc heads).  Any
 other leaf raises, and ``load_jax_numpy`` raises on any port parameter or
 buffer left unset.
 
@@ -58,6 +61,12 @@ def _flatten(tree: Mapping[str, Any], prefix: str = '') -> Dict[str, np.ndarray]
     return flat
 
 
+def _scaled(parts) -> bool:
+    """Whether a 'scale' leaf at `parts` is one the port holds: a BN's
+    (under 'bn') or SSD's L2Norm's ('l2norm_conv4_3/scale')."""
+    return len(parts) >= 2 and (parts[-2] == 'bn' or parts[-2].startswith('l2norm'))
+
+
 def from_jax_numpy(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Map Flax params and batch_stats to (parameters, buffers) keyed by the
@@ -66,8 +75,7 @@ def from_jax_numpy(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
     for path, value in _flatten(params).items():
         parts = path.split('/')
         leaf = parts[-1]
-        is_bn = len(parts) >= 2 and parts[-2] == 'bn'
-        if leaf not in _PARAM_LEAVES or (leaf == 'scale' and not is_bn):
+        if leaf not in _PARAM_LEAVES or (leaf == 'scale' and not _scaled(parts)):
             raise KeyError('bridge: unmapped parameter %r' % path)
         state_dict['.'.join(parts)] = torch.from_numpy(np.array(value, np.float32))
     for path, value in _flatten(batch_stats).items():
@@ -106,7 +114,7 @@ def to_jax_numpy(model: torch.nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]
     batch_stats: Dict[str, Any] = {}
     for name, value in model.named_parameters():
         parts = name.split('.')
-        if parts[-1] not in _PARAM_LEAVES or (parts[-1] == 'scale' and parts[-2:-1] != ['bn']):
+        if parts[-1] not in _PARAM_LEAVES or (parts[-1] == 'scale' and not _scaled(parts)):
             raise KeyError('bridge: unmapped port parameter %r' % name)
         _nest(params, parts, value.detach().to('cpu', torch.float32).numpy().copy())
     for name, value in model.named_buffers():

@@ -3,7 +3,9 @@
 
 A minimal counterpart of pocketflow_tpu/core/checkpoint.py (msgpack/orbax,
 multi-process); that format is not read here — JAX parameters come across
-through ``core/bridge.py``.  Files hold tensors and plain containers only and
+through ``core/bridge.py``.  ``restore_intersecting`` grafts the parameters
+of a checkpoint into a model by name and shape (a detector's backbone from a
+classification checkpoint).  Files hold tensors and plain containers only and
 are loaded with ``weights_only=True``.
 """
 
@@ -59,3 +61,34 @@ def restore_latest(save_path: str, map_location=None) -> Optional[Dict[str, Any]
     if path is None:
         return None
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def restore_intersecting(save_path: str, model: torch.nn.Module,
+                         prefix_map: Optional[Dict[str, str]] = None) -> int:
+    """Copy into `model`, in place, every parameter of the newest checkpoint
+    under `save_path`'s directory whose path and shape match one of its
+    parameters; the rest keep their values.  Paths are Flax-style
+    ('stage1_block0/conv1/kernel'); `prefix_map` rewrites a source prefix
+    first (the first that matches; {'': 'backbone/'} puts a classification
+    trunk under 'backbone/').  Parameters only, as the JAX package grafts
+    its 'params' tree.  Returns the number of tensors copied (0 without a
+    checkpoint)."""
+    payload = restore_latest(save_path, map_location='cpu')
+    if payload is None:
+        return 0
+    src = {}
+    for key, value in payload['model'].items():
+        key = key.replace('.', '/')
+        for old, new in (prefix_map or {}).items():
+            if key.startswith(old):
+                key = new + key[len(old):]
+                break
+        src[key] = value
+    count = 0
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            cand = src.get(name.replace('.', '/'))
+            if cand is not None and tuple(cand.shape) == tuple(param.shape):
+                param.copy_(cand)
+                count += 1
+    return count

@@ -142,7 +142,7 @@ def auto_barrier():
         dist.barrier()
 
 
-def _comm_device() -> torch.device:
+def comm_device() -> torch.device:
     """Where a host value is staged for a collective: NCCL's device, or the CPU."""
     if dist.get_backend() == 'nccl':
         return torch.device('cuda', torch.cuda.current_device())
@@ -164,7 +164,7 @@ def _broadcast_leaf(leaf):
     if isinstance(leaf, (np.ndarray, np.generic, float, int, bool)):
         array = np.asarray(leaf)
         sent = array.astype(np.uint8) if array.dtype == np.bool_ else array
-        buf = torch.from_numpy(np.ascontiguousarray(sent)).to(_comm_device())
+        buf = torch.from_numpy(np.ascontiguousarray(sent)).to(comm_device())
         _COUNTS['broadcast'] += 1
         dist.broadcast(buf, src=0)
         out = buf.cpu().numpy().astype(array.dtype, copy=False)
@@ -242,6 +242,20 @@ def all_reduce_minmax_(lo_hi: torch.Tensor) -> torch.Tensor:
         lo_hi[..., 0] = -buf[..., 0]
         lo_hi[..., 1] = buf[..., 1]
     return lo_hi
+
+
+def all_gather_rows(array: np.ndarray) -> np.ndarray:
+    """[world, *shape] of every rank's float64 `array` (one shape on every
+    rank), in rank order: one SUM all_reduce of a zero buffer in which each
+    rank fills its own slot, exact since every other term is 0.  At world
+    size 1, `array[None]`."""
+    array = np.asarray(array, np.float64)
+    world = num_workers()
+    if world == 1:
+        return array[None].copy()
+    buf = torch.zeros((world,) + array.shape, dtype=torch.float64, device=comm_device())
+    buf[worker_rank()] = torch.from_numpy(array)
+    return all_reduce_sum_(buf).cpu().numpy()
 
 
 def shard_rows(n: int) -> slice:

@@ -370,6 +370,18 @@ class AbstractLearner(ABC):
                       ' | '.join('%s = %.4f' % kv for kv in means.items()))
         return means
 
+    def eval_map(self, state: TrainState, policy: Optional[CompressionPolicy] = None,
+                 timings: Optional[Dict[str, float]] = None) -> Dict[str, float]:
+        """A detection helper's VOC mAP ('mAP' and 'ap_cls_<k>') of `state`'s
+        model under `policy` over the whole eval set, logged (`timings`
+        gains its seconds by part); {} for a helper without ``evaluate_map``."""
+        if not hasattr(self.model_helper, 'evaluate_map'):
+            return {}
+        metrics = self.model_helper.evaluate_map(state.model, self.dataset_eval, policy=policy,
+                                                 timings=timings)
+        self.log.info('detection eval: mAP = %.4f', metrics.get('mAP', 0.0))
+        return metrics
+
     # ------------------------------------------------------------------
     # checkpointing
     # ------------------------------------------------------------------

@@ -9,9 +9,11 @@ He et al. ICCV'17).
   The windows are gathered directly from the padded input: the padding is
   the conv's own ('SAME' through ``same_pad``'s split, the odd row and
   column at the end, or 'VALID').  Each forward stops at the layer it
-  samples.  Positions come from an explicit ``torch.Generator``, or are
-  given (the JAX package draws them with ``jax.random``, which torch cannot
-  reproduce).
+  samples; a conv called more than once in a forward (Faster R-CNN's RPN
+  convs, shared by two levels) is sampled at its last call, input and
+  output alike, as the JAX package's capture keeps the last.  Positions
+  come from an explicit ``torch.Generator``, or are given (the JAX package
+  draws them with ``jax.random``, which torch cannot reproduce).
 * Channel selection: ISTA on min 1/2||y - P b||^2 + alpha ||b||_1 with the
   JAX package's binary search over alpha to hit the channel count (and its
   multiple-of-4 'quadruple' option).  P (sampled rows x c_out, c_in) is
@@ -118,12 +120,15 @@ def conv_modules(model: torch.nn.Module) -> Dict[str, PFConv]:
 def conv_layer_specs(model: torch.nn.Module, sample_images: torch.Tensor) -> List[dict]:
     """Per-conv specs from one forward of `sample_images` (NHWC), in call
     order: path, kernel shape (HWIO), strides, padding, input and output
-    shapes in the JAX package's NHWC order, FLOPs.  Strides and padding are
-    the conv's own; depthwise convs are left out (their input channels are
-    not prunable this way)."""
+    shapes in the JAX package's NHWC order, FLOPs, and 'nb_calls', how often
+    the forward calls the conv.  Strides and padding are the conv's own;
+    depthwise convs are left out (their input channels are not prunable this
+    way).  A conv called twice has two specs, each with the last call's input
+    shape and its own call's output shape, as the JAX package's."""
     recorder = run_until(model, sample_images, InputCapturePolicy())
     convs = conv_modules(model)
     ins = dict(recorder.inputs)
+    nb_calls = collections.Counter(path for path, _ in recorder.inputs)
     specs = []
     for path, out in recorder.captured:
         conv = convs.get(path)
@@ -140,6 +145,7 @@ def conv_layer_specs(model: torch.nn.Module, sample_images: torch.Tensor) -> Lis
             'path': path, 'kernel_shape': (h, w, c_in, c_out),
             'strides': tuple(conv.strides), 'padding': conv.padding,
             'in_shape': in_shape, 'out_shape': out_shape, 'flops': float(flops),
+            'nb_calls': nb_calls[path],
         })
     return specs
 
@@ -311,8 +317,11 @@ class ChannelPruner:
         strides = spec['strides']
         nb_pts = FLAGS.cp_nb_points_per_layer
         images = self.dataset.augment_images(batch, None, False)
-        x = run_until(cur, images, InputCapturePolicy(only=path, stop='input')).inputs[0][1]
-        y_full = run_until(orig, images, InputCapturePolicy(only=path, stop='output')).captured[0][1]
+        once = spec.get('nb_calls', 1) == 1  # else the whole forward, for its last call
+        x = run_until(cur, images, InputCapturePolicy(
+            only=path, stop='input' if once else None)).inputs[-1][1]
+        y_full = run_until(orig, images, InputCapturePolicy(
+            only=path, stop='output' if once else None)).captured[-1][1]
         bias = conv_modules(orig)[path].bias
         if bias is not None:
             y_full = y_full - bias.to(y_full.dtype)[:, None, None]

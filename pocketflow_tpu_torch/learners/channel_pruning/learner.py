@@ -438,4 +438,5 @@ class ChannelPrunedLearner(AbstractLearner):
         restored = self.restore_model(state, FLAGS.cp_channel_pruned_path)
         if restored is None:
             raise FileNotFoundError('no checkpoint found under ' + FLAGS.cp_channel_pruned_path)
-        return self.run_eval_loop(restored, self.build_eval_step())
+        metrics = self.run_eval_loop(restored, self.build_eval_step())
+        return {**metrics, **self.eval_map(restored)}

@@ -34,4 +34,6 @@ class FullPrecLearner(AbstractLearner):
         restored = self.restore_model(state)
         if restored is None:
             raise FileNotFoundError('no checkpoint found under ' + FLAGS.save_path)
-        return self.run_eval_loop(restored, self.build_eval_step())
+        metrics = self.run_eval_loop(restored, self.build_eval_step())
+        # detection helpers add VOC mAP over the whole eval set
+        return {**metrics, **self.eval_map(restored)}

@@ -143,4 +143,5 @@ class UniformQuantLearner(AbstractLearner):
         if restored is None:
             raise FileNotFoundError(
                 'no checkpoint found under ' + FLAGS.uql_save_quant_model_path)
-        return self.run_eval_loop(restored, self.build_quant_eval_step())
+        metrics = self.run_eval_loop(restored, self.build_quant_eval_step())
+        return {**metrics, **self.eval_map(restored, self._policy_fn()(restored))}

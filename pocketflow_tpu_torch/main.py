@@ -16,14 +16,13 @@ import sys
 
 MODELS = {
     'convnet_at_fmnist': 'pocketflow_tpu_torch.nets.convnet_at_fmnist',
+    'faster_rcnn_at_pascalvoc': 'pocketflow_tpu_torch.nets.faster_rcnn_at_pascalvoc',
     'lenet_at_cifar10': 'pocketflow_tpu_torch.nets.lenet_at_cifar10',
     'mobilenet_at_ilsvrc12': 'pocketflow_tpu_torch.nets.mobilenet_at_ilsvrc12',
     'resnet_at_cifar10': 'pocketflow_tpu_torch.nets.resnet_at_cifar10',
     'resnet_at_ilsvrc12': 'pocketflow_tpu_torch.nets.resnet_at_ilsvrc12',
+    'vgg_at_pascalvoc': 'pocketflow_tpu_torch.nets.vgg_at_pascalvoc',
 }
-
-# model helpers of the JAX package that wait for a later slice
-NOT_PORTED = ('vgg_at_pascalvoc', 'faster_rcnn_at_pascalvoc')
 
 
 def main(argv=None, device='cuda'):
@@ -54,14 +53,10 @@ def main(argv=None, device='cuda'):
     leftovers = FLAGS.parse_args(argv)
     model_name = FLAGS.model
     for arg in leftovers:  # allow a bare positional model name
-        if arg in MODELS or arg in NOT_PORTED:
+        if arg in MODELS:
             model_name = arg
         elif arg.startswith('-'):
             raise SystemExit('unrecognized flag %r (see --help)' % arg)
-    if model_name in NOT_PORTED:
-        raise NotImplementedError(
-            "model %r is not ported yet (ROADMAP 'Modules to port', item 24)"
-            % model_name)
     if model_name not in MODELS:
         raise SystemExit('unknown model %r' % model_name)
     apply_path_conf(model_name)

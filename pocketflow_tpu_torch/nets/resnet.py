@@ -15,7 +15,7 @@ a shrink can never add or drop one.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -190,26 +190,8 @@ class ResNetImageNet(WidthMapped, nn.Module):
         self.config = dict(resnet_size=resnet_size, nb_classes=nb_classes, dtype=dtype,
                            stem_space_to_depth=stem_space_to_depth, width_map=width_map)
         self.width_map = width_map
-        block_cls, stage_sizes = IMAGENET_CONFIGS[resnet_size]
-        self.dtype = dtype
-        self.stem_space_to_depth = stem_space_to_depth
-        in_features = _w(width_map, 'conv_init', 64)
-        if stem_space_to_depth:
-            self.conv_init = PFConv(12, in_features, (4, 4), (1, 1), use_bias=False, dtype=dtype)
-        else:
-            self.conv_init = PFConv(3, in_features, (7, 7), (2, 2), use_bias=False, dtype=dtype)
-        self.bn_init = BatchNorm(in_features, dtype=dtype)
-        dense_in = 64
-        for stage, nb_blocks in enumerate(stage_sizes):
-            width = 64 * (2 ** stage)
-            for block in range(nb_blocks):
-                strides = (2, 2) if (stage > 0 and block == 0) else (1, 1)
-                name = 'stage%d_block%d' % (stage + 1, block)
-                out = width * block_cls.expansion
-                module = block_cls(in_features, width, strides, dtype, width_map, name,
-                                   projection=strides != (1, 1) or dense_in != out)
-                self.add_module(name, module)
-                in_features, dense_in = module.out_features, out
+        in_features = build_imagenet_trunk(self, resnet_size, dtype, width_map,
+                                           stem_space_to_depth)[-1]
         self.fc = PFDense(in_features, nb_classes, dtype=dtype)
         set_paths(self)
 
@@ -217,14 +199,60 @@ class ResNetImageNet(WidthMapped, nn.Module):
         reset_parameters(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.stem_space_to_depth:
-            x = space_to_depth(x.to(self.dtype), 2)
-        # NHWC -> NCHW view with channels-last strides (no copy)
-        x = x.permute(0, 3, 1, 2)
-        x = relu(self.bn_init(self.conv_init(x)))
-        x = max_pool(x, (3, 3), (2, 2), padding='SAME')
-        for name, module in self.named_children():
-            if name.startswith('stage'):
-                x = module(x)
-        x = global_avg_pool(x)
+        x = global_avg_pool(imagenet_trunk(self, x)[-1])
         return self.fc(x).to(torch.float32)
+
+
+def build_imagenet_trunk(mdl: nn.Module, resnet_size: int, dtype: torch.dtype,
+                         width_map: Optional[Dict[str, int]] = None,
+                         stem_space_to_depth: bool = False,
+                         nb_stages: Optional[int] = None) -> List[int]:
+    """Add the ImageNet stem (``conv_init``, ``bn_init``) and the residual
+    stages (``stage<s>_block<b>``, the first `nb_stages` of them) to `mdl`,
+    with the JAX package's ``imagenet_trunk`` names, so that ResNetImageNet
+    and the Faster R-CNN backbone share them and a classification
+    checkpoint grafts into the detector.  Returns each stage's output width;
+    ``imagenet_trunk`` runs them."""
+    block_cls, stage_sizes = IMAGENET_CONFIGS[resnet_size]
+    mdl.dtype = dtype
+    mdl.stem_space_to_depth = stem_space_to_depth
+    in_features = _w(width_map, 'conv_init', 64)
+    if stem_space_to_depth:
+        mdl.conv_init = PFConv(12, in_features, (4, 4), (1, 1), use_bias=False, dtype=dtype)
+    else:
+        mdl.conv_init = PFConv(3, in_features, (7, 7), (2, 2), use_bias=False, dtype=dtype)
+    mdl.bn_init = BatchNorm(in_features, dtype=dtype)
+    dense_in = 64
+    mdl.trunk_stages, widths = [], []
+    for stage, nb_blocks in enumerate(stage_sizes[:nb_stages]):
+        width = 64 * (2 ** stage)
+        names = []
+        for block in range(nb_blocks):
+            strides = (2, 2) if (stage > 0 and block == 0) else (1, 1)
+            name = 'stage%d_block%d' % (stage + 1, block)
+            out = width * block_cls.expansion
+            module = block_cls(in_features, width, strides, dtype, width_map, name,
+                               projection=strides != (1, 1) or dense_in != out)
+            mdl.add_module(name, module)
+            names.append(name)
+            in_features, dense_in = module.out_features, out
+        mdl.trunk_stages.append(names)
+        widths.append(in_features)
+    return widths
+
+
+def imagenet_trunk(mdl: nn.Module, x: torch.Tensor) -> List[torch.Tensor]:
+    """The forward of a trunk ``build_imagenet_trunk`` added to `mdl`: NHWC
+    images -> each stage's NCHW feature map (stage i at stride 2^(i+2))."""
+    if mdl.stem_space_to_depth:
+        x = space_to_depth(x.to(mdl.dtype), 2)
+    # NHWC -> NCHW view with channels-last strides (no copy)
+    x = x.permute(0, 3, 1, 2)
+    x = relu(mdl.bn_init(mdl.conv_init(x)))
+    x = max_pool(x, (3, 3), (2, 2), padding='SAME')
+    feats = []
+    for names in mdl.trunk_stages:
+        for name in names:
+            x = getattr(mdl, name)(x)
+        feats.append(x)
+    return feats

@@ -62,8 +62,8 @@ def make_pascalvoc(dst_dir: str, nb_train: int, nb_eval: int, seed: int = 0,
                    image_size: int = 300):
     """Pascal VOC `.npz` shards need the converter's writer (`write_npz_shard`)."""
     raise NotImplementedError(
-        "the pascalvoc maker needs tools/convert_pascalvoc.py, not ported yet (ROADMAP "
-        "'Modules to port', items 24 and 25)")
+        "the pascalvoc maker needs tools/convert_pascalvoc.py's write_npz_shard, not ported "
+        "yet (ROADMAP 'Modules to port', item 25)")
 
 
 MAKERS = {'cifar10': make_cifar10, 'ilsvrc12': make_ilsvrc12,

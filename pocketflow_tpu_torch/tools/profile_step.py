@@ -42,6 +42,26 @@ and MobileNet-v1 @ ILSVRC-12 at depth multiplier 1.0, 224x224, bf16, batch
                      weights, 8-bit activations (K1' with the select on each
                      of the 27 relu6 outputs), weights and codebooks trained
 
+and the detectors at 300x300, bf16, the Pascal VOC spec's batch of 32,
+synthetic VOC (the chip smoke's phase 24):
+
+    ssd-full-prec    SSD-VGG16, FullPrecLearner
+    ssd-qat          SSD-VGG16, UniformQuantLearner, 4-bit weights (one grouped
+                     K1' launch pair for its 33 weights)
+    ssd-act8         ssd-qat with --uql_activation_bits=8 (K1' with the select
+                     on each of the 23 relu outputs)
+    frcnn-full-prec  Faster R-CNN, ResNet-50 trunk, FullPrecLearner (300
+                     proposals from 1,024 pre-NMS, 128 sampled ROIs an image),
+                     at --lrn_rate_init=0.01: the default rate diverges from
+                     random weights within a few steps
+
+whose profiles also give, from NB_PROFILED more steps with the host's ops
+recorded, the device time of kernels launched inside three named parts of
+the step (`by_range_ms_per_step`, with their kernel launches): each helper's calc_loss ('matching and loss': anchor matching,
+targets, mining and the loss's forward), Faster R-CNN's proposal layer
+('proposal layer': top-k and nms_fixed) and its ROI-align ('roi-align',
+forward; the backward runs outside the range),
+
 and the DDPG agent of the RL searches (`ddpg`: one `train` update a step,
 state 29 wide as ResNet-20's weight-sparsification search, batch 64, a full
 buffer of 1,100 transitions).
@@ -77,6 +97,7 @@ as name#2 the second time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -105,8 +126,15 @@ VARIANTS = {
     'mbv1-uqtf-frozen': ('uniform-tf', {'uqtf_quant_delay': 0}),
     'mbv1-nuq': ('non-uniform', {'nuql_weight_bits': 4, 'nuql_init_style': 'kmeans',
                                  'nuql_activation_bits': 8, 'nuql_opt_mode': 'both'}),
+    'ssd-full-prec': ('full-prec', {}),
+    'ssd-qat': ('uniform', {}),
+    'ssd-act8': ('uniform', {'uql_activation_bits': 8}),
+    'frcnn-full-prec': ('full-prec', {'frcnn_backbone': 'resnet50', 'lrn_rate_init': 0.01}),
     'ddpg': (None, {}),
 }
+DET_BATCH = 32
+# the parts of a detection step the profiler names (record_function ranges)
+RANGES = ('matching and loss', 'proposal layer', 'roi-align')
 DDPG_S_DIMS, DDPG_BUF_SIZE, DDPG_BATCH = 29, 1100, 64
 R20_BATCH = 128
 BATCH = 256
@@ -138,13 +166,58 @@ def kernel_category(name: str) -> str:
     return 'other'
 
 
-def _device_events(prof):
-    """(name, start_us, end_us) of every kernel, copy and memset on the card."""
+def device_events(prof):
+    """(name, start_us, end_us) of every kernel, copy and memset on the card
+    (not the ranges' annotations)."""
     out = []
     for event in prof.events():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
+        if event.device_type == torch.autograd.DeviceType.CUDA and event.name not in RANGES:
             out.append((event.name, event.time_range.start, event.time_range.end))
     return out
+
+
+def range_times(prof, nb_steps: int) -> dict:
+    """{range: {'ms_per_step', 'kernels_per_step'}}: the device time and the
+    launches of the kernels each named range (RANGES) launched, its ops'
+    included, from the profiler's CPU events."""
+    def kernels(event):
+        return len(event.kernels) + sum(kernels(child) for child in event.cpu_children)
+
+    out = {}
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CPU and event.name in RANGES:
+            entry = out.setdefault(event.name, {'ms_per_step': 0.0, 'kernels_per_step': 0.0})
+            entry['ms_per_step'] += event.device_time_total / nb_steps / 1e3
+            entry['kernels_per_step'] += kernels(event) / nb_steps
+    return out
+
+
+@contextlib.contextmanager
+def detection_ranges():
+    """Name the parts of a detection step for the profiler (RANGES), for the
+    block: both helpers' calc_loss, faster_rcnn.propose and roi_align."""
+    from pocketflow_tpu_torch.nets import faster_rcnn_at_pascalvoc, vgg_at_pascalvoc
+    from pocketflow_tpu_torch.nets.detection import faster_rcnn
+    from torch.profiler import record_function
+
+    def named(label, fn):
+        def wrapped(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    patches = [(vgg_at_pascalvoc.ModelHelper, 'calc_loss', 'matching and loss'),
+               (faster_rcnn_at_pascalvoc.ModelHelper, 'calc_loss', 'matching and loss'),
+               (faster_rcnn, 'propose', 'proposal layer'),
+               (faster_rcnn, 'roi_align', 'roi-align')]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patches]
+    for owner, attr, label in patches:
+        setattr(owner, attr, named(label, getattr(owner, attr)))
+    try:
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
 
 
 def _busy_us(events) -> float:
@@ -183,13 +256,20 @@ def summarize(events, nb_steps: int, nb_top: int = 12) -> dict:
     }
 
 
-def _profile(fn, nb_steps: int):
+def _profile(fn, nb_steps: int, ranges: bool = False):
+    """The device events of `nb_steps` calls of fn(i) under the profiler, and
+    with `ranges` (the host's ops recorded too, the detection ranges named)
+    their ranges' times."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
+    with contextlib.ExitStack() as stack:
+        if ranges:
+            stack.enter_context(detection_ranges())
+        prof = stack.enter_context(profile(activities=activities))
         for i in range(nb_steps):
             fn(i)
         torch.cuda.synchronize()
-    return _device_events(prof)
+    return device_events(prof), (range_times(prof, nb_steps) if ranges else None)
 
 
 def ddpg_step():
@@ -217,15 +297,22 @@ def profile_variant(name: str) -> dict:
     from pocketflow_tpu_torch.config import FLAGS
     from pocketflow_tpu_torch.learners import create_learner
     from pocketflow_tpu_torch.learners.weight_sparsification import masking
-    from pocketflow_tpu_torch.nets import mobilenet_at_ilsvrc12, resnet_at_cifar10, resnet_at_ilsvrc12
+    from pocketflow_tpu_torch.nets import (
+        faster_rcnn_at_pascalvoc, mobilenet_at_ilsvrc12, resnet_at_cifar10, resnet_at_ilsvrc12,
+        vgg_at_pascalvoc)
     learner_name, flags = VARIANTS[name]
     if learner_name is None:  # the DDPG agent
         train_step, batch_size = ddpg_step()
         return time_and_profile(name, train_step, None, [None], batch_size)
-    batch_size = R20_BATCH if name.startswith('r20-') else BATCH
+    detection = name.startswith(('ssd-', 'frcnn-'))
+    batch_size = R20_BATCH if name.startswith('r20-') else DET_BATCH if detection else BATCH
     with FLAGS.scope(batch_size=batch_size, batch_size_eval=batch_size,
-                     nb_smpls_train=16 * batch_size, **flags):
-        if name.startswith('r20-'):
+                     nb_smpls_train=(4 if detection else 16) * batch_size, **flags):
+        if name.startswith('ssd-'):
+            helper = vgg_at_pascalvoc.ModelHelper()
+        elif name.startswith('frcnn-'):
+            helper = faster_rcnn_at_pascalvoc.ModelHelper()
+        elif name.startswith('r20-'):
             helper = resnet_at_cifar10.ModelHelper(resnet_size=20)
         elif name.startswith('mbv1-'):
             helper = mobilenet_at_ilsvrc12.ModelHelper(version=1, depth_mult=1.0)
@@ -259,12 +346,15 @@ def profile_variant(name: str) -> dict:
         iterator = learner.dataset_train.build()
         batches = [learner.put_batch(next(iterator)) for _ in range(NB_BATCHES)]
         del iterator
-        return time_and_profile(name, train_step, state, batches, batch_size, learner.generator)
+        return time_and_profile(name, train_step, state, batches, batch_size, learner.generator,
+                                ranges=detection)
 
 
-def time_and_profile(name, train_step, state, batches, batch_size, generator=lambda i: None):
+def time_and_profile(name, train_step, state, batches, batch_size, generator=lambda i: None,
+                     ranges: bool = False):
     """Warm-up steps, NB_WINDOWS timed windows of NB_STEPS steps, then
-    NB_PROFILED steps under the profiler; the variant's record."""
+    NB_PROFILED steps under the profiler (with `ranges`, the detection
+    ranges named and timed); the variant's record."""
     def step(i):
         nonlocal state, metrics
         state, metrics = train_step(state, batches[i % len(batches)], generator(i))
@@ -289,7 +379,9 @@ def time_and_profile(name, train_step, state, batches, batch_size, generator=lam
         'loss': loss,
         'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
     }
-    result['profile'] = summarize(_profile(step, NB_PROFILED), NB_PROFILED)
+    result['profile'] = summarize(_profile(step, NB_PROFILED)[0], NB_PROFILED)
+    if ranges:  # a window of its own: recording the host's ops slows the host
+        result['profile']['by_range_ms_per_step'] = _profile(step, NB_PROFILED, True)[1]
     if not torch.isfinite(torch.tensor(loss)):
         raise RuntimeError('%s: loss %r' % (name, loss))
     return result
@@ -371,7 +463,7 @@ def profile_kernels(weight_shapes, repeats: int = 2, passes: int = 10) -> dict:
         torch.cuda.synchronize()
         out[label] = []
         for _ in range(repeats):
-            events = _profile(lambda i: fn(), passes)
+            events = _profile(lambda i: fn(), passes)[0]
             out[label].append(sum(e - s for _, s, e in events) / passes / 1e3)
         by_name[label] = {}  # the last repeat, kernel by kernel
         for name, s, e in events:
@@ -418,7 +510,7 @@ def depthwise_ms(nb_reps: int = 10) -> dict:
     out = {'layers': len(layers), 'input_shapes': [list(s) for s in shapes.values()],
            'forward_ms': time_ms(forward, nb_reps),
            'forward_backward_ms': time_ms(forward_backward, nb_reps), 'by_kernel_ms': {}}
-    for name, s, e in _profile(forward_backward, 1):
+    for name, s, e in _profile(forward_backward, 1)[0]:
         name = name.replace('(anonymous namespace)::', '').split('(')[0][:100]
         out['by_kernel_ms'][name] = out['by_kernel_ms'].get(name, 0.0) + (e - s) / 1e3
     return out
@@ -456,6 +548,8 @@ def main(argv=None):
     import pocketflow_tpu_torch.nets.mobilenet_at_ilsvrc12  # noqa: F401
     import pocketflow_tpu_torch.nets.resnet_at_cifar10  # noqa: F401
     import pocketflow_tpu_torch.nets.resnet_at_ilsvrc12  # noqa: F401
+    import pocketflow_tpu_torch.nets.faster_rcnn_at_pascalvoc  # noqa: F401
+    import pocketflow_tpu_torch.nets.vgg_at_pascalvoc  # noqa: F401
     FLAGS.override(synthetic_data=True, summ_step=10 ** 9, save_step=10 ** 9,
                    resnet_stem_s2d=True, rand_seed=0, batch_size=BATCH, batch_size_eval=BATCH,
                    nb_smpls_train=16 * BATCH, nb_smpls_eval=2 * BATCH, compute_dtype='bfloat16',
@@ -471,7 +565,8 @@ def main(argv=None):
         brief = {k: v for k, v in result.items() if k != 'profile'}
         brief.update({k: result['profile'][k] for k in
                       ('window_ms_per_step', 'busy_ms_per_step', 'idle_share',
-                       'device_events_per_step', 'by_category_ms_per_step')})
+                       'device_events_per_step', 'by_category_ms_per_step',
+                       'by_range_ms_per_step') if k in result['profile']})
         print('%s %s' % (name, json.dumps(brief)), flush=True)
         torch.cuda.empty_cache()
     if args.depthwise:

@@ -161,6 +161,7 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     tfq.fake_quant_bucket_group([_inputs(cuda, (64, 64), torch.float32)] * 2,
                                 torch.tensor([4.0, 32.0], device=cuda), 'channel', 256)
     assert tfq.counters() == {'fake_quant_per_tensor': 2, 'fake_quant_per_tensor_select': 1,
+                              'fake_quant_per_tensor_global': 0,
                               'fake_quant_per_tensor_group': 1,
                               'fake_quant_per_column_group': 2, 'plain': 0}
     with pytest.raises(ValueError):

@@ -54,7 +54,7 @@ def test_make_minimal_data_writes_the_same_files(minimal):
                     open(minimal / 'port' / name / fname, 'rb') as b:
                 assert a.read() == b.read(), fname
     from pocketflow_tpu_torch.tools import make_minimal_data as tmake
-    with pytest.raises(NotImplementedError, match='items 24 and 25'):
+    with pytest.raises(NotImplementedError, match='item 25'):
         tmake.main(['--dst_dir=%s' % (minimal / 'voc'), '--datasets=pascalvoc'])
 
 

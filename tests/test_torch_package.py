@@ -197,5 +197,9 @@ def test_main_trains_baseline_then_qat_then_evaluates_on_cpu(tmp_path, monkeypat
     with open(tmp_path / 'logs' / 'scalars.jsonl') as fin:
         tags = {json.loads(line)['tag'] for line in fin}
     assert {'train/loss', 'train/accuracy', 'train/speed'} <= tags
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        port_main.main(['--model=vgg_at_pascalvoc'], device='cpu')
+    # the detectors are registered: each parses and reaches its learner
+    for model in ('vgg_at_pascalvoc', 'faster_rcnn_at_pascalvoc'):
+        assert model in port_main.MODELS
+        with pytest.raises(ValueError, match='unrecognized execution mode'):
+            port_main.main(common + ['--model=%s' % model, '--learner=full-prec',
+                                     '--exec_mode=none'], device='cpu')

@@ -248,3 +248,57 @@ def main_rank(argv, poison_rewards: bool = False):
         record['teacher'] = digest.hexdigest()
     record['pairs'] = getattr(learner, 'var_names_n_prune_ratios', None)
     return record
+
+
+def detection_list(helper):
+    """The detections a helper scored last, image by image, as tuples
+    (class, score, box), with its ground truths' checksum."""
+    dets = [[(d['class'], d['score'], tuple(float(v) for v in d['box'])) for d in image]
+            for image in helper._detections]
+    digest = hashlib.sha256(b''.join(np.asarray(g, np.float32).tobytes()
+                                     for g in helper._groundtruth)).hexdigest()
+    return dets, digest
+
+
+def detection_rank(argv):
+    """main.main(argv) on this rank (CPU) for a detector, recording the
+    checkpoint files it wrote, the mAP its evaluate() reported with the
+    detections it scored (``detection_list``), and at each
+    save the zero input channels of every conv kernel with at least 8 of
+    them (a list of bool arrays by path)."""
+    from pocketflow_tpu_torch import main as main_lib
+    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+    from pocketflow_tpu_torch.learners import abstract_learner
+    record = {'writes': [], 'maps': [], 'zeros': []}
+    save = ckpt_lib.torch.save
+    eval_map = abstract_learner.AbstractLearner.eval_map
+    save_model = abstract_learner.AbstractLearner.save_model
+
+    def counted_save(obj, path, *args, **kwargs):
+        record['writes'].append(str(path))
+        return save(obj, path, *args, **kwargs)
+
+    def recorded_map(self, *args, **kwargs):
+        record['maps'].append(eval_map(self, *args, **kwargs))
+        record['detections'] = detection_list(self.model_helper)
+        return record['maps'][-1]
+
+    def recorded_save_model(self, state, *args, **kwargs):
+        zeros = {}
+        for name, param in state.params.items():
+            if name.endswith('/kernel') and param.dim() == 4 and param.shape[2] >= 8:
+                norms = param.detach().permute(2, 0, 1, 3).reshape(param.shape[2], -1).norm(dim=1)
+                zeros[name] = (norms == 0).numpy()
+        record['zeros'].append(zeros)
+        return save_model(self, state, *args, **kwargs)
+
+    ckpt_lib.torch.save = counted_save
+    abstract_learner.AbstractLearner.eval_map = recorded_map
+    abstract_learner.AbstractLearner.save_model = recorded_save_model
+    try:
+        main_lib.main(list(argv), device='cpu')
+    finally:
+        ckpt_lib.torch.save = save
+        abstract_learner.AbstractLearner.eval_map = eval_map
+        abstract_learner.AbstractLearner.save_model = save_model
+    return record
