@@ -97,6 +97,17 @@ on the card, and drives the port's paths:
     mid-trunk channels zero, one checkpoint from rank 0, the gathered eval
     equal to one rank's, detection by detection); an SSD QAT step and a
     Faster R-CNN eval forward at 64x64, card against CPU;
+  * the real-data path (phase 25): full-frame ILSVRC-12 shards (4 x 1,024
+    train and 512 val samples of 256x341x3 uint8, each frame's valid extent
+    beside it) written with the converter's writer into a temporary
+    directory; the native sampler and the NumPy iterator alone over them,
+    and put_batch's pin and copy; run R1, the main path's QAT step through
+    main.main fed from the shards (the native pread sampler, crops within
+    each extent, the profiler hook over steps 3-7, steps 8-11 timed, the eval
+    over the val shard, the checkpoint) beside run R0, the same command on
+    in-memory synthetic data; run R2, the eval of R1's checkpoint from a
+    --data_disk=hdfs copy (file://) staged once; run R3, SSD-300 on the VOC
+    shards of make_minimal_data; run R4, the AutoML CLI (2 GP trials);
 
 and checks that each went through its kernels and never through a plain
 version.  Any failed phase raises and the script exits non-zero without its
@@ -200,7 +211,7 @@ ZOO_BATCH, ZOO_TRAIN, ZOO_EVAL = 128, 1280, 512
 # each model's (quantized weights, activation sites), and the nets' classes
 ZOO_SITES = {'resnet_at_cifar10': (20, 19), 'convnet_at_fmnist': (2, 3), 'lenet_at_cifar10': (2, 3)}
 ZOO_NETS = ('ResNetCifar', 'ConvNet', 'LeNet', 'MobileNetV1', 'MobileNetV2', 'SSDVGG',
-            'FasterRCNN')
+            'FasterRCNN', 'ResNetImageNet')
 # the policies of a quantized forward (each learner's)
 QUANT_POLICIES = ('QuantPolicy', 'RangeQuantPolicy', 'NonUniformQuantPolicy')
 ZOO_RUNS = [  # (label, model, flags, expected launches a quantized forward)
@@ -425,6 +436,33 @@ CONFIG5_FLAGS = ['--learner=channel', '--cp_prune_option=uniform',
 # 1e-3 relative, outputs within 1e-3 + 1e-3 of the largest
 DET_SMALL = dict(voc_image_size=64, batch_size=4, batch_size_eval=4, nb_smpls_train=64,
                  nb_smpls_eval=8, compute_dtype='float32', nb_bboxs_max=8)
+# phase 25: the real-data path.  25a writes full-frame ILSVRC-12 shards
+# (the converter's default storage: 256 x 341 containers, zero-padded, with
+# each sample's valid extent) with the converter's own writer; 25b reads them
+# alone; run R1 (25c) is the main path's QAT step fed from them through
+# main.main, beside run R0, the same command on in-memory synthetic data;
+# R2 (25d) evaluates R1's checkpoint from a --data_disk=hdfs copy (file://);
+# R3 (25e) trains SSD-300 on make_minimal_data's VOC shards; R4 (25f) is the
+# AutoML CLI
+RD_RESIZE, RD_SHARDS, RD_SHARD, RD_VAL = 256, 4, 1024, 512
+RD_TRAIN = RD_SHARDS * RD_SHARD
+RD_STEPS, RD_PROF_START, RD_PROF_NB = 13, 3, 5
+RD_TIMED_FROM = RD_PROF_START + RD_PROF_NB  # steps 8-11 timed by the host clock
+RD_TIMED = RD_STEPS - 1 - RD_TIMED_FROM
+RD_LOADER_BATCHES = 16
+RD_EVAL_RTOL = 1e-3  # R2's eval loss against R1's last eval, the same checkpoint and data
+RD_RUNS = {
+    'R0': 'real-data run R0: resnet_at_ilsvrc12 ResNet-50 uniform 4-bit, in-memory synthetic '
+          '224x224 data, %d steps' % RD_STEPS,
+    'R1': 'real-data run R1: resnet_at_ilsvrc12 ResNet-50 uniform 4-bit from on-disk full-frame '
+          'shards (native pread sampler, inception crops), %d steps' % RD_STEPS,
+    'R1b': 'real-data run R1 again', 'R0b': 'real-data run R0 again',
+    'R2': 'real-data run R2: eval of R1\'s checkpoint from --data_disk=hdfs (file://)',
+    'R3': 'real-data run R3: vgg_at_pascalvoc SSD-300 full-prec, 4 steps on make_minimal_data\'s '
+          'VOC shards',
+    'R4': 'real-data run R4: AutoML CLI, resnet_at_cifar10 weight-sparse, GP, 2 trials'}
+RD_SSD_STEPS, RD_SSD_TRAIN, RD_SSD_EVAL, RD_SSD_SIZE = 4, 128, 32, 300
+RD_AUTOML_TRAIN, RD_AUTOML_STEPS = 1280, 10
 
 
 def log(msg, *args):
@@ -3445,6 +3483,356 @@ def phase_det_reference(FLAGS, UniformQuantLearner):
         loss_gpu, loss_cpu, up_err, {k: '%.3g (%.3g)' % v for k, v in errs.items()})
 
 
+# phase 25: the real-data path
+
+
+def rd_write_shards(root):
+    """25a: RD_SHARDS train shards of RD_SHARD full-frame samples and a val
+    shard of RD_VAL, written with convert_ilsvrc12._flush: frames of aspect
+    3:4 to 16:9 (a seeded draw) fitted into the [RD_RESIZE, RD_RESIZE * 4/3]
+    container as process_pil_image fits them, zero padding past the extent.
+    Returns (bytes written, seconds)."""
+    from pocketflow_tpu_torch.tools import convert_ilsvrc12 as cv
+    rng = np.random.default_rng(0)
+    width = cv.container_width(RD_RESIZE)
+    start, nbytes = time.perf_counter(), 0
+    for subset, shard, nb in ([('train', i, RD_SHARD) for i in range(RD_SHARDS)]
+                              + [('val', 0, RD_VAL)]):
+        aspect = np.exp(rng.uniform(np.log(3 / 4), np.log(16 / 9), nb))  # w / h
+        scale = np.minimum(RD_RESIZE, width / aspect)  # the frame's height in the container
+        vh = np.clip(np.round(scale), 1, RD_RESIZE).astype(np.int32)
+        vw = np.clip(np.round(scale * aspect), 1, width).astype(np.int32)
+        images = rng.integers(0, 256, (nb, RD_RESIZE, width, 3), dtype=np.uint8)
+        rows, cols = np.arange(RD_RESIZE), np.arange(width)
+        images[(rows[None, :, None] >= vh[:, None, None])
+               | (cols[None, None, :] >= vw[:, None, None])] = 0
+        labels = rng.integers(1, 1001, nb).astype(np.int32)
+        cv._flush(root, subset, shard, list(images), labels, list(zip(vh, vw)))
+        nbytes += images.nbytes + labels.nbytes + 8 * nb
+    return nbytes, time.perf_counter() - start
+
+
+def rd_warm_cache(paths):
+    """Read every file once, so that 25b reads from the page cache."""
+    for path in paths:
+        with open(path, 'rb') as fin:
+            while fin.read(1 << 24):
+                pass
+
+
+def rd_loader_rate(FLAGS, shard_dir, native: bool):
+    """(batches/s, GB/s) of the train set's iterator at batch BATCH."""
+    from pocketflow_tpu_torch.datasets.ilsvrc12 import Ilsvrc12Dataset
+    with FLAGS.scope(data_dir_local=shard_dir, batch_size=BATCH, enbl_native_loader=native,
+                     synthetic_data=False):
+        iterator = Ilsvrc12Dataset(is_train=True).build()
+        batch = next(iterator)
+        check(batch['label'].shape == (BATCH, 3) and batch['label'].dtype == np.float32,
+              'full-frame label rows %s', batch['label'].shape)
+        start = time.perf_counter()
+        for _ in range(RD_LOADER_BATCHES):
+            batch = next(iterator)
+        seconds = time.perf_counter() - start
+    nbytes = RD_LOADER_BATCHES * batch['image'].nbytes
+    return RD_LOADER_BATCHES / seconds, nbytes / seconds / 1e9
+
+
+class RdStepProbe:
+    """`on_step` for run R0/R1: the host time from the start of step
+    RD_TIMED_FROM to the start of the last step, synchronized at both edges
+    only: RD_TIMED steps, each with the fetch of the next batch, after the
+    profiler hook's window and the export of its trace."""
+
+    def __init__(self):
+        self.index, self.window_ms, self._t0 = 0, None, None
+
+    def __call__(self, when, state):
+        if when == 'after':
+            self.index += 1
+        elif self.index in (RD_TIMED_FROM, RD_TIMED_FROM + RD_TIMED):
+            torch.cuda.synchronize()
+            if self.index == RD_TIMED_FROM:
+                self._t0 = time.perf_counter()
+            else:
+                self.window_ms = 1e3 * (time.perf_counter() - self._t0) / RD_TIMED
+
+
+def rd_argv(root, name, data):
+    """main.main's argv for runs R0/R1: the main path's settings (224, bf16,
+    batch 256, exact BN, s2d stem, 4-bit per-tensor weights), RD_STEPS steps,
+    the profiler hook over steps RD_PROF_START.., its files under root/name."""
+    run_dir = os.path.join(root, name)
+    return ['--model=resnet_at_ilsvrc12', '--resnet_size=50', '--learner=uniform',
+            '--uql_weight_bits=4', '--uql_activation_bits=32', '--uql_quant_epochs=1',
+            '--batch_size=%d' % BATCH, '--batch_size_eval=%d' % BATCH,
+            '--nb_smpls_train=%d' % RD_TRAIN, '--nb_smpls_eval=%d' % RD_VAL,
+            '--nb_epochs_rat=%r' % ((RD_STEPS + 0.5) * BATCH / RD_TRAIN),
+            '--compute_dtype=bfloat16', '--bn_stats_subsample=1', '--resnet_stem_s2d',
+            '--ilsvrc_augment=inception', '--rand_seed=0', '--summ_step=%d' % 10 ** 9,
+            '--save_step=%d' % 10 ** 9, '--enbl_profiler',
+            '--profiler_start_step=%d' % RD_PROF_START, '--profiler_nb_steps=%d' % RD_PROF_NB,
+            '--log_dir=%s' % os.path.join(run_dir, 'logs'),
+            '--save_path=%s' % os.path.join(run_dir, 'models', 'model.ckpt'),
+            '--uql_save_quant_model_path=%s' % os.path.join(run_dir, 'uql', 'model.ckpt')] + data
+
+
+class NativeSamplers:
+    """Records the native samplers built while it is open: (file-backed?,
+    image shape, label shape) each."""
+
+    def __init__(self):
+        from pocketflow_tpu_torch.datasets import native_loader
+        self.made, self._module, self._cls = [], native_loader, native_loader.NativeSampler
+        made, cls = self.made, self._cls
+
+        class Recorded(cls):
+            def __init__(self, images, labels, *args, **kwargs):
+                super().__init__(images, labels, *args, **kwargs)
+                made.append((not isinstance(images, np.ndarray), tuple(self.image_shape),
+                             tuple(self.label_shape)))
+
+        native_loader.NativeSampler = Recorded
+
+    def close(self):
+        self._module.NativeSampler = self._cls
+
+
+def rd_train(FLAGS, root, label, data, card):
+    """Run R0 or R1 through main.main: RD_STEPS QAT steps, one grouped K1'
+    launch pair a quantized forward, the eval over the val set, the
+    checkpoint; the host-clock window, the hook's trace (busy, idle, the
+    crop-resize's device time), peak memory.  Returns (learner, counters,
+    summary)."""
+    from pocketflow_tpu_torch.tools.profile_step import trace_summary
+    from pocketflow_tpu_torch.datasets import augment
+    probe = RdStepProbe()
+    crop = augment.random_crop_resize
+
+    def named_crop(*args, **kwargs):
+        with torch.profiler.record_function('crop_resize'):
+            return crop(*args, **kwargs)
+
+    augment.random_crop_resize = named_crop
+    samplers = NativeSamplers()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        learner, counter, counts, elapsed = run_main(
+            FLAGS, root, 'resnet_at_ilsvrc12', data, probe,
+            lambda work_dir, model, argv: rd_argv(work_dir, label, argv))
+    finally:
+        augment.random_crop_resize = crop
+        samplers.close()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss, evals = float(counter.metrics['loss']), counter.evals[-1]
+    check(counter.steps == RD_STEPS and learner.finetune_steps == RD_STEPS, '%s: %d steps',
+          label, counter.steps)
+    check(math.isfinite(loss) and all(math.isfinite(v) for v in evals.values()),
+          '%s: loss %r, eval %s', label, loss, evals)
+    nb_eval = -(-learner.dataset_eval.nb_smpls_loaded // BATCH)  # the eval's batches
+    check(counts == no_launches(fake_quant_per_tensor_group=counter.forwards)
+          and counter.forwards == RD_STEPS + nb_eval,
+          '%s: launches %s over %d quantized forwards (%d steps, %d eval batches)', label,
+          counts, counter.forwards, RD_STEPS, nb_eval)
+    ckpt = os.path.join(root, label, 'uql', 'model.ckpt-%d.pt' % RD_STEPS)
+    check(os.path.exists(ckpt), '%s: no checkpoint %s', label, ckpt)
+    summary = trace_summary(learner.profile_path, ranges=['crop_resize'])
+    check(summary['steps'] == list(range(RD_PROF_START, RD_TIMED_FROM))
+          and summary.get('device_events', 0) > 0,
+          '%s: the trace holds steps %s, %s device events', label, summary['steps'],
+          summary.get('device_events'))
+    nb = RD_PROF_NB
+    summary.update(step_ms=probe.window_ms, peak_gib=peak, seconds=elapsed, loss=loss,
+                   eval=evals, samplers=samplers.made, ckpt=ckpt,
+                   busy_step_ms=summary['busy_ms'] / nb)
+    log('  %s: %d steps, loss %.4f, eval %s | launches %s | %.2f ms a step over steps %d-%d '
+        '(%.1f img/s, the next batch\'s fetch included; device busy %.1f%% of it) | the hook\'s '
+        'trace of steps %d-%d (host ops recorded too): %.2f ms a step, device busy %.2f ms a '
+        'step, idle %.1f%%, %.0f device events a step, crop-resize %.3f ms device a step | '
+        'peak memory %.2f GiB | samplers %s | %.1f s | %s', label, counter.steps, loss,
+        {k: round(v, 4) for k, v in evals.items()}, counts, probe.window_ms, RD_TIMED_FROM,
+        RD_TIMED_FROM + RD_TIMED - 1, BATCH * 1e3 / probe.window_ms,
+        100 * summary['busy_step_ms'] / probe.window_ms, RD_PROF_START, RD_TIMED_FROM - 1,
+        summary['window_ms'] / nb, summary['busy_step_ms'], 100 * summary['idle_share'],
+        summary['device_events'] / nb, summary['range_ms']['crop_resize'] / nb, peak,
+        samplers.made, elapsed, card)
+    return learner, counts, summary
+
+
+def phase_real_data(FLAGS, card):
+    """Phase 25: the real-data path on the card (25a-25f).  Returns {run
+    label: counters}."""
+    import shutil
+    from pocketflow_tpu_torch.datasets import remote_fs
+    from pocketflow_tpu_torch.tools.convert_ilsvrc12 import container_width
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix='pf_real_') as root:
+        shard_dir, val_dir = os.path.join(root, 'ilsvrc12'), os.path.join(root, 'remote', 'val')
+        os.makedirs(shard_dir)
+        os.makedirs(val_dir)
+        nbytes, seconds = rd_write_shards(shard_dir)
+        for name in os.listdir(shard_dir):  # the remote disk's directory holds the val set
+            if name.startswith('val_'):
+                os.link(os.path.join(shard_dir, name), os.path.join(val_dir, name))
+        log('  25a shards: %d train x %d + %d val full-frame samples of %dx%dx3 uint8, %.3f GB '
+            'in %.2f s (%.2f GB/s)', RD_SHARDS, RD_SHARD, RD_VAL, RD_RESIZE,
+            container_width(RD_RESIZE), nbytes / 1e9, seconds, nbytes / 1e9 / seconds)
+
+        rd_warm_cache([os.path.join(shard_dir, n) for n in sorted(os.listdir(shard_dir))])
+        rates = {'native': rd_loader_rate(FLAGS, shard_dir, True),
+                 'numpy': rd_loader_rate(FLAGS, shard_dir, False)}
+        log('  25b loader alone, batch %d, warm page cache, %d batches: native sampler %.2f '
+            'batches/s (%.2f GB/s); NumPy iterator (--enbl_native_loader=False) %.2f batches/s '
+            '(%.2f GB/s) | %s', BATCH, RD_LOADER_BATCHES, *rates['native'], *rates['numpy'], card)
+
+        # in turns, R0, R1, R1, R0: the step from disk beside the same step
+        # on in-memory synthetic data, each twice, within one call
+        synthetic = ['--synthetic_data', '--data_dir_local=']
+        disk = ['--data_dir_local=%s' % shard_dir, '--synthetic_data=False']
+        frame = (RD_RESIZE, container_width(RD_RESIZE), 3)
+        r = {}
+        for label, data in (('R0', synthetic), ('R1', disk), ('R1b', disk), ('R0b', synthetic)):
+            learner, runs[RD_RUNS[label]], r[label] = rd_train(FLAGS, root, label, data, card)
+            if data is disk:
+                check(r[label]['samplers'] and all(
+                    file_backed and image == frame and labels == (3,)
+                    for file_backed, image, labels in r[label]['samplers']),
+                    '%s read through %s', label, r[label]['samplers'])
+        r0, r1 = r['R0'], r['R1']
+        ms = {label: r[label]['step_ms'] for label in r}
+        log('  25c R1 from disk %.1f, %.1f img/s against R0 on in-memory synthetic data %.1f, '
+            '%.1f img/s (R0/R1 step time %.3f over both pairs); device busy %.2f, %.2f against '
+            '%.2f, %.2f ms a step | %s', BATCH * 1e3 / ms['R1'], BATCH * 1e3 / ms['R1b'],
+            BATCH * 1e3 / ms['R0'], BATCH * 1e3 / ms['R0b'],
+            (ms['R0'] + ms['R0b']) / (ms['R1'] + ms['R1b']), r1['busy_step_ms'],
+            r['R1b']['busy_step_ms'], r0['busy_step_ms'], r['R0b']['busy_step_ms'], card)
+
+        # put_batch's pin and copy of one of R1's batches
+        from pocketflow_tpu_torch.datasets.ilsvrc12 import Ilsvrc12Dataset
+        with FLAGS.scope(data_dir_local=shard_dir, batch_size=BATCH, synthetic_data=False):
+            batch = next(Ilsvrc12Dataset(is_train=True).build())
+        learner.put_batch(batch)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(RD_LOADER_BATCHES):
+            learner.put_batch(batch)
+        torch.cuda.synchronize()
+        put_s = (time.perf_counter() - start) / RD_LOADER_BATCHES
+        log('  25b put_batch (pin + copy to the card): %.2f ms a batch of %.1f MB (%.2f GB/s) | '
+            '%s', 1e3 * put_s, batch['image'].nbytes / 1e6, batch['image'].nbytes / put_s / 1e9,
+            card)
+        del learner
+
+        hdfs = ['--data_disk=hdfs', '--data_hdfs_host=file://%s' % os.path.join(root, 'remote'),
+                '--data_dir_hdfs=val', '--data_cache_dir=%s' % os.path.join(root, 'cache')]
+        with FLAGS.scope(**FLAGS.as_dict()):
+            FLAGS.parse_args(hdfs)
+            start = time.perf_counter()
+            staged = remote_fs.resolve_data_dir()
+            stage_s = time.perf_counter() - start
+            mtime = os.path.getmtime(staged)
+            remote_fs._RESOLVED.clear()
+            start = time.perf_counter()
+            check(remote_fs.resolve_data_dir() == staged and os.path.getmtime(staged) == mtime,
+                  'a second resolve staged again')
+            cached_s = time.perf_counter() - start
+        remote_fs._RESOLVED.clear()
+        eval_argv = hdfs + ['--exec_mode=eval', '--synthetic_data=False',
+                            '--uql_save_quant_model_path=%s' % r1['ckpt'].rsplit('-', 1)[0]]
+        learner, counter, counts, elapsed = run_main(
+            FLAGS, root, 'resnet_at_ilsvrc12', eval_argv, None,
+            lambda work_dir, model, argv: rd_argv(work_dir, 'R2', []) + argv)
+        runs[RD_RUNS['R2']] = counts
+        loss, want = counter.evals[-1]['loss'], r1['eval']['loss']
+        check(sorted(os.listdir(staged)) == sorted(os.listdir(val_dir))
+              and learner.dataset_eval.nb_smpls_loaded == RD_VAL,
+              'R2 read %s', sorted(os.listdir(staged)))
+        check(abs(loss - want) <= RD_EVAL_RTOL * abs(want), 'R2 eval loss %r, R1\'s %r', loss,
+              want)
+        check(counts == no_launches(fake_quant_per_tensor_group=RD_VAL // BATCH),
+              'R2 launches %s', counts)
+        log('  25d R2: staged %s in %.3f s; a second resolve %.4f s, nothing staged; eval of '
+            'R1\'s checkpoint over the staged val shard: loss %.5f (R1\'s eval %.5f), %s | '
+            '%.1f s | %s', staged, stage_s, cached_s, loss, want,
+            {k: round(v, 4) for k, v in counter.evals[-1].items()}, elapsed, card)
+        del learner
+        shutil.rmtree(shard_dir)  # the ILSVRC-12 shards are done with
+        torch.cuda.empty_cache()
+
+        runs[RD_RUNS['R3']] = rd_ssd(FLAGS, root, card)
+        runs[RD_RUNS['R4']] = rd_automl(FLAGS, root, card)
+    return runs
+
+
+def rd_ssd(FLAGS, root, card):
+    """25e: SSD-300 full-prec through main.main on the VOC shards of the
+    ported make_minimal_data, read through the native sampler."""
+    from pocketflow_tpu_torch.tools import make_minimal_data
+    start = time.perf_counter()
+    make_minimal_data.main(['--dst_dir=%s' % root, '--datasets=pascalvoc',
+                            '--nb_train=%d' % RD_SSD_TRAIN, '--nb_eval=%d' % RD_SSD_EVAL])
+    write_s = time.perf_counter() - start
+    voc = os.path.join(root, 'pascalvoc')
+    samplers = NativeSamplers()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        argv = det_argv(root, 'vgg_at_pascalvoc', [
+            '--learner=full-prec', '--data_dir_local=%s' % voc, '--synthetic_data=False',
+            '--nb_smpls_train=%d' % RD_SSD_TRAIN, '--nb_smpls_eval=%d' % RD_SSD_EVAL,
+            '--nb_epochs_rat=%r' % ((RD_SSD_STEPS + 0.5) * DET_BATCH / (RD_SSD_TRAIN * 120))])
+        learner, counter, counts, elapsed = run_main(FLAGS, root, 'vgg_at_pascalvoc', argv,
+                                                     None, lambda w, m, a: a)
+    finally:
+        samplers.close()
+    loss = float(counter.metrics['loss'])
+    check(counter.steps == RD_SSD_STEPS and math.isfinite(loss), 'R3: %d steps, loss %r',
+          counter.steps, loss)
+    check(learner.dataset_train.nb_smpls_loaded == RD_SSD_TRAIN, 'R3 loaded %d',
+          learner.dataset_train.nb_smpls_loaded)
+    check(counts == no_launches(), 'R3 launches %s', counts)
+    check(samplers.made and all(image == (RD_SSD_SIZE, RD_SSD_SIZE, 3) and len(labels) == 2
+                                for _, image, labels in samplers.made),
+          'R3 read through %s', samplers.made)
+    log('  25e R3: VOC shards written in %.2f s; %d steps, loss %.4f, eval %s | samplers %s | '
+        'peak memory %.2f GiB | %.1f s | %s', write_s, counter.steps, loss,
+        {k: round(v, 4) for k, v in counter.evals[-1].items()}, samplers.made,
+        torch.cuda.max_memory_allocated() / 2 ** 30, elapsed, card)
+    return counts
+
+
+def rd_automl(FLAGS, root, card):
+    """25f: the AutoML CLI on the card: 2 GP trials (random proposals before
+    the GP's warm-up) of the weight-sparsification learner on ResNet-20."""
+    from pocketflow_tpu_torch.automl import cli
+    out = os.path.join(root, 'automl', 'result.json')
+    os.makedirs(os.path.dirname(out))
+    argv = ['--model=resnet_at_cifar10', '--learner=weight-sparse', '--automl_algo=GP',
+            '--automl_nb_trials=2', '--automl_output=%s' % out, '--synthetic_data',
+            '--batch_size=%d' % ZOO_BATCH, '--batch_size_eval=%d' % ZOO_BATCH,
+            '--nb_smpls_train=%d' % RD_AUTOML_TRAIN, '--nb_smpls_eval=%d' % RD_AUTOML_TRAIN,
+            '--nb_epochs_rat=%r' % ((RD_AUTOML_STEPS + 0.5) * ZOO_BATCH / (RD_AUTOML_TRAIN * 250)),
+            '--ws_prune_ratio_prtl=uniform', '--ws_prune_ratio=0.5', '--compute_dtype=bfloat16',
+            '--summ_step=%d' % 10 ** 9, '--log_dir=%s' % os.path.join(root, 'automl', 'logs'),
+            '--save_path=%s' % os.path.join(root, 'automl', 'models', 'model.ckpt'),
+            '--ws_save_path=%s' % os.path.join(root, 'automl', 'ws', 'model.ckpt')]
+    start = time.perf_counter()
+    with FLAGS.scope(**FLAGS.as_dict()):
+        reset_counters()
+        best, best_obj, history, seconds = cli.main(argv, device='cuda')
+        torch.cuda.synchronize()
+        counts = counters()
+    with open(out) as fin:
+        result = json.load(fin)
+    check(len(result['history']) == 2 and result['best_params'] == best
+          and 0.0 <= best_obj <= 1.0, 'R4 result %s', result)
+    check(counts == no_launches(), 'R4 launches %s', counts)
+    log('  25f R4: trials %s s, objectives %s; best %.4f at %s | %.1f s | %s',
+        [round(t, 2) for t in seconds], [round(o, 4) for _, o in history], best_obj,
+        {k: round(v, 4) for k, v in result['best_params'].items()},
+        time.perf_counter() - start, card)
+    return counts
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3660,6 +4048,14 @@ def main():
         runs.update(phase_det_config5(FLAGS, work_dir, card))
         phase_det_reference(FLAGS, UniformQuantLearner)
         log('  phase 24: %.1f s', time.perf_counter() - t24)
+        torch.cuda.empty_cache()
+        t25 = time.perf_counter()
+        log('phase 25 the real-data path: full-frame ILSVRC-12 shards on disk (25a), the '
+            'loader alone (25b), QAT ResNet-50 fed from them through main.main (R1, beside R0 '
+            'on synthetic data), the eval from --data_disk=hdfs (R2), SSD-300 on VOC shards '
+            '(R3), the AutoML CLI (R4)')
+        runs.update(phase_real_data(FLAGS, card))
+        log('  phase 25: %.1f s', time.perf_counter() - t25)
     serve_dir.cleanup()
 
     # each kernel's launches in the run that drives it: the main path for the

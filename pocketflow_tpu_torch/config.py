@@ -6,10 +6,11 @@ package's, so a CLI recipe written for one runs unchanged on the other
 (``tests/test_torch_package.py`` holds the two registries together).  Only the
 flags this package reads are defined here, and the reference's global flags
 that the JAX package defines and ignores (``debug``, ``model_http_url``,
-``save_path_eval``, the HDFS and tf.data knobs), which the port ignores too,
-so that a command with one of them runs as it does without it; each module
-defines its own, as in the JAX package.  ``enbl_multi_gpu`` is one of them:
-data parallelism follows the launcher's process group (``core/mesh.py``).
+``save_path_eval``, the tf.data knobs), which the port ignores too, so that
+a command with one of them runs as it does without it; each module defines
+its own, as in the JAX package.  ``enbl_multi_gpu`` is one of them: data
+parallelism follows the launcher's process group (``core/mesh.py``).
+``data_disk`` and ``data_hdfs_host`` are read by ``datasets/remote_fs.py``.
 
     from pocketflow_tpu_torch.config import FLAGS
     with FLAGS.scope(batch_size=32, learner='uniform'):
@@ -199,7 +200,7 @@ FLAGS.DEFINE_float('nb_epochs_rat', 1.0, 'ratio of total number of training epoc
 FLAGS.DEFINE_float('momentum', 0.9, 'momentum coefficient')
 FLAGS.DEFINE_float('loss_w_dcy', 2e-4, 'weight decaying loss coefficient')
 
-FLAGS.DEFINE_string('data_disk', 'local', 'data disk type: local (hdfs is not ported)')
+FLAGS.DEFINE_string('data_disk', 'local', 'data disk type: local | hdfs')
 FLAGS.DEFINE_string('data_hdfs_host', None, 'HDFS host (unused on TPU rebuild)')
 FLAGS.DEFINE_integer('nb_threads', 8, 'number of parallel data-loading threads')
 FLAGS.DEFINE_integer('buffer_size', 1024, 'shuffle buffer size')

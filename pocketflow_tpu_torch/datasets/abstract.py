@@ -1,9 +1,12 @@
 """Abstract dataset: host-side batches, augmentation on the device
 (counterpart of pocketflow_tpu/datasets/abstract.py).
 
-The host side only shuffles and batches raw uint8 records (NumPy, one
-background thread); every per-pixel op runs on the device inside the train
-step through the dataset's ``augment``, so batches cross PCIe as uint8.
+The host side only shuffles and batches raw uint8 records: by default the
+native runtime's threaded sampler (``datasets/native_loader.py``, which
+raises when it cannot be built), or, with ``--enbl_native_loader=False``,
+NumPy in one background thread.  Every per-pixel op runs on the device
+inside the train step through the dataset's ``augment``, so batches cross
+PCIe as uint8.
 Per-dataset sample counts, class counts and batch sizes live in a
 `DatasetSpec`; the flags of the same names override them when set.
 
@@ -34,6 +37,8 @@ FLAGS.DEFINE_integer('nb_smpls_eval', None, '# of samples for evaluation (overri
 FLAGS.DEFINE_integer('batch_size', None, 'batch size per chip for training (override)')
 FLAGS.DEFINE_integer('batch_size_eval', None, 'batch size for evaluation (override)')
 FLAGS.DEFINE_string('data_dir_local', None, 'data directory - local')
+FLAGS.DEFINE_boolean('enbl_native_loader', True,
+                     'use the native (C++) threaded batch sampler when buildable')
 FLAGS.DEFINE_string('synthetic_task', 'blobs',
                     'synthetic-data task: `blobs` (fast-saturating smoke data) or '
                     '`hard` (non-saturating noisy-template classification)')
@@ -42,17 +47,6 @@ FLAGS.DEFINE_float('synthetic_snr', 0.25,
 FLAGS.DEFINE_float('synthetic_label_noise', 0.1,
                    'hard task: fraction of TRAIN labels flipped uniformly '
                    '(eval labels stay clean)')
-
-
-def resolve_data_dir() -> Optional[str]:
-    """The local data directory (``--data_dir_local``); the port reads local
-    disks only."""
-    disk = FLAGS.get('data_disk') or 'local'
-    if disk != 'local':
-        raise NotImplementedError(
-            "--data_disk=%s is not ported yet (ROADMAP 'Modules to port', item 25: "
-            'datasets/remote_fs.py)' % disk)
-    return FLAGS.get('data_dir_local')
 
 
 @dataclass(frozen=True)
@@ -253,6 +247,14 @@ class AbstractDataset(ABC):
 
     def _make_iterator(self, images, labels, shuffle: bool) -> Iterator[Dict[str, np.ndarray]]:
         batch_size, rng = self.batch_size, self._rng
+        if FLAGS.enbl_native_loader:
+            # the native runtime's threaded sampler; its stream depends on
+            # (seed, batch, shuffle, n) only, the JAX package's at the same flags
+            from pocketflow_tpu_torch.datasets.native_loader import NativeSampler
+            return NativeSampler(images, labels, batch_size, shuffle,
+                                 seed=FLAGS.rand_seed + 977 * self.shard_id,
+                                 nb_threads=max(1, min(4, FLAGS.nb_threads // 2)),
+                                 queue_depth=max(2, FLAGS.prefetch_size))
 
         def gen():
             n = len(images)

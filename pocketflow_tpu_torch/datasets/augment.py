@@ -61,18 +61,23 @@ def pad_random_crop(images: torch.Tensor, generator: Optional[torch.Generator], 
 
 def _bilinear_sample(images: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """Bilinear gather of images [B,H,W,C] at float row coords ys [B, h] and
-    column coords xs [B, w]; returns fp32 [B, h, w, C]."""
+    column coords xs [B, w]; returns fp32 [B, h, w, C].  The four corners
+    are gathered in the images' dtype and only they are widened to fp32
+    (a uint8 batch is never converted whole)."""
     height, width = images.shape[1:3]
     y0 = torch.clamp(torch.floor(ys), 0, height - 2).long()
     x0 = torch.clamp(torch.floor(xs), 0, width - 2).long()
     wy = torch.clamp(ys - y0, 0.0, 1.0)[:, :, None, None]
     wx = torch.clamp(xs - x0, 0.0, 1.0)[:, None, :, None]
-    f = images.to(torch.float32)
     b = torch.arange(images.shape[0], device=images.device)[:, None, None]
     r0, r1 = y0[:, :, None], (y0 + 1)[:, :, None]
     c0, c1 = x0[:, None, :], (x0 + 1)[:, None, :]
-    return (f[b, r0, c0] * (1 - wy) * (1 - wx) + f[b, r0, c1] * (1 - wy) * wx
-            + f[b, r1, c0] * wy * (1 - wx) + f[b, r1, c1] * wy * wx)
+
+    def corner(rows, cols):
+        return images[b, rows, cols].to(torch.float32)
+
+    return (corner(r0, c0) * (1 - wy) * (1 - wx) + corner(r0, c1) * (1 - wy) * wx
+            + corner(r1, c0) * wy * (1 - wx) + corner(r1, c1) * wy * wx)
 
 
 def _cast_like(out: torch.Tensor, images: torch.Tensor) -> torch.Tensor:
@@ -81,44 +86,77 @@ def _cast_like(out: torch.Tensor, images: torch.Tensor) -> torch.Tensor:
     return out.to(images.dtype)
 
 
-def random_crop_resize(images: torch.Tensor, generator: torch.Generator,
+def _valid_extent(images: torch.Tensor, valid_hw: Optional[torch.Tensor]):
+    """Each sample's valid (height, width) as fp32 [B] tensors: the whole
+    array without `valid_hw`, else its rows clamped to [2, H] and [2, W]."""
+    batch, height, width, _ = images.shape
+    if valid_hw is None:
+        return (torch.full((batch,), float(height), device=images.device),
+                torch.full((batch,), float(width), device=images.device))
+    valid_hw = valid_hw.to(device=images.device, dtype=torch.float32)
+    return (torch.clamp(valid_hw[:, 0], 2.0, float(height)),
+            torch.clamp(valid_hw[:, 1], 2.0, float(width)))
+
+
+def random_crop_resize(images: torch.Tensor, generator: Optional[torch.Generator],
                        out_size: Tuple[int, int],
                        area_range: Tuple[float, float] = (0.08, 1.0),
-                       aspect_range: Tuple[float, float] = (3 / 4, 4 / 3)) -> torch.Tensor:
+                       aspect_range: Tuple[float, float] = (3 / 4, 4 / 3),
+                       valid_hw: Optional[torch.Tensor] = None,
+                       draws: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inception-style random area + aspect-ratio crop, bilinear resize:
     per-sample (area, log-uniform aspect) -> a crop window clamped inside the
-    image, sampled on a fixed [out_h, out_w] grid."""
-    batch, height, width, _ = images.shape
+    sample's valid extent, sampled on a fixed [out_h, out_w] grid strictly
+    inside [off, off + crop - 1], so no sample reads past the extent.
+
+    `valid_hw` ([B, 2]: valid height, valid width; full-frame ILSVRC-12
+    shards) bounds each sample's frame; without it the whole array is the
+    frame.  `draws` ([4, B] fp32: area, aspect w/h, and the unit offsets of
+    rows and columns) replaces the generator's draws."""
+    batch = images.shape[0]
     device = images.device
+    vh, vw = _valid_extent(images, valid_hw)
+    if draws is None:
+        def uniform(lo, hi):
+            return lo + (hi - lo) * _draw(
+                lambda n: torch.rand(n, generator=generator, device=device), batch)
 
-    def uniform(lo, hi):
-        return lo + (hi - lo) * _draw(
-            lambda n: torch.rand(n, generator=generator, device=device), batch)
-
-    area = uniform(*area_range)
-    aspect = torch.exp(uniform(math.log(aspect_range[0]), math.log(aspect_range[1])))
-    crop_h = torch.sqrt(area * height * width / aspect)
+        area = uniform(*area_range)
+        aspect = torch.exp(uniform(math.log(aspect_range[0]), math.log(aspect_range[1])))
+        unit_y, unit_x = uniform(0.0, 1.0), uniform(0.0, 1.0)
+    else:
+        area, aspect, unit_y, unit_x = draws.to(device=device, dtype=torch.float32)
+    crop_h = torch.sqrt(area * vh * vw / aspect)
     crop_w = crop_h * aspect
-    crop_h = torch.clamp(crop_h, 8.0, float(height))
-    crop_w = torch.clamp(crop_w, 8.0, float(width))
-    offy = uniform(0.0, 1.0) * (height - crop_h)
-    offx = uniform(0.0, 1.0) * (width - crop_w)
+    crop_h = torch.minimum(torch.clamp(crop_h, min=8.0), vh)
+    crop_w = torch.minimum(torch.clamp(crop_w, min=8.0), vw)
+    offy = unit_y * (vh - crop_h)
+    offx = unit_x * (vw - crop_w)
     ry = torch.arange(out_size[0], dtype=torch.float32, device=device) / out_size[0]
     rx = torch.arange(out_size[1], dtype=torch.float32, device=device) / out_size[1]
-    # sample strictly inside [off, off + crop - 1]
     ys = offy[:, None] + ry[None] * torch.clamp(crop_h - 1.0, min=1.0)[:, None]
     xs = offx[:, None] + rx[None] * torch.clamp(crop_w - 1.0, min=1.0)[:, None]
     return _cast_like(_bilinear_sample(images, ys, xs), images)
 
 
 def center_crop_resize(images: torch.Tensor, out_size: Tuple[int, int],
-                       crop_frac: float = 0.875) -> torch.Tensor:
-    """Eval preproc: central crop (fraction) + bilinear resize."""
+                       crop_frac: float = 0.875,
+                       valid_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eval preproc: central crop (fraction) + bilinear resize; with
+    `valid_hw` ([B, 2]) the central crop of each sample's valid extent,
+    sampled strictly inside it."""
     batch, height, width, _ = images.shape
     device = images.device
     ry = torch.arange(out_size[0], dtype=torch.float32, device=device) / out_size[0]
     rx = torch.arange(out_size[1], dtype=torch.float32, device=device) / out_size[1]
-    side = min(height, width) * crop_frac
-    ys = ((height - side) / 2.0 + ry * side).expand(batch, -1)
-    xs = ((width - side) / 2.0 + rx * side).expand(batch, -1)
+    if valid_hw is None:
+        side = min(height, width) * crop_frac
+        ys = ((height - side) / 2.0 + ry * side).expand(batch, -1)
+        xs = ((width - side) / 2.0 + rx * side).expand(batch, -1)
+    else:
+        vh, vw = _valid_extent(images, valid_hw)
+        side = torch.minimum(vh, vw) * crop_frac
+        step = torch.clamp(side - 1.0, min=1.0)[:, None]
+        ys = ((vh - side) / 2.0)[:, None] + ry[None] * step
+        xs = ((vw - side) / 2.0)[:, None] + rx[None] * step
     return _cast_like(_bilinear_sample(images, ys, xs), images)

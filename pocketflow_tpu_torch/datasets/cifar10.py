@@ -14,8 +14,10 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.datasets import augment
-from pocketflow_tpu_torch.datasets.abstract import AbstractDataset, DatasetSpec, resolve_data_dir
+from pocketflow_tpu_torch.datasets.abstract import AbstractDataset, DatasetSpec
+from pocketflow_tpu_torch.datasets.remote_fs import resolve_data_dir
 
 CIFAR10_MEAN = (125.3, 123.0, 113.9)
 CIFAR10_STD = (63.0, 62.1, 66.7)
@@ -24,8 +26,12 @@ _RECORD_BYTES = 1 + 32 * 32 * 3
 
 
 def parse_bin_files(paths: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
-    """(images uint8 [n, 32, 32, 3], labels int32 [n]) of CIFAR-10 .bin files."""
+    """(images uint8 [n, 32, 32, 3], labels int32 [n]) of CIFAR-10 .bin files,
+    parsed by the native runtime under --enbl_native_loader."""
     raw = np.concatenate([np.fromfile(path, np.uint8) for path in paths])
+    if FLAGS.enbl_native_loader:
+        from pocketflow_tpu_torch.datasets.native_loader import parse_cifar10
+        return parse_cifar10(raw)
     recs = raw.reshape(-1, _RECORD_BYTES)
     labels = recs[:, 0].astype(np.int32)
     images = recs[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)

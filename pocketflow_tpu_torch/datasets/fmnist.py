@@ -14,7 +14,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from pocketflow_tpu_torch.datasets.abstract import AbstractDataset, DatasetSpec, resolve_data_dir
+from pocketflow_tpu_torch.datasets.abstract import AbstractDataset, DatasetSpec
+from pocketflow_tpu_torch.datasets.remote_fs import resolve_data_dir
 
 
 def load_idx_images(path: str) -> np.ndarray:

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from pocketflow_tpu_torch.config import FLAGS
-from pocketflow_tpu_torch.datasets.abstract import AbstractDataset, DatasetSpec, resolve_data_dir
+from pocketflow_tpu_torch.datasets.abstract import AbstractDataset, DatasetSpec
+from pocketflow_tpu_torch.datasets.remote_fs import resolve_data_dir
 from pocketflow_tpu_torch.datasets.augment import _draw
 
 FLAGS.DEFINE_integer('nb_bboxs_max', 32, 'max # of bounding boxes per image')

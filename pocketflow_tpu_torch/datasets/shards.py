@@ -9,8 +9,9 @@ RAM:
   indices only;
 * fancy-gather (``view[idx_array]``) materializing just one batch, which the
   host batch iterator uses;
-* a shard table (paths + data offsets + counts) for a native reader; the
-  port has none yet.
+* a shard table (paths + data offsets + counts) and the composed index,
+  which the native ``pread`` sampler (``datasets/native_loader.py``) reads,
+  keeping resident memory bounded at its queue of batches.
 """
 
 from __future__ import annotations

@@ -40,6 +40,7 @@ from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
 from pocketflow_tpu_torch.core import mesh
 from pocketflow_tpu_torch.core.metrics import ProgressMonitor, SummaryWriter, get_logger
+from pocketflow_tpu_torch.core.profiling import ProfilerHook
 from pocketflow_tpu_torch.core.schedules import Schedule
 from pocketflow_tpu_torch.nn.layers import CompressionPolicy
 
@@ -301,7 +302,9 @@ class AbstractLearner(ABC):
                        save_path: Optional[str] = None, eval_fn=None,
                        iterator: Optional[Iterator] = None,
                        log_prefix: str = 'train') -> TrainState:
-        """The hot loop: feed batches, log every summ_step, save every save_step."""
+        """The hot loop: feed batches, log every summ_step, save every save_step;
+        under --enbl_profiler, trace its window of steps (``core/profiling.py``;
+        the trace's path is then ``self.profile_path``)."""
         nb_iters = nb_iters if nb_iters is not None else self.nb_iters_train
         save_path = save_path or FLAGS.save_path
         iterator = iterator if iterator is not None else self.dataset_train.build()
@@ -312,15 +315,23 @@ class AbstractLearner(ABC):
         # every rank draws alike: the augmentation takes its rows of draws
         # made for the global batch
         base_seed = self.next_seed()
-        for idx_iter in range(state.step, nb_iters):
-            batch = next(iterator)
-            state, metrics = train_step(state, batch, self.generator(base_seed + idx_iter))
-            if (idx_iter + 1) % FLAGS.summ_step == 0:
-                monitor.report(idx_iter + 1, FLAGS.summ_step, self.global_scalars(metrics))
-            if (idx_iter + 1) % FLAGS.save_step == 0:
-                self.save_model(state, save_path)
-                if eval_fn is not None:
-                    eval_fn(state)
+        profiler = ProfilerHook(device=self.device)  # --enbl_profiler's window
+        try:
+            for idx_iter in range(state.step, nb_iters):
+                batch = next(iterator)
+                profiler.before_step(idx_iter)
+                state, metrics = train_step(state, batch, self.generator(base_seed + idx_iter))
+                profiler.after_step(idx_iter)
+                if (idx_iter + 1) % FLAGS.summ_step == 0:
+                    monitor.report(idx_iter + 1, FLAGS.summ_step, self.global_scalars(metrics))
+                if (idx_iter + 1) % FLAGS.save_step == 0:
+                    self.save_model(state, save_path)
+                    if eval_fn is not None:
+                        eval_fn(state)
+        finally:
+            profiler.close(state.step)
+        if profiler.path is not None:
+            self.profile_path = profiler.path
         self.save_model(state, save_path)  # its barrier ends the loop on every rank
         return state
 

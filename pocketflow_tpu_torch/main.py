@@ -25,6 +25,23 @@ MODELS = {
 }
 
 
+def register_flags():
+    """Register the flags of every learner and model, and --model."""
+    from pocketflow_tpu_torch.config import FLAGS
+    import pocketflow_tpu_torch.learners.channel_pruning.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.channel_pruning_gpu.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.channel_pruning_rmt.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.discr_channel_pruning.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.nonuniform_quantization.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.uniform_quantization.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.uniform_quantization_tf.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.weight_sparsification.learner  # noqa: F401
+    for module in MODELS.values():
+        importlib.import_module(module)
+    FLAGS.DEFINE_string('model', 'convnet_at_fmnist',
+                        'model helper: ' + ' | '.join(sorted(MODELS)))
+
+
 def main(argv=None, device='cuda'):
     """Run the learner on `device`; returns the learner.  Under torchrun's
     environment the process joins its group first (a group the caller made
@@ -36,20 +53,7 @@ def main(argv=None, device='cuda'):
     from pocketflow_tpu_torch.core.metrics import SummaryWriter, get_logger
     from pocketflow_tpu_torch.learners import create_learner
     from pocketflow_tpu_torch.utils.path_args import apply_path_conf
-    # register the flags of every learner before parsing
-    import pocketflow_tpu_torch.learners.channel_pruning.learner  # noqa: F401
-    import pocketflow_tpu_torch.learners.channel_pruning_gpu.learner  # noqa: F401
-    import pocketflow_tpu_torch.learners.channel_pruning_rmt.learner  # noqa: F401
-    import pocketflow_tpu_torch.learners.discr_channel_pruning.learner  # noqa: F401
-    import pocketflow_tpu_torch.learners.nonuniform_quantization.learner  # noqa: F401
-    import pocketflow_tpu_torch.learners.uniform_quantization.learner  # noqa: F401
-    import pocketflow_tpu_torch.learners.uniform_quantization_tf.learner  # noqa: F401
-    import pocketflow_tpu_torch.learners.weight_sparsification.learner  # noqa: F401
-    for module in MODELS.values():
-        importlib.import_module(module)
-
-    FLAGS.DEFINE_string('model', 'convnet_at_fmnist',
-                        'model helper: ' + ' | '.join(sorted(MODELS)))
+    register_flags()  # before parsing
     leftovers = FLAGS.parse_args(argv)
     model_name = FLAGS.model
     for arg in leftovers:  # allow a bare positional model name

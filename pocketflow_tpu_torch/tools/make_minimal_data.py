@@ -4,10 +4,12 @@ readers run on files of the right format:
 
 * cifar10:  `data_batch_{1..5}.bin` + `test_batch.bin` fixed-length records
             (1 label byte + 3072 CHW uint8 bytes);
-* ilsvrc12: `{train,val}_{images,labels}_00000.npy` shards.
+* ilsvrc12: `{train,val}_{images,labels}_00000.npy` shards;
+* pascalvoc: `{train,val}_0000.npz` shards (boxes [label,ymin,xmin,ymax,xmax]
+            + difficult flags), written by ``convert_pascalvoc.write_npz_shard``.
 
     python -m pocketflow_tpu_torch.tools.make_minimal_data --dst_dir=/tmp/minimal \
-        [--datasets=cifar10,ilsvrc12] [--nb_train=256 --nb_eval=64]
+        [--datasets=cifar10,ilsvrc12,pascalvoc] [--nb_train=256 --nb_eval=64]
 
 Then e.g.:
 
@@ -60,10 +62,28 @@ def make_ilsvrc12(dst_dir: str, nb_train: int, nb_eval: int, seed: int = 0,
 
 def make_pascalvoc(dst_dir: str, nb_train: int, nb_eval: int, seed: int = 0,
                    image_size: int = 300):
-    """Pascal VOC `.npz` shards need the converter's writer (`write_npz_shard`)."""
-    raise NotImplementedError(
-        "the pascalvoc maker needs tools/convert_pascalvoc.py's write_npz_shard, not ported "
-        "yet (ROADMAP 'Modules to port', item 25)")
+    from pocketflow_tpu_torch.tools.convert_pascalvoc import write_npz_shard
+    rng = np.random.default_rng(seed)
+    os.makedirs(dst_dir, exist_ok=True)
+    for subset, nb in (('train', nb_train), ('val', nb_eval)):
+        images, boxes_list, diff_list = [], [], []
+        for _ in range(nb):
+            img = rng.integers(0, 80, (image_size, image_size, 3), np.uint8)
+            nb_obj = int(rng.integers(1, 4))
+            boxes = np.zeros((nb_obj, 5), np.float32)
+            for i in range(nb_obj):
+                cls = int(rng.integers(1, 21))
+                y0, x0 = rng.uniform(0.0, 0.6, 2)
+                h, w = rng.uniform(0.2, 0.39, 2)
+                # paint the object so detection is learnable
+                ys, xs = int(y0 * image_size), int(x0 * image_size)
+                ye, xe = int((y0 + h) * image_size), int((x0 + w) * image_size)
+                img[ys:ye, xs:xe] = 60 + 9 * cls
+                boxes[i] = (cls, y0, x0, y0 + h, x0 + w)
+            images.append(img)
+            boxes_list.append(boxes)
+            diff_list.append(np.zeros((nb_obj,), np.uint8))
+        write_npz_shard(dst_dir, subset, 0, images, boxes_list, diff_list)
 
 
 MAKERS = {'cifar10': make_cifar10, 'ilsvrc12': make_ilsvrc12,
@@ -73,7 +93,7 @@ MAKERS = {'cifar10': make_cifar10, 'ilsvrc12': make_ilsvrc12,
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('--dst_dir', required=True)
-    parser.add_argument('--datasets', default='cifar10,ilsvrc12')
+    parser.add_argument('--datasets', default='cifar10,ilsvrc12,pascalvoc')
     parser.add_argument('--nb_train', type=int, default=256)
     parser.add_argument('--nb_eval', type=int, default=64)
     parser.add_argument('--seed', type=int, default=0)

@@ -232,6 +232,52 @@ def _busy_us(events) -> float:
     return busy
 
 
+def trace_summary(path: str, ranges=()) -> dict:
+    """What a Chrome trace of the train loop's profiler hook
+    (``core/profiling.py``) holds: `steps` (the traced step numbers),
+    `window_ms` (the first step's start to the end of the last step or of
+    the last device event, whichever is later: the steps are not
+    synchronized), and, when it recorded the card, `busy_ms` (the union of
+    its kernels, copies and memsets), `idle_share`, `device_events` and, for
+    each name in `ranges`, the device ms of the kernels whose launch lies
+    inside that user annotation (`range_ms`)."""
+    from pocketflow_tpu_torch.core.profiling import STEP_PREFIX
+    with open(path) as fin:
+        events = json.load(fin)['traceEvents']
+    steps = sorted((e for e in events if e.get('cat') == 'user_annotation'
+                    and e.get('name', '').startswith(STEP_PREFIX)), key=lambda e: e['ts'])
+    if not steps:
+        raise ValueError('no %s* annotation in %s' % (STEP_PREFIX, path))
+    device = [e for e in events if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')
+              and 'dur' in e]
+    lo = steps[0]['ts']
+    hi = max(e['ts'] + e['dur'] for e in steps + device)
+    out = {'steps': [int(e['name'][len(STEP_PREFIX):]) for e in steps],
+           'window_ms': (hi - lo) / 1e3}
+    if device:
+        inside = [(None, max(e['ts'], lo), e['ts'] + e['dur']) for e in device
+                  if e['ts'] + e['dur'] > lo]
+        busy = _busy_us(inside)
+        out.update(busy_ms=busy / 1e3, idle_share=1.0 - busy / (hi - lo),
+                   device_events=len(inside))
+    if ranges:
+        # a kernel belongs to a range when the runtime call that launched it
+        # (the same correlation id) lies inside one of the range's annotations
+        by_corr = {}
+        for e in device:
+            corr = e.get('args', {}).get('correlation')
+            by_corr[corr] = by_corr.get(corr, 0.0) + e['dur']
+        launches = [e for e in events if e.get('cat') == 'cuda_runtime']
+        out['range_ms'] = {}
+        for name in ranges:
+            spans = [(e['ts'], e['ts'] + e['dur']) for e in events
+                     if e.get('cat') == 'user_annotation' and e.get('name') == name]
+            out['range_ms'][name] = sum(
+                by_corr.get(e.get('args', {}).get('correlation'), 0.0) for e in launches
+                if any(s <= e['ts'] <= t for s, t in spans)) / 1e3
+    return out
+
+
 def summarize(events, nb_steps: int, nb_top: int = 12) -> dict:
     """Per-step device metrics of a profiled run of `nb_steps` steps."""
     if not events:

@@ -1,10 +1,10 @@
 """path.conf parsing -> data-path flags (a copy of pocketflow_tpu/utils/path_args.py).
 
 A `key = value` path.conf gives each dataset its data directory; the dataset
-comes from the model name ('resnet_at_cifar10' -> 'cifar10') and the value
-lands in FLAGS.  The port reads local disks only, so the remote-disk entries
-(`data_hdfs_host`, `data_dir_hdfs_*`) are not applied; `data_disk` is, and a
-dataset refuses any disk but `local` when it reads its files.
+comes from the model name ('resnet_at_cifar10' -> 'cifar10') and the values
+land in FLAGS: `data_dir_local_<dataset>`, `data_disk`, and for
+`data_disk = hdfs` the remote entries `data_hdfs_host` and
+`data_dir_hdfs_<dataset>` (``datasets/remote_fs.py`` stages them).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import os
 from typing import Dict, Optional
 
 from pocketflow_tpu_torch.config import FLAGS
+from pocketflow_tpu_torch.datasets import remote_fs  # noqa: F401  (registers data_dir_hdfs)
 
 FLAGS.DEFINE_string('path_conf', './path.conf', 'path configuration file')
 
@@ -38,12 +39,19 @@ def dataset_of(model_name: str) -> str:
 
 
 def apply_path_conf(model_name: str, conf_path: Optional[str] = None):
-    """Set data_dir_local (unless given) and data_disk for the model's dataset."""
+    """Set data_dir_local and data_dir_hdfs (each unless given), data_disk
+    and data_hdfs_host for the model's dataset."""
     conf = parse_path_conf(conf_path or FLAGS.path_conf)
     if not conf:
         return
-    key_local = 'data_dir_local_%s' % dataset_of(model_name)
+    dataset = dataset_of(model_name)
+    key_local = 'data_dir_local_%s' % dataset
     if key_local in conf and FLAGS.get('data_dir_local') is None:
         FLAGS.override(data_dir_local=conf[key_local])
     if 'data_disk' in conf:
         FLAGS.override(data_disk=conf['data_disk'])
+    if conf.get('data_hdfs_host'):
+        FLAGS.override(data_hdfs_host=conf['data_hdfs_host'])
+    key_hdfs = 'data_dir_hdfs_%s' % dataset
+    if conf.get(key_hdfs) and FLAGS.get('data_dir_hdfs') is None:
+        FLAGS.override(data_dir_hdfs=conf[key_hdfs])

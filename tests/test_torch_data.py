@@ -53,9 +53,21 @@ def test_make_minimal_data_writes_the_same_files(minimal):
             with open(minimal / 'jax' / name / fname, 'rb') as a, \
                     open(minimal / 'port' / name / fname, 'rb') as b:
                 assert a.read() == b.read(), fname
+    # the pascalvoc maker: .npz shards (zip members carry their write time),
+    # every array equal to the JAX maker's
+    from pocketflow_tpu.tools import make_minimal_data as jmake
     from pocketflow_tpu_torch.tools import make_minimal_data as tmake
-    with pytest.raises(NotImplementedError, match='item 25'):
-        tmake.main(['--dst_dir=%s' % (minimal / 'voc'), '--datasets=pascalvoc'])
+    for make, name in ((jmake, 'jax'), (tmake, 'port')):
+        make.main(['--dst_dir=%s' % (minimal / 'voc' / name), '--datasets=pascalvoc',
+                   '--nb_train=4', '--nb_eval=2'])
+    for fname in ('train_0000.npz', 'val_0000.npz'):
+        with np.load(minimal / 'voc' / 'jax' / 'pascalvoc' / fname, allow_pickle=True) as a, \
+                np.load(minimal / 'voc' / 'port' / 'pascalvoc' / fname, allow_pickle=True) as b:
+            assert a.files == b.files
+            np.testing.assert_array_equal(a['images'], b['images'])
+            for key in ('boxes', 'difficult'):
+                assert all(np.array_equal(x, y) and x.dtype == y.dtype
+                           for x, y in zip(a[key], b[key]))
 
 
 @pytest.mark.parametrize('is_train', [True, False])
@@ -92,15 +104,30 @@ def test_ilsvrc12_shard_reader_matches_jax(minimal, is_train):
 
 
 def test_ilsvrc12_full_frame_shards_are_refused(minimal, tmp_path):
+    """Full-frame shards are read (labels [class, valid_h, valid_w]) unless
+    their extents do not match the images, which is refused as JAX refuses
+    it; so is --data_disk=hdfs without its host and directory."""
+    from pocketflow_tpu.datasets.ilsvrc12 import Ilsvrc12Dataset as J
     from pocketflow_tpu_torch.datasets.ilsvrc12 import Ilsvrc12Dataset as T
     for name in os.listdir(minimal / 'port' / 'ilsvrc12'):
         os.link(minimal / 'port' / 'ilsvrc12' / name, tmp_path / name)
-    np.save(tmp_path / 'train_extents_00000.npy', np.full((20, 2), 200, np.int32))
-    with TFLAGS.scope(data_dir_local=str(tmp_path)):
-        with pytest.raises(NotImplementedError, match='item 25'):
+    extents = np.random.default_rng(0).integers(2, 257, (20, 2)).astype(np.int32)
+    np.save(tmp_path / 'train_extents_00000.npy', extents)
+    jscope, tscope = _both(data_dir_local=str(tmp_path))
+    with jscope, tscope:
+        _, labels = T(True)._load_arrays()
+        np.testing.assert_array_equal(labels, np.asarray(J(True)._load_arrays()[1]))
+    assert labels.shape == (20, 3) and labels.dtype == np.float32
+    np.testing.assert_array_equal(labels[:, 1:], extents)
+    np.save(tmp_path / 'train_extents_00000.npy', extents[:19])
+    jscope, tscope = _both(data_dir_local=str(tmp_path))
+    with jscope, tscope:
+        with pytest.raises(ValueError, match='extents mismatch'):
+            J(True)._load_arrays()
+        with pytest.raises(ValueError, match='extents mismatch'):
             T(True)._load_arrays()
     with TFLAGS.scope(data_dir_local=str(tmp_path), data_disk='hdfs'):
-        with pytest.raises(NotImplementedError, match='item 25'):
+        with pytest.raises(ValueError, match='data_hdfs_host'):
             T(True)._load_arrays()
 
 

@@ -73,7 +73,9 @@ FLAGS_SEED = SHARD_FLAGS['rand_seed']
 
 def test_shards_are_disjoint_and_match_jax(tmp_path):
     # one pass over each rank's shard of 32 (synthetic sets hold at least 64): 4 batches
-    ranks = _spawn('dataset_batches', {'flags': SHARD_FLAGS, 'nb_batches': 4}, tmp_path, 'data')
+    # the NumPy iterator in both packages
+    ranks = _spawn('dataset_batches', {'flags': dict(SHARD_FLAGS, enbl_native_loader=False),
+                                       'nb_batches': 4}, tmp_path, 'data')
     for subset, size in (('train', 64), ('eval', 64)):
         shards = [set(r[subset]['sha1'][:size // 2]) for r in ranks]
         assert [r[subset]['shard'] for r in ranks] == [(0, 2), (1, 2)]

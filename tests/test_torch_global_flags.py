@@ -1,18 +1,27 @@
 """The reference's global flags in the port (the fault 'unrecognized flag'
 that `main.main(['--enbl_multi_gpu', ...])` ended in): each of the nine
-flags the JAX registry defines and ignores, and --mesh_shape and
---enbl_tensor_parallel, parsed by both packages' registries from the same
-argv to the same value, and through main.main on the CPU, where a command
-with the flag trains to the same checkpoint, bit for bit, as the command
-without it and evaluates it."""
+flags the JAX registry defines and ignores, --mesh_shape,
+--enbl_tensor_parallel, and the flags of the real-data path and the
+profiler (--enbl_native_loader, --data_dir_hdfs, --data_cache_dir,
+--data_stage_timeout, --enbl_profiler, --profiler_start_step,
+--profiler_nb_steps), parsed by both packages' registries from the same
+argv to the same value, with the same default and help; and through
+main.main on the CPU, where a command with one of the reference's flags,
+--data_dir_hdfs or --enbl_profiler trains to the same checkpoint, bit for
+bit, as the command without it and evaluates it."""
 
 import numpy as np
 import pytest
 import torch
 
 import pocketflow_tpu  # noqa: F401  (registers the JAX package's flags)
+import pocketflow_tpu.core.profiling  # noqa: F401
+import pocketflow_tpu.datasets.remote_fs  # noqa: F401
 from pocketflow_tpu.config import FLAGS as JFLAGS
+from pocketflow_tpu_torch import main as port_main
 from pocketflow_tpu_torch.config import FLAGS as TFLAGS
+
+port_main.register_flags()  # every flag below, in the port's registry
 
 torch.set_num_threads(2)
 # flag -> a value on the command line
@@ -28,7 +37,20 @@ GLOBAL_FLAGS = {
     'nb_smpls_per_batch': '--nb_smpls_per_batch=16',
     'mesh_shape': '--mesh_shape=data:1',
     'enbl_tensor_parallel': '--enbl_tensor_parallel',
+    # the real-data path and the profiler
+    'enbl_native_loader': '--enbl_native_loader=False',
+    'data_dir_hdfs': '--data_dir_hdfs=/datasets/fmnist',
+    'data_cache_dir': '--data_cache_dir=./data_cache_x',
+    'data_stage_timeout': '--data_stage_timeout=60',
+    'enbl_profiler': '--enbl_profiler',
+    'profiler_start_step': '--profiler_start_step=3',
+    'profiler_nb_steps': '--profiler_nb_steps=2',
 }
+# run through main.main: the reference's global flags, and of the new ones
+# the profiler's (the hook traces steps 10-14 of the run) and the remote
+# directory, which a local disk ignores (the loader's flag switches to the
+# NumPy iterator's stream; the others are read only when staging or tracing)
+SAME_CHECKPOINT = list(GLOBAL_FLAGS)[:11] + ['data_dir_hdfs', 'enbl_profiler']
 
 
 @pytest.fixture(autouse=True)
@@ -70,7 +92,7 @@ def baseline(tmp_path_factory):
         return _train(tmp_path_factory.mktemp('baseline'), [])
 
 
-@pytest.mark.parametrize('name', list(GLOBAL_FLAGS))
+@pytest.mark.parametrize('name', SAME_CHECKPOINT)
 def test_main_with_flag_behaves_as_without(name, baseline, tmp_path):
     from pocketflow_tpu_torch import main as port_main
     got = _train(tmp_path, [GLOBAL_FLAGS[name]])

@@ -58,6 +58,7 @@ def test_port_imports_no_jax():
 def test_every_port_flag_exists_in_jax_registry_with_same_default():
     import pocketflow_tpu  # noqa: F401  (registers the JAX package's whole flag surface)
     import pocketflow_tpu.utils.path_args  # noqa: F401  (--path_conf, defined for main.py)
+    import pocketflow_tpu.core.profiling  # noqa: F401  (--enbl_profiler, defined for the train loop)
     from pocketflow_tpu.config import FLAGS as JFLAGS
     import importlib
     for name in _port_modules():  # every flag the port defines

@@ -76,11 +76,13 @@ def test_heurist_ratios_match_jax(tmp_path):
 def test_train_val_split_matches_jax():
     """build(enbl_trn_val_split=True): the first min(nb_smpls_val, n // 5)
     samples, unshuffled, are the validation part, the rest the shuffled
-    train part; the same batches as the JAX package's numpy sampler."""
+    train part; the same batches as the JAX package's numpy sampler (the
+    NumPy iterator in both packages)."""
     from pocketflow_tpu.datasets.fmnist import FMnistDataset as JData
     from pocketflow_tpu_torch.datasets.fmnist import FMnistDataset as TData
     flags = dict(SMALL, nb_smpls_train=64, nb_smpls_val=100)
-    with JFLAGS.scope(**flags, enbl_native_loader=False), TFLAGS.scope(**flags):
+    with JFLAGS.scope(**flags, enbl_native_loader=False), \
+            TFLAGS.scope(**flags, enbl_native_loader=False):
         (jtrn, jval), (ttrn, tval) = (JData(True).build(True), TData(True).build(True))
         for want, got in ((jval, tval), (jtrn, ttrn)):
             for _ in range(3):
