@@ -108,6 +108,14 @@ on the card, and drives the port's paths:
     in-memory synthetic data; run R2, the eval of R1's checkpoint from a
     --data_disk=hdfs copy (file://) staged once; run R3, SSD-300 on the VOC
     shards of make_minimal_data; run R4, the AutoML CLI (2 GP trials);
+  * the deployment export (phase 26): run K's MobileNet-v1 rebuilt in fp32
+    through tools/export_tflite.build_qat_deploy_forward, its 28 kernels
+    folded onto the QAT grid in one grouped K2' launch pair (the run
+    'deploy-fold'), bit-equal to the plain version on the CPU and to the
+    per-site op; the deploy forward against the QAT reference forward at
+    batch 256; tools/tf_lowering's stage 1 on the deploy forward and on
+    ResNet-50 with the s2d stem at 224, every node lowered; the TFLite
+    conversion only where TensorFlow is installed;
 
 and checks that each went through its kernels and never through a plain
 version.  Any failed phase raises and the script exits non-zero without its
@@ -463,6 +471,20 @@ RD_RUNS = {
     'R4': 'real-data run R4: AutoML CLI, resnet_at_cifar10 weight-sparse, GP, 2 trials'}
 RD_SSD_STEPS, RD_SSD_TRAIN, RD_SSD_EVAL, RD_SSD_SIZE = 4, 128, 32, 300
 RD_AUTOML_TRAIN, RD_AUTOML_STEPS = 1280, 10
+# phase 26: the deployment export.  26a folds run K's MobileNet-v1 (rebuilt
+# under compute_dtype=float32) onto its QAT grid through
+# tools/export_tflite.build_qat_deploy_forward and holds the deploy forward
+# against the QAT reference forward at batch MB_BATCH; 26b lowers the
+# deploy forward and ResNet-50 with the s2d stem at 224 to TF op plans
+# (tools/tf_lowering.lower, batch 1); 26c converts where TensorFlow exists
+DEPLOY_FOLD_RUN = ('deploy-fold: build_qat_deploy_forward on run K\'s MobileNet-v1, its %d '
+                   'weights folded in one grouped K2\' call' % MB_SITES[1][0])
+EXPORT_PLANS = {  # the op kinds each plan must hold, and how many of each
+    'MobileNet-v1 deploy forward': {'add_const': 1, 'affine': 27, 'clamp': 27, 'conv2d': 14,
+                                    'depthwise_conv2d': 13, 'matmul': 1, 'mean': 1,
+                                    'minimum_const': 27, 'relu': 27},
+    'ResNet-50 (s2d stem)': {'add': 16, 'add_const': 1, 'affine': 53, 'conv2d': 53, 'matmul': 1,
+                             'max_pool': 1, 'mean': 1, 'relu': 49, 'reshape': 2, 'transpose': 1}}
 
 
 def log(msg, *args):
@@ -3833,6 +3855,113 @@ def rd_automl(FLAGS, root, card):
     return counts
 
 
+def phase_export(FLAGS, work_dir, card, device):
+    """Phase 26: the deployment export on the card.  26a: run K's uniform-tf
+    MobileNet-v1 through build_qat_deploy_forward, its fold one grouped K2'
+    launch pair and no plain call, every folded kernel bit-equal to the CPU's
+    plain version and to the per-site op on the card; the deploy forward
+    against the QAT reference forward (fp32, no TF32) at batch MB_BATCH,
+    each timed.  26b: the TF lowering's stage 1 on the deploy forward and on
+    ResNet-50 with the s2d stem at 224, every ATen node lowered, the op
+    counts by kind.  26c: the conversion, where TensorFlow is installed.
+    Returns {DEPLOY_FOLD_RUN: counters}."""
+    import importlib.util
+    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+    from pocketflow_tpu_torch.learners.uniform_quantization import utils as uq
+    from pocketflow_tpu_torch.nets.mobilenet_at_ilsvrc12 import ModelHelper as MbHelper
+    from pocketflow_tpu_torch.nets.resnet_at_ilsvrc12 import ModelHelper as RnHelper
+    from pocketflow_tpu_torch.ops import fake_quant as fq
+    from pocketflow_tpu_torch.tools import export_tflite, tf_lowering
+    ckpt = os.path.join(work_dir, 'mobilenet', 'K', 'uqtf', 'model.ckpt')
+    with FLAGS.scope(compute_dtype='float32', mobilenet_version=1, mobilenet_depth_mult=1.0,
+                     batch_size=MB_BATCH, batch_size_eval=MB_BATCH):
+        helper = MbHelper()
+        model = helper.create_model().to(device).eval()
+        payload = ckpt_lib.restore_latest(ckpt, map_location=device)
+        check(payload is not None, 'no run K checkpoint under %s', ckpt)
+        model.load_state_dict(payload['model'])
+        ds = helper.build_dataset_eval()
+        images = ds.augment(torch.from_numpy(ds.synthesize_arrays(MB_BATCH)[0][:MB_BATCH]).to(
+            device), None, False)
+        with FLAGS.scope(uql_quantize_all_layers=True):
+            stats = uq.discover_quant_sites(model, images[:2])
+    paths = stats['weight_paths']
+    check((len(paths), stats['nb_activations']) == MB_SITES[1], 'run K sites %d/%d', len(paths),
+          stats['nb_activations'])
+    spec = {'weight_paths': paths, 'act_min': payload['extra']['act_min'].cpu().numpy(),
+            'act_max': payload['extra']['act_max'].cpu().numpy(), 'weight_bits': 8,
+            'act_bits': 8}
+
+    torch.cuda.synchronize()
+    reset_counters()  # the deploy fold's launches are counted from here ...
+    deploy, qat_ref = export_tflite.build_qat_deploy_forward(model, None, spec)
+    torch.cuda.synchronize()
+    counts = counters()  # ... to here
+    check(counts == no_launches(fake_quant_per_column_group=1), 'deploy fold launches %s',
+          counts)
+    kernels = uq.quant_weights(model, paths)
+    folded = uq.quant_weights(deploy.model, paths)
+    bits8 = torch.tensor(8.0, device=device)
+    k8 = fq._levels(torch.tensor(8.0))
+    for path, w, got in zip(paths, kernels, folded):
+        check(torch.equal(got.detach().cpu(), fq._column_plain(w.detach().cpu(), k8, None)),
+              'folded %s differs from the CPU plain version', path)
+        check(torch.equal(got, fq.fake_quant_channel_bucket(w.detach(), bits8)),
+              'folded %s differs from the per-site op on the card', path)
+    bits = torch.full((len(paths),), 8.0, device=device)
+    weights = [w.detach() for w in kernels]
+    fold_ms = time_ms(lambda: fq.fake_quant_bucket_group(weights, bits, 'channel', 0,
+                                                         select=False))
+    per_site_ms = time_ms(lambda: [fq.fake_quant_channel_bucket(w, bits8) for w in weights])
+    bound_ms, bound_by = fq_bound(sum(w.numel() for w in weights))
+    log('  26a deploy fold of run K\'s %d kernels: one grouped K2\' launch pair, no plain call '
+        '(%s); every kernel bit-equal to the CPU plain version and to the per-site op on the '
+        'card | grouped %.4f ms (%.0f%% of the bound), %d per-site calls %.4f ms, bound %.4f ms '
+        '(%s) | %s', len(paths), counts, fold_ms, 100 * bound_ms / fold_ms, len(paths),
+        per_site_ms, bound_ms, bound_by, card)
+    with torch.no_grad(), export_tflite._fp32_reference(device):
+        out_deploy, out_ref, out_float = deploy(images), qat_ref(images), model(images)
+        deploy_ms = time_ms(lambda: deploy(images), 5)
+        ref_ms = time_ms(lambda: qat_ref(images), 5)
+    check(float(out_ref.abs().max()) > 0, 'the QAT reference forward gives all-zero logits')
+    rel = float((out_deploy - out_ref).abs().max() / out_ref.abs().max())
+    rel_float = float((out_float - out_ref).abs().max() / out_ref.abs().max())
+    agree = float((out_deploy.argmax(-1) == out_ref.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(out_deploy).all()) and out_deploy.shape == (MB_BATCH, 1001),
+          'deploy forward %s', tuple(out_deploy.shape))
+    log('  26a deploy forward (folded kernels, activations clipped at run K\'s ranges) against '
+        'the QAT reference forward (RangeQuantPolicy), fp32 without TF32, batch %d: max|d| / '
+        'max|ref| %.4g (the float forward\'s %.4g; max|ref| %.4g), top-1 agreement %.4f | '
+        'deploy %.3f ms, reference %.3f ms a forward | %s', MB_BATCH, rel, rel_float,
+        float(out_ref.abs().max()), agree, deploy_ms, ref_ms, card)
+
+    with FLAGS.scope(compute_dtype='float32'):
+        resnet = RnHelper(resnet_size=50).create_model()
+    resnet.reset_parameters(torch.Generator().manual_seed(0))
+    resnet = resnet.to(device)
+    for name, net in (('MobileNet-v1 deploy forward', deploy), ('ResNet-50 (s2d stem)', resnet)):
+        start = time.perf_counter()
+        plan = tf_lowering.lower(net, (1, 224, 224, 3))
+        check(plan.counts() == EXPORT_PLANS[name], '%s plan %s', name, plan.counts())
+        log('  26b TF lowering (stage 1) of the %s at 224, batch 1: all %d ATen nodes lowered to '
+            '%d ops %s in %.1f s', name, plan.nb_nodes, len(plan.ops), plan.counts(),
+            time.perf_counter() - start)
+    del resnet
+
+    if importlib.util.find_spec('tensorflow') is None:
+        log('  26c TensorFlow is absent on this machine: no .tflite is converted here; '
+            'tests/test_torch_export_tflite.py holds the conversion on the CPU')
+    else:
+        with tempfile.TemporaryDirectory(prefix='pf_tflite_') as out_dir:
+            start = time.perf_counter()
+            path = export_tflite.export_tflite(model, None, images[:1], os.path.join(
+                out_dir, 'mobilenet_qat'), quantize='int8', qat_spec=spec)
+            log('  26c int8-qat .tflite of run K\'s MobileNet-v1: %d bytes in %.1f s',
+                os.path.getsize(path), time.perf_counter() - start)
+    torch.cuda.empty_cache()
+    return {DEPLOY_FOLD_RUN: counts}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4056,6 +4185,13 @@ def main():
             '(R3), the AutoML CLI (R4)')
         runs.update(phase_real_data(FLAGS, card))
         log('  phase 25: %.1f s', time.perf_counter() - t25)
+        t26 = time.perf_counter()
+        log('phase 26 the deployment export: run K\'s MobileNet-v1 through '
+            'build_qat_deploy_forward (26a: the fold in one grouped K2\' call, the deploy '
+            'forward against the QAT reference at batch %d), the TF lowering of it and of '
+            'ResNet-50 at 224 (26b), the conversion where TensorFlow exists (26c)', MB_BATCH)
+        runs.update(phase_export(FLAGS, work_dir, card, device))
+        log('  phase 26: %.1f s', time.perf_counter() - t26)
     serve_dir.cleanup()
 
     # each kernel's launches in the run that drives it: the main path for the

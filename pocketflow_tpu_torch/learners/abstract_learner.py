@@ -44,6 +44,8 @@ from pocketflow_tpu_torch.core.profiling import ProfilerHook
 from pocketflow_tpu_torch.core.schedules import Schedule
 from pocketflow_tpu_torch.nn.layers import CompressionPolicy
 
+DOWNLOAD_BYTES_BOUND = 16 << 30  # download_model's extraction bound: far above any model tarball
+
 
 def resolve_device(device) -> torch.device:
     """The device a learner runs on; a CUDA device must exist.  Under data
@@ -419,13 +421,84 @@ class AbstractLearner(ABC):
         if payload is None:
             return None
         target_state.model.load_state_dict(payload['model'])
-        target_state.optimizer.load_state_dict(payload['optimizer'])
+        ckpt_lib.load_optimizer(target_state.optimizer, target_state.model, payload['optimizer'])
         target_state.step = int(payload['step'])
         target_state.extra = payload['extra']
         self.broadcast_state(target_state)
         self.log.info('model restored from %s',
                       ckpt_lib.latest_checkpoint(os.path.dirname(save_path) or '.'))
         return target_state
+
+    def download_model(self):
+        """Pretrained-model bootstrap: a no-op when the save directory holds
+        a checkpoint (the port's or the JAX package's); otherwise rank 0
+        fetches the tarball at ``--model_http_url`` (http, https or file)
+        and extracts its plain files, flattened by basename, into the save
+        directory, while the other ranks wait at the barrier.  A URL that is
+        not a tarball is a base: 'models_<model>_at_<dataset>.tar.gz' is
+        appended.  Raises ValueError without a URL, on two members of one
+        basename or past 16 GiB extracted, and FileNotFoundError when no
+        checkpoint landed."""
+        save_dir = os.path.dirname(FLAGS.save_path) or '.'
+        if ckpt_lib.latest_checkpoint(save_dir) is not None:
+            return
+        url = FLAGS.get('model_http_url')
+        if not url:
+            raise ValueError(
+                'local model files do not exist and <model_http_url> is not '
+                'set (reference abstract_learner.py:116-117)')
+        if not url.endswith(('.tar', '.tar.gz', '.tgz')):
+            tarball = 'models_%s_at_%s.tar.gz' % (
+                getattr(self.model_helper, 'model_name', 'model'),
+                getattr(self.model_helper, 'dataset_name', 'dataset'))
+            url = url.rstrip('/') + '/' + tarball
+        if self.is_primary_worker():
+            import tarfile
+            import tempfile
+            import urllib.request
+            os.makedirs(save_dir, exist_ok=True)
+            with tempfile.NamedTemporaryFile(suffix='.tar.gz') as tmp:
+                with urllib.request.urlopen(url) as resp:
+                    while True:
+                        chunk = resp.read(1 << 20)
+                        if not chunk:
+                            break
+                        tmp.write(chunk)
+                tmp.flush()
+                with tarfile.open(tmp.name) as tar:
+                    # plain files only, by basename, never absolute or parent
+                    # paths; two members of one basename would overwrite each
+                    # other, and the extracted bytes are bounded
+                    seen = set()
+                    budget = DOWNLOAD_BYTES_BOUND
+                    for member in tar.getmembers():
+                        if not member.isfile():
+                            continue
+                        name = os.path.basename(member.name)
+                        if not name or name.startswith('..'):
+                            continue
+                        if name in seen:
+                            raise ValueError(
+                                'tarball %s has duplicate basename %r — '
+                                'refusing to silently overwrite' % (url, name))
+                        seen.add(name)
+                        budget -= max(0, member.size)
+                        if budget < 0:
+                            raise ValueError(
+                                'tarball %s exceeds the extraction size '
+                                'bound' % url)
+                        src = tar.extractfile(member)
+                        with open(os.path.join(save_dir, name), 'wb') as out:
+                            while True:
+                                chunk = src.read(1 << 20)
+                                if not chunk:
+                                    break
+                                out.write(chunk)
+            self.log.info('pretrained model fetched from %s into %s', url, save_dir)
+        mesh.auto_barrier()
+        if ckpt_lib.latest_checkpoint(save_dir) is None:
+            raise FileNotFoundError(
+                'no checkpoint found under %s after downloading %s' % (save_dir, url))
 
     @staticmethod
     def is_primary_worker(scope: str = 'global') -> bool:

@@ -12,9 +12,11 @@ exact by scattering back to dense, with a FLOPs audit) and 'quant' (int
 codes + scales at --uql_weight_bits).  Every run writes the packed .npz +
 manifest and the eval forward as ``<output>.pt2`` (torch.export), then
 reloads the artifact through the serving loader and compares its logits
-with the live model's.  The TFLite and SavedModel artifacts
-(--tflite_mode, --export_saved_model) need TensorFlow and are not ported
-(ROADMAP item 23).
+with the live model's.  With --tflite_mode and --export_saved_model it also
+writes a .tflite and a TF SavedModel of the serving model (the physically
+shrunk, width-mapped net under 'chn-pruned-residual') through
+tools/export_tflite.py; 'int8-qat' carries the uniform-tf checkpoint's
+trained activation ranges.  Those two need TensorFlow on the host.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ def main(argv=None, device='cuda'):
     from pocketflow_tpu_torch.learners.uniform_quantization import utils as uq
     from pocketflow_tpu_torch.main import MODELS
     from pocketflow_tpu_torch.tools import export as export_lib
+    from pocketflow_tpu_torch.tools import export_tflite as tflite_lib
     from pocketflow_tpu_torch.tools import serving as serving_lib
     from pocketflow_tpu_torch.tools import shrink_graph as sg
     from pocketflow_tpu_torch.tools.model_report import build_report
@@ -45,6 +48,8 @@ def main(argv=None, device='cuda'):
     device = resolve_device(device)
     for module_name in MODELS.values():  # the helpers' flags
         importlib.import_module(module_name)
+    # --uqtf_weight_bits and --uqtf_activation_bits, read by 'int8-qat'
+    importlib.import_module('pocketflow_tpu_torch.learners.uniform_quantization_tf.learner')
     FLAGS.DEFINE_string('ckpt_path', './models/model.ckpt', 'checkpoint to export')
     FLAGS.DEFINE_string('export_mode', 'plain',
                         "export mode: 'plain' | 'chn-pruned' | "
@@ -53,20 +58,23 @@ def main(argv=None, device='cuda'):
     FLAGS.DEFINE_string('output_path', './export/model', 'output artifact path')
     FLAGS.DEFINE_string('export_model', 'convnet_at_fmnist', 'model helper name')
     FLAGS.DEFINE_string('tflite_mode', 'none',
-                        "also write a .tflite artifact: 'none' (the only mode "
-                        "ported; the others need TensorFlow, ROADMAP item 23)")
+                        "also write a .tflite artifact: 'none' | 'float' | "
+                        "'dynamic' (int8 weights) | 'int8' (full integer, "
+                        "calibrated on the sample batch) | 'int8-qat' (full "
+                        "integer carrying the uqtf learner's TRAINED "
+                        "fake-quant ranges from the checkpoint; the "
+                        "self-check runs against the QAT eval forward)")
     FLAGS.DEFINE_boolean('export_saved_model', False,
-                         'also write a TF SavedModel (not ported: ROADMAP item 23)')
+                         "also write a TF SavedModel at '<output>_saved' "
+                         "(the reference's frozen-.pb serving artifact)")
     FLAGS.DEFINE_boolean('tflite_latency', False,
-                         'measure TFLite interpreter latency (needs --tflite_mode)')
+                         'measure TFLite interpreter latency after export '
+                         '(100 warmup + 100 timed, reference '
+                         'calc_inference_time.py protocol)')
     FLAGS.parse_args(argv)
     log = get_logger()
-    if FLAGS.tflite_mode != 'none' or FLAGS.export_saved_model:
-        raise NotImplementedError(
-            '--tflite_mode=%s / --export_saved_model need TensorFlow and are not ported yet '
-            "(ROADMAP 'Modules to port', item 23)" % FLAGS.tflite_mode)
-    if FLAGS.tflite_latency:
-        log.warning('--tflite_latency ignored: no TFLite artifact was exported')
+    if FLAGS.tflite_mode not in ('none', 'float', 'dynamic', 'int8', 'int8-qat'):
+        raise ValueError('unknown --tflite_mode %r' % FLAGS.tflite_mode)
     if FLAGS.export_mode not in ('plain', 'chn-pruned', 'chn-pruned-residual', 'quant'):
         raise ValueError('unknown --export_mode %r' % FLAGS.export_mode)
 
@@ -139,11 +147,47 @@ def main(argv=None, device='cuda'):
     # the real self-check: the artifact reloaded through the serving loader
     # against the live model (for 'quant' the delta is the quantization
     # error, reported, not gated)
-    delta = export_lib.numeric_self_check(
-        model, serving_lib.load_serving_model(out, model), sample)
+    loaded = serving_lib.load_serving_model(out, model)
+    delta = export_lib.numeric_self_check(model, loaded, sample)
     if FLAGS.export_mode in ('plain', 'chn-pruned') and delta > 1e-3:
         raise AssertionError('export artifact diverged from the live model (max delta %.3e)'
                              % delta)
+
+    # the serving artifacts take the physically shrunk, width-mapped model
+    # when the residual-aware shrink ran
+    serving_model = loaded if FLAGS.export_mode == 'chn-pruned-residual' else model
+    if FLAGS.export_saved_model:
+        tflite_lib.export_saved_model(serving_model, None, sample, FLAGS.output_path + '_saved')
+    if FLAGS.tflite_mode != 'none':
+        quantize = {'float': 'none', 'int8-qat': 'int8'}.get(FLAGS.tflite_mode,
+                                                             FLAGS.tflite_mode)
+        qat_spec = None
+        if FLAGS.tflite_mode == 'int8-qat':
+            # the uniform-tf learner's site table, with its trained EMA
+            # activation ranges from the checkpoint's extra
+            with FLAGS.scope(uql_quantize_all_layers=True):
+                stats = uq.discover_quant_sites(serving_model, sample)
+            extra = payload.get('extra')
+            if not isinstance(extra, dict) or 'act_min' not in extra or 'act_max' not in extra:
+                raise ValueError(
+                    'int8-qat export needs a uniform-tf checkpoint with '
+                    'trained activation ranges (extra.act_min/act_max); '
+                    'none found next to ' + FLAGS.ckpt_path)
+            qat_spec = {
+                'weight_paths': stats['weight_paths'],
+                'act_min': np.asarray(extra['act_min'].cpu(), np.float32),
+                'act_max': np.asarray(extra['act_max'].cpu(), np.float32),
+                'weight_bits': int(FLAGS.uqtf_weight_bits),
+                'act_bits': int(FLAGS.uqtf_activation_bits)}
+        tfl_path = tflite_lib.export_tflite(
+            serving_model, None, sample, FLAGS.output_path,
+            quantize=quantize, input_uint8=(quantize == 'int8'), qat_spec=qat_spec)
+        if FLAGS.tflite_latency:
+            with open(tfl_path, 'rb') as fin:
+                tflite_lib.measure_latency(fin.read())
+    elif FLAGS.tflite_latency:
+        log.warning('--tflite_latency ignored: no TFLite artifact was '
+                    'exported (set --tflite_mode)')
     log.info('export written to %s', out)
     return out
 

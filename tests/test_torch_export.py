@@ -17,8 +17,8 @@ against the JAX package's on the CPU, ResNet-20 @ CIFAR-10 in fp32:
   residual shrink's FLOPs audit, the physically smaller served net, the
   ``.pt2`` program reloaded with bit-equal logits;
 * ``serving.main`` and ``model_report`` against the JAX package's;
-* the TFLite / SavedModel flags raise NotImplementedError naming ROADMAP
-  item 23, and each entry point refuses device='cuda' without a card.
+* the TFLite / SavedModel flags write their artifacts on the CPU, and each
+  entry point refuses device='cuda' without a card.
 """
 
 import contextlib
@@ -335,14 +335,22 @@ def test_add_metadata_writes_the_jax_sidecar(tmp_path):
 
 
 def test_tflite_flags_raise_and_entry_points_need_the_card(port_artifacts, tmp_path):
+    """--tflite_mode and --export_saved_model write their artifacts on the
+    CPU (tests/test_torch_export_tflite.py holds them against the JAX
+    exporter); each entry point refuses device='cuda' without a card."""
     from pocketflow_tpu_torch.tools import export_cli, model_report, serving
     _, out, ckpt = port_artifacts
     common = ['--export_model=resnet_at_cifar10', '--synthetic_data', '--compute_dtype=float32',
-              '--ckpt_path=%s' % ckpt, '--output_path=%s' % (tmp_path / 'x')]
-    for extra in (['--tflite_mode=int8'], ['--export_saved_model']):
-        with pytest.raises(NotImplementedError, match='item 23'):
-            export_cli.main(common + extra, device='cpu')
-    assert not os.path.exists(str(tmp_path / 'x.npz'))
+              '--ckpt_path=%s' % ckpt]
+    with _flags_kept(TFLAGS):
+        export_cli.main(common + ['--output_path=%s' % (tmp_path / 'x'), '--tflite_mode=int8'],
+                        device='cpu')
+    assert os.path.getsize(str(tmp_path / 'x.tflite')) > 0
+    with _flags_kept(TFLAGS):
+        export_cli.main(common + ['--output_path=%s' % (tmp_path / 'y'),
+                                  '--export_saved_model'], device='cpu')
+    assert os.path.exists(str(tmp_path / 'y_saved' / 'saved_model.pb'))
+    assert not os.path.exists(str(tmp_path / 'y.tflite'))
     if not torch.cuda.is_available():
         for entry, argv in ((export_cli.main, common),
                             (serving.main, ['--artifact=%s' % out['plain']]),
