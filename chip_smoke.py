@@ -116,6 +116,18 @@ on the card, and drives the port's paths:
     batch 256; tools/tf_lowering's stage 1 on the deploy forward and on
     ResNet-50 with the s2d stem at 224, every node lowered; the TFLite
     conversion only where TensorFlow is installed;
+  * --remat_blocks (phase 27): the main path's QAT ResNet-50 step under
+    'none', 'save_convs' and 'full' from one seeded state on one batch,
+    with cudnn.deterministic: the same parameters, momentum and BN
+    statistics bit for bit, one grouped K1' launch pair a step in every
+    mode (27a); the same at 8-bit activations, K1' with the select at the
+    49 sites and again at the 48 inside the blocks under 'save_convs' and
+    'full' (27b); each mode's peak memory, step time in turns and device
+    busy time, and 'none' against 'full' at batch 1024 (27c,
+    experiments/step_remat.py); MobileNet-v1 uniform-tf through main.main
+    under 'none' and 'save_convs', the same checkpoint (27d); Faster R-CNN
+    ResNet-50 at 300x300, batch 32, one step under 'none' and 'full', the
+    peak memory lower under 'full' (27e);
 
 and checks that each went through its kernels and never through a plain
 version.  Any failed phase raises and the script exits non-zero without its
@@ -485,6 +497,23 @@ EXPORT_PLANS = {  # the op kinds each plan must hold, and how many of each
                                     'minimum_const': 27, 'relu': 27},
     'ResNet-50 (s2d stem)': {'add': 16, 'add_const': 1, 'affine': 53, 'conv2d': 53, 'matmul': 1,
                              'max_pool': 1, 'mean': 1, 'relu': 49, 'reshape': 2, 'transpose': 1}}
+
+# phase 27: --remat_blocks (nn/layers.py: maybe_remat) on the main path.
+# 27a: one QAT ResNet-50 step of each mode from one seeded state on one
+# batch with cuDNN deterministic ('none' twice), then without the setting;
+# 27b: the same at 8-bit activations; 27c: each mode's peak memory and step
+# time, the modes in turns (experiments/step_remat.py), then 'none' and
+# 'full' at REMAT_BIG_BATCH; 27d: MobileNet-v1 uniform-tf through main.main
+# under 'none' and 'save_convs' (the same checkpoint); 27e: Faster R-CNN
+# ResNet-50 at DET_BATCH, one step under 'none' and 'full'
+REMAT_MODES = ('none', 'save_convs', 'full')
+REMAT_WINDOWS, REMAT_STEPS, REMAT_PROFILED, REMAT_BIG_BATCH, REMAT_BIG_STEPS = 3, 4, 2, 1024, 2
+REMAT_BLOCK_SITES = NB_ACT_SITES - 1  # the relu sites inside the 16 blocks: the stem's is outside
+REMAT_RUN = 'remat 27a: one QAT ResNet-50 step, --remat_blocks=%s'
+REMAT_ACT8_RUN = 'remat 27b: one QAT ResNet-50 step, 8-bit activations, --remat_blocks=%s'
+REMAT_MB_STEPS = 3
+REMAT_MB_RUNS = [('remat 27d run KR%d: v1 uniform-tf 8/8, %d steps, --remat_blocks=%s'
+                  % (i, REMAT_MB_STEPS, mode), mode) for i, mode in enumerate(('none', 'save_convs'))]
 
 
 def log(msg, *args):
@@ -3962,6 +3991,207 @@ def phase_export(FLAGS, work_dir, card, device):
     return {DEPLOY_FOLD_RUN: counts}
 
 
+def remat_steps(learner, base, tx, step, batch, label_modes, extra=None):
+    """One train step from `base` on `batch` for each (label, mode), each
+    model built under its --remat_blocks mode: {label: (the state after it,
+    cloned; its launches; its peak memory in GiB)}."""
+    from pocketflow_tpu_torch.experiments import step_remat as sr
+    out = {}
+    for label, mode in label_modes:
+        state = sr.state_under(learner, base, tx, mode, extra)
+        reset_counters()  # this step's launches are counted from here ...
+        state, peak, _ = sr.peak_step(learner, state, step, batch)
+        out[label] = (sr.snapshot(state), counters(), peak / 2 ** 30)  # ... to here
+        del state
+    return out
+
+
+def differing(got, want) -> list:
+    """The keys of the tensors of `got` that are not bit-equal to `want`'s."""
+    return [key for key in want if not torch.equal(got[key], want[key])]
+
+
+def tensor_leaves(tree, prefix=''):
+    """{path: tensor} of a nested checkpoint payload."""
+    if torch.is_tensor(tree):
+        return {prefix: tree}
+    out = {}
+    items = tree.items() if isinstance(tree, dict) else (
+        enumerate(tree) if isinstance(tree, (list, tuple)) else ())
+    for key, value in items:
+        out.update(tensor_leaves(value, '%s/%s' % (prefix, key)))
+    return out
+
+
+def phase_remat_resnet(FLAGS, card):
+    """27a-27c: the main path's QAT ResNet-50 step under each mode.  27a: one
+    step of each mode from one seeded state on one batch with
+    cudnn.deterministic, 'none' twice: parameters, momentum and BN running
+    statistics bit-identical, one grouped K1' launch pair and no plain call
+    a step in every mode; then 'none' twice and 'full' without the setting,
+    printed.  27b: the same at 8-bit activations: K1' with the select at the
+    49 sites of the forward, and again at the 48 inside the blocks under
+    'save_convs' and 'full'.  27c: each mode's peak memory and step time in
+    turns (experiments/step_remat.run), then 'none' and 'full' at
+    REMAT_BIG_BATCH.  Returns {run label: counters}."""
+    from pocketflow_tpu_torch.experiments import step_remat as sr
+    from pocketflow_tpu_torch.learners.uniform_quantization import utils as uq_utils
+    runs = {}
+    with FLAGS.scope(**sr.settings(BATCH), uql_activation_bits=32):
+        start = time.perf_counter()
+        built = sr.build_learner()
+        learner, base, tx, step, batch = built
+        check(learner.statistics['nb_activations'] == NB_ACT_SITES, 'sites %s',
+              learner.statistics['nb_activations'])
+        log('  set-up (learner, seeded state, one batch) %.1f s', time.perf_counter() - start)
+        for bits, run_label, per_site in ((32, REMAT_RUN, 0), (8, REMAT_ACT8_RUN, 1)):
+            with FLAGS.scope(uql_activation_bits=bits):
+                extra = uq_utils.bits_state(learner.statistics, device=learner.device)
+                torch.backends.cudnn.deterministic = True
+                try:
+                    got = remat_steps(learner, base, tx, step, batch,
+                                      [('none', 'none'), ('none#2', 'none')]
+                                      + [(mode, mode) for mode in REMAT_MODES[1:]], extra)
+                finally:
+                    torch.backends.cudnn.deterministic = False
+            want = got['none'][0]
+            check(differing(got['none#2'][0], want) == [],
+                  '%d-bit activations: two \'none\' steps differ under cudnn.deterministic in %s',
+                  bits, differing(got['none#2'][0], want)[:5])
+            for label, (snap, counts, peak) in got.items():
+                check(differing(snap, want) == [], '%s differs from \'none\' in %s',
+                      run_label % label, differing(snap, want)[:5])
+                sites = per_site * (NB_ACT_SITES + (REMAT_BLOCK_SITES if label in REMAT_MODES[1:]
+                                                    else 0))
+                check(counts == no_launches(fake_quant_per_tensor_group=1,
+                                            fake_quant_per_tensor=sites,
+                                            fake_quant_per_tensor_select=sites),
+                      '%s: launches %s', run_label % label, counts)
+                if label != 'none#2':
+                    runs[run_label % label] = counts
+                log('  %s: bit-identical to \'none\' (%d tensors: parameters, BN statistics, '
+                    'momentum; cudnn.deterministic) | launches %s | peak %.2f GiB',
+                    run_label % label, len(want), {k: v for k, v in counts.items() if v}, peak)
+            del got, want
+        got = remat_steps(learner, base, tx, step, batch,
+                          [('none', 'none'), ('none#2', 'none'), ('full', 'full')])
+        log('  27a without cudnn.deterministic: \'none\' twice bit-identical: %s (%d tensors '
+            'differ); \'full\' against \'none\' bit-identical: %s (%d differ)',
+            not differing(got['none#2'][0], got['none'][0]),
+            len(differing(got['none#2'][0], got['none'][0])),
+            not differing(got['full'][0], got['none'][0]),
+            len(differing(got['full'][0], got['none'][0])))
+        del got
+        torch.cuda.empty_cache()
+
+        out = sr.run(REMAT_MODES, REMAT_WINDOWS, REMAT_STEPS, built, REMAT_PROFILED)
+        for mode, row in out.items():
+            log('  27c %s at batch %d: %.2f ms a step (median of %d windows of %d steps in turns: '
+                '%s), %.1f img/s, %+.1f%% against none | device busy %.2f ms a step, idle '
+                '%.1f%%, %d events a step (%d steps profiled) | peak %.2f GiB (%.2f above the '
+                '%.2f allocated before the step) | %s', mode, BATCH, row['median_ms'],
+                REMAT_WINDOWS, REMAT_STEPS, ['%.2f' % t for t in row['ms']], row['img_s'],
+                100 * (row['median_ms'] / out['none']['median_ms'] - 1),
+                row['device']['busy_ms_per_step'], 100 * row['device']['idle_share'],
+                row['device']['device_events_per_step'], REMAT_PROFILED, row['peak_gib'],
+                row['step_gib'], row['allocated_before_gib'], card)
+            check(all(math.isfinite(t) for t in row['ms']), '%s times %s', mode, row['ms'])
+        check(out['full']['step_gib'] < out['save_convs']['step_gib'] < out['none']['step_gib'],
+              'peak memory above the step\'s start: none %.2f, save_convs %.2f, full %.2f GiB',
+              *(out[m]['step_gib'] for m in REMAT_MODES))
+        torch.cuda.empty_cache()
+        iterator = learner.dataset_train.build()
+        parts = [learner.put_batch(next(iterator)) for _ in range(REMAT_BIG_BATCH // BATCH)]
+        big = {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+        del parts
+        out = sr.run(('none', 'full'), 1, REMAT_BIG_STEPS, (learner, base, tx, step, big))
+        for mode, row in out.items():
+            log('  27c %s at batch %d: %.2f ms a step (%d steps), %.1f img/s | peak %.2f GiB '
+                '(%.2f above the %.2f allocated before the step) | %s', mode, REMAT_BIG_BATCH,
+                row['median_ms'], REMAT_BIG_STEPS, row['img_s'], row['peak_gib'],
+                row['step_gib'], row['allocated_before_gib'], card)
+        check(out['full']['step_gib'] < out['none']['step_gib'], 'batch %d: full %.2f GiB, none '
+              '%.2f GiB', REMAT_BIG_BATCH, out['full']['step_gib'], out['none']['step_gib'])
+        del big, built, learner, base, tx, step, batch
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_remat_others(FLAGS, work_dir, card, device):
+    """27d: MobileNet-v1 uniform-tf at 224, batch MB_BATCH, through main.main
+    under 'none' and 'save_convs' with cudnn.deterministic: the same
+    checkpoint (parameters, BN statistics, momentum, the EMA'd act_min and
+    act_max) and the same launches, one grouped K2' launch pair a forward for
+    the 28 weights.  27e: Faster R-CNN ResNet-50 at 300x300, batch
+    DET_BATCH, one full-prec step under 'none' and 'full': the peak memory
+    of each, lower under 'full'.  Returns {run label: counters}."""
+    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+    from pocketflow_tpu_torch.experiments import step_remat as sr
+    from pocketflow_tpu_torch.learners.full_precision import FullPrecLearner
+    from pocketflow_tpu_torch.nets.faster_rcnn_at_pascalvoc import ModelHelper as FrcnnHelper
+    runs, payloads = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, mode in REMAT_MB_RUNS:
+            _, counter, counts, elapsed, peak = run_mobilenet(
+                FLAGS, work_dir, label, 1, ['--learner=uniform-tf', '--uqtf_quant_delay=0',
+                                            '--remat_blocks=%s' % mode], REMAT_MB_STEPS)
+            runs[label] = counts
+            nb_eval = counter.forwards - counter.steps
+            check(counts == no_launches(fake_quant_per_column_group=REMAT_MB_STEPS + nb_eval),
+                  '%s: launches %s (%d eval forwards)', label, counts, nb_eval)
+            run_dir = os.path.join(work_dir, 'mobilenet', label.split(':')[0].split()[-1])
+            payload = ckpt_lib.restore_latest(os.path.join(run_dir, 'uqtf', 'model.ckpt'),
+                                              map_location=device)
+            check(payload is not None and payload['step'] == REMAT_MB_STEPS, '%s: checkpoint',
+                  label)
+            payloads[mode] = tensor_leaves(payload)
+            log('  %s: loss %.4f | launches %s | peak %.2f GiB | %.1f s (the run, its eval and '
+                'its checkpoint)', label, float(counter.metrics['loss']),
+                {k: v for k, v in counts.items() if v}, peak, elapsed)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    want = payloads['none']
+    check(set(payloads['save_convs']) == set(want) and any('act_max' in k for k in want),
+          '27d: checkpoint keys differ')
+    check(differing(payloads['save_convs'], want) == [], '27d: save_convs\' checkpoint differs '
+          'in %s', differing(payloads['save_convs'], want)[:5])
+    log('  27d: the two checkpoints bit-identical (%d tensors: parameters, BN statistics, '
+        'momentum, act_min, act_max)', len(want))
+    del payloads, want
+    torch.cuda.empty_cache()
+
+    with FLAGS.scope(frcnn_backbone='resnet50', lrn_rate_init=0.01, batch_size=DET_BATCH,
+                     batch_size_eval=DET_BATCH, nb_smpls_train=2 * DET_BATCH,
+                     nb_smpls_eval=DET_BATCH, compute_dtype='bfloat16', remat_blocks='none'):
+        learner = FullPrecLearner(None, FrcnnHelper(), device=device)
+        base, tx, _ = learner.init_state()
+        step = learner.build_train_step(tx)
+        batch = learner.put_batch(next(learner.dataset_train.build()))
+        peaks, snaps = {}, {}
+        for mode in ('none', 'full'):
+            torch.cuda.empty_cache()
+            state = sr.state_under(learner, base, tx, mode)
+            blocks = [m.remat for m in state.model.modules() if hasattr(m, 'remat')]
+            check(len(blocks) == 13 and set(blocks) == {mode}, '27e: trunk blocks %s', blocks)
+            state, peak, start = sr.peak_step(learner, state, step, batch)
+            peaks[mode] = ((peak - start) / 2 ** 30, peak / 2 ** 30)
+            snaps[mode] = sr.snapshot(state)
+            del state
+        delta = max(float((snaps['full'][k].float() - snaps['none'][k].float()).abs().max())
+                    for k in snaps['none'])
+        log('  27e Faster R-CNN ResNet-50 at 300x300, batch %d, one full-prec step: peak %.2f GiB '
+            '(%.2f above the step\'s start) under none, %.2f GiB (%.2f) under full; after the '
+            'step max|full - none| %.3g (%d of %d tensors differ) | %s', DET_BATCH,
+            peaks['none'][1], peaks['none'][0], peaks['full'][1], peaks['full'][0], delta,
+            len(differing(snaps['full'], snaps['none'])), len(snaps['none']), card)
+        check(peaks['full'][0] < peaks['none'][0], '27e: full %.2f GiB, none %.2f GiB',
+              peaks['full'][0], peaks['none'][0])
+        del learner, base, tx, step, batch, snaps
+    torch.cuda.empty_cache()
+    return runs
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4192,6 +4422,14 @@ def main():
             'ResNet-50 at 224 (26b), the conversion where TensorFlow exists (26c)', MB_BATCH)
         runs.update(phase_export(FLAGS, work_dir, card, device))
         log('  phase 26: %.1f s', time.perf_counter() - t26)
+        t27 = time.perf_counter()
+        log('phase 27 --remat_blocks on the main path: QAT ResNet-50 @224, bf16, batch %d, one '
+            'step under each mode from one seeded state (27a; 27b at 8-bit activations), their '
+            'peak memory and step times (27c, and at batch %d), MobileNet-v1 uniform-tf '
+            'through main.main (27d), Faster R-CNN ResNet-50 (27e)', BATCH, REMAT_BIG_BATCH)
+        runs.update(phase_remat_resnet(FLAGS, card))
+        runs.update(phase_remat_others(FLAGS, work_dir, card, device))
+        log('  phase 27: %.1f s', time.perf_counter() - t27)
     serve_dir.cleanup()
 
     # each kernel's launches in the run that drives it: the main path for the

@@ -220,7 +220,10 @@ FLAGS.DEFINE_integer('bn_stats_subsample', 1,
                      'compute BN batch statistics from the leading 1/S of the '
                      'batch (ghost-BN; 1 = exact)')
 FLAGS.DEFINE_string('remat_blocks', 'none',
-                    "residual-block rematerialization: only 'none' is ported")
+                    "residual-block rematerialization in backward: 'none' | "
+                    "'save_convs' (store conv outputs only, recompute "
+                    "BN/ReLU) | 'full' (store block inputs only). Trades "
+                    "recompute for activation HBM traffic/footprint")
 FLAGS.DEFINE_string('mesh_shape', '', 'comma "axis:size" list, e.g. "data:8" (empty = all devices on data axis)')
 FLAGS.DEFINE_boolean('enbl_tensor_parallel', False,
                      "shard large kernels' last axis over the 'model' mesh axis")

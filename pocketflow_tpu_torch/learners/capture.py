@@ -16,7 +16,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from pocketflow_tpu_torch.nn.layers import CompressionPolicy, compression
+from pocketflow_tpu_torch.nn.layers import CompressionPolicy, compression, recomputing
 
 
 class CapturePolicy(CompressionPolicy):
@@ -34,6 +34,10 @@ class CapturePolicy(CompressionPolicy):
             self.inner.reset_trace()
         self.captured = []
 
+    def prepare(self):
+        if self.inner is not None:
+            self.inner.prepare()
+
     def process_weight(self, path, kernel):
         if self.inner is not None:
             kernel = self.inner.process_weight(path, kernel)
@@ -42,7 +46,8 @@ class CapturePolicy(CompressionPolicy):
     def process_act(self, path, act):
         if self.inner is not None:
             act = self.inner.process_act(path, act)
-        if not path.startswith('act/'):  # a layer's path: a conv/dense output
+        # a layer's path: a conv/dense output (a block's recompute captures nothing)
+        if not path.startswith('act/') and not recomputing():
             self.captured.append((path, act))
         return act
 

@@ -47,7 +47,7 @@ import torch.nn.functional as F
 from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core.metrics import get_logger
 from pocketflow_tpu_torch.learners.capture import CapturePolicy
-from pocketflow_tpu_torch.nn.layers import PFConv, _same_pads, compression
+from pocketflow_tpu_torch.nn.layers import PFConv, _same_pads, compression, recomputing
 
 FLAGS.DEFINE_integer('cp_nb_points_per_layer', 10,
                      'CP: sampled positions per image per layer')
@@ -84,7 +84,7 @@ class InputCapturePolicy(CapturePolicy):
         self.inputs = []
 
     def process_input(self, path, x):
-        if self.only is None or path == self.only:
+        if (self.only is None or path == self.only) and not recomputing():
             self.inputs.append((path, x))
             if self.stop == 'input':
                 raise _StopForward()
@@ -93,7 +93,7 @@ class InputCapturePolicy(CapturePolicy):
     def process_act(self, path, act):
         if path.startswith('act/') or self.only is None or path == self.only:
             act = super().process_act(path, act)
-            if self.stop == 'output' and path == self.only:
+            if self.stop == 'output' and path == self.only and not recomputing():
                 raise _StopForward()
         return act
 

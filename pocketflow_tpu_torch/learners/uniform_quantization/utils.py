@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from pocketflow_tpu_torch.config import FLAGS
-from pocketflow_tpu_torch.nn.layers import CompressionPolicy, PFConv, PFDense, compression
+from pocketflow_tpu_torch.nn.layers import (
+    CompressionPolicy, PFConv, PFDense, compression, recomputing)
 from pocketflow_tpu_torch.ops import fake_quant as fq
 
 FLAGS.DEFINE_integer('uql_weight_bits', 4, 'UQL: # of bits for weight quantization')
@@ -123,13 +124,20 @@ class QuantPolicy(CompressionPolicy):
         if kernel is not self.weights[idx]:
             raise ValueError('QuantPolicy: the kernel at %s is not the weight the policy was '
                              'built with' % path)
-        if self._grouped is None:  # the forward's first quantized site
-            if FLAGS.uql_use_buckets:
-                self._grouped = fq.fake_quant_bucket_group(
-                    self.weights, self.w_bits, FLAGS.uql_bucket_type, FLAGS.uql_bucket_size)
-            else:
-                self._grouped = fq.fake_quant_group(self.weights, self.w_bits)
+        self.prepare()  # at the forward's first quantized site
         return self._grouped[idx]
+
+    def prepare(self):
+        """All the weights in one grouped call, once a forward."""
+        if self._grouped is not None or not self.weights:
+            return
+        if recomputing():
+            raise RuntimeError('QuantPolicy: a block recompute found no grouped weights')
+        if FLAGS.uql_use_buckets:
+            self._grouped = fq.fake_quant_bucket_group(
+                self.weights, self.w_bits, FLAGS.uql_bucket_type, FLAGS.uql_bucket_size)
+        else:
+            self._grouped = fq.fake_quant_group(self.weights, self.w_bits)
 
     def process_act(self, path, act):
         if not path.startswith('act/') or not self.quant_acts:

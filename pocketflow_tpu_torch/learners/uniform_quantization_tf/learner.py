@@ -35,7 +35,7 @@ from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner, Sgd,
 from pocketflow_tpu_torch.learners.distillation_helper import DistillationHelper
 from pocketflow_tpu_torch.learners.uniform_quantization import utils as uq_utils
 from pocketflow_tpu_torch.learners.uniform_quantization.learner import quant_finetune_schedule
-from pocketflow_tpu_torch.nn.layers import CompressionPolicy
+from pocketflow_tpu_torch.nn.layers import CompressionPolicy, recomputing
 from pocketflow_tpu_torch.ops import fake_quant as fq
 
 FLAGS.DEFINE_string('uqtf_save_path', './models_uqtf/model.ckpt',
@@ -95,17 +95,24 @@ class RangeQuantPolicy(CompressionPolicy):
         if kernel is not self.weights[idx]:
             raise ValueError('RangeQuantPolicy: the kernel at %s is not the weight the policy '
                              'was built with' % path)
-        if self._grouped is None:  # the forward's first site
-            # channel buckets take no bucket size
-            self._grouped = fq.fake_quant_bucket_group(self.weights, self.w_bits, 'channel', 0,
-                                                       select=False)
+        self.prepare()  # at the forward's first site
         return self._grouped[idx]
+
+    def prepare(self):
+        """All the weights in one grouped call, once a quantized forward."""
+        if self._grouped is not None or not self.enabled or not self.weights:
+            return
+        if recomputing():
+            raise RuntimeError('RangeQuantPolicy: a block recompute found no grouped weights')
+        # channel buckets take no bucket size
+        self._grouped = fq.fake_quant_bucket_group(self.weights, self.w_bits, 'channel', 0,
+                                                   select=False)
 
     def process_act(self, path, act):
         if not path.startswith('act/') or self.act_min.shape[0] == 0:
             return act
         idx = int(path.split('/')[1])
-        if self.record:
+        if self.record and not recomputing():  # a recompute records nothing
             self.batch_ranges.append((idx, torch.stack(torch.aminmax(act.detach()))))
         if not self.enabled:
             return act

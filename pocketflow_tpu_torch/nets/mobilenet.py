@@ -9,7 +9,9 @@ Layer calls follow the Flax order, which fixes the weight-site order and the
 'act/<idx>' ids of the relu6 sites.  ``width_map`` builds the shrunk serving
 net as in nets/resnet.py: a depthwise conv's channels follow its producer,
 and a MobileNet-v2 block adds its residual where the dense net does.
-``--remat_blocks`` is not ported (item 19).
+Under ``--remat_blocks`` (``nn/layers.py:maybe_remat``) v1's separable
+blocks and v2's inverted residuals are rematerialized in the backward, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -19,10 +21,10 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from pocketflow_tpu_torch.nets.resnet import WidthMapped, _refuse_remat, _w
+from pocketflow_tpu_torch.nets.resnet import WidthMapped, _w
 from pocketflow_tpu_torch.nn.layers import (
-    BatchNorm, PFConv, PFDense, PFDepthwiseConv, global_avg_pool, relu6, reset_parameters,
-    set_paths)
+    BatchNorm, PFConv, PFDense, PFDepthwiseConv, RematBlock, global_avg_pool, maybe_remat, relu6,
+    reset_parameters, set_paths)
 
 
 def _depth(channels: int, multiplier: float, divisor: int = 8, min_depth: int = 8) -> int:
@@ -34,7 +36,7 @@ def _depth(channels: int, multiplier: float, divisor: int = 8, min_depth: int = 
     return int(new_c)
 
 
-class SeparableBlock(nn.Module):
+class SeparableBlock(RematBlock):
     """MobileNet-v1 block: 3x3 depthwise + BN + relu6, 1x1 pointwise + BN + relu6."""
 
     def __init__(self, in_features: int, features: int, strides=(1, 1),
@@ -63,7 +65,6 @@ class _MobileNet(WidthMapped, nn.Module):
     def __init__(self, nb_classes: int, depth_mult: float, dtype: torch.dtype,
                  width_map: Optional[Dict[str, int]]):
         super().__init__()
-        _refuse_remat()
         self.config = dict(nb_classes=nb_classes, depth_mult=depth_mult, dtype=dtype,
                            width_map=width_map)
         self.width_map = width_map
@@ -94,8 +95,8 @@ class MobileNetV1(_MobileNet):
         in_features = self.stem
         for idx, (features, stride) in enumerate(V1_BLOCKS):
             name = 'block%02d' % (idx + 1)
-            module = SeparableBlock(in_features, _depth(features, depth_mult), (stride, stride),
-                                    dtype, width_map, name)
+            module = maybe_remat(SeparableBlock(in_features, _depth(features, depth_mult),
+                                                (stride, stride), dtype, width_map, name))
             self.add_module(name, module)
             in_features = module.out_features
         self.logits = PFDense(in_features, nb_classes, dtype=dtype)
@@ -108,7 +109,7 @@ class MobileNetV1(_MobileNet):
         return x
 
 
-class InvertedResidual(nn.Module):
+class InvertedResidual(RematBlock):
     """MobileNet-v2 block: 1x1 expand + 3x3 depthwise + 1x1 linear project,
     the residual added where the stride is 1 and the widths are equal
     (`residual` overrides that test: the dense net's widths decide it for a
@@ -163,9 +164,9 @@ class MobileNetV2(_MobileNet):
             for rep in range(repeats):
                 stride = first_stride if rep == 0 else 1
                 name = 'block%02d' % idx
-                module = InvertedResidual(in_features, features, (stride, stride), expand, dtype,
-                                          width_map, name,
-                                          residual=stride == 1 and dense_in == features)
+                module = maybe_remat(InvertedResidual(
+                    in_features, features, (stride, stride), expand, dtype, width_map, name,
+                    residual=stride == 1 and dense_in == features))
                 self.add_module(name, module)
                 in_features, dense_in, idx = module.out_features, features, idx + 1
         head = _w(width_map, 'pw_head', _depth(1280, max(1.0, depth_mult)))

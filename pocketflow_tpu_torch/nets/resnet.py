@@ -11,6 +11,11 @@ smaller net that serves a channel-shrunk export: every conv takes its
 producer's mapped width as its input width.  Whether a block has a shortcut
 conv (or, in MobileNet-v2, a residual add) follows the dense net's widths, so
 a shrink can never add or drop one.
+
+Under ``--remat_blocks`` (``nn/layers.py:maybe_remat``) the residual blocks
+of the CIFAR stages and of the ImageNet trunk, which ResNetImageNet and the
+Faster R-CNN backbone share, are rematerialized in the backward, at the JAX
+package's places.
 """
 
 from __future__ import annotations
@@ -20,17 +25,9 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.nn.layers import (
-    BatchNorm, PFConv, PFDense, global_avg_pool, max_pool, relu, reset_parameters, set_paths)
-
-
-def _refuse_remat():
-    """Block rematerialization (--remat_blocks) is not ported."""
-    if (FLAGS.get('remat_blocks') or 'none') != 'none':
-        raise NotImplementedError(
-            "--remat_blocks=%s is not ported yet (ROADMAP 'Modules to port', item 19: "
-            'maybe_remat)' % FLAGS.remat_blocks)
+    BatchNorm, PFConv, PFDense, RematBlock, global_avg_pool, max_pool, maybe_remat, relu,
+    reset_parameters, set_paths)
 
 
 def _w(width_map: Optional[Dict[str, int]], path: str, default: int) -> int:
@@ -48,7 +45,7 @@ class WidthMapped:
         return type(self)(**{**self.config, **changes})
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(RematBlock):
     """Two 3x3 convs and the shortcut.  `in_features` is the producer's
     width; `projection` (default: a stride or a width change) says whether
     the shortcut is a 1x1 conv."""
@@ -81,7 +78,7 @@ class BasicBlock(nn.Module):
         return relu(y + shortcut)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(RematBlock):
     """Bottleneck of width `features`; the output has 4x as many channels.
     `in_features` and `projection` as in BasicBlock."""
     expansion = 4
@@ -126,7 +123,6 @@ class ResNetCifar(WidthMapped, nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  width_map: Optional[Dict[str, int]] = None):
         super().__init__()
-        _refuse_remat()
         self.config = dict(nb_blocks=nb_blocks, nb_classes=nb_classes, dtype=dtype,
                            width_map=width_map)
         self.width_map = width_map
@@ -138,8 +134,9 @@ class ResNetCifar(WidthMapped, nn.Module):
             for block in range(nb_blocks):
                 strides = (2, 2) if (stage > 0 and block == 0) else (1, 1)
                 name = 'stage%d_block%d' % (stage + 1, block)
-                module = BasicBlock(in_features, width, strides, dtype, width_map, name,
-                                    projection=strides != (1, 1) or dense_in != width)
+                module = maybe_remat(BasicBlock(
+                    in_features, width, strides, dtype, width_map, name,
+                    projection=strides != (1, 1) or dense_in != width))
                 self.add_module(name, module)
                 in_features, dense_in = module.out_features, width
         self.fc = PFDense(in_features, nb_classes, dtype=dtype)
@@ -186,7 +183,6 @@ class ResNetImageNet(WidthMapped, nn.Module):
                  dtype: torch.dtype = torch.bfloat16, stem_space_to_depth: bool = False,
                  width_map: Optional[Dict[str, int]] = None):
         super().__init__()
-        _refuse_remat()
         self.config = dict(resnet_size=resnet_size, nb_classes=nb_classes, dtype=dtype,
                            stem_space_to_depth=stem_space_to_depth, width_map=width_map)
         self.width_map = width_map
@@ -231,8 +227,8 @@ def build_imagenet_trunk(mdl: nn.Module, resnet_size: int, dtype: torch.dtype,
             strides = (2, 2) if (stage > 0 and block == 0) else (1, 1)
             name = 'stage%d_block%d' % (stage + 1, block)
             out = width * block_cls.expansion
-            module = block_cls(in_features, width, strides, dtype, width_map, name,
-                               projection=strides != (1, 1) or dense_in != out)
+            module = maybe_remat(block_cls(in_features, width, strides, dtype, width_map, name,
+                                           projection=strides != (1, 1) or dense_in != out))
             mdl.add_module(name, module)
             names.append(name)
             in_features, dense_in = module.out_features, out

@@ -14,6 +14,15 @@ HWIO flattening order); the conv permutes the processed kernel to OIHW for
 cuDNN.  Activations are NCHW tensors in the channels-last memory format, which
 is the NHWC layout of the JAX package with PyTorch's axis order.  Parameters
 are fp32; the compute dtype is a constructor argument (bf16 on the card).
+
+``--remat_blocks`` (``maybe_remat``, ``RematBlock``) rematerializes the nets'
+residual blocks in the backward through a non-reentrant
+``torch.utils.checkpoint``.  The JAX package's recompute is functional; a
+PyTorch recompute re-runs the block's Python, so the recompute installs the
+forward's policy again at the block's activation counter, and every side
+effect of a forward (BN's running statistics, recorded ranges, captures)
+reads ``recomputing()`` and does nothing there.  'save_convs' keeps PFConv's
+products (``_SavedConv``) and recomputes the rest from them.
 """
 
 from __future__ import annotations
@@ -63,6 +72,12 @@ class CompressionPolicy:
         """Optionally take over a conv/dense contraction (return the output),
         or return None to run the default path."""
         return None
+
+    def prepare(self):
+        """Do the work a forward does once for all sites (the grouped weight
+        fake-quant) if it has not run yet.  A rematerialized block calls it
+        before its checkpointed region, so that the work stays outside the
+        region and the block's recompute reads its results."""
 
 
 _POLICY_STACK: List[Optional[CompressionPolicy]] = []
@@ -199,6 +214,9 @@ class PFConv(nn.Module):
             return int8_conv2d(x, kernel, self.strides, self.padding)
         if self.padding == 'SAME':
             x = same_pad(x, self.kernel_size, self.strides)
+        if _conv_products is not None:  # a 'save_convs' region keeps the product
+            return _SavedConv.apply(x, kernel.permute(3, 2, 0, 1), self.strides,
+                                    _conv_products)
         return F.conv2d(x, kernel.permute(3, 2, 0, 1), stride=self.strides)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -393,6 +411,8 @@ class BatchNorm(nn.Module):
         self.bn = _BNVariables(features)
 
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor):
+        if recomputing():  # the forward moved them already
+            return
         with torch.no_grad():
             self.bn.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
             self.bn.var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
@@ -471,3 +491,163 @@ def flatten_hwc(x: torch.Tensor) -> torch.Tensor:
     which the JAX package flattens its NHWC activations, so that a dense
     kernel's rows line up with it."""
     return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
+# ---------------------------------------------------------------------------
+# Block rematerialization (--remat_blocks)
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = ('none', 'save_convs', 'full')
+_recomputing = 0  # block recomputes running now (inside a backward)
+
+
+def recomputing() -> bool:
+    """Whether a rematerialized block is recomputing its forward inside the
+    backward.  The forward's side effects read it, so that a recompute
+    leaves every piece of state as the forward left it: BN's running
+    statistics, the recorded activation ranges, the captures."""
+    return _recomputing > 0
+
+
+def maybe_remat(block: 'RematBlock') -> 'RematBlock':
+    """Mark a residual block for rematerialization per --remat_blocks (the
+    JAX package wraps the block's class in nn.remat): 'none' runs it as it
+    is; 'full' keeps only the block's input for the backward and recomputes
+    the rest there; 'save_convs' also keeps the products of its PFConvs and
+    recomputes BN, ReLU, fake-quant and the rest from them.  Gradients, BN
+    statistics and the policies' state are bit-identical across the modes."""
+    mode = FLAGS.get('remat_blocks') or 'none'
+    if mode not in REMAT_MODES:
+        raise ValueError('unknown remat_blocks mode %r' % mode)
+    block.remat = mode
+    return block
+
+
+class RematBlock(nn.Module):
+    """A block that ``maybe_remat`` may rematerialize.  It runs under
+    ``torch.utils.checkpoint`` only where autograd records its forward (a
+    train step, the frozen-BN step included), never under
+    ``torch.no_grad()`` (eval steps, captures, the teacher) or while
+    ``torch.export`` traces it."""
+    remat = 'none'
+
+    def __call__(self, *args):
+        if self.remat == 'none' or not torch.is_grad_enabled() or torch.compiler.is_compiling():
+            return super().__call__(*args)
+        return _checkpointed(self, args)
+
+
+class _ConvProducts:
+    """The PFConv products of one 'save_convs' region: kept by its forward,
+    each taken back once, in order, by its recompute."""
+
+    def __init__(self):
+        self.kept: List[Optional[torch.Tensor]] = []
+        self.taken = 0
+
+
+_conv_products: Optional[_ConvProducts] = None  # the 'save_convs' region running now
+
+
+class _SavedConv(torch.autograd.Function):
+    """PFConv's F.conv2d(x, w, stride) in a 'save_convs' region (the JAX
+    package names PFConv's product 'conv_out' and saves only it;
+    PFDepthwiseConv's is recomputed): the forward keeps the product, the
+    recompute takes it back instead of convolving again.  Both save (x, w);
+    the backward is the convolution's own (aten.convolution_backward with
+    conv2d's arguments)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, products):
+        if recomputing():
+            if products.taken >= len(products.kept) or products.kept[products.taken] is None:
+                raise RuntimeError('save_convs: a recompute ran a convolution its forward '
+                                   'did not keep')
+            y = products.kept[products.taken]
+            products.kept[products.taken] = None  # the recomputed graph holds it from here
+            products.taken += 1
+        else:
+            y = F.conv2d(x, w, stride=stride)
+            products.kept.append(y.detach())
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        return y.detach()
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            dy, x, w, None, list(ctx.stride), [0, 0], [1, 1], False, [0, 0], 1,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw, None, None
+
+
+@contextlib.contextmanager
+def _keeping(products: Optional[_ConvProducts]):
+    """The forward of a block's region: PFConv keeps its products in
+    `products` ('save_convs'; None: 'full')."""
+    global _conv_products
+    saved, _conv_products = _conv_products, products
+    try:
+        yield
+    finally:
+        _conv_products = saved
+
+
+@contextlib.contextmanager
+def _recompute(policy: Optional[CompressionPolicy], entry: int,
+               products: Optional[_ConvProducts], label: str):
+    """The recompute of a block: the policy of its forward installed again
+    (without reset_trace), its activation counter at the block's entry
+    value, recomputing() true, the kept conv products taken back, a
+    profiler range named for it; the counter back at the forward's end
+    after it."""
+    global _recomputing
+    after_forward = getattr(policy, '_act_counter', 0)
+    if policy is not None:
+        policy._act_counter = entry
+    _POLICY_STACK.append(policy)
+    _recomputing += 1
+    try:
+        with torch.profiler.record_function('remat_recompute/' + label), _keeping(products):
+            yield
+    finally:
+        _recomputing -= 1
+        _POLICY_STACK.pop()
+        if policy is not None:
+            policy._act_counter = after_forward
+
+
+def _checkpointed(block: RematBlock, args):
+    """`block` under a non-reentrant checkpoint that recomputes the whole
+    block (no early stop), so that every site of the block runs again.  A
+    recompute that runs other activation sites or convolutions than its
+    forward raises; torch raises CheckpointError where it saves other
+    tensors."""
+    from torch.utils import checkpoint
+    policy = current_policy()
+    if policy is not None:
+        policy.prepare()  # the grouped weight fake-quant stays outside the region
+    entry = getattr(policy, '_act_counter', 0)
+    products = _ConvProducts() if block.remat == 'save_convs' else None
+    forward_exit = []
+
+    def run(*inputs):
+        out = nn.Module.__call__(block, *inputs)
+        exit_ = getattr(policy, '_act_counter', 0)
+        if not recomputing():
+            forward_exit.append(exit_)
+        elif exit_ != forward_exit[0] or (products is not None
+                                         and products.taken != len(products.kept)):
+            raise RuntimeError(
+                'the recompute of %s ran activation sites %d..%d and took %d conv products, its '
+                'forward ran %d..%d and kept %d' % (
+                    type(block).__name__, entry, exit_, products.taken if products else 0,
+                    entry, forward_exit[0], len(products.kept) if products else 0))
+        return out
+
+    def contexts():
+        return _keeping(products), _recompute(policy, entry, products, type(block).__name__)
+
+    return checkpoint.checkpoint(run, *args, use_reentrant=False, context_fn=contexts,
+                                 early_stop=False)

@@ -29,6 +29,32 @@ import numpy as np
 import torch
 
 
+def define_flags(flags):
+    """Define the CLI's own flags in the registry `flags`; main() defines
+    them when it runs, as the JAX package's CLI does."""
+    flags.DEFINE_string('ckpt_path', './models/model.ckpt', 'checkpoint to export')
+    flags.DEFINE_string('export_mode', 'plain',
+                        "export mode: 'plain' | 'chn-pruned' | "
+                        "'chn-pruned-residual' (producer-side shrink across "
+                        "skip connections) | 'quant'")
+    flags.DEFINE_string('output_path', './export/model', 'output artifact path')
+    flags.DEFINE_string('export_model', 'convnet_at_fmnist', 'model helper name')
+    flags.DEFINE_string('tflite_mode', 'none',
+                        "also write a .tflite artifact: 'none' | 'float' | "
+                        "'dynamic' (int8 weights) | 'int8' (full integer, "
+                        "calibrated on the sample batch) | 'int8-qat' (full "
+                        "integer carrying the uqtf learner's TRAINED "
+                        "fake-quant ranges from the checkpoint; the "
+                        "self-check runs against the QAT eval forward)")
+    flags.DEFINE_boolean('export_saved_model', False,
+                         "also write a TF SavedModel at '<output>_saved' "
+                         "(the reference's frozen-.pb serving artifact)")
+    flags.DEFINE_boolean('tflite_latency', False,
+                         'measure TFLite interpreter latency after export '
+                         '(100 warmup + 100 timed, reference '
+                         'calc_inference_time.py protocol)')
+
+
 def main(argv=None, device='cuda'):
     """Export the newest checkpoint under --ckpt_path on `device`; returns
     the artifact's .npz path."""
@@ -50,27 +76,7 @@ def main(argv=None, device='cuda'):
         importlib.import_module(module_name)
     # --uqtf_weight_bits and --uqtf_activation_bits, read by 'int8-qat'
     importlib.import_module('pocketflow_tpu_torch.learners.uniform_quantization_tf.learner')
-    FLAGS.DEFINE_string('ckpt_path', './models/model.ckpt', 'checkpoint to export')
-    FLAGS.DEFINE_string('export_mode', 'plain',
-                        "export mode: 'plain' | 'chn-pruned' | "
-                        "'chn-pruned-residual' (producer-side shrink across "
-                        "skip connections) | 'quant'")
-    FLAGS.DEFINE_string('output_path', './export/model', 'output artifact path')
-    FLAGS.DEFINE_string('export_model', 'convnet_at_fmnist', 'model helper name')
-    FLAGS.DEFINE_string('tflite_mode', 'none',
-                        "also write a .tflite artifact: 'none' | 'float' | "
-                        "'dynamic' (int8 weights) | 'int8' (full integer, "
-                        "calibrated on the sample batch) | 'int8-qat' (full "
-                        "integer carrying the uqtf learner's TRAINED "
-                        "fake-quant ranges from the checkpoint; the "
-                        "self-check runs against the QAT eval forward)")
-    FLAGS.DEFINE_boolean('export_saved_model', False,
-                         "also write a TF SavedModel at '<output>_saved' "
-                         "(the reference's frozen-.pb serving artifact)")
-    FLAGS.DEFINE_boolean('tflite_latency', False,
-                         'measure TFLite interpreter latency after export '
-                         '(100 warmup + 100 timed, reference '
-                         'calc_inference_time.py protocol)')
+    define_flags(FLAGS)
     FLAGS.parse_args(argv)
     log = get_logger()
     if FLAGS.tflite_mode not in ('none', 'float', 'dynamic', 'int8', 'int8-qat'):

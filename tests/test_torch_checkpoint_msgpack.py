@@ -31,6 +31,7 @@ from pocketflow_tpu.config import FLAGS as JFLAGS
 from pocketflow_tpu.core import checkpoint as jckpt
 from pocketflow_tpu_torch.config import FLAGS as TFLAGS
 from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+from torch_cli_flags import drop_export_cli_flags
 
 torch.set_num_threads(2)
 SMALL = dict(batch_size=4, batch_size_eval=4, nb_smpls_train=64, nb_smpls_eval=32,
@@ -52,8 +53,11 @@ def _flags_kept(registry, **overrides):
 
 @pytest.fixture(autouse=True)
 def _port_flags():
+    """Both registries as they were before the test, and the port's without
+    the flags export_cli.main registered in it."""
     with _flags_kept(TFLAGS), _flags_kept(JFLAGS):
         yield
+    drop_export_cli_flags(TFLAGS)
 
 
 def _random_like(tree, rng):

@@ -40,6 +40,7 @@ from pocketflow_tpu_torch.config import FLAGS as TFLAGS  # noqa: E402
 from pocketflow_tpu_torch.core.bridge import load_jax_numpy  # noqa: E402
 from pocketflow_tpu_torch.tools import export_tflite as ptfl  # noqa: E402
 from pocketflow_tpu_torch.tools import tf_lowering  # noqa: E402
+from torch_cli_flags import drop_export_cli_flags  # noqa: E402
 
 torch.set_num_threads(2)
 LIVE_ATOL = 1e-2      # test_tflite_export.py's float tolerance
@@ -69,8 +70,11 @@ def _flags_kept(registry, **overrides):
 
 @pytest.fixture(autouse=True)
 def _port_flags():
+    """Both registries as they were before the test, and the port's without
+    the flags export_cli.main registered in it."""
     with _flags_kept(TFLAGS), _flags_kept(JFLAGS):
         yield
+    drop_export_cli_flags(TFLAGS)
 
 
 def _perturbed_stats(stats, seed=1):

@@ -14,7 +14,8 @@ the JAX nets on the CPU, in fp32, parameters carried across by the bridge
 * one full-precision train step of MobileNet-v1 @ 64, depth 0.5, batch 8,
   from the bridged JAX state, within the slice bound of
   tests/torch_slice_parity.py (rtol 1e-4, atol 1e-5 plus 2x the JAX reruns'
-  spread); `--remat_blocks` refused with item 19.
+  spread); both versions under `--remat_blocks=full` give the gradients of
+  'none' bit for bit.
 """
 
 import jax
@@ -143,10 +144,20 @@ def test_quant_sites_match_jax(version, sites):
 
 
 def test_remat_blocks_refused():
-    with TFLAGS.scope(remat_blocks='full'):
-        for version in (1, 2):
-            with pytest.raises(NotImplementedError, match='item 19'):
-                mobilenets(version, 0.25)
+    """No longer refused: v1 and v2 build under --remat_blocks=full, every
+    block marked, and give 'none''s gradients bit for bit."""
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, IMAGE, IMAGE, 3)).astype(
+        np.float32))
+    for version in (1, 2):
+        grads = []
+        for mode in ('none', 'full'):
+            with TFLAGS.scope(remat_blocks=mode):
+                model = mobilenets(version, 0.25)[1]
+            assert {m.remat for m in model.modules() if isinstance(m, tl.RematBlock)} == {mode}
+            tl.reset_parameters(model, torch.Generator().manual_seed(version))
+            (model.train()(x) ** 2).sum().backward()
+            grads.append({k: p.grad for k, p in model.named_parameters()})
+        assert all(torch.equal(grads[1][k], v) for k, v in grads[0].items())
 
 
 @pytest.fixture(scope='module')

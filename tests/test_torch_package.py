@@ -56,22 +56,36 @@ def test_port_imports_no_jax():
 
 
 def test_every_port_flag_exists_in_jax_registry_with_same_default():
-    import pocketflow_tpu  # noqa: F401  (registers the JAX package's whole flag surface)
-    import pocketflow_tpu.utils.path_args  # noqa: F401  (--path_conf, defined for main.py)
-    import pocketflow_tpu.core.profiling  # noqa: F401  (--enbl_profiler, defined for the train loop)
-    from pocketflow_tpu.config import FLAGS as JFLAGS
-    import importlib
-    for name in _port_modules():  # every flag the port defines
-        importlib.import_module(name)
-    port = TFLAGS.defaults()
-    port.pop('model', None)  # defined by either main() at call time
-    missing = sorted(name for name in port if name not in JFLAGS)
-    assert not missing
-    jax_defaults = JFLAGS.as_dict()
-    with JFLAGS.scope():
-        differ = {name: (port[name], JFLAGS._specs[name].default) for name in port
-                  if JFLAGS._specs[name].default != port[name]}
-    assert not differ and jax_defaults is not None
+    """Every flag the port's modules define at import, in the JAX package's
+    registry with the same default.  It runs in a fresh process: a CLI's
+    main() registers its flags when it runs (export_cli, serving, ...), and a
+    test that ran one earlier in this worker would leave them behind."""
+    code = ('import importlib, json, os\n'
+            'import jax\n'
+            'jax.config.update("jax_platforms", "cpu")\n'
+            'import pocketflow_tpu  # the JAX package\'s whole flag surface\n'
+            'import pocketflow_tpu.utils.path_args  # --path_conf, defined for main.py\n'
+            'import pocketflow_tpu.core.profiling  # --enbl_profiler, for the train loop\n'
+            'from pocketflow_tpu.config import FLAGS as JFLAGS\n'
+            'from pocketflow_tpu_torch.config import FLAGS as TFLAGS\n'
+            'for name in %r:  # every flag the port defines\n'
+            '    importlib.import_module(name)\n'
+            'port = TFLAGS.defaults()\n'
+            'port.pop("model", None)  # defined by either main() at call time\n'
+            'missing = sorted(name for name in port if name not in JFLAGS)\n'
+            'differ = {name: (repr(port[name]), repr(JFLAGS._specs[name].default))\n'
+            '          for name in port if name in JFLAGS\n'
+            '          and JFLAGS._specs[name].default != port[name]}\n'
+            'print(json.dumps({"missing": missing, "differ": differ,\n'
+            '                  "nb_flags": len(port)}))\n' % _port_modules())
+    env = dict(os.environ, JAX_PLATFORMS='cpu')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out['missing'] == []
+    assert out['differ'] == {}
+    assert out['nb_flags'] > 100
 
 
 def test_bridge_raises_on_unmapped_and_unset_entries():

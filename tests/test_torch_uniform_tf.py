@@ -18,8 +18,9 @@ on the CPU:
   outside the nudged range;
 * the resume contract: a second train() resumes from uqtf_save_path and
   runs 0 steps;
-* main.main --model=mobilenet_at_ilsvrc12 --learner=uniform-tf on the CPU,
-  and --remat_blocks refused with ROADMAP item 19.
+* main.main --model=mobilenet_at_ilsvrc12 --learner=uniform-tf on the CPU;
+  the same run under --remat_blocks=full writes the same checkpoint, and an
+  unknown --remat_blocks mode raises ValueError.
 """
 
 import sys
@@ -331,5 +332,19 @@ def test_main_runs_uniform_tf_on_cpu(tmp_path, small_eval):
     # steps 2 and 3 quantize (one grouped call each), step 1 does not; then
     # one a forward of the eval over 64 samples at batch 8
     assert fq.counters()['plain'] == 2 + 8
-    with pytest.raises(NotImplementedError, match='item 19'):
-        port_main.main(argv + ['--learner=uniform-tf', '--remat_blocks=full'], device='cpu')
+    # the same run under --remat_blocks=full (its step 3 the frozen-BN step
+    # with gradients, rematerialized too) writes the same checkpoint
+    full = port_main.main(argv + ['--learner=uniform-tf', '--uqtf_quant_delay=1',
+                                  '--uqtf_freeze_bn_delay=2', '--uql_quant_epochs=3',
+                                  '--nb_epochs_rat=0.5', '--remat_blocks=full',
+                                  '--uqtf_save_path=%s' % (tmp_path / 'full' / 'model.ckpt')],
+                          device='cpu')
+    assert full.statistics == learner.statistics
+    got = ckpt.restore_latest(str(tmp_path / 'full' / 'model.ckpt'))
+    assert got['step'] == 3
+    for key in ('model', 'extra'):
+        assert got[key].keys() == payload[key].keys()
+        assert all(torch.equal(got[key][k], payload[key][k]) for k in payload[key]), key
+    with pytest.raises(ValueError, match='unknown remat_blocks mode'):
+        port_main.main(argv + ['--learner=uniform-tf', '--remat_blocks=every_other'],
+                       device='cpu')

@@ -211,6 +211,17 @@ def test_resnet_size_refusals():
     with TFLAGS.scope(synthetic_data=True, resnet_size=20):
         with pytest.raises(ValueError, match='--resnet_size with one of \\[18, 34, 50'):
             resnet_at_ilsvrc12.ModelHelper()
-    with TFLAGS.scope(remat_blocks='full'):
-        with pytest.raises(NotImplementedError, match='item 19'):
-            _nets('resnet_at_cifar10')
+    # --remat_blocks is no longer refused: ResNet-20 builds under 'full' and
+    # trains (a forward, a backward and an SGD update) as under 'none'
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(np.float32))
+    params = []
+    for mode in ('none', 'full'):
+        with TFLAGS.scope(remat_blocks=mode):
+            net = _nets('resnet_at_cifar10')[1]
+        assert {m.remat for m in net.modules() if isinstance(m, tl.RematBlock)} == {mode}
+        tl.reset_parameters(net, torch.Generator().manual_seed(0))
+        opt = torch.optim.SGD(net.parameters(), lr=0.1)
+        (net.train()(x) ** 2).sum().backward()
+        opt.step()
+        params.append({**dict(net.named_parameters()), **dict(net.named_buffers())})
+    assert all(torch.equal(params[1][k], v) for k, v in params[0].items())

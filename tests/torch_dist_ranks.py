@@ -145,6 +145,29 @@ def sync_bn(x, dy, scale, bias, epsilon):
             'dbias': b.grad.numpy(), 'mean': mean.numpy(), 'var': var.numpy()}
 
 
+def remat_step(flags, images, labels, modes):
+    """One full-prec ResNet-20 step with exact sync-BN on this rank's rows,
+    from the learner's seeded init, under each --remat_blocks mode of
+    `modes`: {mode: the checksum of the state after it and the collectives
+    it ran}."""
+    from pocketflow_tpu_torch.learners.full_precision import FullPrecLearner
+    from pocketflow_tpu_torch.nets.resnet_at_cifar10 import ModelHelper
+    _register_flags()
+    out = {}
+    for mode in modes:
+        with FLAGS.scope(**flags, remat_blocks=mode):
+            learner = FullPrecLearner(None, ModelHelper(), device='cpu')
+            _deterministic_augment(learner.dataset_train)
+            state, tx, _ = learner.init_state()
+            step = learner.build_train_step(tx)
+            rows = mesh.shard_rows(len(images))
+            batch = learner.put_batch({'image': images[rows], 'label': labels[rows]})
+            mesh.reset_counters()
+            state, _ = step(state, batch, None)
+            out[mode] = {'checksum': checksum(state), 'counts': mesh.counters()}
+    return out
+
+
 def mesh_helpers(seed: int):
     """broadcast_from_primary of a tree whose leaves differ by rank, a
     barrier, the (min, max) reduction and the mean all-reduce, with the
