@@ -26,10 +26,12 @@ ranges, the activation bits, the non-uniform codebooks).
 The DDPG agent's networks take the same route: ``ddpg_params_from_jax``
 carries the Flax actor and critic params (``blocks/dense_i``, ``blocks/ln_i``,
 ``dense_in``, ``ln_in``, ``head``) into the port's `Actor` and `Critic`, whose
-layers keep those names and Flax's [in, out] kernels.  A search checkpoint
-the JAX package wrote keeps the port's npz layout except its 'state' entry
-(Flax bytes of the agent): ``search_extras_from_jax`` reads the search's own
-entries (roll-out index, best reward and ratios, top-k) from it.
+layers keep those names and Flax's [in, out] kernels, and
+``ddpg_adam_from_jax`` carries optax's Adam state (the step count and the
+first and second moments, by parameter name) into a ``torch.optim.Adam``.
+The agent's ``restore_search`` reads a search checkpoint the JAX package
+wrote through these two (its 'state' entry holds the Flax bytes of the
+agent).
 
 The discrimination-aware learner's auxiliary heads (``gamma``, ``beta``,
 ``fc/kernel`` [in, out], ``fc/bias`` a head site) go through
@@ -38,8 +40,6 @@ The discrimination-aware learner's auxiliary heads (``gamma``, ``beta``,
 
 from __future__ import annotations
 
-import os
-import zipfile
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -185,22 +185,33 @@ def ddpg_params_from_jax(actor: torch.nn.Module, critic: torch.nn.Module,
     return actor, critic
 
 
-def search_extras_from_jax(path: str) -> Optional[Dict[str, np.ndarray]]:
-    """The caller's entries ('x_...', without the prefix) of a search
-    checkpoint the JAX package wrote, or None when `path` is missing,
-    unreadable, or the port's own file (its 'state' is a ``torch.save``
-    zip, which the agent restores itself)."""
-    if not path.endswith('.npz'):
-        path = path + '.npz'
-    if not os.path.exists(path):
-        return None
-    try:
-        blob = np.load(path)
-        if blob['state'][:2].tobytes() == b'PK':
-            return None
-        return {k[2:]: np.array(blob[k]) for k in blob.files if k.startswith('x_')}
-    except (OSError, ValueError, KeyError, zipfile.BadZipFile):
-        return None  # corrupt or truncated: the search starts afresh
+def ddpg_adam_from_jax(optimizer: torch.optim.Optimizer, module: torch.nn.Module,
+                       adam_state: Mapping[str, Any]):
+    """Load optax's ``ScaleByAdamState`` of `module`'s parameters ({'count',
+    'mu', 'nu'}, the moments as Flax trees) into `module`'s Adam optimizer,
+    in place: each parameter's step is the count, its ``exp_avg`` and
+    ``exp_avg_sq`` the moments at its name.  Raises KeyError on a moment
+    without a parameter or a parameter without its moments, ValueError on a
+    shape mismatch."""
+    count = float(np.asarray(adam_state['count']))
+    moments = {key: ddpg_state_dict_from_jax(adam_state[key]) for key in ('mu', 'nu')}
+    named = list(module.named_parameters())
+    names = {name for name, _ in named}
+    for key, values in moments.items():
+        if set(values) != names:
+            raise KeyError('bridge: Adam %s entries %s, the module\'s parameters %s'
+                           % (key, sorted(values), sorted(names)))
+    state = {}
+    for idx, (name, param) in enumerate(named):
+        mu, nu = moments['mu'][name], moments['nu'][name]
+        if tuple(mu.shape) != tuple(param.shape) or tuple(nu.shape) != tuple(param.shape):
+            raise ValueError('bridge: Adam moments of %s have shape %s in JAX and %s in the '
+                             'port' % (name, tuple(mu.shape), tuple(param.shape)))
+        state[idx] = {'step': torch.tensor(count, dtype=torch.float32),
+                      'exp_avg': mu.to(param.device), 'exp_avg_sq': nu.to(param.device)}
+    optimizer.load_state_dict({'state': state,
+                               'param_groups': optimizer.state_dict()['param_groups']})
+    return optimizer
 
 
 def aux_heads_from_jax(heads: Mapping[str, torch.nn.Module], params: Mapping[str, Any]):

@@ -217,9 +217,10 @@ def _train_eval(create, helper_cls, name: str, eval_builder: str, device):
 # the sweeps
 # ---------------------------------------------------------------------------
 
-def run_sweep(workdir=None, quick=False, device='cuda', overrides=None):
+def run_sweep(workdir=None, quick=False, device='cuda', overrides=None, points=None):
     """Every learner on ResNet-20 over the hard task (14 points; 9 with
-    `quick`).  Returns the results dict."""
+    `quick`), or the baseline and the `points` named (keys of
+    LOCKED_MAX_DELTA).  Returns the results dict."""
     workdir = workdir or tempfile.mkdtemp(prefix='pf_parity_')
     results = {'_quick': bool(quick)}
     flags = Flagged(overrides)
@@ -231,13 +232,16 @@ def run_sweep(workdir=None, quick=False, device='cuda', overrides=None):
     def point(name, eval_builder):
         return _train_eval(learners.create_learner, ModelHelper, name, eval_builder, device)
 
+    def wanted(key):
+        return points is None or key in points
+
     # 1. full-precision baseline (its checkpoint feeds every compression learner)
     rec = Recorder(results)
     rec.baseline(point('full-prec', 'build_eval_step')['accuracy'])
 
     # 2. weight sparsification at the reference's sparsity ladder
     ws_points = [0.75] if quick else [0.5, 0.75, 0.9, 0.95]
-    for pr in ws_points:
+    for pr in (p for p in ws_points if wanted('weight-sparse@%d%%' % int(p * 100))):
         with flags.scope(ws_prune_ratio=pr, ws_prune_ratio_prtl='uniform',
                          ws_mask_update_step=20,
                          ws_save_path=os.path.join(workdir, 'ws%d/model.ckpt' % int(pr * 100))):
@@ -247,7 +251,7 @@ def run_sweep(workdir=None, quick=False, device='cuda', overrides=None):
 
     # 3. uniform quantization at 4 and 8 bits, channel buckets
     uq_points = [4] if quick else [4, 8]
-    for bits in uq_points:
+    for bits in (b for b in uq_points if wanted('uniform@%dbit' % b)):
         with flags.scope(uql_weight_bits=bits, uql_use_buckets=True,
                          uql_bucket_type='channel', uql_quant_epochs=30,
                          uql_quantize_all_layers=False,
@@ -257,12 +261,13 @@ def run_sweep(workdir=None, quick=False, device='cuda', overrides=None):
                        point('uniform', 'build_quant_eval_step')['accuracy'])
 
     # 4. deployment QAT 8/8 (uniform-tf)
-    with flags.scope(uql_quant_epochs=30, uqtf_quant_delay=0, uqtf_freeze_bn_delay=None,
-                     uqtf_save_path=os.path.join(workdir, 'uqtf/model.ckpt')):
-        rec.record('uniform-tf@8/8', point('uniform-tf', 'build_qat_eval_step')['accuracy'])
+    if wanted('uniform-tf@8/8'):
+        with flags.scope(uql_quant_epochs=30, uqtf_quant_delay=0, uqtf_freeze_bn_delay=None,
+                         uqtf_save_path=os.path.join(workdir, 'uqtf/model.ckpt')):
+            rec.record('uniform-tf@8/8', point('uniform-tf', 'build_qat_eval_step')['accuracy'])
 
     # 5. non-uniform quantization at 4 and 8 bits, codebooks
-    for bits in uq_points:
+    for bits in (b for b in uq_points if wanted('non-uniform@%dbit' % b)):
         with flags.scope(nuql_weight_bits=bits, nuql_quant_epochs=30,
                          nuql_opt_mode='both', nuql_quantize_all_layers=False,
                          nuql_save_quant_model_path=os.path.join(workdir,
@@ -271,42 +276,47 @@ def run_sweep(workdir=None, quick=False, device='cuda', overrides=None):
                        point('non-uniform', 'build_quant_eval_step')['accuracy'])
 
     # 6. channel pruning (PGD) at 50%
-    with flags.scope(cpg_prune_ratio=0.5, cpg_skip_ht_layers=True,
-                     cpg_nb_iters_layer=24 if quick else 60,
-                     cpg_save_path=os.path.join(workdir, 'cpg/model.ckpt')):
-        rec.record('chn-pruned-gpu@50%',
-                   point('chn-pruned-gpu', 'build_pruned_eval_step')['accuracy'])
+    if wanted('chn-pruned-gpu@50%'):
+        with flags.scope(cpg_prune_ratio=0.5, cpg_skip_ht_layers=True,
+                         cpg_nb_iters_layer=24 if quick else 60,
+                         cpg_save_path=os.path.join(workdir, 'cpg/model.ckpt')):
+            rec.record('chn-pruned-gpu@50%',
+                       point('chn-pruned-gpu', 'build_pruned_eval_step')['accuracy'])
 
     # 7. LASSO channel pruning (He-2017) at ~50% FLOPs (preserve 0.5):
     # ft_ratio 1.0 x the sweep's nb_epochs_rat 0.2 equals the reference's
     # default finetune fraction
-    with flags.scope(cp_prune_option='uniform', cp_uniform_preserve_ratio=0.5,
-                     cp_nb_batches=6, cp_nb_points_per_layer=8,
-                     cp_nb_iters_ft_ratio=1.0,
-                     cp_channel_pruned_path=os.path.join(workdir, 'cp/model.ckpt')):
-        rec.record('channel@50%', point('channel', 'build_eval_step')['accuracy'])
+    if wanted('channel@50%'):
+        with flags.scope(cp_prune_option='uniform', cp_uniform_preserve_ratio=0.5,
+                         cp_nb_batches=6, cp_nb_points_per_layer=8,
+                         cp_nb_iters_ft_ratio=1.0,
+                         cp_channel_pruned_path=os.path.join(workdir, 'cp/model.ckpt')):
+            rec.record('channel@50%', point('channel', 'build_eval_step')['accuracy'])
 
     # 7b. the same with the schedule finetune (--cp_finetune_schedule)
-    with flags.scope(cp_prune_option='uniform', cp_uniform_preserve_ratio=0.5,
-                     cp_nb_batches=6, cp_nb_points_per_layer=8,
-                     cp_nb_iters_ft_ratio=1.0, cp_finetune_schedule=True,
-                     cp_channel_pruned_path=os.path.join(workdir, 'cps/model.ckpt')):
-        rec.record('channel@50%+sched', point('channel', 'build_eval_step')['accuracy'])
+    if wanted('channel@50%+sched'):
+        with flags.scope(cp_prune_option='uniform', cp_uniform_preserve_ratio=0.5,
+                         cp_nb_batches=6, cp_nb_points_per_layer=8,
+                         cp_nb_iters_ft_ratio=1.0, cp_finetune_schedule=True,
+                         cp_channel_pruned_path=os.path.join(workdir, 'cps/model.ckpt')):
+            rec.record('channel@50%+sched', point('channel', 'build_eval_step')['accuracy'])
 
     # 8. remastered channel pruning at 50%
-    with flags.scope(cpr_prune_ratio=0.5, cpr_skip_frst_layer=True,
-                     cpr_nb_smpls=512, cpr_nb_crops_per_smpl=6,
-                     cpr_ista_nb_iters=60, cpr_lstsq_nb_iters=60,
-                     cp_nb_batches=6,
-                     cpr_save_path=os.path.join(workdir, 'cpr/model.ckpt')):
-        rec.record('chn-pruned-rmt@50%', point('chn-pruned-rmt', 'build_eval_step')['accuracy'])
+    if wanted('chn-pruned-rmt@50%'):
+        with flags.scope(cpr_prune_ratio=0.5, cpr_skip_frst_layer=True,
+                         cpr_nb_smpls=512, cpr_nb_crops_per_smpl=6,
+                         cpr_ista_nb_iters=60, cpr_lstsq_nb_iters=60,
+                         cp_nb_batches=6,
+                         cpr_save_path=os.path.join(workdir, 'cpr/model.ckpt')):
+            rec.record('chn-pruned-rmt@50%', point('chn-pruned-rmt', 'build_eval_step')['accuracy'])
 
     # 9. discrimination-aware channel pruning at 50%
-    with flags.scope(dcp_prune_ratio=0.5, dcp_nb_stages=2,
-                     dcp_nb_iters_block=20 if quick else 40,
-                     dcp_nb_iters_layer=1 if quick else 2,
-                     dcp_save_path=os.path.join(workdir, 'dcp/model.ckpt')):
-        rec.record('dis-chn-pruned@50%', point('dis-chn-pruned', 'build_eval_step')['accuracy'])
+    if wanted('dis-chn-pruned@50%'):
+        with flags.scope(dcp_prune_ratio=0.5, dcp_nb_stages=2,
+                         dcp_nb_iters_block=20 if quick else 40,
+                         dcp_nb_iters_layer=1 if quick else 2,
+                         dcp_save_path=os.path.join(workdir, 'dcp/model.ckpt')):
+            rec.record('dis-chn-pruned@50%', point('dis-chn-pruned', 'build_eval_step')['accuracy'])
 
     return results
 
@@ -403,15 +413,19 @@ def finish(results: dict, tag: str, publish: bool, card: Optional[str]) -> str:
     return path
 
 
-def report(violations: List[str], header: str, nb_points: int) -> int:
-    """Print the violations; 1 if any, else 0."""
+def report(violations: List[str], header: str, healthy: str) -> int:
+    """Print the violations under `header`, or `healthy`; 1 if any, else 0."""
     if violations:
         print(header)
         for v in violations:
             print('  ' + v)
         return 1
-    print('parity bands: all %d points within locked bands' % nb_points)
+    print(healthy)
     return 0
+
+
+def _healthy(family: str) -> str:
+    return 'parity bands: all %d points within locked bands' % len(_bands_for(family)[1])
 
 
 def main(argv=None) -> dict:
@@ -428,7 +442,7 @@ def main(argv=None) -> dict:
             data = json.load(fin)
         family = data.get('_family', args.family)
         code = report(check_results(data, family), 'PARITY BAND VIOLATIONS:',
-                      len(_bands_for(family)[1]))
+                      _healthy(family))
         if code:
             sys.exit(code)
         return data
@@ -447,7 +461,7 @@ def main(argv=None) -> dict:
     print(json.dumps(out, indent=2), flush=True)
     if args.check:
         code = report(check_results(out, args.family), 'PARITY BAND VIOLATIONS:',
-                      len(_bands_for(args.family)[1]))
+                      _healthy(args.family))
         if code:
             sys.exit(code)
     return out

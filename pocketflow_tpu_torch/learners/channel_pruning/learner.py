@@ -34,7 +34,6 @@ import torch
 
 from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core import mesh
-from pocketflow_tpu_torch.core.bridge import search_extras_from_jax
 from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner, Sgd, TrainState
 from pocketflow_tpu_torch.learners.channel_pruning import channel_pruner as cp_lib
 from pocketflow_tpu_torch.learners.distillation_helper import DistillationHelper
@@ -302,14 +301,8 @@ class ChannelPrunedLearner(AbstractLearner):
         # top-K (reward, ratios) candidates by fast-eval reward, for callers
         # that re-rank them by fully finetuned accuracy
         top_candidates: List[tuple] = []
-        extras = None
-        if agent.restore_search(search_path):
+        if agent.restore_search(search_path):  # the port's file or the JAX package's
             extras = agent.restored_extras
-        else:
-            # a search the JAX package wrote: its progress resumes, with a
-            # fresh agent (its networks are Flax bytes)
-            extras = search_extras_from_jax(search_path)
-        if extras is not None:
             idx_beg = int(extras.get('idx_rlout', -1)) + 1
             best_reward = float(extras.get('reward_best', -np.inf))
             arr_best = extras.get('ratios_best')

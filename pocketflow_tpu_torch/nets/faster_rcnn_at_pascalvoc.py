@@ -14,12 +14,17 @@ and runs per-class NMS on the host, then VOC mAP.
 The trunk is ``backbone/``: the ImageNet ResNet's stem and stages 1-3 with
 ResNetImageNet's names (nets/resnet.build_imagenet_trunk), so a
 classification checkpoint grafts into it, or the compact `small` trunk for
-tests.  Shrunk serving of the detector (``width_map``) is not ported.
+tests.  ``width_map`` (full module paths, 'backbone/stage1_block0/conv1' ->
+output channels) builds the physically smaller detector of a shrunk
+artifact, as on the classification nets: the ResNet trunk takes its
+'backbone/' entries without the prefix; the `small` trunk and the heads
+keep their widths.  ``clone(width_map=...)`` builds it from a dense
+detector under the flags in force.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -34,7 +39,7 @@ from pocketflow_tpu_torch.nets.detection import faster_rcnn as frcnn
 from pocketflow_tpu_torch.nets.detection import nms as nms_lib
 from pocketflow_tpu_torch.nets.detection.eval_loop import DetectionHelperMixin
 from pocketflow_tpu_torch.nets.resnet import (
-    IMAGENET_CONFIGS, BasicBlock, build_imagenet_trunk, imagenet_trunk)
+    IMAGENET_CONFIGS, BasicBlock, WidthMapped, build_imagenet_trunk, imagenet_trunk)
 from pocketflow_tpu_torch.nn.layers import (
     BatchNorm, PFConv, PFDense, compression, max_pool, relu, reset_parameters, set_paths)
 
@@ -88,9 +93,11 @@ class ResNetBackbone(nn.Module):
     """The ImageNet ResNet stem and stages 1-3 (ResNetImageNet's names):
     NHWC images -> (C3 stride 8, C4 stride 16)."""
 
-    def __init__(self, resnet_size: int = 50, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, resnet_size: int = 50, dtype: torch.dtype = torch.bfloat16,
+                 width_map: Optional[Dict[str, int]] = None):
         super().__init__()
-        self.out_features = tuple(build_imagenet_trunk(self, resnet_size, dtype,
+        self.width_map = width_map
+        self.out_features = tuple(build_imagenet_trunk(self, resnet_size, dtype, width_map,
                                                        nb_stages=3)[1:])
 
     def forward(self, x: torch.Tensor):
@@ -98,11 +105,16 @@ class ResNetBackbone(nn.Module):
         return feats[1], feats[2]
 
 
-def build_backbone(name: str, dtype: torch.dtype) -> nn.Module:
+def build_backbone(name: str, dtype: torch.dtype,
+                   width_map: Optional[Dict[str, int]] = None) -> nn.Module:
     if name == 'small':
         return SmallResNetBackbone(dtype)
     if name.startswith('resnet') and int(name[len('resnet'):]) in IMAGENET_CONFIGS:
-        return ResNetBackbone(int(name[len('resnet'):]), dtype)
+        # the map's keys are full module paths ('backbone/stage1_block0');
+        # the trunk resolves its own, so the prefix goes
+        local = ({k[len('backbone/'):]: v for k, v in width_map.items()
+                  if k.startswith('backbone/')} if width_map else None)
+        return ResNetBackbone(int(name[len('resnet'):]), dtype, local)
     raise ValueError('unknown frcnn_backbone: %r' % name)
 
 
@@ -120,7 +132,7 @@ def anchors_for(fsize: int, scales) -> np.ndarray:
     return np.clip(np.asarray(anchors, np.float32), 0.0, 1.0)
 
 
-class FasterRCNN(nn.Module):
+class FasterRCNN(WidthMapped, nn.Module):
     """Two-level RPN + sampled ROI heads.
 
     forward(images NHWC, labels=None) -> outputs dict.  With labels (the
@@ -130,8 +142,12 @@ class FasterRCNN(nn.Module):
     """
 
     def __init__(self, nb_classes: int = 21, backbone_name: str = 'resnet50',
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 width_map: Optional[Dict[str, int]] = None):
         super().__init__()
+        self.config = dict(nb_classes=nb_classes, backbone_name=backbone_name, dtype=dtype,
+                           width_map=width_map)
+        self.width_map = width_map
         if len({len(s) for s in RPN_LEVEL_SCALES}) != 1:
             raise ValueError('RPN_LEVEL_SCALES tuples must have equal length (shared RPN '
                              'head): %r' % (RPN_LEVEL_SCALES,))
@@ -143,7 +159,7 @@ class FasterRCNN(nn.Module):
         self.roi_size = int(FLAGS.frcnn_roi_size)
         self.roi_batch = int(FLAGS.frcnn_roi_batch)
         self.fg_fraction = float(FLAGS.frcnn_fg_fraction)
-        self.backbone = build_backbone(backbone_name, dtype)
+        self.backbone = build_backbone(backbone_name, dtype, width_map)
         c3, c4 = self.backbone.out_features
         self.lateral0 = PFConv(c3, LATERAL_WIDTH, (1, 1), dtype=dtype)
         self.lateral1 = PFConv(c4, LATERAL_WIDTH, (1, 1), dtype=dtype)

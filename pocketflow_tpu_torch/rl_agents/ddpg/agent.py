@@ -34,6 +34,8 @@ from torch import nn
 from torch.func import functional_call
 
 from pocketflow_tpu_torch.config import FLAGS
+from pocketflow_tpu_torch.core import bridge
+from pocketflow_tpu_torch.core.checkpoint import msgpack_restore
 from pocketflow_tpu_torch.core.metrics import get_logger
 from pocketflow_tpu_torch.learners.abstract_learner import resolve_device
 from pocketflow_tpu_torch.nn.layers import variance_scaling_
@@ -354,10 +356,10 @@ class DdpgAgent:
 
         The npz layout is the JAX package's, but its 'state' entry holds the
         bytes of ``torch.save`` of the nets' and Adam states' state_dicts,
-        not Flax's serialization: the port reads its own files, not the JAX
-        package's (a JAX file is an unreadable one, and the search starts
-        afresh).  `extras` are the caller's numpy-able values, round-tripped
-        as they are; restore_search puts them in `self.restored_extras`."""
+        not Flax's serialization, and a 'noise' entry holds the noise
+        generator's state (restore_search reads both kinds of file).
+        `extras` are the caller's numpy-able values, round-tripped as they
+        are; restore_search puts them in `self.restored_extras`."""
         os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
         extras = {('x_' + k): np.asarray(v) for k, v in (extras or {}).items()}
         buffer = io.BytesIO()
@@ -384,9 +386,19 @@ class DdpgAgent:
         os.replace(tmp_path, path)
 
     def restore_search(self, path: str) -> bool:
-        """Restore a checkpoint written by save_search; returns success.  A
-        corrupt, truncated or mismatched file returns False and leaves the
-        agent as it was."""
+        """Restore a checkpoint written by save_search, the port's or the
+        JAX package's; returns success.  A corrupt, truncated or mismatched
+        file returns False and leaves the agent as it was.
+
+        A JAX file's 'state' is the Flax bytes of its agent (read by
+        ``core/checkpoint.msgpack_restore``): the actor, the critic, their
+        targets and the perturbed actor go through the bridge's DDPG
+        mapping, and both Adam states (optax's step count, first and second
+        moments) by parameter name (``bridge.ddpg_adam_from_jax``).  Its
+        PRNG key has no ``torch.Generator`` counterpart, so the noise
+        generator restarts from the agent's seed, as ``init`` seeds it: the
+        restored perturbed actor acts as JAX's did, but the next draw of
+        noise differs from the one JAX would make."""
         if not path.endswith('.npz'):
             path = path + '.npz'
         if not os.path.exists(path):
@@ -398,22 +410,34 @@ class DdpgAgent:
             # truncated npz often opens and fails only when an entry is read
             blob = np.load(path)
             extras = {k[2:]: blob[k] for k in blob.files if k.startswith('x_')}
-            state = torch.load(io.BytesIO(blob['state'].tobytes()), map_location='cpu',
-                               weights_only=True)
-            nets = {}
-            for name in ('actor', 'critic', 'actor_tr', 'critic_tr'):
-                nets[name] = copy.deepcopy(getattr(self, name))
-                nets[name].load_state_dict(state[name])  # raises on a shape mismatch
-            perturbed = {k: v.to(self.device) for k, v in state['actor_perturbed'].items()}
+            raw = blob['state'].tobytes()
+            nets = {name: copy.deepcopy(getattr(self, name))
+                    for name in ('actor', 'critic', 'actor_tr', 'critic_tr')}
+            opts = {'opt_actor': self._adam(nets['actor']),
+                    'opt_critic': self._adam(nets['critic'])}
+            noise = torch.Generator(device=self.device)
+            if raw[:2] == b'PK':  # torch.save's zip: the port's own file
+                state = torch.load(io.BytesIO(raw), map_location='cpu', weights_only=True)
+                for name, net in nets.items():
+                    net.load_state_dict(state[name])  # raises on a shape mismatch
+                perturbed = state['actor_perturbed']
+                for name, opt in opts.items():
+                    opt.load_state_dict(state[name])
+                noise.set_state(torch.from_numpy(np.array(blob['noise'])))
+            else:  # the JAX package's: Flax bytes of its DdpgState
+                state = msgpack_restore(raw)
+                bridge.ddpg_params_from_jax(nets['actor'], nets['critic'],
+                                            state['actor'], state['critic'])
+                bridge.ddpg_params_from_jax(nets['actor_tr'], nets['critic_tr'],
+                                            state['actor_tr'], state['critic_tr'])
+                perturbed = bridge.ddpg_state_dict_from_jax(state['actor_perturbed'])
+                for name, net in (('opt_actor', nets['actor']), ('opt_critic', nets['critic'])):
+                    bridge.ddpg_adam_from_jax(opts[name], net, state[name]['0'])
+                noise.manual_seed(self.seed + 1)
+            perturbed = {k: v.to(self.device) for k, v in perturbed.items()}
             want = {k: v.shape for k, v in self.actor.named_parameters()}
             if {k: v.shape for k, v in perturbed.items()} != want:
                 raise ValueError('perturbed actor does not match the actor')
-            opts = {}
-            for name, net in (('opt_actor', nets['actor']), ('opt_critic', nets['critic'])):
-                opts[name] = self._adam(net)
-                opts[name].load_state_dict(state[name])
-            noise = torch.Generator(device=self.device)
-            noise.set_state(torch.from_numpy(np.array(blob['noise'])))
             ema = float(blob['reward_ema'])
             stdev_curr = float(blob['stdev_curr'])
             in_explore = bool(blob['in_explore'])

@@ -436,9 +436,10 @@ def test_agent_search_checkpoint_roundtrip(tmp_path):
 
 
 def test_restore_search_survives_corrupt_and_mismatched_checkpoints(tmp_path):
-    """A truncated or corrupt file, one from an agent of other sizes, or a
-    JAX search file returns False and leaves the agent as it was; saves are
-    atomic (no tmp file left)."""
+    """A truncated or corrupt file, or one from an agent of other sizes (the
+    port's or the JAX package's), returns False and leaves the agent as it
+    was; saves are atomic (no tmp file left).  A JAX file of the same sizes
+    restores (tests/test_torch_search_resume_jax.py)."""
     agent = _agent(s_dims=3, a_dims=1, nb_rlouts=4, buf_size=16, seed=0)
     probe = np.ones((1, 3), np.float32)
     before = agent.actions_clean(probe)
@@ -449,7 +450,7 @@ def test_restore_search_survives_corrupt_and_mismatched_checkpoints(tmp_path):
     other = _agent(s_dims=4, a_dims=1, nb_rlouts=4, buf_size=16, seed=1)
     other.save_search(str(tmp_path / 'other.npz'))
     assert agent.restore_search(str(tmp_path / 'other.npz')) is False
-    jagent = jagent_lib.DdpgAgent(s_dims=3, a_dims=1, nb_rlouts=4, buf_size=16, seed=0)
+    jagent = jagent_lib.DdpgAgent(s_dims=4, a_dims=1, nb_rlouts=4, buf_size=16, seed=0)
     jagent.init()
     jagent.save_search(str(tmp_path / 'jax.npz'))
     assert agent.restore_search(str(tmp_path / 'jax.npz')) is False
