@@ -128,6 +128,19 @@ on the card, and drives the port's paths:
     under 'none' and 'save_convs', the same checkpoint (27d); Faster R-CNN
     ResNet-50 at 300x300, batch 32, one step under 'none' and 'full', the
     peak memory lower under 'full' (27e);
+  * the accuracy-parity harness (phase 28,
+    pocketflow_tpu_torch/experiments/): ResNet-20's full-prec and
+    uniform@4bit points on the hard synthetic task at the --quick budget
+    through synthetic_parity.run_sweep, both accuracies printed, the
+    baseline well above chance (1/64), one grouped K2' launch pair a
+    quantized forward and no plain call (28a); composed_cp_qat.run at its
+    --quick budget: the LASSO prune of a fresh baseline, then QAT 8/8 from
+    the pruned checkpoint with the channel masks held, K1' with the select
+    at each activation site and one grouped K1' pair a quantized forward,
+    the pruned fraction the same after QAT (28b); the width-mapped Faster
+    R-CNN ResNet-50 (stages 1 and 2's inner widths halved) eval forward,
+    card vs CPU at 64x64: the trunk's two feature maps and the RPN's
+    outputs (28c);
 
 and checks that each went through its kernels and never through a plain
 version.  Any failed phase raises and the script exits non-zero without its
@@ -514,6 +527,21 @@ REMAT_ACT8_RUN = 'remat 27b: one QAT ResNet-50 step, 8-bit activations, --remat_
 REMAT_MB_STEPS = 3
 REMAT_MB_RUNS = [('remat 27d run KR%d: v1 uniform-tf 8/8, %d steps, --remat_blocks=%s'
                   % (i, REMAT_MB_STEPS, mode), mode) for i, mode in enumerate(('none', 'save_convs'))]
+
+
+# phase 28: the accuracy-parity harness on the card.  28a: run_sweep's
+# full-prec and uniform@4bit points at the --quick budget (800 + 96 steps at
+# batch 128); 28b: composed_cp_qat.run --quick (512 samples: 20 full-prec
+# steps, the LASSO prune and 20 finetune steps, 2 QAT 8/8 steps, the
+# shrink); 28c: Faster R-CNN ResNet-50 with PARITY_FRCNN_MAP card vs CPU at
+# DET_SMALL's settings, its BN statistics those of the batch: the trunk's
+# features and the RPN's outputs within 24e's bound
+PARITY_RUN_UQ = 'parity 28a: ResNet-20 full-prec + uniform@4bit, hard task, --quick'
+PARITY_RUN_CP = 'parity 28b: composed CP -> QAT 8/8, ResNet-20, --quick'
+PARITY_MIN_BASELINE = 10 / 64  # ten times chance
+PARITY_FRCNN_MAP = {'backbone/stage%d_block%d/conv%d' % (stage, block, conv): 32 * stage
+                    for stage, nb_blocks in ((1, 3), (2, 4)) for block in range(nb_blocks)
+                    for conv in (1, 2)}
 
 
 def log(msg, *args):
@@ -4192,6 +4220,120 @@ def phase_remat_others(FLAGS, work_dir, card, device):
     return runs
 
 
+def phase_parity(FLAGS, work_dir, card):
+    """Phase 28 (see PARITY_RUN_*): 28a and 28b through the harness's public
+    functions, each counted in a ForwardCounter from a reset just before it;
+    28c the width-mapped detector card vs CPU.  Returns {run label:
+    counters}."""
+    from pocketflow_tpu_torch.experiments import composed_cp_qat, synthetic_parity
+    runs = {}
+    start = time.perf_counter()
+    counter = ForwardCounter()
+    try:
+        with FLAGS.scope(**FLAGS.as_dict()):
+            reset_counters()
+            out = synthetic_parity.run_sweep(os.path.join(work_dir, 'parity'), quick=True,
+                                             points=('uniform@4bit',))
+            torch.cuda.synchronize()
+            runs[PARITY_RUN_UQ] = counts = counters()
+    finally:
+        counter.close()
+    check(counts == no_launches(fake_quant_per_column_group=counter.forwards)
+          and counter.forwards > 0,
+          '28a: launches %s over %d quantized forwards (%d steps)', counts, counter.forwards,
+          counter.steps)
+    check(out['full-prec'] > PARITY_MIN_BASELINE, '28a: baseline %.4f at chance',
+          out['full-prec'])
+    check(all(math.isfinite(out[k]) for k in ('full-prec', 'uniform@4bit')), '28a: %s', out)
+    log('  28a %s: full-prec %.4f, uniform@4bit %.4f (delta %.4f; band %.2f), chance %.4f | '
+        '%d quantized forwards (%d steps), launches %s | %.1f s | %s', PARITY_RUN_UQ,
+        out['full-prec'], out['uniform@4bit'], out['uniform@4bit_delta'],
+        synthetic_parity.LOCKED_MAX_DELTA['uniform@4bit'], 1 / 64, counter.forwards,
+        counter.steps, {k: v for k, v in counts.items() if v}, time.perf_counter() - start,
+        card)
+
+    start = time.perf_counter()
+    counter = ForwardCounter()
+    try:
+        with FLAGS.scope(**FLAGS.as_dict()):
+            reset_counters()
+            out = composed_cp_qat.run(os.path.join(work_dir, 'parity_cp'), quick=True)
+            torch.cuda.synchronize()
+            runs[PARITY_RUN_CP] = counts = counters()
+    finally:
+        counter.close()
+    sites = 19  # ResNet-20's activation sites, each at 8 bits
+    check(counts == no_launches(fake_quant_per_tensor_group=counter.forwards,
+                                fake_quant_per_tensor=sites * counter.forwards,
+                                fake_quant_per_tensor_select=sites * counter.forwards)
+          and counter.forwards > 0, '28b: launches %s over %d quantized forwards', counts,
+          counter.forwards)
+    check(composed_cp_qat.check_results(out) == [], '28b: %s', composed_cp_qat.check_results(out))
+    check(out['pruned_channel_frac'] >= 0.3, '28b: pruned %.4f', out['pruned_channel_frac'])
+    log('  28b %s: full-prec %.4f, channel@50%%+sched %.4f, cp+qat@8bit %.4f; pruned input '
+        'channels %.4f before QAT, %.4f after; packed %.4f of the dense parameters | %d '
+        'quantized forwards, launches %s | %.1f s | %s', PARITY_RUN_CP, out['full-prec'],
+        out['channel@50%+sched'], out['cp+qat@8bit'], out['pruned_channel_frac'],
+        out['pruned_channel_frac_after_qat'], out['packed_param_frac'], counter.forwards,
+        {k: v for k, v in counts.items() if v}, time.perf_counter() - start, card)
+
+    start = time.perf_counter()
+    from pocketflow_tpu_torch.datasets.pascalvoc import PascalVocDataset
+    from pocketflow_tpu_torch.nets import faster_rcnn_at_pascalvoc as frcnn
+    from pocketflow_tpu_torch.nn.layers import BatchNorm
+    with FLAGS.scope(**DET_SMALL, frcnn_backbone='resnet50'):
+        helper = frcnn.ModelHelper()
+        dense = helper.create_model()
+        mapped = dense.clone(width_map=PARITY_FRCNN_MAP)
+        mapped.reset_parameters(torch.Generator().manual_seed(0))
+        ds = PascalVocDataset(False)
+        images = torch.from_numpy(ds.synthesize_detection_arrays(64)[0][:DET_SMALL['batch_size']])
+        images = ds.augment(images, None, False)
+        # BN statistics set to the batch's (a train-mode forward at momentum 0),
+        # so that the eval forward stays at unit scale through the trunk
+        bns = [m for m in mapped.modules() if isinstance(m, BatchNorm)]
+        for bn in bns:
+            bn.momentum = 0.0
+        with torch.no_grad():
+            mapped.train()(images)
+        for bn in bns:
+            bn.momentum = 0.997
+        kernels = dict(mapped.named_parameters())
+        check(kernels['backbone.stage1_block0.conv1.kernel'].shape[-1] == 32
+              and kernels['backbone.stage2_block3.conv2.kernel'].shape[-1] == 64
+              and kernels['backbone.stage3_block0.conv1.kernel'].shape[-1] == 256,
+              '28c: widths %s', {k: tuple(v.shape) for k, v in kernels.items()
+                                 if k.endswith('conv1.kernel')})
+        nb_dense = sum(p.numel() for p in dense.parameters())
+        nb_mapped = sum(p.numel() for p in kernels.values())
+        outs = {}
+        for device in ('cuda', 'cpu'):
+            model = copy.deepcopy(mapped).to(device).eval()
+            with torch.no_grad():
+                got = helper.forward_eval(model, images.to(device))
+                got['c3'], got['c4'] = model.backbone(images.to(device))
+            outs[device] = {k: v.detach().cpu() for k, v in got.items()}
+    # the trunk (where the map applies) and the RPN's dense outputs; the
+    # proposals and the heads behind them follow a top-k, whose near-ties at
+    # a random init may order differently on the two devices
+    errs = {}
+    for key in ('c3', 'c4', 'obj_logits', 'rpn_deltas'):
+        largest = float(outs['cpu'][key].abs().max())
+        errs[key] = (float((outs['cuda'][key] - outs['cpu'][key]).abs().max()), largest)
+        check(errs[key][0] <= 1e-3 + 1e-3 * largest, '28c: %s card vs CPU %.3g (of %.3g)', key,
+              *errs[key])
+    check(outs['cuda']['c4'].shape[1] == 1024 and outs['cuda']['cls_logits'].shape[-1] == 21,
+          '28c: shapes %s', {k: tuple(v.shape) for k, v in outs['cuda'].items()})
+    same = (outs['cuda']['proposals'] - outs['cpu']['proposals']).abs().amax(-1) <= 1e-3
+    log('  28c width-mapped Faster R-CNN ResNet-50 (%d of %d parameters), eval forward at '
+        '64x64, batch %d: card vs CPU max|d| (of the largest) %s; proposals within 1e-3 %d of '
+        '%d, valid %d / %d | %.1f s', nb_mapped, nb_dense, DET_SMALL['batch_size'],
+        {k: '%.3g (%.3g)' % v for k, v in errs.items()}, int(same.sum()), same.numel(),
+        int(outs['cuda']['proposal_valid'].sum()), int(outs['cpu']['proposal_valid'].sum()),
+        time.perf_counter() - start)
+    return runs
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4430,6 +4572,13 @@ def main():
         runs.update(phase_remat_resnet(FLAGS, card))
         runs.update(phase_remat_others(FLAGS, work_dir, card, device))
         log('  phase 27: %.1f s', time.perf_counter() - t27)
+        t28 = time.perf_counter()
+        log('phase 28 the accuracy-parity harness: ResNet-20 full-prec and uniform@4bit on the '
+            'hard synthetic task at the --quick budget (28a), the composed CP -> QAT 8/8 '
+            'pipeline at its --quick budget (28b), the width-mapped Faster R-CNN ResNet-50 '
+            'card vs CPU (28c)')
+        runs.update(phase_parity(FLAGS, work_dir, card))
+        log('  phase 28: %.1f s', time.perf_counter() - t28)
     serve_dir.cleanup()
 
     # each kernel's launches in the run that drives it: the main path for the

@@ -40,7 +40,7 @@ The discrimination-aware learner's auxiliary heads (``gamma``, ``beta``,
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch

@@ -34,7 +34,8 @@ import pocketflow_tpu_torch.learners.weight_sparsification.pr_optimizer  # noqa:
 from pocketflow_tpu.config import FLAGS as JFLAGS
 from pocketflow_tpu.rl_agents.ddpg import agent as jagent_lib
 from pocketflow_tpu_torch.config import FLAGS as TFLAGS
-from pocketflow_tpu_torch.core.bridge import ddpg_params_from_jax, ddpg_state_dict_from_jax
+from pocketflow_tpu_torch.core.bridge import (
+    ddpg_adam_from_jax, ddpg_params_from_jax, ddpg_state_dict_from_jax)
 from pocketflow_tpu_torch.rl_agents.ddpg import agent as tagent_lib
 
 torch.set_num_threads(2)
@@ -151,14 +152,6 @@ def _minibatch(rng):
             'states_next': _states(rng, BATCH)}
 
 
-def _bridge_adam(optimizer, module, adam_state):
-    """Put optax's ScaleByAdamState (count, mu, nu) into torch's Adam."""
-    mu, nu = ddpg_state_dict_from_jax(adam_state.mu), ddpg_state_dict_from_jax(adam_state.nu)
-    for name, p in module.named_parameters():
-        optimizer.state[p] = {'step': torch.tensor(float(adam_state.count)),
-                              'exp_avg': mu[name].clone(), 'exp_avg_sq': nu[name].clone()}
-
-
 def _adam_moments(optimizer, module):
     return {name: (optimizer.state[p]['exp_avg'].numpy(), optimizer.state[p]['exp_avg_sq'].numpy())
             for name, p in module.named_parameters()}
@@ -170,8 +163,8 @@ def _port_agent(jstate, cls=tagent_lib.DdpgAgent):
     ddpg_params_from_jax(agent.actor, agent.critic, _np(jstate.actor), _np(jstate.critic))
     ddpg_params_from_jax(agent.actor_tr, agent.critic_tr, _np(jstate.actor_tr),
                          _np(jstate.critic_tr))
-    _bridge_adam(agent.opt_actor, agent.actor, jstate.opt_actor[0])
-    _bridge_adam(agent.opt_critic, agent.critic, jstate.opt_critic[0])
+    ddpg_adam_from_jax(agent.opt_actor, agent.actor, _np(jstate.opt_actor[0])._asdict())
+    ddpg_adam_from_jax(agent.opt_critic, agent.critic, _np(jstate.opt_critic[0])._asdict())
     return agent
 
 
