@@ -17,6 +17,8 @@ delta (baseline - point) leaves its band.
     python -m pocketflow_tpu_torch.experiments.synthetic_parity --family mobilenet_v1 --check
     python -m pocketflow_tpu_torch.experiments.synthetic_parity --quick
     python -m pocketflow_tpu_torch.experiments.synthetic_parity --check-file FILE
+    python -m pocketflow_tpu_torch.experiments.synthetic_parity --family mobilenet_v1 \
+        --baseline-seeds 0-7 [--publish]
 
 The sweep runs on the card (``require_cuda``).  Results go to
 $PF_PARITY_OUT (default: pf_parity_results under the system's temporary
@@ -179,25 +181,29 @@ class Flagged:
 
 
 class Recorder:
-    """The results of one sweep: the baseline, then each point's accuracy,
-    its delta (rounded to 4 places, as JAX's) and its wall seconds."""
+    """The results of one sweep: the baseline, then each point's accuracy
+    (under its name + `suffix`: the detection strips' '_mAP'), its delta
+    (rounded to 4 places, as JAX's) and its wall seconds."""
 
-    def __init__(self, results: dict):
+    def __init__(self, results: dict, suffix: str = ''):
         self.results = results
         self.results.setdefault('_seconds', {})
+        self.suffix = suffix
         self.start = time.perf_counter()
 
     def baseline(self, acc):
-        self.results['full-prec'] = float(acc)
+        self.results['full-prec' + self.suffix] = float(acc)
         self._timed('full-prec')
+        if self.suffix:
+            print(json.dumps({'full-prec' + self.suffix: round(float(acc), 4)}), flush=True)
 
     def record(self, key, acc):
         acc = float(acc)
-        self.results[key] = acc
-        self.results[key + '_delta'] = round(self.results['full-prec'] - acc, 4)
+        self.results[key + self.suffix] = acc
+        self.results[key + '_delta'] = round(self.results['full-prec' + self.suffix] - acc, 4)
         self._timed(key)
-        print(json.dumps({key: round(acc, 4), 'delta': self.results[key + '_delta']}),
-              flush=True)
+        print(json.dumps({key + self.suffix: round(acc, 4),
+                          'delta': self.results[key + '_delta']}), flush=True)
 
     def _timed(self, key):
         now = time.perf_counter()
@@ -321,10 +327,11 @@ def run_sweep(workdir=None, quick=False, device='cuda', overrides=None, points=N
     return results
 
 
-def run_sweep_mobilenet(workdir=None, quick=False, device='cuda', overrides=None):
+def run_sweep_mobilenet(workdir=None, quick=False, device='cuda', overrides=None, points=None):
     """The MobileNet-v1 strip at the reference's headline operating points
-    (6 points; 2 with `quick`) on the 96x96 hard task.  Returns the results
-    dict."""
+    (6 points; 2 with `quick`) on the 96x96 hard task, or the baseline and
+    the `points` named (keys of LOCKED_MAX_DELTA_MOBILENET).  Returns the
+    results dict."""
     workdir = workdir or tempfile.mkdtemp(prefix='pf_parity_mb_')
     results = {'_quick': bool(quick), '_family': 'mobilenet_v1'}
     flags = Flagged(overrides)
@@ -336,35 +343,41 @@ def run_sweep_mobilenet(workdir=None, quick=False, device='cuda', overrides=None
     def point(name, eval_builder):
         return _train_eval(learners.create_learner, ModelHelper, name, eval_builder, device)
 
+    def wanted(key):
+        return points is None or key in points
+
     rec = Recorder(results)
     rec.baseline(point('full-prec', 'build_eval_step')['accuracy'])
 
     ws_points = [0.5] if quick else [0.5, 0.9]
-    for pr in ws_points:
+    for pr in (p for p in ws_points if wanted('weight-sparse@%d%%' % int(p * 100))):
         with flags.scope(ws_prune_ratio=pr, ws_prune_ratio_prtl='uniform',
                          ws_mask_update_step=20,
                          ws_save_path=os.path.join(workdir, 'ws%d/model.ckpt' % int(pr * 100))):
             rec.record('weight-sparse@%d%%' % int(pr * 100),
                        point('weight-sparse', 'build_sparse_eval_step')['accuracy'])
 
-    with flags.scope(uql_quant_epochs=30, uqtf_quant_delay=0, uqtf_freeze_bn_delay=None,
-                     uqtf_save_path=os.path.join(workdir, 'uqtf/model.ckpt')):
-        rec.record('uniform-tf@8/8', point('uniform-tf', 'build_qat_eval_step')['accuracy'])
+    if wanted('uniform-tf@8/8'):
+        with flags.scope(uql_quant_epochs=30, uqtf_quant_delay=0, uqtf_freeze_bn_delay=None,
+                         uqtf_save_path=os.path.join(workdir, 'uqtf/model.ckpt')):
+            rec.record('uniform-tf@8/8', point('uniform-tf', 'build_qat_eval_step')['accuracy'])
 
-    if not quick:
+    if not quick and wanted('chn-pruned-gpu@50%'):
         with flags.scope(cpg_prune_ratio=0.5, cpg_skip_ht_layers=True, cpg_nb_iters_layer=60,
                          cpg_save_path=os.path.join(workdir, 'cpg/model.ckpt')):
             rec.record('chn-pruned-gpu@50%',
                        point('chn-pruned-gpu', 'build_pruned_eval_step')['accuracy'])
 
-        # the He-2017 LASSO recipe behind the reference's CP MobileNet table
+    # the He-2017 LASSO recipe behind the reference's CP MobileNet table
+    if not quick and wanted('channel@50%'):
         with flags.scope(cp_prune_option='uniform', cp_uniform_preserve_ratio=0.5,
                          cp_nb_batches=6, cp_nb_points_per_layer=8,
                          cp_nb_iters_ft_ratio=1.0,
                          cp_channel_pruned_path=os.path.join(workdir, 'cp/model.ckpt')):
             rec.record('channel@50%', point('channel', 'build_eval_step')['accuracy'])
 
-        # the schedule-finetune variant (see run_sweep 7b)
+    # the schedule-finetune variant (see run_sweep 7b)
+    if not quick and wanted('channel@50%+sched'):
         with flags.scope(cp_prune_option='uniform', cp_uniform_preserve_ratio=0.5,
                          cp_nb_batches=6, cp_nb_points_per_layer=8,
                          cp_nb_iters_ft_ratio=1.0, cp_finetune_schedule=True,
@@ -391,20 +404,26 @@ def commit() -> Optional[str]:
     return (out.stdout.strip() or None) if out.returncode == 0 else None
 
 
-def finish(results: dict, tag: str, publish: bool, card: Optional[str]) -> str:
+def result_path(tag: str, publish: bool) -> str:
+    """Where `tag`.json goes: under RESULTS_DIR when `publish`, else under
+    $PF_PARITY_OUT (default: pf_parity_results in the temporary directory)."""
+    out_dir = RESULTS_DIR if publish else os.environ.get(
+        'PF_PARITY_OUT', os.path.join(tempfile.gettempdir(), 'pf_parity_results'))
+    return os.path.join(out_dir, tag + '.json')
+
+
+def finish(results: dict, tag: str, publish: bool, card: Optional[str],
+           path: Optional[str] = None) -> str:
     """Round the accuracies to 4 places (as JAX's), add the card and the
-    commit, and write `tag`.json: under RESULTS_DIR when `publish`, else
-    under $PF_PARITY_OUT (default: pf_parity_results in the temporary
-    directory).  Returns the path."""
+    commit, and write `tag`.json (`result_path`), or `path`.  Returns the
+    path."""
     for key, value in list(results.items()):
         if isinstance(value, float):
             results[key] = round(value, 4)
     results['_card'] = card
     results['_commit'] = commit()
-    out_dir = RESULTS_DIR if publish else os.environ.get(
-        'PF_PARITY_OUT', os.path.join(tempfile.gettempdir(), 'pf_parity_results'))
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, tag + '.json')
+    path = path or result_path(tag, publish)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, 'w') as fout:
         json.dump(results, fout, indent=2)
     print('results written to %s%s' % (path, '' if publish else
@@ -424,6 +443,39 @@ def report(violations: List[str], header: str, healthy: str) -> int:
     return 0
 
 
+def parse_seeds(text: str) -> List[int]:
+    """'0-7' or '0,4,5' as a list of seeds."""
+    if '-' in text:
+        first, last = text.split('-')
+        return list(range(int(first), int(last) + 1))
+    return [int(k) for k in text.split(',')]
+
+
+def baseline_seeds(family: str, seeds: List[int], publish: bool, card: Optional[str],
+                   device='cuda', overrides=None) -> dict:
+    """The strip's full-precision baseline alone at each seed of `seeds`
+    (--rand_seed: the initial weights and the augmentation; the task stays
+    the same), its accuracy and whether it lands in the baseline band;
+    written as `<strip>_seeds.json` (`finish`).  Returns the results."""
+    band = _bands_for(family)[0]
+    run = run_sweep_mobilenet if family == 'mobilenet_v1' else run_sweep
+    results = {'_family': family, '_band': list(band), '_seconds': {}, 'seeds': {}}
+    for seed in seeds:
+        start = time.perf_counter()
+        out = run(device=device, overrides={**(overrides or {}), 'rand_seed': seed}, points=())
+        acc = out['full-prec']
+        results['seeds'][str(seed)] = round(acc, 4)
+        results['_seconds'][str(seed)] = round(time.perf_counter() - start, 1)
+        print(json.dumps({'rand_seed': seed, 'full-prec': round(acc, 4),
+                          'in_band': band[0] <= acc <= band[1]}), flush=True)
+    results['in_band'] = sum(band[0] <= a <= band[1] for a in results['seeds'].values())
+    results['of'] = len(seeds)
+    print(json.dumps({'in_band': results['in_band'], 'of': results['of']}), flush=True)
+    tag = 'parity_hard_mobilenet_seeds' if family == 'mobilenet_v1' else 'parity_hard_seeds'
+    finish(results, tag, publish, card)
+    return results
+
+
 def _healthy(family: str) -> str:
     return 'parity bands: all %d points within locked bands' % len(_bands_for(family)[1])
 
@@ -436,6 +488,9 @@ def main(argv=None) -> dict:
     parser.add_argument('--check-file', help='only check the results in this JSON file')
     parser.add_argument('--publish', action='store_true',
                         help='write a full sweep to %s' % RESULTS_DIR)
+    parser.add_argument('--baseline-seeds', metavar='A-B',
+                        help='only the baseline, once at each --rand_seed in A..B (or A,B,...): '
+                        'how often it lands in its band')
     args = parser.parse_args(argv)
     if args.check_file:
         with open(args.check_file) as fin:
@@ -451,6 +506,8 @@ def main(argv=None) -> dict:
     from pocketflow_tpu_torch.core.cuda_timing import card_line
     card = card_line()
     print('card: %s | %s' % (card, torch.cuda.get_device_name(0)), flush=True)
+    if args.baseline_seeds:
+        return baseline_seeds(args.family, parse_seeds(args.baseline_seeds), args.publish, card)
     if args.family == 'mobilenet_v1':
         out = run_sweep_mobilenet(quick=args.quick)
         tag = 'parity_hard_mobilenet'

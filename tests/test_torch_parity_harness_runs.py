@@ -100,3 +100,17 @@ def test_calibration_point_runs():
     acc = parity_calibrate.run_one(0.18, device='cpu', overrides=TINY)
     assert 0.0 <= acc <= 1.0
     assert TFLAGS.synthetic_snr == 0.18 and TFLAGS.synthetic_task == 'hard'
+
+
+def test_baseline_seeds_run(tmp_path, monkeypatch):
+    """--baseline-seeds: the baseline alone at each seed, its accuracy and
+    how many land in the band, written where finish writes."""
+    from pocketflow_tpu_torch.experiments import synthetic_parity as sp
+    assert sp.parse_seeds('0-3') == [0, 1, 2, 3] and sp.parse_seeds('0,4') == [0, 4]
+    monkeypatch.setenv('PF_PARITY_OUT', str(tmp_path))
+    out = sp.baseline_seeds('resnet20', [0, 1], False, None, device='cpu', overrides=TINY)
+    assert list(out['seeds']) == ['0', '1'] and out['of'] == 2
+    assert all(0.0 <= acc <= 1.0 for acc in out['seeds'].values())
+    assert out['in_band'] == sum(0.75 <= acc <= 0.88 for acc in out['seeds'].values())
+    with open(tmp_path / 'parity_hard_seeds.json') as fin:
+        assert json.load(fin)['seeds'] == out['seeds']

@@ -299,7 +299,8 @@ def _run(buckets: bool, composed: bool = False, act_bits: int = 32):
 
 def _run_small(jhelper_cls, thelper_cls, flags, learner='uniform', enbl_dst=False,
                exclude_bn=True, prepare=None, nb_steps=NB_STEPS,
-               reruns=('images', 'params', 'order')):
+               reruns=('images', 'params', 'order'), perturbation=PERTURBATION,
+               rebase_params=False):
     """NB_STEPS train steps of a small net's learner ('full-prec' or
     'uniform') against the JAX learner's, each from the JAX state, in the
     record `_run` makes (for the step checks below; the eval part is
@@ -309,7 +310,12 @@ def _run_small(jhelper_cls, thelper_cls, flags, learner='uniform', enbl_dst=Fals
     the initial parameters and the train images before anything runs;
     `exclude_bn` is the net's weight-decay rule; `reruns` names the JAX
     reruns whose spread sets the floor (perturbed images, perturbed
-    parameters, the batch in reverse order)."""
+    parameters, the batch in reverse order); `perturbation` is the relative
+    size of the first two (1e-7 by default; a bf16 run needs bf16's own
+    resolution).  With `rebase_params` the parameters rerun's perturbation is
+    taken back out of its parameters after the step, so that its spread is
+    that of the update alone (a bf16 perturbation, 2^-8 of each parameter,
+    is as large as a step's update)."""
     from pocketflow_tpu.learners.distillation_helper import DistillationHelper as JDst
     from pocketflow_tpu.learners.full_precision import FullPrecLearner as JFullPrec
     from pocketflow_tpu_torch.learners.distillation_helper import DistillationHelper as TDst
@@ -389,13 +395,17 @@ def _run_small(jhelper_cls, thelper_cls, flags, learner='uniform', enbl_dst=Fals
         out['steps'] = []
         for index in range(nb_steps):
             jm, jafter = jax_step(snapshot, index)
-            noise = PERTURBATION * rng.standard_normal(batches[index]['image'].shape)
+            noise = perturbation * rng.standard_normal(batches[index]['image'].shape)
             perturbed = jax.tree_util.tree_map(
-                lambda a: (a * (1 + PERTURBATION * rng.standard_normal(a.shape))
+                lambda a: (a * (1 + perturbation * rng.standard_normal(a.shape))
                            ).astype(np.float32), snapshot['params'])
             rerun_args = {'images': dict(image_noise=noise), 'params': dict(params=perturbed),
                           'order': dict(order=slice(None, None, -1))}
             rerun_steps = [jax_step(snapshot, index, **rerun_args[name]) for name in reruns]
+            if rebase_params and 'params' in reruns:
+                m, after = rerun_steps[reruns.index('params')]
+                after['params'] = jax.tree_util.tree_map(
+                    lambda a, p, q: a - (p - q), after['params'], perturbed, snapshot['params'])
             _load_port_state(tstate, snapshot)
             tstate, tm = tstep(tstate, tlearner.put_batch(batches[index]), None)
             out['steps'].append({
