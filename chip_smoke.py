@@ -439,12 +439,14 @@ DET_RAT = {model: (DET_STEPS + 0.5) * DET_BATCH / (DET_TRAIN * epochs)
            for model, epochs in (('vgg_at_pascalvoc', 120), ('faster_rcnn_at_pascalvoc', 25))}
 DET_QUANT = ['--learner=uniform', '--uql_weight_bits=4', '--uql_quant_epochs=1',
              '--nb_epochs_rat=1']
-# D1's eval scores at the recipe's threshold (0.05): ~3,900 detections an
-# image pass it on the young net, 200 a class, and the host NMS takes ~40 s
-# for the 64 images; D2's eval scores at 0.1 to keep the phase short
+# at the recipe's threshold (0.05) ~3,900 detections an image pass on the
+# young net, 200 a class, and the host NMS takes ~36 s for the 64 images
+# (PR 16's run); D1's and D2's evals score at 0.1 to keep the phase short
+# (phase 29 times the eval by part on trained detectors)
 SSD_RUNS = [  # (label, argv, launches a quantized forward, argv of the eval after it)
     ('detection run D1: vgg_at_pascalvoc full-prec, %d steps' % DET_STEPS,
-     ['--learner=full-prec', '--nb_epochs_rat=%r' % DET_RAT['vgg_at_pascalvoc']], {}, []),
+     ['--learner=full-prec', '--nb_epochs_rat=%r' % DET_RAT['vgg_at_pascalvoc']], {},
+     ['--ssd_score_threshold=0.1']),
     ('detection run D2: vgg_at_pascalvoc uniform 4-bit, %d steps' % DET_STEPS, DET_QUANT,
      dict(fake_quant_per_tensor_group=1), ['--ssd_score_threshold=0.1']),
     ('detection run D3: vgg_at_pascalvoc uniform 4-bit, 8-bit activations, %d steps' % DET_STEPS,
@@ -536,6 +538,12 @@ REMAT_MB_RUNS = [('remat 27d run KR%d: v1 uniform-tf 8/8, %d steps, --remat_bloc
 # shrink); 28c: Faster R-CNN ResNet-50 with PARITY_FRCNN_MAP card vs CPU at
 # DET_SMALL's settings, its BN statistics those of the batch: the trunk's
 # features and the RPN's outputs within 24e's bound
+# phase 29: the detection parity strips at their --quick budget (64x64,
+# batch 16, 512 train and 64 eval samples): SSD's baseline (bf16, 192 steps)
+# and uniform@8bit point (48 steps, channel buckets: one grouped K2' launch
+# a quantized forward), Faster R-CNN ResNet-18's baseline (fp32, 16 steps)
+DET_PARITY_RUN_SSD = 'parity 29a: SSD-VGG16 full-prec + uniform@8bit, synthetic VOC, --quick'
+DET_PARITY_RUN_FRCNN = 'parity 29b: Faster R-CNN ResNet-18 full-prec, hard regime, --quick'
 PARITY_RUN_UQ = 'parity 28a: ResNet-20 full-prec + uniform@4bit, hard task, --quick'
 PARITY_RUN_CP = 'parity 28b: composed CP -> QAT 8/8, ResNet-20, --quick'
 PARITY_MIN_BASELINE = 10 / 64  # ten times chance
@@ -4334,6 +4342,57 @@ def phase_parity(FLAGS, work_dir, card):
     return runs
 
 
+def det_parity_line(out, key):
+    """A strip point's figures as one log fragment."""
+    return '%s mAP %.4f, %d steps at %.2f ms (train call), eval %s s' % (
+        key, out[key + '_mAP'], out['_steps'][key], out['_ms_per_step'][key],
+        out['_eval_seconds'][key])
+
+
+def phase_det_parity(FLAGS, work_dir, card):
+    """Phase 29 (see DET_PARITY_RUN_*): each strip through its public
+    run_strip, counted in a ForwardCounter from a reset just before it.
+    Returns {run label: counters}."""
+    from pocketflow_tpu_torch.experiments import detection_parity, frcnn_compression_parity
+    runs = {}
+    start = time.perf_counter()
+    counter = ForwardCounter()
+    try:
+        with FLAGS.scope(**FLAGS.as_dict()):
+            reset_counters()
+            out = detection_parity.run_strip(os.path.join(work_dir, 'det_parity'), quick=True,
+                                             only={'baseline', 'uq'})
+            torch.cuda.synchronize()
+            runs[DET_PARITY_RUN_SSD] = counts = counters()
+    finally:
+        counter.close()
+    check(counts == no_launches(fake_quant_per_column_group=counter.forwards)
+          and counter.forwards > out['_steps']['uniform@8bit'] > 0,
+          '29a: launches %s over %d quantized forwards (%d steps)', counts, counter.forwards,
+          counter.steps)
+    check(detection_parity.check_results(out) == [] and out['_quick']
+          and all(math.isfinite(out[k + '_mAP']) for k in ('full-prec', 'uniform@8bit')),
+          '29a: %s', out)
+    log('  29a %s: %s; %s (delta %.4f; band %.2f) | %d quantized forwards (%d steps), launches '
+        '%s | %.1f s | %s', DET_PARITY_RUN_SSD, det_parity_line(out, 'full-prec'),
+        det_parity_line(out, 'uniform@8bit'), out['uniform@8bit_delta'],
+        detection_parity.LOCKED_MAX_DELTA['uniform@8bit'], counter.forwards, counter.steps,
+        {k: v for k, v in counts.items() if v}, time.perf_counter() - start, card)
+
+    start = time.perf_counter()
+    with FLAGS.scope(**FLAGS.as_dict()):
+        reset_counters()
+        out = frcnn_compression_parity.run_strip(os.path.join(work_dir, 'frcnn_parity'),
+                                                 quick=True, points=())
+        torch.cuda.synchronize()
+        runs[DET_PARITY_RUN_FRCNN] = counts = counters()
+    check(counts == no_launches() and out['_steps']['full-prec'] == 16
+          and math.isfinite(out['full-prec_mAP']), '29b: launches %s, %s', counts, out)
+    log('  29b %s: %s | %.1f s | %s', DET_PARITY_RUN_FRCNN, det_parity_line(out, 'full-prec'),
+        time.perf_counter() - start, card)
+    return runs
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4579,6 +4638,12 @@ def main():
             'card vs CPU (28c)')
         runs.update(phase_parity(FLAGS, work_dir, card))
         log('  phase 28: %.1f s', time.perf_counter() - t28)
+        t29 = time.perf_counter()
+        log('phase 29 the detection parity strips at their --quick budget: SSD-VGG16 full-prec '
+            'and uniform@8bit (29a, one grouped K2\' launch a quantized forward), Faster R-CNN '
+            'ResNet-18 full-prec (29b)')
+        runs.update(phase_det_parity(FLAGS, work_dir, card))
+        log('  phase 29: %.1f s', time.perf_counter() - t29)
     serve_dir.cleanup()
 
     # each kernel's launches in the run that drives it: the main path for the

@@ -242,7 +242,7 @@ def run_strip(workdir=None, quick=False, only=None, device='cuda', overrides=Non
     # 2.-5. WS, UQ (scored through the QAT eval's policy), channel, CPG
     points = [p for p in strip_points(workdir, quick) if want(p.name)]
     if jobs > 1:
-        run_apart(__name__, rec, points, workdir, jobs, quick)
+        run_apart(__spec__.name, rec, points, workdir, jobs, quick)
     else:
         for point in points:
             point.run(flags, make, rec)

@@ -136,26 +136,25 @@ def run_strip(workdir=None, quick=False, device='cuda', overrides=None, points=N
     # 2.-4. WS, channel, the small trunk
     todo = [p for p in strip_points(workdir, quick) if points is None or p.name in points]
     if jobs > 1:
-        dp.run_apart(__name__, rec, todo, workdir, jobs, quick)
+        dp.run_apart(__spec__.name, rec, todo, workdir, jobs, quick)
     else:
         for point in todo:
             point.run(flags, make, rec)
     return results
 
 
-def rerun_channel_point(workdir: str, card, device='cuda', overrides=None,
-                        path: str = RESULTS) -> dict:
+def rerun_channel_point(workdir: str, card, device='cuda', overrides=None) -> dict:
     """Re-measure only the channel point against the baseline checkpoint in
-    `workdir` (an earlier full run's) and merge it into the results at
-    `path`; exits 1 on a band violation."""
+    `workdir` (an earlier full run's) and merge it into the published
+    results; exits 1 on a band violation."""
     flags = sp.Flagged(overrides)
     flags.start(base_flags(workdir, quick=False))
-    with open(path) as fin:
+    with open(RESULTS) as fin:
         results = json.load(fin)
     rec = dp.MapRecorder(results)
     channel = next(p for p in strip_points(workdir, False) if p.name == 'channel')
     channel.run(flags, dp._make(device, _helper), rec)
-    sp.finish(results, TAG, True, card, path=path)
+    sp.finish(results, TAG, True, card)
     if sp.report(check_results(results), HEADER, _healthy()):
         raise SystemExit(1)
     return results

@@ -412,17 +412,15 @@ def result_path(tag: str, publish: bool) -> str:
     return os.path.join(out_dir, tag + '.json')
 
 
-def finish(results: dict, tag: str, publish: bool, card: Optional[str],
-           path: Optional[str] = None) -> str:
+def finish(results: dict, tag: str, publish: bool, card: Optional[str]) -> str:
     """Round the accuracies to 4 places (as JAX's), add the card and the
-    commit, and write `tag`.json (`result_path`), or `path`.  Returns the
-    path."""
+    commit, and write `tag`.json (`result_path`).  Returns the path."""
     for key, value in list(results.items()):
         if isinstance(value, float):
             results[key] = round(value, 4)
     results['_card'] = card
     results['_commit'] = commit()
-    path = path or result_path(tag, publish)
+    path = result_path(tag, publish)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, 'w') as fout:
         json.dump(results, fout, indent=2)

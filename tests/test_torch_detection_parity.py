@@ -19,9 +19,11 @@ same names).
 * The four scripts run end to end on the CPU at a tiny size through their
   `overrides` (SSD-VGG16 at 32x32, Faster R-CNN ResNet-18 and `small` at
   64x64, a few steps a learner, fp32, every score kept): every point's
-  learner trains and is scored by the script's own code, the SSD WS, UQ and
-  CPG points and every Faster R-CNN point (the LASSO learner there, not on
-  SSD, where it costs as much as two points); the warm start grafts
+  learner trains and is scored by the script's own code: the SSD baseline,
+  WS and CPG points and every Faster R-CNN point (SSD's UQ and LASSO
+  points are left out for time: the plan holds their flags, the uniform
+  learner runs on SSD in tests/test_torch_detection_main.py and the LASSO
+  learner on Faster R-CNN here); the warm start grafts
   the classifier into the detector's stem.  The nets barely train, so the
   bands are not held here; instead the tiny SSD baseline's mAP, as the
   strip scored it, equals the JAX package's evaluate_map on the same
@@ -65,9 +67,11 @@ TINY = dict(compute_dtype='float32', batch_size=2, batch_size_eval=4, nb_smpls_t
             summ_step=10 ** 6, cp_nb_batches=1, cp_nb_points_per_layer=2, cp_lasso_nb_iters=4,
             cpg_nb_iters_layer=2, ws_mask_update_step=2, uql_quant_epochs=1,
             ssd_score_threshold=0.0, frcnn_score_threshold=0.0)
-# the SSD strip's LASSO point is left out of its tiny run (it costs as much
-# as two others there); the Faster R-CNN strip's tiny run drives that learner
-SSD_TINY_POINTS = {'baseline', 'ws', 'uq', 'cpg'}
+# the SSD strip's tiny run: the baseline, WS and CPG (its LASSO point costs
+# as much as two others there, and the Faster R-CNN strip's tiny run drives
+# that learner; the UQ point's learner on SSD runs in
+# tests/test_torch_detection_main.py, its policy-scored eval in the plan)
+SSD_TINY_POINTS = {'baseline', 'ws', 'cpg'}
 TINY_FRCNN = dict(TINY, voc_image_size=64, frcnn_nb_proposals=8, frcnn_nb_pre_nms=32,
                   frcnn_roi_batch=8, nb_epochs_rat=0.01)
 
@@ -309,13 +313,13 @@ def ssd_run(tmp_path_factory):
 
 
 def test_tiny_ssd_strip_runs(ssd_run):
-    """The baseline and the WS, UQ and CPG points, each trained and scored;
-    the stored results merge a subset re-measure."""
+    """The baseline and the WS and CPG points, each trained and scored; the
+    stored results merge a subset re-measure."""
     out, workdir = ssd_run
-    _assert_points(out, [k for k in tdp.LOCKED_MAX_DELTA if not k.startswith('channel')])
+    _assert_points(out, ['weight-sparse@50%', 'chn-pruned-gpu@40%'])
     assert out['_quick'] is False
     assert [v for v in tdp.check_results(out) if 'missing' in v] == [
-        'channel@60%preserve missing from results']
+        'uniform@8bit missing from results', 'channel@60%preserve missing from results']
     path = os.path.join(workdir, 'stored.json')
     with open(path, 'w') as fout:
         json.dump(out, fout)
@@ -348,11 +352,30 @@ def test_tiny_ssd_baseline_map_equals_jax(ssd_run):
     assert out['full-prec_mAP'] == pytest.approx(want, abs=1e-6)
 
 
-def test_tiny_frcnn_strip_runs(tmp_path):
-    out = tfc.run_strip(str(tmp_path), quick=False, device='cpu', overrides=TINY_FRCNN)
+def test_tiny_frcnn_strip_runs(tmp_path, monkeypatch):
+    """Every point; then --rerun-channel re-measures the channel point
+    against the same baseline checkpoint into the published results (here
+    a copy under tmp_path)."""
+    workdir = str(tmp_path / 'strip')
+    out = tfc.run_strip(workdir, quick=False, device='cpu', overrides=TINY_FRCNN)
     _assert_points(out, tfc.LOCKED_MAX_DELTA, extra=('small-trunk',))
     assert 0.0 <= out['small-trunk_mAP'] <= 1.0 and out['baseline_train_s'] > 0
     assert not [v for v in tfc.check_results(out) if 'missing' in v]
+    published = tmp_path / 'results'
+    published.mkdir()
+    monkeypatch.setattr(tdp.sp, 'RESULTS_DIR', str(published))
+    monkeypatch.setattr(tfc, 'RESULTS', str(published / 'frcnn_compression_parity.json'))
+    stale = dict(out, **{'channel@60%preserve_mAP': 0.0, 'channel@60%preserve_delta': 1.0})
+    with open(tfc.RESULTS, 'w') as fout:
+        json.dump(stale, fout)
+    with pytest.raises(SystemExit):  # a tiny run is held to the full bands
+        tfc.rerun_channel_point(workdir, 'card', device='cpu', overrides=TINY_FRCNN)
+    with open(tfc.RESULTS) as fin:
+        merged = json.load(fin)
+    assert merged['_card'] == 'card'
+    assert merged['channel@60%preserve_delta'] == round(
+        merged['full-prec_mAP'] - merged['channel@60%preserve_mAP'], 4)
+    assert merged['weight-sparse@50%_mAP'] == round(out['weight-sparse@50%_mAP'], 4)
 
 
 def test_tiny_drills_run(tmp_path):
