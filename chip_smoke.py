@@ -440,9 +440,9 @@ DET_RAT = {model: (DET_STEPS + 0.5) * DET_BATCH / (DET_TRAIN * epochs)
 DET_QUANT = ['--learner=uniform', '--uql_weight_bits=4', '--uql_quant_epochs=1',
              '--nb_epochs_rat=1']
 # at the recipe's threshold (0.05) ~3,900 detections an image pass on the
-# young net, 200 a class, and the host NMS takes ~36 s for the 64 images
-# (PR 16's run); D1's and D2's evals score at 0.1 to keep the phase short
-# (phase 29 times the eval by part on trained detectors)
+# young net, 200 a class, and the host NMS takes ~36 s for the 64 images;
+# D1's and D2's evals score at 0.1 to keep the phase short (phase 29 times
+# the eval by part on trained detectors)
 SSD_RUNS = [  # (label, argv, launches a quantized forward, argv of the eval after it)
     ('detection run D1: vgg_at_pascalvoc full-prec, %d steps' % DET_STEPS,
      ['--learner=full-prec', '--nb_epochs_rat=%r' % DET_RAT['vgg_at_pascalvoc']], {},

@@ -39,6 +39,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -116,6 +117,7 @@ class MapRecorder(sp.Recorder):
         super().__init__(results, suffix='_mAP')
         for key in ('_eval_seconds', '_steps', '_ms_per_step'):
             results.setdefault(key, {})
+        self._train_s = None  # the last train call's seconds, until it is scored
 
     def alone(self, key: str, m: float):
         """A baseline of its own beside the strip's (no delta)."""
@@ -141,9 +143,8 @@ class MapRecorder(sp.Recorder):
         self.results['_eval_seconds'][key] = {k: round(v, 2) for k, v in timings.items()}
         steps = int(state.step)
         self.results['_steps'][key] = steps
-        train_s = getattr(self, '_train_s', None)
-        if train_s is not None and steps:
-            self.results['_ms_per_step'][key] = round(1e3 * train_s / steps, 2)
+        if self._train_s is not None and steps:
+            self.results['_ms_per_step'][key] = round(1e3 * self._train_s / steps, 2)
         self._train_s = None
         return float(result['mAP'])
 
@@ -202,7 +203,8 @@ def strip_points(workdir: str, quick: bool):
     return points
 
 
-def _make(device, helper_cls):
+def learner_maker(device, helper_cls):
+    """`make(name)`: the learner `name` over a new `helper_cls()` on `device`."""
     from pocketflow_tpu_torch.learners import create_learner
     return lambda name: create_learner(None, helper_cls(), learner_name=name, device=device)
 
@@ -224,7 +226,7 @@ def run_strip(workdir=None, quick=False, only=None, device='cuda', overrides=Non
     results = {'_quick': bool(quick)}
     flags = sp.Flagged(overrides)
     flags.start(strip_flags(workdir, quick))
-    make = _make(device, _ssd_helper)
+    make = learner_maker(device, _ssd_helper)
 
     # 1. the full-precision baseline (its checkpoint feeds every point)
     rec = MapRecorder(results)
@@ -260,7 +262,7 @@ def run_point(name: str, workdir: str, out_path: str, quick: bool, points_fn, fl
     rec = MapRecorder(results)
     point = next(p for p in points_fn(workdir, quick) if p.name == name)
     point.alone = True  # the delta is the parent's, from its baseline
-    point.run(flags, _make(device, helper_cls), rec)
+    point.run(flags, learner_maker(device, helper_cls), rec)
     with open(out_path, 'w') as fout:
         json.dump(results, fout)
     return results
@@ -274,7 +276,6 @@ def run_apart(module: str, rec: 'MapRecorder', points, workdir: str, jobs: int, 
     baseline, its seconds (its process's wall time), eval seconds, steps and
     ms a step.  A point whose process fails is left out (``--check`` then
     reports it missing)."""
-    import subprocess
     running, pending, done = {}, list(points), {}
     while pending or running:
         while pending and len(running) < jobs:

@@ -15,7 +15,8 @@ are the JAX strip's, copied verbatim.
     python -m pocketflow_tpu_torch.experiments.frcnn_compression_parity --check --publish
     python -m pocketflow_tpu_torch.experiments.frcnn_compression_parity --quick
     python -m pocketflow_tpu_torch.experiments.frcnn_compression_parity --rerun-channel DIR
-    python -m pocketflow_tpu_torch.experiments.frcnn_compression_parity --probe [backbone] [flag=value ...]
+    python -m pocketflow_tpu_torch.experiments.frcnn_compression_parity --probe \
+        [backbone] [flag=value ...]
     python -m pocketflow_tpu_torch.experiments.frcnn_compression_parity --check-file FILE
 
 ``--jobs N`` runs the points after the baseline side by side (as
@@ -122,7 +123,7 @@ def run_strip(workdir=None, quick=False, device='cuda', overrides=None, points=N
     results = {'_quick': bool(quick)}
     flags = sp.Flagged(overrides)
     flags.start(base_flags(workdir, quick))
-    make = dp._make(device, _helper)
+    make = dp.learner_maker(device, _helper)
 
     # 1. the ResNet-18 baseline (its checkpoint feeds the points)
     rec = dp.MapRecorder(results)
@@ -153,7 +154,7 @@ def rerun_channel_point(workdir: str, card, device='cuda', overrides=None) -> di
         results = json.load(fin)
     rec = dp.MapRecorder(results)
     channel = next(p for p in strip_points(workdir, False) if p.name == 'channel')
-    channel.run(flags, dp._make(device, _helper), rec)
+    channel.run(flags, dp.learner_maker(device, _helper), rec)
     sp.finish(results, TAG, True, card)
     if sp.report(check_results(results), HEADER, _healthy()):
         raise SystemExit(1)
@@ -169,11 +170,10 @@ def run_probe(backbone: str, overrides=None, device='cuda') -> dict:
     flags = sp.Flagged()
     flags.start(dict(base_flags(workdir, quick=False), frcnn_backbone=backbone,
                      **(overrides or {})))
-    from pocketflow_tpu_torch.learners import create_learner
     results = {}
     rec = dp.MapRecorder(results)
     start = time.perf_counter()
-    learner = create_learner(None, _helper(), learner_name='full-prec', device=device)
+    learner = dp.learner_maker(device, _helper)('full-prec')
     state = rec.train(learner)
     m = rec.mean_ap('probe', learner, state)
     out = {'backbone': backbone, 'mAP': round(m, 4),
@@ -224,8 +224,8 @@ def main(argv=None) -> dict:
         return None
 
     return dp.cli(argv, TAG, __doc__.split('\n\n')[0],
-                  lambda args: run_strip(quick=args.quick, jobs=args.jobs), check_results, _healthy(), HEADER,
-                  extra, dispatch)
+                  lambda args: run_strip(quick=args.quick, jobs=args.jobs), check_results,
+                  _healthy(), HEADER, extra, dispatch)
 
 
 if __name__ == '__main__':

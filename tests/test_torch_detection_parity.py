@@ -450,7 +450,8 @@ def test_points_side_by_side_record_as_in_turn(tmp_path, monkeypatch):
         "name, out = args[args.index('--point') + 1], args[args.index('--point-out') + 1]\n"
         "if name == 'channel':\n"
         '    sys.exit(3)\n'
-        "key = {'ws': 'weight-sparse@50%', 'uq': 'uniform@8bit', 'cpg': 'chn-pruned-gpu@40%'}[name]\n"
+        "key = {'ws': 'weight-sparse@50%', 'uq': 'uniform@8bit',\n"
+        "       'cpg': 'chn-pruned-gpu@40%'}[name]\n"
         "json.dump({key + '_mAP': 0.9 - 0.01 * len(name), '_steps': {key: len(name)},\n"
         "           '_eval_seconds': {key: {'nms': 1.0}}}, open(out, 'w'))\n")
     monkeypatch.setenv('PYTHONPATH', os.pathsep.join([str(tmp_path), ROOT]))

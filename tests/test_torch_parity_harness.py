@@ -285,3 +285,21 @@ def test_sweep_cli_needs_a_card(monkeypatch):
         tsp.main(['--quick'])
     with pytest.raises(SystemExit, match='needs a CUDA device'):
         tcp.main(['--quick'])
+
+
+def test_committed_mobilenet_baseline_seeds():
+    """The MobileNet-v1 strip's baseline alone at seeds 0-7 on the card
+    (--baseline-seeds): the card and commit recorded, and its count in band
+    the count of its accuracies inside the strip's baseline band.  The
+    measured rate, 5 of 8 (seeds 0, 4 and 6 memorize), keeps ROADMAP
+    section 3's fault open."""
+    data = _load(PORT_RESULTS, 'parity_hard_mobilenet_seeds.json')
+    assert 'H100' in data['_card'] and data['_commit']
+    assert data['_family'] == 'mobilenet_v1'
+    assert tuple(data['_band']) == jsp.BASELINE_BAND_MOBILENET
+    assert list(data['seeds']) == [str(k) for k in range(8)] == list(data['_seconds'])
+    band = jsp.BASELINE_BAND_MOBILENET
+    assert data['in_band'] == sum(band[0] <= a <= band[1] for a in data['seeds'].values()) == 5
+    assert data['of'] == 8
+    # seed 0 is the strip's own run: the same baseline as the committed strip
+    assert data['seeds']['0'] == _load(PORT_RESULTS, 'parity_hard_mobilenet.json')['full-prec']
