@@ -141,6 +141,15 @@ on the card, and drives the port's paths:
     R-CNN ResNet-50 (stages 1 and 2's inner widths halved) eval forward,
     card vs CPU at 64x64: the trunk's two feature maps and the RPN's
     outputs (28c);
+  * the detection parity strips at their --quick budget (phase 29);
+  * the root experiments at a short budget (phase 30): uqtf_phases.run on
+    the main path's QAT ResNet-50 under the uniform-tf learner, 3 steps a
+    phase, no launch in the warm-up and one grouped K2' launch a QAT forward
+    in the two QAT phases, no plain call (30a); int8_serving_speed.run and
+    shrunk_serving_latency.run at batch 64 and 5 timed forwards, the int8
+    band's verdict printed, the shrunk logits within SHRUNK_BF16_TOL of the
+    dense net with zeros (30b); amc_mobilenet_onchip.run, 2 roll-outs after
+    20 warm steps, within its FLOPs budget (30c);
 
 and checks that each went through its kernels and never through a plain
 version.  Any failed phase raises and the script exits non-zero without its
@@ -544,6 +553,19 @@ REMAT_MB_RUNS = [('remat 27d run KR%d: v1 uniform-tf 8/8, %d steps, --remat_bloc
 # a quantized forward), Faster R-CNN ResNet-18's baseline (fp32, 16 steps)
 DET_PARITY_RUN_SSD = 'parity 29a: SSD-VGG16 full-prec + uniform@8bit, synthetic VOC, --quick'
 DET_PARITY_RUN_FRCNN = 'parity 29b: Faster R-CNN ResNet-18 full-prec, hard regime, --quick'
+# phase 30: the root experiments at a short budget: uqtf_phases on the main
+# path's QAT ResNet-50 (224x224, bf16, batch 256, s2d stem) at 1 warm-up and
+# 2 timed steps a phase; int8_serving_speed's and shrunk_serving_latency's
+# measurements (batch 64, 224x224) at 2 warm-up and 5 timed forwards;
+# amc_mobilenet_onchip at 2 roll-outs after 20 warm steps
+ROOT_WARM, ROOT_TIMED = 1, 2
+ROOT_SERVE_WARMUP, ROOT_SERVE_TIMED = 2, 5
+ROOT_DRILL_RLOUTS, ROOT_DRILL_WARM = 2, 20
+ROOT_RUN_UQTF = ('root 30a: uqtf_phases, QAT ResNet-50 uniform-tf, %d steps a phase (warm-up, '
+                 'QAT exact BN, QAT frozen BN)' % (ROOT_WARM + ROOT_TIMED))
+ROOT_RUN_SERVE = 'root 30b: int8_serving_speed and shrunk_serving_latency, batch 64'
+ROOT_RUN_DRILL = ('root 30c: amc_mobilenet_onchip, MobileNet-v1 @224 b32, %d roll-outs after %d '
+                  'warm steps' % (ROOT_DRILL_RLOUTS, ROOT_DRILL_WARM))
 PARITY_RUN_UQ = 'parity 28a: ResNet-20 full-prec + uniform@4bit, hard task, --quick'
 PARITY_RUN_CP = 'parity 28b: composed CP -> QAT 8/8, ResNet-20, --quick'
 PARITY_MIN_BASELINE = 10 / 64  # ten times chance
@@ -4393,6 +4415,80 @@ def phase_det_parity(FLAGS, work_dir, card):
     return runs
 
 
+def phase_root_experiments(FLAGS, work_dir, card):
+    """Phase 30 (see ROOT_RUN_*): the root experiments through their public
+    run functions, each counted from a reset just before it.  Returns {run
+    label: counters}."""
+    from pocketflow_tpu_torch.experiments import (
+        amc_mobilenet_onchip, int8_serving_speed, shrunk_serving_latency, uqtf_phases)
+    from pocketflow_tpu_torch.ops import matmul as mm
+    runs = {}
+    start = time.perf_counter()
+    with FLAGS.scope(**FLAGS.as_dict()):
+        reset_counters()
+        out = uqtf_phases.run(batch=BATCH, warm=ROOT_WARM, reps=ROOT_TIMED)
+        torch.cuda.synchronize()
+        # the script counts each phase's fake-quant calls from its own reset:
+        # the run's counters are their sum and the matmul kernels' since ours
+        total = no_launches(**mm.counters())
+    phases = out['phases']
+    steps = ROOT_WARM + ROOT_TIMED
+    for ph in phases.values():
+        for name, value in ph['launches'].items():
+            total[name] += value
+    runs[ROOT_RUN_UQTF] = total
+    check(phases[uqtf_phases.PHASES[0]]['launches'] == {}, '30a: warm-up launches %s',
+          phases[uqtf_phases.PHASES[0]]['launches'])
+    for name in uqtf_phases.PHASES[1:]:
+        check(phases[name]['launches'] == {'fake_quant_per_column_group': steps},
+              '30a: %s launches %s over %d steps', name, phases[name]['launches'], steps)
+    check(total == no_launches(fake_quant_per_column_group=2 * steps),
+          '30a: launches %s', total)
+    log('  30a %s: %s | %.1f s | %s', ROOT_RUN_UQTF, '; '.join(
+        '%s %.2f ms a step (%.0f img/s), launches %s' % (name, ph['ms'], ph['img_s'],
+                                                        ph['launches'] or 'none')
+        for name, ph in phases.items()), time.perf_counter() - start, card)
+
+    start = time.perf_counter()
+    with FLAGS.scope(**FLAGS.as_dict()):
+        reset_counters()
+        served = int8_serving_speed.run(nb_warmup=ROOT_SERVE_WARMUP, nb_timed=ROOT_SERVE_TIMED)
+        shrunk = shrunk_serving_latency.run(nb_timed=ROOT_SERVE_TIMED)
+        torch.cuda.synchronize()
+        runs[ROOT_RUN_SERVE] = counts = counters()
+    check(counts == no_launches(), '30b: launches %s', counts)
+    for model in ('resnet50', 'mobilenet_v1'):
+        check(all(math.isfinite(v) and v > 0 for v in served[model].values()), '30b: %s %s',
+              model, served[model])
+    check(shrunk['logits_max_delta'] <= SHRUNK_BF16_TOL * shrunk['logits_max']
+          and shrunk['params_shrunk'] < 0.3 * shrunk['params_dense'],
+          '30b: shrunk %s', shrunk)
+    log('  30b %s: int8 serving (ms a batch, %d after %d) %s, band %s; shrunk ResNet-50 '
+        '%.1fM -> %.1fM parameters, logits max |d| %.3g of %.3g, dense %.3f ms, shrunk %.3f ms '
+        '(%.2fx) | %.1f s | %s', ROOT_RUN_SERVE, ROOT_SERVE_TIMED, ROOT_SERVE_WARMUP,
+        {m: served[m] for m in ('resnet50', 'mobilenet_v1')},
+        int8_serving_speed.check_results(served) or 'held', shrunk['params_dense'] / 1e6,
+        shrunk['params_shrunk'] / 1e6, shrunk['logits_max_delta'], shrunk['logits_max'],
+        shrunk['dense_ms'], shrunk['shrunk_ms'], shrunk['speedup'],
+        time.perf_counter() - start, card)
+
+    start = time.perf_counter()
+    with FLAGS.scope(**FLAGS.as_dict()):
+        reset_counters()
+        drill = amc_mobilenet_onchip.run(ROOT_DRILL_RLOUTS, ROOT_DRILL_WARM,
+                                         workdir=os.path.join(work_dir, 'amc_drill'))
+        torch.cuda.synchronize()
+        runs[ROOT_RUN_DRILL] = counts = counters()
+    check(counts == no_launches() and len(drill['reward_trace']) == ROOT_DRILL_RLOUTS
+          and drill['preserved_flops_frac'] <= 0.5 + 1e-6 and drill['image_size'] == 224,
+          '30c: launches %s, %s', counts, drill)
+    log('  30c %s: baseline %.4f (train batches), rewards %s, preserved FLOPs %.4f, warm-up '
+        '%.1f s, search %.1f s | %.1f s | %s', ROOT_RUN_DRILL, drill['baseline_accuracy'],
+        drill['reward_trace'], drill['preserved_flops_frac'], drill['_seconds']['warm'],
+        drill['wall_s'], time.perf_counter() - start, card)
+    return runs
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4644,6 +4740,13 @@ def main():
             'ResNet-18 full-prec (29b)')
         runs.update(phase_det_parity(FLAGS, work_dir, card))
         log('  phase 29: %.1f s', time.perf_counter() - t29)
+        torch.cuda.empty_cache()
+        t30 = time.perf_counter()
+        log('phase 30 the root experiments at a short budget: uqtf_phases on the main path\'s '
+            'QAT ResNet-50 (30a, one grouped K2\' launch a QAT forward, none in the warm-up), '
+            'int8 and shrunk serving at batch 64 (30b), the AMC drill on MobileNet-v1 (30c)')
+        runs.update(phase_root_experiments(FLAGS, work_dir, card))
+        log('  phase 30: %.1f s', time.perf_counter() - t30)
     serve_dir.cleanup()
 
     # each kernel's launches in the run that drives it: the main path for the

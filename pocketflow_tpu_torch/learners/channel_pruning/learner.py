@@ -178,8 +178,9 @@ class ChannelPrunedLearner(AbstractLearner):
         self.pruner: Optional[cp_lib.ChannelPruner] = None
         self.specs: Optional[List[dict]] = None
         # filled by search_ratios_rl: top-K distinct (reward, ratios) pairs,
-        # and each roll-out's seconds by part
+        # each roll-out's (reward, ratios) and its seconds by part
         self.search_topk: List[tuple] = []
+        self.search_trace: List[Tuple[float, List[float]]] = []
         self.rollout_times: List[Dict[str, float]] = []
         self._cp_train_iter = None
 
@@ -348,6 +349,7 @@ class ChannelPrunedLearner(AbstractLearner):
             agent.record(states_np, np.asarray(actions, np.float32), reward * np.ones(nb),
                          terminals, states_next)
             agent.finalize_rlout(np.asarray([reward]))
+            self.search_trace.append((reward, ratios))
             if reward > best_reward:
                 best_reward, best_ratios = reward, ratios
             if np.isfinite(reward):

@@ -116,7 +116,7 @@ def _worker(work_dir: str, target: str, backend: str, store: str, threads: int):
         dist.destroy_process_group()
 
 
-def run_main(argv: List[str], device: str = 'cpu'):
+def run_main(argv: List[str], device: str = 'cuda'):
     """A rank's ``main.main(argv, device)``; returns nothing."""
     from pocketflow_tpu_torch import main as main_lib
     main_lib.main(list(argv), device=device)

@@ -34,7 +34,6 @@ same names).
   packages' checkers give the verdict measured on the card.
 """
 
-import ast
 import json
 import math
 import os
@@ -56,6 +55,7 @@ from pocketflow_tpu_torch.experiments import detection_parity as tdp  # noqa: E4
 from pocketflow_tpu_torch.experiments import frcnn_compression_parity as tfc  # noqa: E402
 from pocketflow_tpu_torch.experiments import frcnn_synthetic_map as tsm  # noqa: E402
 from pocketflow_tpu_torch.experiments import frcnn_warmstart_resnet50 as tws  # noqa: E402
+from torch_script_source import literal_flags  # noqa: E402
 
 torch.set_num_threads(2)
 JAX_RESULTS = os.path.join(ROOT, 'experiments', 'results')
@@ -107,28 +107,6 @@ def test_band_constants_equal_jax(port, jax_mod, names):
     assert list(port.LOCKED_MAX_DELTA) == list(jax_mod.LOCKED_MAX_DELTA)  # the same order
 
 
-def _literal_flags(path):
-    """The literal keyword values of each FLAGS.override / FLAGS.scope call
-    in a JAX script's source, a dict a call in source order (a value built
-    from a variable, such as a path, left out; calls left empty dropped)."""
-    with open(path) as fin:
-        tree = ast.parse(fin.read())
-    calls = []
-    for node in ast.walk(tree):
-        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
-                and node.func.attr in ('override', 'scope')
-                and getattr(node.func.value, 'id', None) == 'FLAGS'):
-            flags = {}
-            for kw in node.keywords:
-                try:
-                    flags[kw.arg] = eval(compile(ast.Expression(kw.value), path, 'eval'), {})
-                except NameError:
-                    continue
-            if flags:
-                calls.append((node.lineno, flags))
-    return [flags for _, flags in sorted(calls, key=lambda c: c[0])]
-
-
 @pytest.mark.parametrize('script', ['frcnn_synthetic_map', 'frcnn_warmstart_resnet50'])
 def test_drill_flags_equal_jax_source(tmp_path, script):
     """The drills' flags, call by call, and their mAP bound are the JAX
@@ -139,7 +117,7 @@ def test_drill_flags_equal_jax_source(tmp_path, script):
 
     def strip(flags):
         return {k: v for k, v in flags.items() if k not in paths}
-    want = [strip(flags) for flags in _literal_flags(
+    want = [strip(flags) for flags in literal_flags(
         os.path.join(ROOT, 'experiments', script + '.py'))]
     if script == 'frcnn_synthetic_map':
         got, mod = [strip(tsm.drill_flags(str(tmp_path)))], tsm

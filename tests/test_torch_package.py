@@ -88,6 +88,39 @@ def test_every_port_flag_exists_in_jax_registry_with_same_default():
     assert out['nb_flags'] > 100
 
 
+def _entry_point_device_defaults():
+    """{'module:function': the default of its `device` argument (None when
+    it has none)} for every function named main or run_main in the port
+    that takes a `device` argument, read from the source."""
+    import ast
+    found = {}
+    for name in _port_modules():
+        path = os.path.join(REPO, *name.split('.'))
+        path = path + '.py' if os.path.exists(path + '.py') else os.path.join(path, '__init__.py')
+        with open(path) as fin:
+            tree = ast.parse(fin.read())
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.FunctionDef) or node.name not in ('main', 'run_main'):
+                continue
+            args = node.args.args + node.args.kwonlyargs
+            defaults = ([None] * (len(node.args.args) - len(node.args.defaults))
+                        + list(node.args.defaults) + list(node.args.kw_defaults))
+            for arg, default in zip(args, defaults):
+                if arg.arg == 'device':
+                    found['%s:%s' % (name, node.name)] = (
+                        ast.literal_eval(default) if default is not None else None)
+    return found
+
+
+def test_entry_points_default_to_the_card():
+    """Every main / run_main that takes a device runs on the card unless the
+    caller asks for the CPU."""
+    found = _entry_point_device_defaults()
+    assert 'pocketflow_tpu_torch.tools.launch:run_main' in found
+    assert 'pocketflow_tpu_torch.main:main' in found and len(found) >= 10
+    assert {k: v for k, v in found.items() if v != 'cuda'} == {}
+
+
 def test_bridge_raises_on_unmapped_and_unset_entries():
     from pocketflow_tpu_torch.core.bridge import from_jax_numpy, load_jax_numpy
     from pocketflow_tpu_torch.nn.layers import BatchNorm, PFConv
