@@ -54,11 +54,13 @@ def run(batch: int = BATCH, image_size: int = IMAGE_SIZE, nb_timed: int = NB_TIM
     'params_dense', 'params_shrunk', 'dense_ms', 'shrunk_ms', 'speedup'}."""
     from pocketflow_tpu_torch.config import FLAGS
     from pocketflow_tpu_torch.core.bridge import load_jax_numpy, to_jax_numpy
+    from pocketflow_tpu_torch.main import register_flags
     from pocketflow_tpu_torch.nets.resnet import ResNetImageNet
     from pocketflow_tpu_torch.tools import benchmark as bm
     from pocketflow_tpu_torch.tools import shrink_graph as sg
     dev = torch.device(device)
     shape = (batch, image_size, image_size, 3)
+    register_flags()  # the batch flags are the datasets'
     with FLAGS.scope(**SHRINK_FLAGS):
         dense = ResNetImageNet(resnet_size=resnet_size, nb_classes=NB_CLASSES, dtype=dtype)
         dense.reset_parameters(torch.Generator().manual_seed(0))
