@@ -17,7 +17,7 @@ and writes the reward trace and the best ratios as amc_mobilenet_r3.json.
     python -m pocketflow_tpu_torch.experiments.amc_mobilenet_onchip --rlouts 4 --warm_steps 20
 
 It runs on the card; the result goes where synthetic_parity.py's go
-(``--publish``: pocketflow_tpu_torch/experiments/results/), or to ``--out``.
+(``--publish``: pocketflow_tpu_torch/experiments/results/).
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import shutil
 import tempfile
 import time
 
@@ -109,7 +108,6 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--rlouts', type=int, default=12)
     parser.add_argument('--warm_steps', type=int, default=600)
-    parser.add_argument('--out', default=None, help='the result\'s path (default: see --publish)')
     parser.add_argument('--publish', action='store_true',
                         help='write the result to %s' % sp.RESULTS_DIR)
     args = parser.parse_args(argv)
@@ -118,11 +116,7 @@ def main(argv=None) -> dict:
     card = card_line()
     print('card: %s' % card, flush=True)
     result = run(args.rlouts, args.warm_steps)
-    path = sp.finish(result, TAG, args.publish, card)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        shutil.move(path, args.out)
-        print('moved to %s' % args.out, flush=True)
+    sp.finish(result, TAG, args.publish, card)
     print(json.dumps(result), flush=True)
     return result
 

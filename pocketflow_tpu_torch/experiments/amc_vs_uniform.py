@@ -37,7 +37,7 @@ import os
 import sys
 import tempfile
 import time
-from typing import List, Sequence
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -159,7 +159,6 @@ def run(workdir=None, quick=False, rlouts=60, rlouts_min=15, topk=3, rand_seed=0
             print(json.dumps({'candidate': ci, **cand_rows[-1]}), flush=True)
             if val_acc > best_val:
                 best_val, rl_state, ratios = val_acc, st, list(cand)
-            del st
         # the test set is read once, for the winner
         rl_acc = float(rl_learner.run_eval_loop(rl_state, eval_step)['accuracy'])
         preserved = preserved_flops_frac(rl_learner.specs, ratios)
@@ -195,7 +194,7 @@ def run(workdir=None, quick=False, rlouts=60, rlouts_min=15, topk=3, rand_seed=0
     return results
 
 
-def main(argv: List[str] = None) -> dict:
+def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--rlouts', type=int, default=60)
     parser.add_argument('--rlouts_min', type=int, default=15)

@@ -49,7 +49,7 @@ def zero_half(node: dict):
 
 
 def run(batch: int = BATCH, image_size: int = IMAGE_SIZE, nb_timed: int = NB_TIMED,
-        device='cuda', dtype=torch.bfloat16, resnet_size: int = 50) -> dict:
+        device='cuda', dtype=torch.bfloat16) -> dict:
     """Shrink and serve; returns {'logits_max_delta', 'logits_max',
     'params_dense', 'params_shrunk', 'dense_ms', 'shrunk_ms', 'speedup'}."""
     from pocketflow_tpu_torch.config import FLAGS
@@ -62,7 +62,7 @@ def run(batch: int = BATCH, image_size: int = IMAGE_SIZE, nb_timed: int = NB_TIM
     shape = (batch, image_size, image_size, 3)
     register_flags()  # the batch flags are the datasets'
     with FLAGS.scope(**SHRINK_FLAGS):
-        dense = ResNetImageNet(resnet_size=resnet_size, nb_classes=NB_CLASSES, dtype=dtype)
+        dense = ResNetImageNet(resnet_size=50, nb_classes=NB_CLASSES, dtype=dtype)
         dense.reset_parameters(torch.Generator().manual_seed(0))
         params, stats = to_jax_numpy(dense)
         zero_half(params)

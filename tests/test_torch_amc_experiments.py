@@ -193,3 +193,46 @@ def test_clis_need_a_card(monkeypatch):
             main([])
     path = os.path.join(JAX_RESULTS, 'amc_vs_uniform.json')
     assert tavu.main(['--check-file', path]) == _load(JAX_RESULTS, 'amc_vs_uniform.json')
+
+
+# ---------------------------------------------------------------------------
+# the card's results
+# ---------------------------------------------------------------------------
+
+def test_committed_drill_result():
+    data = _load(PORT_RESULTS, 'amc_mobilenet_r3.json')
+    assert set(_load(JAX_RESULTS, 'amc_mobilenet_r3.json')) <= set(data)
+    assert 'H100' in data['_card'] and ' W' in data['_card'] and data['_commit']
+    assert 'H100' in data['device'] and data['model'] == 'mobilenet_v1'
+    assert (data['image_size'], data['nb_rlouts'], data['warm_steps']) == (224, 12, 600)
+    assert data['nb_prunable_convs'] == 13 and len(data['best_ratios']) == 13
+    assert len(data['reward_trace']) == 12 and data['best_reward'] == max(data['reward_trace'])
+    assert data['preserved_flops_frac'] <= 0.5 + 1e-6
+
+
+# the verdicts measured on the card (an empty list: the band held): seed 0's
+# baseline memorizes as the strip's does (baseline_in_band False), seed 1's
+# lands in the strip's band
+AMC_MEASURED_ON_THE_CARD = {'amc_vs_uniform.json': (0, False, []),
+                            'amc_vs_uniform_seed1.json': (1, True, [])}
+
+
+@pytest.mark.parametrize('name', list(AMC_MEASURED_ON_THE_CARD))
+def test_committed_amc_results_hold_their_verdict(name):
+    seed, in_band, want = AMC_MEASURED_ON_THE_CARD[name]
+    data = _load(PORT_RESULTS, name)
+    assert data['_quick'] is False and data['rand_seed'] == seed
+    assert tavu.result_tag(seed) + '.json' == name
+    assert 'H100' in data['_card'] and ' W' in data['_card'] and data['_commit']
+    assert set(data['_seconds']) == {'baseline', 'search', 'candidates', 'uniform'}
+    assert set(_load(JAX_RESULTS, 'amc_vs_uniform.json')) <= set(data)
+    band = tsp.BASELINE_BAND_MOBILENET
+    assert data['baseline_in_band'] == in_band == (band[0] <= data['baseline_accuracy'] <= band[1])
+    # a real search: enough roll-outs to exploit, and a reward trace that moved
+    assert data['nb_rlouts'] >= 50 and len(data['reward_trace']) == data['nb_rlouts']
+    assert max(data['reward_trace']) - min(data['reward_trace']) > 2 * tavu.NOISE
+    assert data['topk'] == len(data['candidates']) == 3
+    best = max(data['candidates'], key=lambda c: c['val_accuracy'])
+    assert data['rl_ratios'] == best['ratios']
+    assert tavu.check_results(data) == javu.check_results(data) == want
+    assert tavu.main(['--check-file', os.path.join(PORT_RESULTS, name)]) == data
