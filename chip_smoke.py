@@ -150,6 +150,21 @@ on the card, and drives the port's paths:
     band's verdict printed, the shrunk logits within SHRUNK_BF16_TOL of the
     dense net with zeros (30b); amc_mobilenet_onchip.run, 2 roll-outs after
     20 warm steps, within its FLOPs budget (30c);
+  * tensor parallelism (phase 31): the split grouped K1' (pass 1 into a [T,
+    2] buffer of ranges, their MAX over the model group, pass 2) at the 52
+    weights, bit-equal to the fused grouped K1' at model size 1 and to its
+    plain version on the card, timed (31a); QAT ResNet-50 @224, bf16, 4-bit
+    weights, global batch 32 through uniform's train step on data:1,model:2
+    (run Z1, two gloo ranks on cuda:0) and data:2,model:2 (run Z2, four):
+    which collectives gloo runs with CUDA tensors, every rank's full state
+    identical, the replicated tensors bit-identical across the model ranks,
+    within 2x the 1-ulp reruns of one rank at batch 32, one split grouped
+    K1' launch a step and no plain call, the collectives a step by kind,
+    parameters + momentum a rank against world 1 (31b); on Z2's ranks
+    main.main trains QAT ResNet-50 (64x64 images) and saves under
+    --ckpt_backend=msgpack, its learner
+    saves the same state under 'orbax' (sharded, asynchronous), and both
+    resume at world 1 and on data:2 bit for bit (31c);
 
 and checks that each went through its kernels and never through a plain
 version.  Any failed phase raises and the script exits non-zero without its
@@ -171,7 +186,9 @@ fake_quant_per_tensor (K1' with the select folded in) the 7 steps with 8-bit
 activations, for fake_quant_per_column_group (K2', all weights in one launch
 pair; the per-site bucket ops are groups of one) the 7 steps under channel
 buckets, for fake_quant_per_tensor_global (K1''s global-range route) rank
-0's 3 steps of run X at 8-bit activations, for matmul_bf16 the
+0's 3 steps of run X at 8-bit activations, for
+fake_quant_per_tensor_group_global (the grouped K1' split around the model
+axis's range) rank 0's 3 steps of run Z2, for matmul_bf16 the
 mm_shape_sweep experiment and for bn_relu_matmul_stats the fused_mm_proto
 experiment.  `launches_by_run` gives
 every kernel's count in each run, each counted from its own reset, the
@@ -202,6 +219,10 @@ KERNELS = {
     'fake_quant_per_tensor_global': ('fake_quant.cu', 'pocketflow_tpu/ops/fake_quant.py:84 '
                                      '(_fq_pallas_2d; global-range route under data '
                                      'parallelism: pass 1, the range all-reduced, pass 2)'),
+    'fake_quant_per_tensor_group_global': ('fake_quant.cu', 'pocketflow_tpu/ops/fake_quant.py:84 '
+                                           '(_fq_pallas_2d; grouped route with each range '
+                                           'over the model axis under tensor parallelism: '
+                                           'pass 1, the [T, 2] ranges all-reduced, pass 2)'),
     'fake_quant_per_column_group': ('fake_quant.cu', 'pocketflow_tpu/ops/fake_quant.py:108 '
                                     '(_fq_pallas_cols_grid; all weights at once, or one)'),
     'matmul_bf16': ('matmul.cu', 'experiments/conv1x1_ab.py:123 (make_pallas); '
@@ -420,6 +441,29 @@ DP_RUN_X = {'main': 'data-parallel run X: %d main-path steps, %d ranks on one ca
                     'batch %d a rank' % (DP_STEPS, DP_WORLD, BATCH),
             'act8': 'data-parallel run X: %d steps at --uql_activation_bits=8, %d ranks on one '
                     'card over gloo, batch %d a rank' % (DP_STEPS, DP_WORLD, BATCH)}
+# phase 31: tensor parallelism (a "model" mesh axis), gloo ranks sharing cuda:0
+TP_STEPS = 3
+TP_GLOBAL_BATCH = 32
+TP_MESHES = ((1, 2), (2, 2))  # (data, model)
+TP_RANK_TIMEOUT = 600
+TP_RUN = {mesh: 'tensor-parallel run Z%d: %d QAT main-path steps on data:%d,model:%d over '
+                'gloo, global batch %d' % (i + 1, TP_STEPS, mesh[0], mesh[1], TP_GLOBAL_BATCH)
+          for i, mesh in enumerate(TP_MESHES)}
+TP_CKPT_RUN = ('tensor-parallel 31c: main.main QAT ResNet-50 (64x64 images) on data:2,model:2, '
+               'saved under each --ckpt_backend, resumed at world 1 and on data:2')
+# 31c at 64x64 images and eval batches of 64: the checkpoint is the
+# full-width ResNet-50's whatever the image size, and the train loop's eval
+# covers the 2,048 synthetic images, each batch 41 gathers over gloo (38 s
+# at 224 in batches of 8, 30 s at 64)
+TP_CKPT_ARGV = ['--model=resnet_at_ilsvrc12', '--resnet_size=50', '--learner=uniform',
+                '--synthetic_data', '--resnet_stem_s2d', '--compute_dtype=bfloat16',
+                '--ilsvrc_image_size=64',
+                '--uql_weight_bits=4', '--batch_size=8', '--batch_size_eval=64',
+                '--nb_smpls_train=64', '--nb_smpls_eval=32', '--uql_quant_epochs=1',
+                '--nb_epochs_rat=0.5', '--summ_step=1', '--save_step=1000000']
+# the gloo collectives probed with CUDA tensors on two ranks
+GLOO_PROBES = ('all_reduce', 'broadcast', 'barrier', 'all_gather', 'all_gather_into_tensor',
+               'reduce_scatter_tensor', 'all_to_all_single')
 DP_RUN_Y = ('data-parallel run Y: main.main on %d ranks over gloo, resnet_at_cifar10 '
             'weight-sparse optimal (2 roll-outs), batch %d a rank' % (DP_WORLD, ZOO_BATCH))
 
@@ -4489,6 +4533,433 @@ def phase_root_experiments(FLAGS, work_dir, card):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 31: tensor parallelism
+# ---------------------------------------------------------------------------
+
+def phase_tp_kernel(fq, weight_shapes, device, card):
+    """Phase 31a: the split grouped K1' (pass 1 into a [T, 2] buffer of
+    (-min, max), the MAX all-reduce over the model group, pass 2 from it) at
+    the main path's 52 weight shapes, at model size 1: bit-equal to the
+    fused grouped K1' and to the plain version on the card (torch.aminmax,
+    _quantize_in_range), at 4 bits and at mixed bits 2/4/8/32; pass 1's
+    buffer against each tensor's (-min, max); pass 2 from wider ranges
+    against the plain version from them; then timed beside the fused route
+    and the bound."""
+    gen = torch.Generator(device=device).manual_seed(31)
+    xs = [torch.randn(shape, generator=gen, device=device) * 0.05 for shape in weight_shapes]
+    mixed = [float((2, 4, 8, 32)[i % 4]) for i in range(len(xs))]
+    max_err = 0.0
+
+    def plain(xs, bits, neg_ranges=None):
+        if neg_ranges is None:
+            neg_ranges = torch.stack([torch.stack([-x.min(), x.max()]) for x in xs])
+        return [torch.where(b < 32, fq._quantize_in_range(x, fq._levels(b), -r[0], r[1]), x)
+                for x, b, r in zip(xs, bits, neg_ranges)]
+
+    for label, values in (('4 bits', [4.0] * len(xs)), ('bits 2/4/8/32', mixed)):
+        bits = torch.tensor(values, device=device)
+        got = fq.fake_quant_per_tensor_group_global(xs, bits)
+        fused = fq.fake_quant_per_tensor_group(xs, bits)
+        want = plain(xs, bits)
+        check(all(torch.equal(g, f) for g, f in zip(got, fused)),
+              '31a: the split grouped K1\' differs from the fused one at %s', label)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              '31a: the split grouped K1\' differs from the plain version at %s', label)
+        max_err = max(max_err, max(float((g - w).abs().max()) for g, w in zip(got, want)))
+        ranges = fq.tensor_group_minmax(xs, bits)
+        for t, (x, b) in enumerate(zip(xs, values)):
+            lo_hi = torch.stack([-x.min(), x.max()]) if b < 32 else torch.full(
+                (2,), -torch.finfo(torch.float32).max, device=device)
+            check(torch.equal(ranges[t], lo_hi), '31a: pass 1 of tensor %d is %s, not %s', t,
+                  ranges[t].tolist(), lo_hi.tolist())
+        wide = torch.stack([-(-ranges[:, 0] - 0.5), ranges[:, 1] + 0.25], dim=1).contiguous()
+        from_range = fq.tensor_group_from_range(xs, bits, wide)
+        check(all(torch.equal(g, w) for g, w in zip(from_range, plain(xs, bits, wide))),
+              '31a: pass 2 from wider ranges differs from the plain version at %s', label)
+        log('  31a %s: the split grouped K1\' equals the fused one and the plain version at the '
+            '%d weights; pass 1\'s ranges exact; pass 2 from wider ranges equals the plain '
+            'version', label, len(xs))
+    bits = torch.tensor([4.0] * len(xs), device=device)
+    ms = time_ms(lambda: fq.fake_quant_per_tensor_group_global(xs, bits))
+    fused_ms = time_ms(lambda: fq.fake_quant_per_tensor_group(xs, bits))
+    plain_ms = time_ms(lambda: plain(xs, bits), 5)
+    device_ms = kernel_device_ms(lambda: fq.fake_quant_per_tensor_group_global(xs, bits),
+                                 ('group_minmax_partials', 'group_ranges',
+                                  'group_quantize_from_range'))
+    fused_device_ms = kernel_device_ms(lambda: fq.fake_quant_per_tensor_group(xs, bits),
+                                       ('group_minmax_partials', 'group_quantize('))
+    nb = sum(x.numel() for x in xs)
+    bound_ms, bound_by = fq_bound(nb)
+    log('  31a fake_quant_per_tensor_group_global, %d weights (%.2fM elements), 4 bits, model '
+        'size 1: %.4f ms a call (%.0f%% of the bound), device %s ms (its 3 kernels), fused '
+        '%.4f ms a call, device %s ms, plain %.4f ms, bound %.4f ms (%s) | %s', len(xs),
+        nb / 1e6, ms, 100 * bound_ms / ms, device_ms, fused_ms, fused_device_ms, plain_ms,
+        bound_ms, bound_by, card)
+    return {'fake_quant_per_tensor_group_global': dict(
+        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, fused_ms=fused_ms, device_ms=device_ms,
+        fused_device_ms=fused_device_ms)}
+
+
+def kernel_device_ms(fn, names, reps=20):
+    """The device time a call of fn() spends in the kernels whose names
+    contain one of `names`, from torch.profiler's CUDA records over `reps`
+    calls after one; None where the profiler recorded none of them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(n in e.name for n in names))
+    return total / reps / 1e3 if total else None
+
+
+def tp_global_batches(learner):
+    """TP_STEPS host batches of TP_GLOBAL_BATCH synthetic ILSVRC-12 images,
+    the same on every rank whatever its shard."""
+    arrays, labels = learner.dataset_train.synthesize_arrays(TP_STEPS * TP_GLOBAL_BATCH)
+    n = TP_GLOBAL_BATCH
+    return [{'image': arrays[np.arange(i * n, (i + 1) * n) % len(arrays)],
+             'label': labels[np.arange(i * n, (i + 1) * n) % len(labels)]}
+            for i in range(TP_STEPS)]
+
+
+def tp_state_digest(state):
+    """(the full state's snapshot, its sha256, the sha256 of this rank's
+    replicated parameters and buffers, the bytes of this rank's parameters
+    and SGD momentum)."""
+    import hashlib
+    from pocketflow_tpu_torch.core import mesh
+    from pocketflow_tpu_torch.nn import layers
+    full = {k.replace('.', '/'): v.detach().cpu().clone()
+            for k, v in layers.full_state_dict(state.model).items()}
+    digest = hashlib.sha256()
+    for name, value in sorted(state.model.state_dict(keep_vars=True).items()):
+        if not isinstance(value, mesh.ModelShard):
+            digest.update(name.encode() + value.detach().contiguous().view(torch.uint8)
+                          .cpu().numpy().tobytes())
+    nb_bytes = sum(p.numel() * p.element_size() for p in state.model.parameters())
+    nb_bytes += sum(b.numel() * b.element_size() for buffers in state.optimizer.state.values()
+                    for b in buffers.values() if torch.is_tensor(b))
+    return full, dp_checksum(full), digest.hexdigest(), nb_bytes
+
+
+def tp_steps(learner, init_path, host_batches):
+    """TP_STEPS quantized train steps of `learner` under the mesh in scope,
+    from the full state at init_path, on this rank's rows of host_batches:
+    the losses (the data group's mean), the full state after them (rank 0),
+    its checksum and the replicated tensors', the launches and collectives
+    of the steps, the state bytes a rank, the peak memory and the host
+    seconds a step."""
+    from pocketflow_tpu_torch.core import mesh
+    from pocketflow_tpu_torch.learners.uniform_quantization.bit_optimizer import BitOptimizer
+    from pocketflow_tpu_torch.nn import layers
+    t0 = time.perf_counter()
+    state, tx, _ = learner.init_state_quant()
+    payload = torch.load(init_path, map_location=learner.device, weights_only=True)
+    layers.load_full_state_dict(state.model, payload['model'])
+    state = learner.set_bits(state, *BitOptimizer(learner, state).run())
+    step = learner.build_quant_train_step(tx)
+    batches = [learner.put_batch(mesh.shard_batch(b)) for b in host_batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    mesh.reset_counters()  # the steps' launches and collectives from here ...
+    start = time.perf_counter()
+    losses = []
+    for i, batch in enumerate(batches):
+        state, metrics = step(state, batch, learner.generator(i))
+        losses.append(metrics['loss'].detach().float())
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - start) / len(batches)
+    out = dict(launches=counters(), collectives=mesh.counters(),  # ... to here
+               prep_seconds=start - t0)
+    losses = torch.stack(losses)
+    mesh.all_reduce_mean_([losses])
+    end, checksum, replicated, nb_bytes = tp_state_digest(state)
+    out.update(losses=losses.tolist(), checksum=checksum, replicated=replicated,
+               state_bytes=nb_bytes, seconds=seconds,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               shards=sum(isinstance(p, mesh.ModelShard) for p in state.model.parameters()),
+               place=(mesh.data_rank(), mesh.model_rank()))
+    if mesh.worker_rank() == 0:
+        out['end'] = end
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_gloo_probe():
+    """Which collectives gloo runs with CUDA tensors on cuda:0: {name: 'ok'
+    or the exception's type and first line}."""
+    import torch.distributed as dist
+    device = torch.device('cuda', 0)
+    world = dist.get_world_size()
+    t = torch.ones(8, device=device)
+    calls = {
+        'all_reduce': lambda: dist.all_reduce(t.clone()),
+        'broadcast': lambda: dist.broadcast(t.clone(), src=0),
+        'barrier': dist.barrier,
+        'all_gather': lambda: dist.all_gather([torch.empty_like(t) for _ in range(world)], t),
+        'all_gather_into_tensor': lambda: dist.all_gather_into_tensor(
+            torch.empty(world * 8, device=device), t),
+        'reduce_scatter_tensor': lambda: dist.reduce_scatter_tensor(
+            torch.empty(8 // world, device=device), t),
+        'all_to_all_single': lambda: dist.all_to_all_single(torch.empty_like(t), t),
+    }
+    out = {}
+    for name in GLOO_PROBES:
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            out[name] = 'ok'
+        except Exception as exc:  # recorded, not retried: the probe's result
+            out[name] = '%s: %s' % (type(exc).__name__, str(exc).splitlines()[0][:120])
+        dist.barrier()
+    return out
+
+
+def tp_full_record(state):
+    """sha256 of a train state's full parameters and buffers, of its full
+    momentum, and its step."""
+    import hashlib
+    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+    full, checksum, _, _ = tp_state_digest(state)
+    digest = hashlib.sha256()
+    for index, buffers in sorted(ckpt_lib.full_optimizer_state(state.optimizer)['state'].items()):
+        digest.update(buffers['momentum_buffer'].detach().cpu().contiguous().view(torch.uint8)
+                      .numpy().tobytes())
+    return {'model': checksum, 'momentum': digest.hexdigest(), 'step': state.step,
+            'nb_tensors': len(full)}
+
+
+def tp_main_saves(work_dir):
+    """31c on this rank: main.main (TP_CKPT_ARGV) on the mesh of the ranks
+    (data:2,model:2) trains and saves under --ckpt_backend=msgpack; its
+    learner then restores that checkpoint on the same mesh and saves it
+    under --ckpt_backend=orbax (each rank its shards).  {backend: the full
+    state's record at the save, the save path, seconds}."""
+    from pocketflow_tpu_torch import main as port_main
+    from pocketflow_tpu_torch.config import FLAGS
+    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+    from pocketflow_tpu_torch.learners import abstract_learner
+    save_model = abstract_learner.AbstractLearner.save_model
+    paths = {b: os.path.join(work_dir, 'tp_ckpt', b, 'model.ckpt') for b in ('msgpack', 'orbax')}
+    record = {}
+
+    def recorded(self, state, *args, **kwargs):
+        record.update(tp_full_record(state))
+        return save_model(self, state, *args, **kwargs)
+
+    abstract_learner.AbstractLearner.save_model = recorded
+    start = time.perf_counter()
+    try:
+        learner = port_main.main(TP_CKPT_ARGV + [
+            '--mesh_shape=data:2,model:2', '--enbl_tensor_parallel', '--ckpt_backend=msgpack',
+            '--uql_save_quant_model_path=%s' % paths['msgpack'],
+            '--save_path=%s' % os.path.join(work_dir, 'tp_ckpt', 'base', 'model.ckpt'),
+            '--log_dir=%s' % os.path.join(work_dir, 'tp_ckpt', 'logs')], device='cuda:0')
+    finally:
+        abstract_learner.AbstractLearner.save_model = save_model
+    out = {'msgpack': dict(record, path=paths['msgpack'], seconds=time.perf_counter() - start)}
+    start = time.perf_counter()
+    with FLAGS.scope(ckpt_backend='orbax'):
+        state, _, _ = learner.init_state_quant()
+        state = learner.restore_model(state, paths['msgpack'])
+        learner.save_model(state, paths['orbax'])
+        ckpt_lib.wait_for_async_saves()
+    out['orbax'] = dict(tp_full_record(state), path=paths['orbax'],
+                        seconds=time.perf_counter() - start)
+    return out
+
+
+def tp_restore(paths, mesh_shape):
+    """The QAT ResNet-50 learner of TP_CKPT_ARGV restored on `mesh_shape`
+    from each backend's checkpoint: {backend: the full record}."""
+    from pocketflow_tpu_torch.config import FLAGS
+    from pocketflow_tpu_torch import main as port_main
+    from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
+    from pocketflow_tpu_torch.nets.resnet_at_ilsvrc12 import ModelHelper
+    port_main.register_flags()
+    out = {}
+    for backend, path in paths.items():
+        with FLAGS.scope(**FLAGS.as_dict()):
+            FLAGS.parse_args(TP_CKPT_ARGV + ['--mesh_shape=%s' % mesh_shape,
+                                             '--ckpt_backend=%s' % backend])
+            learner = UniformQuantLearner(None, ModelHelper(resnet_size=50),
+                                          device=torch.device('cuda', 0))
+            state, _, _ = learner.init_state_quant()
+            restored = learner.restore_model(state, path)
+            check(restored is not None, '31c: no checkpoint under %s', path)
+            out[backend] = tp_full_record(restored)
+            del learner, state, restored
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_z(init_path, flags, work_dir=None):
+    """Run Z on one rank of a TP mesh (gloo ranks sharing cuda:0): the gloo
+    probe (first mesh only), TP_STEPS main-path steps, and with `work_dir`
+    31c's main.main saves."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from pocketflow_tpu_torch.config import FLAGS
+    import pocketflow_tpu_torch.learners.uniform_quantization.learner  # noqa: F401
+    import pocketflow_tpu_torch.nets.resnet_at_ilsvrc12  # noqa: F401
+    FLAGS.override(synthetic_data=True, summ_step=10 ** 9, save_step=10 ** 9,
+                   resnet_stem_s2d=True, rand_seed=0)
+    out, start = {}, time.perf_counter()
+    if work_dir is None:
+        out['gloo'] = tp_gloo_probe()
+    with FLAGS.scope(**flags):
+        learner = dp_learner(flags)
+        out['steps'] = tp_steps(learner, init_path, tp_global_batches(learner))
+        del learner
+    out['steps']['rank_seconds'] = time.perf_counter() - start
+    if work_dir is not None:
+        out['saves'] = tp_main_saves(work_dir)
+    return out
+
+
+def tp_restore_rank(paths, mesh_shape):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return tp_restore(paths, mesh_shape)
+
+
+def phase_tp(FLAGS, work_dir, card):
+    """Phase 31b and 31c.  31b: one rank at the global batch
+    (TP_GLOBAL_BATCH) and again from parameters one ulp away (the bound's
+    spread), then each mesh of TP_MESHES on cuda:0 over gloo from the same
+    saved state on the same global batches split by data rank (run Z1:
+    data:1,model:2, two ranks; Z2: data:2,model:2, four): every rank's full
+    state identical, the replicated tensors bit-identical across the model
+    ranks, within 2x the 1-ulp reruns of the one rank, one split grouped K1'
+    launch a step and no plain call, the collectives a step by kind, the
+    state bytes a rank against world 1.  31c on Z2's ranks: main.main saves
+    under each backend; the checkpoints resume at world 1 here and on two
+    data ranks, bit for bit.  Returns {run label: rank 0's counters}."""
+    from pocketflow_tpu_torch.tools import launch
+    init_path = os.path.join(work_dir, 'tp_init.pt')
+    flags1 = dict(DP_FLAGS, batch_size=TP_GLOBAL_BATCH)
+    start = time.perf_counter()
+    with FLAGS.scope(**flags1):
+        learner = dp_learner(flags1)
+        state, _, _ = learner.init_state_quant()
+        torch.save({'model': state.model.state_dict()}, init_path)
+        world1_bytes = 2 * sum(p.numel() * p.element_size() for p in state.model.parameters())
+        del state
+        host_batches = tp_global_batches(learner)
+        one = dp_steps(learner, init_path, host_batches)
+        reruns = [dp_steps(learner, init_path, host_batches, perturb=way)
+                  for way in DP_PERTURBATIONS]
+        del learner
+    torch.cuda.empty_cache()
+    log('  31b one rank at batch %d: losses %s, %.1f ms a step, parameters + momentum %.1f MB '
+        '| with its %d reruns %.1f s', TP_GLOBAL_BATCH, ['%.6f' % v for v in one['losses']],
+        1e3 * one['seconds'], world1_bytes / 1e6, len(reruns), time.perf_counter() - start)
+    runs, saves = {}, None
+    for data, model in TP_MESHES:
+        label = TP_RUN[(data, model)]
+        flags = dict(DP_FLAGS, batch_size=TP_GLOBAL_BATCH // data,
+                     mesh_shape='data:%d,model:%d' % (data, model), enbl_tensor_parallel=True)
+        last = (data, model) == TP_MESHES[-1]
+        start = time.perf_counter()
+        ranks = launch.spawn('chip_smoke:tp_rank_z', data * model,
+                             {'init_path': init_path, 'flags': flags,
+                              'work_dir': work_dir if last else None},
+                             backend='gloo', timeout=TP_RANK_TIMEOUT,
+                             work_dir=os.path.join(work_dir, 'tp_z%d%d' % (data, model)),
+                             threads=0)
+        elapsed = time.perf_counter() - start
+        if 'gloo' in ranks[0]:
+            log('  31b gloo collectives with CUDA tensors (torch %s): %s', torch.__version__,
+                ranks[0]['gloo'])
+        outs = [r['steps'] for r in ranks]
+        runs[label] = outs[0]['launches']
+        check([o['place'] for o in outs] == [(r // model, r % model) for r in range(len(outs))],
+              '%s: places %s', label, [o['place'] for o in outs])
+        check(len({o['checksum'] for o in outs}) == 1, '%s: ranks\' full states differ', label)
+        check(len({o['replicated'] for o in outs}) == 1,
+              '%s: replicated tensors differ across ranks', label)
+        check(all(o['losses'] == outs[0]['losses'] for o in outs), '%s: losses differ', label)
+        check(all(o['launches'] == no_launches(fake_quant_per_tensor_group_global=TP_STEPS)
+                  for o in outs), '%s: launches %s', label, outs[0]['launches'])
+        per_step = {k: v / TP_STEPS for k, v in outs[0]['collectives'].items()}
+        check(per_step.get('all_gather_model') == outs[0]['shards']
+              and per_step.get('all_reduce_max_model') == 1,
+              '%s: model-group collectives a step %s for %d shards', label, per_step,
+              outs[0]['shards'])
+        groups, worst, nb_past = dp_errors(outs[0]['end'], one['end'], [r['end'] for r in reruns])
+        groups['loss'] = (max(abs(a - b) for a, b in zip(outs[0]['losses'], one['losses'])),
+                          max(abs(a - b) for r in reruns
+                              for a, b in zip(r['losses'], one['losses'])))
+        log('  31b %s: %d ranks, full states identical (sha256 %s...), replicated tensors '
+            'bit-identical across the model ranks; losses %s (one rank %s); against one rank, '
+            'distance / the largest of %d 1-ulp reruns\' (%s): %s; per tensor the largest ratio '
+            '%.3f, %d of %d past %.0fx; %d shards a rank; collectives a step %s; launches %s; '
+            '%.1f ms a step (gloo through the host); parameters + momentum %.1f MB a rank '
+            '(%.1f%% of world 1\'s %.1f MB); peak %s GiB | spawned and joined in %.1f s | %s',
+            label, len(outs), outs[0]['checksum'][:12], ['%.6f' % v for v in outs[0]['losses']],
+            ['%.6f' % v for v in one['losses']], len(reruns), ', '.join(DP_PERTURBATIONS),
+            '; '.join('%s %.4g / %.4g' % (k, *v) for k, v in groups.items()), worst, nb_past,
+            len(one['end']), DP_NOISE_FACTOR, outs[0]['shards'], per_step, outs[0]['launches'],
+            1e3 * max(o['seconds'] for o in outs), outs[0]['state_bytes'] / 1e6,
+            100 * outs[0]['state_bytes'] / world1_bytes, world1_bytes / 1e6,
+            ['%.2f' % o['peak_gib'] for o in outs], elapsed, card)
+        log('  31b %s: a rank\'s set-up and steps %.1f s (its state, load and batches %.1f s)',
+            label, outs[0]['rank_seconds'], outs[0]['prep_seconds'])
+        for name, (err, spread) in groups.items():
+            check(err <= DP_NOISE_FACTOR * spread, '%s: %s %.4g from one rank, past %.0fx the '
+                  '1-ulp reruns\' %.4g', label, name, err, DP_NOISE_FACTOR, spread)
+        check(outs[0]['state_bytes'] < 0.6 * world1_bytes, '%s: %d state bytes a rank', label,
+              outs[0]['state_bytes'])
+        if last:
+            saves = [r['saves'] for r in ranks]
+            # 31c's main.main on rank 0, by its log's clock
+            with open(os.path.join(work_dir, 'tp_z%d%d' % (data, model), 'rank0.log')) as fin:
+                lines = [line.strip() for line in fin if 'pocketflow_tpu_torch:' in line]
+            for line in lines[-24:]:
+                log('  31c rank 0: %s', line[:160])
+    # 31c: the ranks' records agree; the checkpoints resume on other meshes
+    start = time.perf_counter()
+    for backend in saves[0]:
+        check(all(s[backend]['model'] == saves[0][backend]['model']
+                  and s[backend]['momentum'] == saves[0][backend]['momentum'] for s in saves),
+              '31c %s: the ranks saved different states', backend)
+    check(saves[0]['orbax']['model'] == saves[0]['msgpack']['model']
+          and saves[0]['orbax']['momentum'] == saves[0]['msgpack']['momentum'],
+          '31c: the orbax save differs from the msgpack one it restored')
+    paths = {b: rec['path'] for b, rec in saves[0].items()}
+    with FLAGS.scope(**FLAGS.as_dict()):
+        world1 = tp_restore(paths, '')
+    log('  31c: the restores at world 1 %.1f s', time.perf_counter() - start)
+    data2 = launch.spawn('chip_smoke:tp_restore_rank', 2, {'paths': paths, 'mesh_shape': 'data:2'},
+                         backend='gloo', timeout=TP_RANK_TIMEOUT,
+                         work_dir=os.path.join(work_dir, 'tp_restore'), threads=0)
+    for backend, saved in saves[0].items():
+        for where, got in [('world 1', world1[backend])] + [
+                ('data:2 rank %d' % r, d[backend]) for r, d in enumerate(data2)]:
+            check(got['model'] == saved['model'] and got['momentum'] == saved['momentum']
+                  and got['step'] == saved['step'], '31c %s: the state restored at %s differs '
+                  'from the saved one (%s vs %s)', backend, where, got, saved)
+        files = sorted(os.listdir(os.path.dirname(paths[backend])))
+        log('  31c --ckpt_backend=%s: saved on data:2,model:2 in %.1f s (msgpack: main.main\'s '
+            'run and save; orbax: its learner restores that and saves again, each rank its '
+            'shards), step %d (%d tensors; files %s), restored bit for bit at world 1 and on '
+            'data:2 (sha256 %s...)',
+            backend, saved['seconds'], saved['step'], saved['nb_tensors'], files,
+            saved['model'][:12])
+    log('  31c: restores %.1f s | %s', time.perf_counter() - start, card)
+    runs[TP_CKPT_RUN] = no_launches()
+    return runs
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4545,6 +5016,7 @@ def main():
         t0 = time.perf_counter()
         learner = UniformQuantLearner(None, ModelHelper(resnet_size=50), device=device)
         stats = learner.statistics
+        weight_shapes_50 = stats['weight_shapes']
         check(stats['nb_matmuls'] == NB_WEIGHT_SITES and stats['nb_activations'] == NB_ACT_SITES,
               'sites %d/%d', stats['nb_matmuls'], stats['nb_activations'])
 
@@ -4747,6 +5219,16 @@ def main():
             'int8 and shrunk serving at batch 64 (30b), the AMC drill on MobileNet-v1 (30c)')
         runs.update(phase_root_experiments(FLAGS, work_dir, card))
         log('  phase 30: %.1f s', time.perf_counter() - t30)
+        torch.cuda.empty_cache()
+        t31 = time.perf_counter()
+        log('phase 31 tensor parallelism: the split grouped K1\' at the main path\'s %d '
+            'weights (31a), QAT ResNet-50 @224 on data:1,model:2 and data:2,model:2 over gloo '
+            'on the card against one rank (31b), checkpoints saved on data:2,model:2 resumed at '
+            'world 1 and on data:2 under both backends (31c)', NB_WEIGHT_SITES)
+        kernels.update(phase_tp_kernel(fq, weight_shapes_50, device, card))
+        torch.cuda.empty_cache()
+        runs.update(phase_tp(FLAGS, work_dir, card))
+        log('  phase 31: %.1f s', time.perf_counter() - t31)
     serve_dir.cleanup()
 
     # each kernel's launches in the run that drives it: the main path for the
@@ -4754,6 +5236,7 @@ def main():
     # channel-bucket route for K2', an experiment for each matmul kernel
     own_run = {'fake_quant_per_tensor_group': MAIN_RUN, 'fake_quant_per_tensor': ACT8_RUN,
                'fake_quant_per_tensor_global': DP_RUN_X['act8'],
+               'fake_quant_per_tensor_group_global': TP_RUN[TP_MESHES[-1]],
                'fake_quant_per_column_group': CHANNEL_RUN,
                'matmul_bf16': next(label for label in runs if 'mm_shape_sweep' in label),
                'bn_relu_matmul_stats': next(label for label in runs if 'fused_mm_proto' in label)}

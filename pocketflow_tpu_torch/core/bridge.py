@@ -15,6 +15,10 @@ SSD's ``l2norm_conv4_3/scale``.  The detectors map the same way (SSD-VGG's
 other leaf raises, and ``load_jax_numpy`` raises on any port parameter or
 buffer left unset.
 
+Under tensor parallelism each rank keeps its shard of a sharded kernel
+(``load_jax_numpy`` slices the JAX array), and ``to_jax_numpy`` gathers the
+full arrays over the model group (every model rank calls it).
+
 ``to_jax_numpy`` is the way back: a port model's parameters and running
 statistics as the Flax ``params`` and ``batch_stats`` trees (nested dicts of
 float32 numpy arrays, keys sorted), on which the export tools work, so that
@@ -44,6 +48,8 @@ from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from pocketflow_tpu_torch.core import mesh
 
 # leaf names the bridge maps: (collection, leaf) -> where it lands in the port
 _PARAM_LEAVES = ('kernel', 'bias', 'scale')
@@ -116,6 +122,8 @@ def to_jax_numpy(model: torch.nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]
         parts = name.split('.')
         if parts[-1] not in _PARAM_LEAVES or (parts[-1] == 'scale' and not _scaled(parts)):
             raise KeyError('bridge: unmapped port parameter %r' % name)
+        if isinstance(value, mesh.ModelShard):  # the full kernel of the model ranks' shards
+            value = mesh.gather_tensor(value, mesh.shard(-1))
         _nest(params, parts, value.detach().to('cpu', torch.float32).numpy().copy())
     for name, value in model.named_buffers():
         parts = name.split('.')
@@ -127,18 +135,21 @@ def to_jax_numpy(model: torch.nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]
 
 def _load_checked(model: torch.nn.Module, values: Dict[str, torch.Tensor]) -> torch.nn.Module:
     """load_state_dict(values, strict=True) after naming every entry left
-    unset, every entry with no counterpart and every shape mismatch."""
-    target = model.state_dict()
+    unset, every entry with no counterpart and every shape mismatch; a
+    ModelShard of a tensor-parallel model takes its slice of the full
+    array."""
+    from pocketflow_tpu_torch.nn import layers
+    target = model.state_dict(keep_vars=True)
     missing = sorted(set(target) - set(values))
     unexpected = sorted(set(values) - set(target))
     if missing or unexpected:
         raise KeyError('bridge: port entries left unset %s; JAX entries with no '
                        'port counterpart %s' % (missing, unexpected))
     for name, value in values.items():
-        if tuple(target[name].shape) != tuple(value.shape):
+        if layers.full_shape(name, target[name]) != tuple(value.shape):
             raise ValueError('bridge: %s has shape %s in JAX and %s in the port'
-                             % (name, tuple(value.shape), tuple(target[name].shape)))
-    model.load_state_dict(values, strict=True)
+                             % (name, tuple(value.shape), layers.full_shape(name, target[name])))
+    layers.load_full_state_dict(model, values)
     return model
 
 

@@ -18,7 +18,24 @@ name (``load_optimizer`` places it).  The decoder is self-contained: the
 msgpack subset flax writes (maps, arrays, str, bin, ints, floats, nil,
 bool, ext and fixext), flax's ext codes (1 ndarray, 2 complex, 3 numpy
 scalar), chunked leaves, and bfloat16 leaves as ``torch.bfloat16`` tensors
-(numpy has no bfloat16).  The orbax backend is not read.
+(numpy has no bfloat16).  The JAX package's orbax directories are not read.
+
+``save_state`` writes a train state whatever the mesh, so that it resumes
+on any other (``restore_latest`` returns the full state; the learner takes
+each rank's shard of it).  --ckpt_backend (the JAX package's flag):
+
+* 'msgpack' (the default; the name is the JAX package's, the file the
+  port's ``.pt``): the state gathered over the model group, rank 0 writes
+  it synchronously;
+* 'orbax': ``torch.distributed.checkpoint.async_save`` into
+  ``<save_path>-<step>.dcp/``, each rank writing only its own shards (a
+  ``ModelShard`` and its momentum under '<name>/shard<m>of<M>', the
+  replicated tensors once), on a gloo group of its own, while training goes
+  on; rank 0 writes ``meta.pt`` (step, optimizer settings, extra, which
+  entries are shards) beside them, and the index names the directory once
+  the save is complete (``wait_for_async_saves``, which the next save and
+  every restore call first).  Any mesh loads it: each rank reads every
+  shard and joins them.
 """
 
 from __future__ import annotations
@@ -31,14 +48,27 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core import mesh
+
+FLAGS.DEFINE_string('ckpt_backend', 'msgpack',
+                    "checkpoint backend: 'msgpack' (sync, single file) | "
+                    "'orbax' (async, sharded-array aware)")
 
 INDEX = 'checkpoint.json'
 JAX_INDEX = 'checkpoint'  # pocketflow_tpu/core/checkpoint.py's index file
+DCP_META = 'meta.pt'      # beside an 'orbax' checkpoint's shards
 
 
 def _index_path(save_dir: str) -> str:
     return os.path.join(save_dir, INDEX)
+
+
+def _write_index(save_dir: str, path: str, step: int):
+    tmp_index = _index_path(save_dir) + '.tmp'
+    with open(tmp_index, 'w') as fout:
+        json.dump({'latest': os.path.basename(path), 'step': step}, fout)
+    os.replace(tmp_index, _index_path(save_dir))
 
 
 def save(save_path: str, payload: Dict[str, Any], step: int) -> str:
@@ -52,11 +82,190 @@ def save(save_path: str, payload: Dict[str, Any], step: int) -> str:
     os.makedirs(save_dir, exist_ok=True)
     torch.save(payload, path + '.tmp')
     os.replace(path + '.tmp', path)
-    tmp_index = _index_path(save_dir) + '.tmp'
-    with open(tmp_index, 'w') as fout:
-        json.dump({'latest': os.path.basename(path), 'step': step}, fout)
-    os.replace(tmp_index, _index_path(save_dir))
+    _write_index(save_dir, path, step)
     return path
+
+
+def _flat_params(optimizer: torch.optim.Optimizer):
+    return [p for group in optimizer.param_groups for p in group['params']]
+
+
+def _is_shard_buffer(param, value) -> bool:
+    return isinstance(param, mesh.ModelShard) and torch.is_tensor(value) \
+        and tuple(value.shape) == tuple(param.shape)
+
+
+def full_optimizer_state(optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """`optimizer.state_dict()` with each buffer of a ModelShard (its SGD
+    momentum) gathered into its full tensor (every model rank calls it)."""
+    state = optimizer.state_dict()
+    flat = _flat_params(optimizer)
+    out = {}
+    for index, buffers in state['state'].items():
+        out[index] = {key: mesh.gather_tensor(value, mesh.shard(-1))
+                      if _is_shard_buffer(flat[index], value) else value
+                      for key, value in buffers.items()}
+    return {'state': out, 'param_groups': state['param_groups']}
+
+
+def _map_shard_leaves(model: torch.nn.Module, extra: Any, fn, full: bool) -> Any:
+    """`extra` with fn(leaf) for each tensor filed under the name of one of
+    `model`'s ModelShard parameters (a weight-sparsification mask or backup)
+    whose shape is the shard's (`full` False) or the full kernel's (True);
+    dicts are walked in order, so every model rank maps the same leaves."""
+    from pocketflow_tpu_torch.nn import layers
+    shards = {name: p for name, p in model.named_parameters()
+              if isinstance(p, mesh.ModelShard)}
+    if not shards or extra is None:
+        return extra
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        out = type(node)()
+        for key, value in node.items():
+            param = shards.get(key)
+            want = None if param is None else (
+                layers.full_shape(key, param) if full else tuple(param.shape))
+            if torch.is_tensor(value) and want is not None and tuple(value.shape) == want:
+                out[key] = fn(value)
+            else:
+                out[key] = walk(value)
+        return out
+    return walk(extra)
+
+
+def full_extra(model: torch.nn.Module, extra: Any) -> Any:
+    """`extra` with the shard-shaped tensors filed under ModelShard
+    parameters' names gathered into full tensors (every model rank calls it)."""
+    return _map_shard_leaves(model, extra, lambda t: mesh.gather_tensor(t, mesh.shard(-1)),
+                             full=False)
+
+
+def local_extra(model: torch.nn.Module, extra: Any) -> Any:
+    """The inverse of full_extra: each full tensor filed under a ModelShard
+    parameter's name cut to this rank's shard."""
+    return _map_shard_leaves(model, extra, lambda t: mesh.shard_tensor(t, mesh.shard(-1)),
+                             full=True)
+
+
+def save_state(save_path: str, step: int, model: torch.nn.Module,
+               optimizer: torch.optim.Optimizer, extra: Any) -> str:
+    """Save a train state by --ckpt_backend (every rank calls it): 'msgpack'
+    gathers the full state and rank 0 writes ``<save_path>-<step>.pt``;
+    'orbax' starts an asynchronous sharded save into
+    ``<save_path>-<step>.dcp``.  Returns the path."""
+    from pocketflow_tpu_torch.nn import layers
+    backend = FLAGS.get('ckpt_backend') or 'msgpack'
+    if backend not in ('msgpack', 'orbax'):
+        raise ValueError("unknown ckpt_backend %r: 'msgpack' or 'orbax'" % backend)
+    extra = full_extra(model, extra)
+    if backend == 'orbax':
+        return _dcp_save(save_path, step, model, optimizer, extra)
+    return save(save_path, {'step': step, 'model': layers.full_state_dict(model),
+                            'optimizer': full_optimizer_state(optimizer), 'extra': extra}, step)
+
+
+# ---------------------------------------------------------------------------
+# --ckpt_backend=orbax: torch.distributed.checkpoint, asynchronous, sharded
+# ---------------------------------------------------------------------------
+
+_PENDING = []  # (future, save_dir, path, step) of the saves in flight
+_DCP_GROUP = []  # [(the process group, the gloo group the saves run on)]
+
+
+def _dcp_group():
+    """A gloo group over the world for the saves' own collectives (they run
+    on a thread beside the train step's), built at the first save, which
+    every rank makes at the same point; None at world size 1."""
+    if mesh.world_size() == 1:
+        return None
+    import torch.distributed as dist
+    if not _DCP_GROUP or _DCP_GROUP[0][0] is not dist.group.WORLD:
+        _DCP_GROUP[:] = [(dist.group.WORLD, dist.new_group(backend='gloo'))]
+    return _DCP_GROUP[0][1]
+
+
+def _shard_key(name: str) -> str:
+    return '%s/shard%dof%d' % (name, mesh.model_rank(), mesh.model_size())
+
+
+def _dcp_save(save_path: str, step: int, model: torch.nn.Module,
+              optimizer: torch.optim.Optimizer, extra: Any) -> str:
+    import torch.distributed.checkpoint as dcp
+    wait_for_async_saves()  # one save in flight at a time
+    path = '%s-%d.dcp' % (save_path, step)
+    save_dir = os.path.dirname(save_path) or '.'
+    tensors, sharded = {}, []
+    for name, value in model.state_dict(keep_vars=True).items():
+        key = 'model/' + name
+        if isinstance(value, mesh.ModelShard):
+            sharded.append(key)
+            key = _shard_key(key)
+        tensors[key] = value.detach()
+    state = optimizer.state_dict()
+    flat = _flat_params(optimizer)
+    for index, buffers in state['state'].items():
+        for buf_name, value in buffers.items():
+            if not torch.is_tensor(value):
+                raise TypeError('orbax backend: optimizer state %s/%s is a %s'
+                                % (index, buf_name, type(value).__name__))
+            key = 'optimizer/%d/%s' % (index, buf_name)
+            if _is_shard_buffer(flat[index], value):
+                sharded.append(key)
+                key = _shard_key(key)
+            tensors[key] = value.detach()
+    if mesh.is_primary_worker():
+        os.makedirs(path, exist_ok=True)
+        torch.save({'step': step, 'param_groups': state['param_groups'], 'extra': extra,
+                    'sharded': sharded, 'model_size': mesh.model_size()},
+                   os.path.join(path, DCP_META))
+    future = dcp.async_save(tensors, checkpoint_id=path, process_group=_dcp_group())
+    future = getattr(future, 'upload_completion', future)
+    _PENDING.append((future, save_dir, path, step))
+    return path
+
+
+def wait_for_async_saves():
+    """Block until the saves in flight are complete, then index them (rank
+    0): a checkpoint is indexed only whole.  Call before exit; the next save
+    and every restore call it first."""
+    while _PENDING:
+        future, save_dir, path, step = _PENDING.pop(0)
+        future.result()
+        if mesh.is_primary_worker():
+            _write_index(save_dir, path, step)
+
+
+def _dcp_load(path: str, map_location=None) -> Dict[str, Any]:
+    """The full payload of an 'orbax' checkpoint directory: every shard read
+    (by this rank alone) and joined along its last axis."""
+    import warnings
+    import torch.distributed.checkpoint as dcp
+    reader = dcp.FileSystemReader(path)
+    metadata = reader.read_metadata().state_dict_metadata
+    tensors = {key: torch.empty(tuple(meta.size), dtype=meta.properties.dtype)
+               for key, meta in metadata.items()}
+    with warnings.catch_warnings():  # "assuming the intent is to load in a single process"
+        warnings.simplefilter('ignore', UserWarning)
+        dcp.load(tensors, storage_reader=reader, no_dist=True)
+    meta = torch.load(os.path.join(path, DCP_META), weights_only=True)
+    size = meta['model_size']
+    full = {key: torch.cat([tensors['%s/shard%dof%d' % (key, m, size)] for m in range(size)],
+                           dim=-1) for key in meta['sharded']}
+    full.update({key: value for key, value in tensors.items() if '/shard' not in key})
+    device = torch.device(map_location or 'cpu')
+    model = {key[len('model/'):]: value.to(device) for key, value in full.items()
+             if key.startswith('model/')}
+    state = {}
+    for key, value in full.items():
+        if key.startswith('optimizer/'):
+            _, index, buf_name = key.split('/', 2)
+            state.setdefault(int(index), {})[buf_name] = value.to(device)
+    return {'step': meta['step'], 'model': model,
+            'optimizer': {'state': dict(sorted(state.items())),
+                          'param_groups': meta['param_groups']},
+            'extra': meta['extra']}
 
 
 def latest_checkpoint(save_dir: str) -> Optional[str]:
@@ -84,9 +293,12 @@ def latest_checkpoint(save_dir: str) -> Optional[str]:
 def restore_latest(save_path: str, map_location=None) -> Optional[Dict[str, Any]]:
     """The newest payload saved under `save_path`'s directory, or None; a
     JAX-written checkpoint comes as the port's payload (``payload_from_jax``)."""
+    wait_for_async_saves()
     path = latest_checkpoint(os.path.dirname(save_path) or '.')
     if path is None:
         return None
+    if path.endswith('.dcp'):
+        return _dcp_load(path, map_location)
     if path.endswith('.msgpack'):
         with open(path, 'rb') as fin:
             return payload_from_jax(msgpack_restore(fin.read()), map_location)
@@ -100,11 +312,11 @@ def load_optimizer(optimizer: torch.optim.Optimizer, model: torch.nn.Module, sta
     parameter's momentum buffer.  Raises KeyError on a buffer of no
     parameter."""
     momentum = state.get('momentum_by_name')
+    flat = _flat_params(optimizer)
     if momentum is None:
-        optimizer.load_state_dict(state)
+        optimizer.load_state_dict(_local_optimizer_state(flat, state))
         return
     names = {id(p): name for name, p in model.named_parameters()}
-    flat = [p for group in optimizer.param_groups for p in group['params']]
     target = optimizer.state_dict()
     target['state'] = {}
     for index, param in enumerate(flat):
@@ -113,7 +325,22 @@ def load_optimizer(optimizer: torch.optim.Optimizer, model: torch.nn.Module, sta
     unplaced = sorted(set(momentum) - {names.get(id(p)) for p in flat})
     if unplaced:
         raise KeyError('checkpoint: momentum of no trained parameter %s' % unplaced)
-    optimizer.load_state_dict(target)
+    optimizer.load_state_dict(_local_optimizer_state(flat, target))
+
+
+def _local_optimizer_state(flat, state: Dict) -> Dict:
+    """An optimizer state dict whose buffers of each ModelShard's full shape
+    are cut to this rank's shard (a checkpoint holds the full state)."""
+    out = {}
+    for index, buffers in state['state'].items():
+        param = flat[int(index)] if int(index) < len(flat) else None
+        out[index] = {}
+        for key, value in buffers.items():
+            if isinstance(param, mesh.ModelShard) and torch.is_tensor(value) \
+                    and value.dim() == param.dim() and value.shape[-1] != param.shape[-1]:
+                value = mesh.shard_tensor(value, mesh.shard(-1))
+            out[index][key] = value
+    return {**state, 'state': out}
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +507,8 @@ def restore_intersecting(save_path: str, model: torch.nn.Module,
     ('stage1_block0/conv1/kernel'); `prefix_map` rewrites a source prefix
     first (the first that matches; {'': 'backbone/'} puts a classification
     trunk under 'backbone/').  Parameters only, as the JAX package grafts
-    its 'params' tree.  Returns the number of tensors copied (0 without a
+    its 'params' tree; a tensor-parallel shard takes its slice of a full
+    match.  Returns the number of tensors copied (0 without a
     checkpoint)."""
     payload = restore_latest(save_path, map_location='cpu')
     if payload is None:
@@ -293,11 +521,15 @@ def restore_intersecting(save_path: str, model: torch.nn.Module,
                 key = new + key[len(old):]
                 break
         src[key] = value
+    from pocketflow_tpu_torch.nn import layers
     count = 0
     with torch.no_grad():
         for name, param in model.named_parameters():
             cand = src.get(name.replace('.', '/'))
-            if cand is not None and tuple(cand.shape) == tuple(param.shape):
-                param.copy_(cand)
-                count += 1
+            if cand is None or tuple(cand.shape) != layers.full_shape(name, param):
+                continue
+            if isinstance(param, mesh.ModelShard):  # a tensor-parallel shard: its slice
+                cand = mesh.shard_tensor(cand, mesh.shard(-1))
+            param.copy_(cand)
+            count += 1
     return count

@@ -13,6 +13,11 @@
 // across the ranks, and pass 2 quantizes against the range in that buffer.
 // pf_fake_quant_tensor_group is a second route of _fq_pallas_2d: many fp32
 // tensors, each with its own (alpha, beta) and bits, in one pair of launches.
+// pf_fake_quant_tensor_group_minmax and pf_fake_quant_tensor_group_from_range
+// are its model-axis route under tensor parallelism: pass 1 leaves each
+// tensor's (-min, max) in a [T, 2] device buffer, which the caller
+// all-reduces (MAX) over the model group (a sharded kernel's range is the
+// max over its shards), and pass 2 quantizes each tensor against its range.
 // pf_fake_quant_columns_group replaces _fq_pallas_cols_grid (body
 // _fq_axis0_kernel): one (alpha, beta) per column of a column matrix, for
 // many fp32 tensors, each with its own bits, in one pair of launches; a
@@ -532,6 +537,30 @@ __device__ __forceinline__ int64_t num_chunks(int64_t n) {
   return (n + kGroupChunk - 1) / kGroupChunk;
 }
 
+// Chunk r of tensor e into o: quantized against (alpha, beta, k), or copied.
+__device__ __forceinline__ void quantize_chunk(const GroupEntry& e, const ChunkRange& r,
+                                               float* __restrict__ o, bool copy, float alpha,
+                                               float beta, float k) {
+  int64_t i = r.begin + threadIdx.x * 4;
+  if (r.vec) {
+    for (; i + 4 <= r.end; i += kThreads * 4) {
+      float4 v = *reinterpret_cast<const float4*>(e.x + i);
+      if (!copy) {
+        v.x = quantize(v.x, alpha, beta, k);
+        v.y = quantize(v.y, alpha, beta, k);
+        v.z = quantize(v.z, alpha, beta, k);
+        v.w = quantize(v.w, alpha, beta, k);
+      }
+      *reinterpret_cast<float4*>(o + i) = v;
+    }
+  }
+  for (; i < r.end; i += kThreads * 4) {
+    for (int64_t j = i; j < i + 4 && j < r.end; ++j) {
+      o[j] = copy ? e.x[j] : quantize(e.x[j], alpha, beta, k);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 group_minmax_partials(const GroupEntry* __restrict__ entries, const int* __restrict__ chunk_tensor,
                       const float* __restrict__ bits, float2* __restrict__ partials) {
@@ -585,24 +614,52 @@ group_quantize(const GroupEntry* __restrict__ entries, const int* __restrict__ c
     beta = lo;
     k = levels(bits + t);
   }
-  int64_t i = r.begin + threadIdx.x * 4;
-  if (r.vec) {
-    for (; i + 4 <= r.end; i += kThreads * 4) {
-      float4 v = *reinterpret_cast<const float4*>(e.x + i);
-      if (!copy) {
-        v.x = quantize(v.x, alpha, beta, k);
-        v.y = quantize(v.y, alpha, beta, k);
-        v.z = quantize(v.z, alpha, beta, k);
-        v.w = quantize(v.w, alpha, beta, k);
-      }
-      *reinterpret_cast<float4*>(o + i) = v;
+  quantize_chunk(e, r, o, copy, alpha, beta, k);
+}
+
+// The model-axis route's pass 1, second launch: each tensor's (-min, max)
+// from its chunks' partials (one block a tensor), (-FLT_MAX, -FLT_MAX) for a
+// tensor whose bits are >= 32 (no partial of it exists; the MAX all-reduce
+// leaves it as it is and pass 2 copies the tensor).
+__global__ void __launch_bounds__(kThreads)
+group_ranges(const GroupEntry* __restrict__ entries, const float* __restrict__ bits,
+             const float2* __restrict__ partials, float2* __restrict__ neg_ranges) {
+  const int t = blockIdx.x;
+  float lo = FLT_MAX, hi = -FLT_MAX;
+  if (bits[t] < 32.0f) {  // uniform across the block: block_minmax's barriers are safe
+    const GroupEntry e = entries[t];
+    const int64_t p0 = e.first_chunk, p1 = p0 + num_chunks(e.n);
+    for (int64_t p = p0 + threadIdx.x; p < p1; p += kThreads) {
+      const float2 v = partials[p];
+      lo = fminf(lo, v.x);
+      hi = fmaxf(hi, v.y);
     }
+    block_minmax(lo, hi);
   }
-  for (; i < r.end; i += kThreads * 4) {
-    for (int64_t j = i; j < i + 4 && j < r.end; ++j) {
-      o[j] = copy ? e.x[j] : quantize(e.x[j], alpha, beta, k);
-    }
+  if (threadIdx.x == 0) neg_ranges[t] = make_float2(-lo, hi);
+}
+
+// The model-axis route's pass 2: group_quantize with each tensor's range
+// read from neg_ranges (-min, max) instead of reduced from the partials; the
+// same alpha and beta where the range is the tensor's own, so the same bits.
+__global__ void __launch_bounds__(kThreads)
+group_quantize_from_range(const GroupEntry* __restrict__ entries,
+                          const int* __restrict__ chunk_tensor, const float* __restrict__ bits,
+                          const float2* __restrict__ neg_ranges, float* __restrict__ out) {
+  const int c = gridDim.x - 1 - blockIdx.x;  // pass 1's last chunks first, as group_quantize
+  const int t = chunk_tensor[c];
+  const GroupEntry e = entries[t];
+  const ChunkRange r = chunk_range(e, c);
+  const bool copy = bits[t] >= 32.0f;
+  float alpha = 0.0f, beta = 0.0f, k = 0.0f;
+  if (!copy) {
+    const float2 nr = neg_ranges[t];
+    const float lo = -nr.x, hi = nr.y;
+    alpha = __fadd_rn(__fsub_rn(hi, lo), kEps);
+    beta = lo;
+    k = levels(bits + t);
   }
+  quantize_chunk(e, r, out + e.out_offset, copy, alpha, beta, k);
 }
 
 // Grouped per-column kernels: T fp32 tensors in one pair of launches.
@@ -807,6 +864,34 @@ int pf_fake_quant_tensor_group(const void* entries, const int* chunk_tensor, int
   float2* p = static_cast<float2*>(partials);
   group_minmax_partials<<<nchunks, kThreads, 0, s>>>(e, chunk_tensor, bits, p);
   group_quantize<<<nchunks, kThreads, 0, s>>>(e, chunk_tensor, bits, p, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The model-axis route, pass 1: entries, chunk_tensor, nchunks, bits and
+// partials as for pf_fake_quant_tensor_group; neg_ranges: ntensors float2
+// on the device, set to each tensor's (-min, max) ((-FLT_MAX, -FLT_MAX)
+// where its bits are >= 32).
+int pf_fake_quant_tensor_group_minmax(const void* entries, const int* chunk_tensor, int nchunks,
+                                      const float* bits, void* partials, int ntensors,
+                                      float* neg_ranges, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const GroupEntry* e = static_cast<const GroupEntry*>(entries);
+  float2* p = static_cast<float2*>(partials);
+  group_minmax_partials<<<nchunks, kThreads, 0, s>>>(e, chunk_tensor, bits, p);
+  group_ranges<<<ntensors, kThreads, 0, s>>>(e, bits, p, reinterpret_cast<float2*>(neg_ranges));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The model-axis route, pass 2: out as for pf_fake_quant_tensor_group, each
+// tensor quantized against (-neg_ranges[2t], neg_ranges[2t + 1]) (8-byte
+// aligned fp32 on the device), or copied where its bits are >= 32.
+int pf_fake_quant_tensor_group_from_range(const void* entries, const int* chunk_tensor,
+                                          int nchunks, const float* bits,
+                                          const float* neg_ranges, float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const GroupEntry* e = static_cast<const GroupEntry*>(entries);
+  group_quantize_from_range<<<nchunks, kThreads, 0, s>>>(
+      e, chunk_tensor, bits, reinterpret_cast<const float2*>(neg_ranges), out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -98,7 +98,8 @@ class AbstractDataset(ABC):
     def __init__(self, is_train: bool):
         self.is_train = is_train
         self.spec = self.SPEC.with_flag_overrides()
-        self.shard_id = mesh.worker_rank()
+        # a shard a data rank: the model ranks of a data group read the same rows
+        self.shard_id = mesh.data_rank()
         self.nb_shards = mesh.num_workers()
         self.batch_size = self.spec.batch_size if is_train else self.spec.batch_size_eval
         self._rng = np.random.default_rng(FLAGS.rand_seed + 977 * self.shard_id

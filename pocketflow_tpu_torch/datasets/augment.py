@@ -21,12 +21,12 @@ from pocketflow_tpu_torch.core import mesh
 
 
 def _draw(sample, batch: int) -> torch.Tensor:
-    """sample(n) -> [..., n] draws for the global batch; this rank's `batch`
-    columns of them."""
+    """sample(n) -> [..., n] draws for the global batch; this data rank's
+    `batch` columns of them."""
     world = mesh.num_workers()
     if world == 1:
         return sample(batch)
-    rank = mesh.worker_rank()
+    rank = mesh.data_rank()
     return sample(batch * world)[..., rank * batch:(rank + 1) * batch]
 
 

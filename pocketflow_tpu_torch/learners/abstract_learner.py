@@ -21,6 +21,18 @@ rather than ``DistributedDataParallel``: ``TrainState.params`` keys
 parameters by module path, ``copy_state`` deep-copies the model for every
 roll-out, and frozen teachers and auxiliary heads leave parameters without
 gradients.
+
+Tensor parallelism (``--enbl_tensor_parallel`` with a "model" mesh axis > 1,
+``core/mesh.py``): the model is drawn whole from the seed stream, as at any
+mesh, and each rank keeps its shard of every kernel the JAX package's rule
+shards (``nn/layers.shard_model_``); the SGD momentum follows its
+parameter's shard.  The data collectives above run over the rank's data
+group.  A checkpoint holds the full state (gathered over the model group,
+written by rank 0), so that it resumes on any mesh; loading it takes each
+rank's shard.  Learners whose compression is not written for sharded
+kernels name their ROADMAP item in ``tp_todo`` and raise under tensor
+parallelism; the searches that do host surgery raise through
+``require_dp_only``.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ from pocketflow_tpu_torch.core import mesh
 from pocketflow_tpu_torch.core.metrics import ProgressMonitor, SummaryWriter, get_logger
 from pocketflow_tpu_torch.core.profiling import ProfilerHook
 from pocketflow_tpu_torch.core.schedules import Schedule
+from pocketflow_tpu_torch.nn import layers
 from pocketflow_tpu_torch.nn.layers import CompressionPolicy
 
 DOWNLOAD_BYTES_BOUND = 16 << 30  # download_model's extraction bound: far above any model tarball
@@ -56,7 +69,7 @@ def resolve_device(device) -> torch.device:
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('device %s requested but torch.cuda.is_available() is False'
                            % device)
-    if device.type == 'cuda' and device.index is None and mesh.num_workers() > 1:
+    if device.type == 'cuda' and device.index is None and mesh.world_size() > 1:
         from pocketflow_tpu_torch.utils.devices import rank_device
         device = rank_device()
     return device
@@ -110,7 +123,12 @@ class Sgd:
 class AbstractLearner(ABC):
     """Lifecycle (`train` / `evaluate`) + shared train-loop pieces."""
 
+    # a learner whose compression does not handle sharded kernels yet: the
+    # ROADMAP item that ports it (init_state raises under tensor parallelism)
+    tp_todo: Optional[str] = None
+
     def __init__(self, sm_writer: Optional[SummaryWriter], model_helper, device='cuda'):
+        mesh.setup_groups()  # the mesh's data and model groups, before any shard is read
         self.sm_writer = sm_writer
         self.model_helper = model_helper
         self.device = resolve_device(device)
@@ -137,9 +155,8 @@ class AbstractLearner(ABC):
 
         self._seeds = np.random.default_rng(FLAGS.rand_seed)
         # tensor parallelism: --enbl_tensor_parallel with a "model" mesh axis
-        # > 1, which mesh_axes refuses until it is ported
-        self.enbl_tp = (bool(FLAGS.get('enbl_tensor_parallel'))
-                        and mesh.mesh_axes().get(mesh.MODEL_AXIS, 1) > 1)
+        # > 1; a model axis alone replicates the model on its ranks
+        self.enbl_tp = bool(FLAGS.get('enbl_tensor_parallel')) and mesh.model_size() > 1
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -163,9 +180,9 @@ class AbstractLearner(ABC):
         fine-tune the resulting checkpoint under TP."""
         if self.enbl_tp:
             raise NotImplementedError(
-                '%s does not support tensor parallelism during %s; run with '
-                '--mesh_model_parallel=1 and fine-tune the resulting '
-                'checkpoint under TP' % (type(self).__name__, phase))
+                '%s does not support tensor parallelism during %s; run with a '
+                '--mesh_shape without a "model" axis > 1 (e.g. --mesh_shape=data:N) and '
+                'fine-tune the resulting checkpoint under TP' % (type(self).__name__, phase))
 
     def next_seed(self) -> int:
         return int(self._seeds.integers(0, 2 ** 62))
@@ -176,16 +193,23 @@ class AbstractLearner(ABC):
         gen.manual_seed(seed)
         return gen
 
-    def create_model(self) -> torch.nn.Module:
+    def create_model(self, shard: bool = True) -> torch.nn.Module:
         """A freshly initialized model on the device (parameters drawn on the
         host from the learner's seed stream, so a seed gives the same weights
-        on every device)."""
+        on every device and at every mesh); under tensor parallelism, with
+        `shard`, this rank's shards of it."""
         model = self.model_helper.create_model()
         model.reset_parameters(torch.Generator().manual_seed(self.next_seed()))
+        if shard and self.enbl_tp:
+            layers.shard_model_(model)
         return model.to(self.device)
 
     def init_state(self, extra: Any = None) -> Tuple[TrainState, Sgd, Schedule]:
         """Initialize the model + optimizer; returns (state, tx, lr_schedule)."""
+        if self.enbl_tp and self.tp_todo:
+            raise NotImplementedError(
+                '%s does not support tensor parallelism yet (%s); run with a --mesh_shape '
+                'without a "model" axis > 1' % (type(self).__name__, self.tp_todo))
         schedule, self.nb_iters_train = self.setup_lrn_rate(self.global_batch_size)
         tx = Sgd(schedule, FLAGS.momentum)
         model = self.create_model()
@@ -194,12 +218,14 @@ class AbstractLearner(ABC):
 
     def broadcast_state(self, state: TrainState) -> TrainState:
         """Rank 0's parameters, buffers, optimizer buffers and `extra` on every
-        rank, in place (nothing at world size 1)."""
-        if self.nb_workers > 1:
+        rank, in place (a shard and its momentum its model index's; nothing
+        at world size 1)."""
+        if mesh.world_size() > 1:
             mesh.broadcast_module_(state.model)
-            mesh.broadcast_from_primary([buf for group in state.optimizer.state.values()
-                                         for buf in group.values()
-                                         if isinstance(buf, torch.Tensor)])
+            for param, buffers in state.optimizer.state.items():
+                for buf in buffers.values():
+                    if isinstance(buf, torch.Tensor):
+                        mesh.broadcast_like_(buf, param)
             state.extra = mesh.broadcast_from_primary(state.extra)
         return state
 
@@ -335,6 +361,8 @@ class AbstractLearner(ABC):
         if profiler.path is not None:
             self.profile_path = profiler.path
         self.save_model(state, save_path)  # its barrier ends the loop on every rank
+        ckpt_lib.wait_for_async_saves()  # --ckpt_backend=orbax: the saves complete
+        mesh.auto_barrier()
         return state
 
     def global_scalars(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -400,13 +428,13 @@ class AbstractLearner(ABC):
     # ------------------------------------------------------------------
 
     def save_model(self, state: TrainState, save_path: Optional[str] = None) -> str:
-        """Rank 0 writes the checkpoint; every rank waits for it."""
+        """Rank 0 writes the checkpoint of the full state (under tensor
+        parallelism gathered over the model group, or with
+        --ckpt_backend=orbax each rank writes its shards); every rank waits
+        for it."""
         save_path = save_path or FLAGS.save_path
-        path = ckpt_lib.save(save_path, {
-            'step': state.step,
-            'model': state.model.state_dict(),
-            'optimizer': state.optimizer.state_dict(),
-            'extra': state.extra}, state.step)
+        path = ckpt_lib.save_state(save_path, state.step, state.model, state.optimizer,
+                                   state.extra)
         mesh.auto_barrier()
         if self.is_primary_worker():
             self.log.info('model saved to %s', path)
@@ -420,10 +448,10 @@ class AbstractLearner(ABC):
         payload = ckpt_lib.restore_latest(save_path, map_location=self.device)
         if payload is None:
             return None
-        target_state.model.load_state_dict(payload['model'])
+        layers.load_full_state_dict(target_state.model, payload['model'])
         ckpt_lib.load_optimizer(target_state.optimizer, target_state.model, payload['optimizer'])
         target_state.step = int(payload['step'])
-        target_state.extra = payload['extra']
+        target_state.extra = ckpt_lib.local_extra(target_state.model, payload['extra'])
         self.broadcast_state(target_state)
         self.log.info('model restored from %s',
                       ckpt_lib.latest_checkpoint(os.path.dirname(save_path) or '.'))
@@ -539,7 +567,7 @@ class AbstractLearner(ABC):
         payload = ckpt_lib.restore_latest(save_path, map_location=self.device)
         if payload is None:
             return state, False
-        state.model.load_state_dict(payload['model'])
+        layers.load_full_state_dict(state.model, payload['model'])
         mesh.broadcast_module_(state.model)
         self.log.info('baseline params restored from %s',
                       ckpt_lib.latest_checkpoint(os.path.dirname(save_path) or '.'))

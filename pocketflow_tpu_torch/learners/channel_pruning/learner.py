@@ -170,6 +170,9 @@ def kernel_masks(model: torch.nn.Module, chn_masks: Dict[str, torch.Tensor]
 class ChannelPrunedLearner(AbstractLearner):
     """Channel pruning learner with uniform / list / AMC-auto strategies."""
 
+    tp_todo = ('ROADMAP item 30: the channel-pruning searches on sharded kernels; the JAX '
+               'package guards their search phases too')
+
     def __init__(self, sm_writer, model_helper, device='cuda'):
         super().__init__(sm_writer, model_helper, device)
         self.helper_dst = None

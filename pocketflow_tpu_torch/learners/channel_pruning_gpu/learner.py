@@ -18,6 +18,11 @@ relative Adam (the Adam direction scaled by -lr * max(rms(w), 1e-4)); the
 global finetune with the task loss follows on the surviving channels.  The
 full model is the regression target and is never written: the selection
 trains a copy of it.
+
+Under tensor parallelism a kernel held as a ``mesh.ModelShard`` has its
+output channels split over the model ranks: its per-input-channel norms and
+its RMS sum their squares over the model group (``sharded=True``), so the
+thresholds, the masks and the relative steps are the full kernel's.
 """
 
 from __future__ import annotations
@@ -50,19 +55,23 @@ FLAGS.DEFINE_float('cpg_lrn_rate_adam', 1e-2, "CPG: Adam's learning rate")
 FLAGS.DEFINE_integer('cpg_nb_iters_layer', 1000, 'CPG: # of iterations for layer-wise FT')
 
 
-def channel_norms(kernel: torch.Tensor) -> torch.Tensor:
-    """Per-input-channel L2 norm of an HWIO kernel -> [1, 1, I, 1]."""
-    return torch.sqrt(torch.sum(torch.square(kernel.to(torch.float32)), dim=(0, 1, 3),
-                                keepdim=True))
+def channel_norms(kernel: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+    """Per-input-channel L2 norm of an HWIO kernel -> [1, 1, I, 1]; with
+    `sharded`, of the full kernel whose output channels the model ranks
+    split (the squares summed over the model group)."""
+    squares = torch.sum(torch.square(kernel.to(torch.float32)), dim=(0, 1, 3), keepdim=True)
+    if sharded:
+        mesh.all_reduce_sum_model_(squares)
+    return torch.sqrt(squares)
 
 
-def group_lasso_shrink(kernel: torch.Tensor, percentile) -> torch.Tensor:
+def group_lasso_shrink(kernel: torch.Tensor, percentile, sharded: bool = False) -> torch.Tensor:
     """max(1 - thr/||w_c||, 0) shrinkage at the given percentile (:375-383),
     thr the linear-interpolation quantile of the channel norms.  Percentile
     0 (skipped head/tail layers) is a no-op: the quantile at 0 is the
     smallest norm, which would zero the weakest channel and shrink the
-    others at every step."""
-    norms = channel_norms(kernel)
+    others at every step.  `sharded` as for channel_norms."""
+    norms = channel_norms(kernel, sharded)
     pct = torch.clamp(torch.as_tensor(percentile, dtype=torch.float32,
                                       device=kernel.device) / 100.0, 0.0, 1.0)
     thr = torch.where(pct > 0.0, torch.quantile(norms.reshape(-1), pct),
@@ -71,8 +80,13 @@ def group_lasso_shrink(kernel: torch.Tensor, percentile) -> torch.Tensor:
     return (kernel.to(torch.float32) * shrink).to(kernel.dtype)
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.mean(torch.square(x.to(torch.float32))))
+def _rms(x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+    """The RMS of x; with `sharded`, of the full tensor whose last axis the
+    model ranks split."""
+    if not sharded:
+        return torch.sqrt(torch.mean(torch.square(x.to(torch.float32))))
+    total = torch.sum(torch.square(x.to(torch.float32))).reshape(1)
+    return torch.sqrt(mesh.all_reduce_sum_model_(total)[0] / (x.numel() * mesh.model_size()))
 
 
 def _module_path(name: str) -> str:
@@ -109,14 +123,15 @@ def pgd_step(learner, full: torch.nn.Module, pruned: torch.nn.Module, names: Lis
     with torch.no_grad():
         for idx, (name, g) in enumerate(zip(names, grads)):
             p = params[name]
+            sharded = isinstance(p, mesh.ModelShard)
             p32, g32 = p.to(torch.float32), g.to(torch.float32)
-            g_rms = _rms(g32) + 1e-20
-            p_rms = torch.clamp_min(_rms(p32), 1e-8)
+            g_rms = _rms(g32, sharded) + 1e-20
+            p_rms = torch.clamp_min(_rms(p32, sharded), 1e-8)
             w_new = p32 - lrn_rates[idx] * p_rms * (g32 / g_rms)
             # overshoot guard: a non-finite update keeps the old weights (the
             # adaptive rule then decays this layer's rate)
             w_new = torch.where(torch.isfinite(w_new), w_new, p32)
-            p.copy_(group_lasso_shrink(w_new, percentiles[idx]).to(p.dtype))
+            p.copy_(group_lasso_shrink(w_new, percentiles[idx], sharded).to(p.dtype))
     return losses.detach()
 
 
@@ -142,7 +157,7 @@ class RelativeAdam:
             mu.mul_(self.b1).add_((1 - self.b1) * g)
             nu.mul_(self.b2).add_((1 - self.b2) * g.square())
             u = (mu / c1) / ((nu / c2).sqrt() + self.eps)
-            scale = -self.lr * torch.clamp_min(_rms(p), 1e-4)
+            scale = -self.lr * torch.clamp_min(_rms(p, isinstance(p, mesh.ModelShard)), 1e-4)
             p.add_((scale * u).to(p.dtype))
 
 
@@ -202,7 +217,8 @@ class ChannelPrunedGpuLearner(AbstractLearner):
         """Channel masks [1, 1, I, 1] of the surviving (nonzero) channels of
         the kernels `names`; 0-d ones elsewhere."""
         with torch.no_grad():
-            return {n: ((channel_norms(p) > 0).to(torch.float32) if n in names
+            return {n: ((channel_norms(p, isinstance(p, mesh.ModelShard)) > 0).to(torch.float32)
+                        if n in names
                         else torch.ones((), dtype=torch.float32, device=p.device))
                     for n, p in model.named_parameters()}
 

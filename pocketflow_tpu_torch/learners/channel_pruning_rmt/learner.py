@@ -101,6 +101,9 @@ def make_meta_lstsq(nb_iters: int, lrn_rate: float):
 class ChannelPrunedRmtLearner(AbstractLearner):
     """Remastered channel pruning: meta-LASSO + iterative least squares."""
 
+    tp_todo = ('ROADMAP item 30: the channel-pruning searches on sharded kernels; the JAX '
+               'package guards their search phases too')
+
     def __init__(self, sm_writer, model_helper, device='cuda'):
         super().__init__(sm_writer, model_helper, device)
         self.helper_dst = None

@@ -205,6 +205,9 @@ def merge_bkup(model: torch.nn.Module, bkup: Dict[str, torch.Tensor],
 class DisChnPrunedLearner(AbstractLearner):
     """Discrimination-aware channel pruning learner."""
 
+    tp_todo = ('ROADMAP item 30: the channel-pruning searches on sharded kernels; the JAX '
+               'package guards their search phases too')
+
     def __init__(self, sm_writer, model_helper, device='cuda'):
         super().__init__(sm_writer, model_helper, device)
         self.helper_dst = None

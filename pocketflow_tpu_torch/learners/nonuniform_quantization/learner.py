@@ -39,7 +39,7 @@ class NonUniformQuantLearner(AbstractLearner):
         sample = torch.from_numpy(self.dataset_train.synthesize_arrays(2)[0][:2])
         sample = self.dataset_train.augment(sample.to(self.device), None, False)
         with FLAGS.scope(uql_quantize_all_layers=FLAGS.nuql_quantize_all_layers):
-            self.statistics = uq_utils.discover_quant_sites(self.create_model(), sample)
+            self.statistics = uq_utils.discover_quant_sites(self.create_model(shard=False), sample)
         self._tx: Optional[Sgd] = None
         self.optimal_w_bit_list: Optional[List[int]] = None
         self.optimal_a_bit_list: Optional[List[int]] = None

@@ -63,7 +63,8 @@ class UniformQuantLearner(AbstractLearner):
         # images (only the shapes matter)
         sample = torch.from_numpy(self.dataset_train.synthesize_arrays(2)[0][:2])
         sample = self.dataset_train.augment(sample.to(self.device), None, False)
-        self.statistics = uq_utils.discover_quant_sites(self.create_model(), sample)
+        # the full model's sites and shapes, at any mesh
+        self.statistics = uq_utils.discover_quant_sites(self.create_model(shard=False), sample)
 
         self.optimal_w_bit_list: Optional[List[int]] = None
         self.optimal_a_bit_list: Optional[List[int]] = None

@@ -6,8 +6,9 @@ every relu output through ``process_act``.  Per-layer bit-widths are device
 tensors in ``TrainState.extra``: a new bit list is a new tensor, and a step
 never reads bits back to the host.  The first ``process_weight`` of a forward
 quantizes all of the policy's weights in one grouped kernel call
-(``fake_quant_group`` per tensor, ``fake_quant_bucket_group`` with buckets),
-and each site takes its result; each activation goes through one kernel call
+(``fake_quant_group`` per tensor, ``fake_quant_group_global`` where a
+kernel is a tensor-parallel shard, ``fake_quant_bucket_group`` with
+buckets), and each site takes its result; each activation goes through one kernel call
 with the select on bits < 32 inside (``fake_quant_select``).
 """
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from pocketflow_tpu_torch.config import FLAGS
+from pocketflow_tpu_torch.core import mesh
 from pocketflow_tpu_torch.nn.layers import (
     CompressionPolicy, PFConv, PFDense, compression, recomputing)
 from pocketflow_tpu_torch.ops import fake_quant as fq
@@ -136,6 +138,9 @@ class QuantPolicy(CompressionPolicy):
         if FLAGS.uql_use_buckets:
             self._grouped = fq.fake_quant_bucket_group(
                 self.weights, self.w_bits, FLAGS.uql_bucket_type, FLAGS.uql_bucket_size)
+        elif any(isinstance(w, mesh.ModelShard) for w in self.weights):
+            # tensor parallelism: a sharded kernel's range spans its shards
+            self._grouped = fq.fake_quant_group_global(self.weights, self.w_bits)
         else:
             self._grouped = fq.fake_quant_group(self.weights, self.w_bits)
 

@@ -7,6 +7,8 @@ The quantization is a policy in the forward:
 * weights: per-output-channel min/max fake-quant at ``uqtf_weight_bits``,
   every weight of the model (first and last included) in one grouped K2'
   launch pair a forward (``fake_quant_bucket_group`` without the select);
+  under tensor parallelism a sharded kernel's channels are its own columns,
+  so its shard is quantized as it is;
 * activations: fake-quant against an exponential-moving-average (min, max)
   range per activation site (``fake_quant_with_range``, plain PyTorch as in
   the reference), the ranges in ``TrainState.extra``; each site records its
@@ -145,7 +147,7 @@ class UniformQuantTFLearner(AbstractLearner):
         sample = torch.from_numpy(self.dataset_train.synthesize_arrays(2)[0][:2])
         sample = self.dataset_train.augment(sample.to(self.device), None, False)
         with FLAGS.scope(uql_quantize_all_layers=True):  # TF rewrites all layers
-            self.statistics = uq_utils.discover_quant_sites(self.create_model(), sample)
+            self.statistics = uq_utils.discover_quant_sites(self.create_model(shard=False), sample)
         self.w_bits = torch.full((self.statistics['nb_matmuls'],), float(FLAGS.uqtf_weight_bits),
                                  device=self.device)
         self.a_bits = torch.tensor(float(FLAGS.uqtf_activation_bits), device=self.device)

@@ -12,15 +12,23 @@ The functions return new tensors, as the JAX package's do; ``mask_gradients_``
 and ``apply_masks_`` multiply in place instead (the train step's gradient
 hook and post-update re-zero, which need no second copy of the parameters).
 Dict order is the JAX package's tree order (keys sorted at every level).
+
+Under tensor parallelism a kernel held as a ``mesh.ModelShard`` keeps its
+shard's mask and backup; its percentile threshold is the full kernel's (the
+backup gathered over the model group at a refresh, which is rare), its
+shape in ``maskable_shapes`` the full one, and ``calc_prune_ratio`` counts
+its zeros over the model group.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Mapping, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from pocketflow_tpu_torch.config import FLAGS
+from pocketflow_tpu_torch.core import mesh
 
 FLAGS.DEFINE_float('ws_prune_ratio_exp', 3.0, "WS: pruning ratio's exponent term")
 FLAGS.DEFINE_float('ws_iter_ratio_beg', 0.1, 'WS: iteration ratio (at starting time)')
@@ -57,8 +65,25 @@ def maskable_paths(params: Tensors) -> List[str]:
     return [name for name in _tree_order(params) if is_maskable_path(name)]
 
 
+def _full_shape(tensor: torch.Tensor) -> Tuple[int, ...]:
+    if isinstance(tensor, mesh.ModelShard):
+        return tuple(tensor.shape[:-1]) + (tensor.shape[-1] * mesh.model_size(),)
+    return tuple(tensor.shape)
+
+
 def maskable_shapes(params: Tensors) -> List[Tuple[int, ...]]:
-    return [tuple(params[name].shape) for name in maskable_paths(params)]
+    """The maskable parameters' shapes (a ModelShard's full kernel's)."""
+    return [_full_shape(params[name]) for name in maskable_paths(params)]
+
+
+def _mask_of(param: torch.Tensor, weights: torch.Tensor, prune_ratio) -> torch.Tensor:
+    """percentile_mask(weights, prune_ratio); where `param` is a ModelShard,
+    the threshold is its full kernel's: `weights` (its shard's) gathered,
+    masked, and cut back to the shard."""
+    if not isinstance(param, mesh.ModelShard):
+        return percentile_mask(weights, prune_ratio)
+    full = percentile_mask(mesh.all_gather_model(weights.contiguous(), -1), prune_ratio)
+    return mesh.shard_tensor(full, mesh.shard(-1))
 
 
 def build_mask_state(params: Tensors) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -138,7 +163,7 @@ def prune_update(params: Tensors, extra: Mapping[str, Tensors], step, nb_iters_t
             continue
         ratio = dynamic_prune_ratio(step, nb_iters_train, float(ratios_fnl[name]))
         b = torch.where(m > 0.5, p.detach().to(torch.float32), b)
-        m = percentile_mask(b, ratio)
+        m = _mask_of(p, b, ratio)
         new_params[name], new_masks[name], new_bkups[name] = (b * m).to(p.dtype), m, b
     return new_params, {'masks': new_masks, 'bkups': new_bkups}
 
@@ -200,18 +225,25 @@ def masks_from_ratios(params: Tensors, ratios: Mapping[str, Any]) -> Dict[str, t
     for name in _tree_order(params):
         p = params[name]
         if is_maskable_path(name):
-            out[name] = percentile_mask(p, torch.as_tensor(ratios[name], dtype=torch.float32))
+            out[name] = _mask_of(p, p, torch.as_tensor(ratios[name], dtype=torch.float32))
         else:
             out[name] = torch.ones((), dtype=torch.float32, device=p.device)
     return out
 
 
 def calc_prune_ratio(params: Tensors, maskable_only: bool = False) -> torch.Tensor:
-    """The overall fraction of zero weights."""
-    nnz, tot = 0.0, 0
+    """The overall fraction of zero weights (a ModelShard's nonzeros summed
+    over the model group: the full kernel's)."""
+    nnz, shard_nnz, tot = 0.0, [], 0
     for name in _tree_order(params):
         if maskable_only and not is_maskable_path(name):
             continue
-        nnz = nnz + (params[name] != 0).sum().to(torch.float32)
-        tot += params[name].numel()
+        count = (params[name] != 0).sum().to(torch.float32)
+        if isinstance(params[name], mesh.ModelShard):
+            shard_nnz.append(count)
+        else:
+            nnz = nnz + count
+        tot += int(np.prod(_full_shape(params[name])))
+    if shard_nnz:
+        nnz = nnz + mesh.all_reduce_sum_model_(torch.stack(shard_nnz).sum().reshape(1))[0]
     return 1.0 - torch.as_tensor(nnz, dtype=torch.float32) / max(tot, 1)

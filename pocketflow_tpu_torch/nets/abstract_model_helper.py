@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from pocketflow_tpu_torch.config import FLAGS
-from pocketflow_tpu_torch.nn.layers import CompressionPolicy, compression
+from pocketflow_tpu_torch.core import mesh
+from pocketflow_tpu_torch.nn.layers import CompressionPolicy, compression, model_sum
 
 
 class AbstractModelHelper(ABC):
@@ -99,9 +100,16 @@ class AbstractModelHelper(ABC):
                           exclude_bn: bool = True, coeff: Optional[float] = None) -> torch.Tensor:
         """L2 weight decay over kernels; with `exclude_bn`, every path that
         contains 'bn' is skipped.  `named_params` yields ('a/b/kernel', tensor)
-        pairs; `coeff` overrides FLAGS.loss_w_dcy."""
-        squares = [leaf.to(torch.float32).square().sum() for path, leaf in named_params
-                   if path.split('/')[-1] == 'kernel'
-                   and not (exclude_bn and any('bn' in key for key in path.split('/')))]
+        pairs; `coeff` overrides FLAGS.loss_w_dcy.  A tensor-parallel shard's
+        squares are summed over the model group (one all-reduce for all of
+        them), so the term is the full kernels' on every rank."""
+        leaves = [leaf for path, leaf in named_params if path.split('/')[-1] == 'kernel'
+                  and not (exclude_bn and any('bn' in key for key in path.split('/')))]
+        squares = [leaf.to(torch.float32).square().sum() for leaf in leaves
+                   if not isinstance(leaf, mesh.ModelShard)]
+        shards = [leaf.to(torch.float32).square().sum() for leaf in leaves
+                  if isinstance(leaf, mesh.ModelShard)]
+        if shards:
+            squares.append(model_sum(torch.stack(shards).sum()))
         total = torch.stack(squares).sum() if squares else torch.zeros(())
         return (FLAGS.loss_w_dcy if coeff is None else coeff) * total

@@ -23,6 +23,17 @@ forward's policy again at the block's activation counter, and every side
 effect of a forward (BN's running statistics, recorded ranges, captures)
 reads ``recomputing()`` and does nothing there.  'save_convs' keeps PFConv's
 products (``_SavedConv``) and recomputes the rest from them.
+
+Tensor parallelism (``shard_model_``): a PFConv or PFDense kernel that the
+JAX package's rule shards (``core/mesh.infer_tp_sharding``: its output axis
+over the "model" axis) holds this rank's output channels as a
+``mesh.ModelShard``, and the layer is column-parallel, as XLA computes it
+with that axis sharded: its input passes ``_ToModel`` (the identity; the
+backward sums the input's gradient over the model group), the conv or
+matmul runs on the local output channels, and ``_GatherModel`` joins the
+model ranks' channels (the backward takes this rank's slice of the
+gradient).  The bias (replicated: at most 65,535 elements) is added to the
+joined output, and everything downstream runs replicated on the model ranks.
 """
 
 from __future__ import annotations
@@ -221,6 +232,9 @@ class PFConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kernel = self.kernel
+        sharded = isinstance(kernel, mesh.ModelShard)
+        if sharded:
+            x = _ToModel.apply(x)
         policy = current_policy()
         y = None
         if policy is not None:
@@ -229,6 +243,8 @@ class PFConv(nn.Module):
             y = policy.run_contraction(self.path, x, kernel, self.conv_fn)
         if y is None:
             y = self.conv_fn(x.to(self.dtype), kernel.to(self.dtype))
+        if sharded:
+            y = _GatherModel.apply(y, 1)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)[:, None, None]
         if policy is not None:
@@ -293,6 +309,9 @@ class PFDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kernel = self.kernel
+        sharded = isinstance(kernel, mesh.ModelShard)
+        if sharded:
+            x = _ToModel.apply(x)
         policy = current_policy()
         y = None
         if policy is not None:
@@ -301,11 +320,140 @@ class PFDense(nn.Module):
             y = policy.run_contraction(self.path, x, kernel, self.dense_fn)
         if y is None:
             y = self.dense_fn(x.to(self.dtype), kernel.to(self.dtype))
+        if sharded:
+            y = _GatherModel.apply(y, -1)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         if policy is not None:
             y = policy.process_act(self.path, y)
         return y.to(self.dtype)
+
+
+def _dense_buffer(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` whose memory is one dense block in its own layout
+    (channels-last stays channels-last), for an in-place collective."""
+    if t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last) \
+            and not t.is_contiguous():
+        return t.clone(memory_format=torch.channels_last)
+    return t.contiguous().clone() if t.is_contiguous() else t.contiguous()
+
+
+class _ToModel(torch.autograd.Function):
+    """A column-parallel layer's input: the identity forward; the backward
+    sums the gradient over the model group (each rank's holds its output
+    channels' part)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf = _dense_buffer(g)
+        if buf.dim() == 4 and not buf.is_contiguous():  # channels-last: reduce its NHWC view
+            mesh.all_reduce_sum_model_(buf.permute(0, 2, 3, 1))
+        else:
+            mesh.all_reduce_sum_model_(buf)
+        return buf
+
+
+class _GatherModel(torch.autograd.Function):
+    """A column-parallel layer's output: the model ranks' channels joined
+    along `dim`; the backward takes this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, y, dim):
+        ctx.dim = dim % y.dim()
+        ctx.width = y.shape[ctx.dim]
+        return mesh.all_gather_model(y, ctx.dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, mesh.model_rank() * ctx.width, ctx.width), None
+
+
+class _ModelSum(torch.autograd.Function):
+    """The sum of each model rank's value; the gradient of each rank's is
+    the sum's (every rank computes the same loss from it)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return mesh.all_reduce_sum_model_(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def model_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum `t` (a partial of a sum over a sharded kernel's elements) over the
+    model group, differentiably."""
+    return _ModelSum.apply(t)
+
+
+def shard_model_(model: nn.Module) -> List[str]:
+    """Tensor parallelism on `model`, in place: each PFConv/PFDense kernel
+    that ``mesh.infer_tp_sharding`` shards becomes a ``mesh.ModelShard`` of
+    this rank's output channels (its slice of the full kernel).  Returns the
+    sharded parameters' names.  Raises NotImplementedError where the rule
+    would shard another parameter (only column-parallel PFConv and PFDense
+    kernels are written), and at model size 1 does nothing."""
+    size = mesh.model_size()
+    if size == 1:
+        return []
+    kernels = {}
+    for name, module in model.named_modules():
+        if isinstance(module, (PFConv, PFDense)):
+            kernels[(name + '.' if name else '') + 'kernel'] = module
+    sharded = []
+    for name, param in list(model.named_parameters()):
+        placement = mesh.infer_tp_sharding(param, size)
+        if placement.axis is None:
+            continue
+        module = kernels.get(name)
+        if module is None or isinstance(module, PFDepthwiseConv):
+            raise NotImplementedError(
+                'tensor parallelism: %s %s would be split over the model axis, and only '
+                'PFConv and PFDense kernels are column-parallel' % (name, tuple(param.shape)))
+        module.kernel = mesh.ModelShard(mesh.shard_tensor(param.data, placement),
+                                        requires_grad=param.requires_grad)
+        sharded.append(name)
+    return sharded
+
+
+def full_shape(name: str, tensor: torch.Tensor) -> Tuple[int, ...]:
+    """The full shape of a state-dict entry: a ModelShard's last axis times
+    the model size."""
+    if isinstance(tensor, mesh.ModelShard):
+        return tuple(tensor.shape[:-1]) + (tensor.shape[-1] * mesh.model_size(),)
+    return tuple(tensor.shape)
+
+
+def full_state_dict(model: nn.Module) -> dict:
+    """`model.state_dict()` with every ModelShard gathered over the model
+    group into its full tensor (every model rank calls it together)."""
+    out = {}
+    for name, tensor in model.state_dict(keep_vars=True).items():
+        if isinstance(tensor, mesh.ModelShard):
+            out[name] = mesh.gather_tensor(tensor, mesh.shard(-1))
+        else:
+            out[name] = tensor.detach()
+    return out
+
+
+def load_full_state_dict(model: nn.Module, state_dict: dict):
+    """Load a full state dict into `model` (strict), each ModelShard taking
+    its slice of its entry."""
+    target = model.state_dict(keep_vars=True)
+    local = {}
+    for name, value in state_dict.items():
+        if isinstance(target.get(name), mesh.ModelShard):
+            if tuple(value.shape) != full_shape(name, target[name]):
+                raise ValueError('%s: a full tensor of %s for a shard of %s'
+                                 % (name, tuple(value.shape), full_shape(name, target[name])))
+            value = mesh.shard_tensor(value, mesh.shard(-1))
+        local[name] = value
+    model.load_state_dict(local, strict=True)
 
 
 class _BNVariables(nn.Module):

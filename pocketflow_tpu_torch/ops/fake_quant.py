@@ -22,7 +22,12 @@ one launch pair; a group of one, without the select, is the per-site bucket
 ops' route).  Under data parallelism an activation's range is the global
 batch's: ``fake_quant_per_tensor_global`` runs K1''s pass 1 alone, all-reduces
 the (min, max) across the ranks, then runs pass 2 from that range (the fused
-``fake_quant_per_tensor`` stays the route at world size 1).  Dispatch is by device: a CPU
+``fake_quant_per_tensor`` stays the route at world size 1).  Under tensor
+parallelism a sharded kernel's per-tensor range is the max over its shards:
+``fake_quant_per_tensor_group_global`` runs the grouped kernel's pass 1 into
+a [T, 2] buffer of (-min, max), all-reduces it (MAX) over the model group and
+quantizes from it (the fused ``fake_quant_per_tensor_group`` stays the route
+where no weight is sharded).  Dispatch is by device: a CPU
 tensor takes the plain PyTorch version (``_quantize_math_torch``), a CUDA
 tensor launches the kernel, anything else raises.  No call falls back from
 one to the other.  The module-level counters count kernel launches and plain
@@ -48,15 +53,17 @@ tensor_kernel_launches = 0
 select_launches = 0
 global_range_launches = 0
 group_kernel_launches = 0
+group_global_launches = 0
 column_group_launches = 0
 plain_calls = 0
 
 
 def reset_counters():
     global tensor_kernel_launches, select_launches, group_kernel_launches
-    global column_group_launches, plain_calls, global_range_launches
+    global column_group_launches, plain_calls, global_range_launches, group_global_launches
     tensor_kernel_launches = select_launches = group_kernel_launches = 0
     column_group_launches = plain_calls = global_range_launches = 0
+    group_global_launches = 0
 
 
 def counters() -> dict:
@@ -64,6 +71,7 @@ def counters() -> dict:
             'fake_quant_per_tensor_select': select_launches,
             'fake_quant_per_tensor_global': global_range_launches,
             'fake_quant_per_tensor_group': group_kernel_launches,
+            'fake_quant_per_tensor_group_global': group_global_launches,
             'fake_quant_per_column_group': column_group_launches,
             'plain': plain_calls}
 
@@ -122,6 +130,10 @@ def _library() -> ctypes.CDLL:
         lib.pf_fake_quant_tensor_from_range.restype = i32
         lib.pf_fake_quant_tensor_group.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr]
         lib.pf_fake_quant_tensor_group.restype = i32
+        lib.pf_fake_quant_tensor_group_minmax.argtypes = [ptr, ptr, i32, ptr, ptr, i32, ptr, ptr]
+        lib.pf_fake_quant_tensor_group_minmax.restype = i32
+        lib.pf_fake_quant_tensor_group_from_range.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr]
+        lib.pf_fake_quant_tensor_group_from_range.restype = i32
         lib.pf_fake_quant_columns_group.argtypes = [ptr, ptr, i32, ptr, i32, ptr, ptr, ptr]
         lib.pf_fake_quant_columns_group.restype = i32
         layout = {'pf_fake_quant_group_chunk': _GROUP_CHUNK,
@@ -367,6 +379,91 @@ def fake_quant_per_tensor_group(xs: Sequence[torch.Tensor], bits: torch.Tensor) 
     return [out.as_strided(shape, strides, offset) for shape, strides, offset in layout]
 
 
+def fake_quant_per_tensor_group_global(xs: Sequence[torch.Tensor],
+                                       bits: torch.Tensor) -> List[torch.Tensor]:
+    """fake_quant_per_tensor_group(xs, bits) with each tensor's range the
+    max over the model group (core/mesh.py): a sharded kernel's range is
+    its full kernel's, a replicated one's its own (equal on every model
+    rank).  The grouped route's pass 1 into a [T, 2] device buffer of
+    (-min, max) (``tensor_group_minmax``), one MAX all-reduce of it over the
+    model group, pass 2 from it (``tensor_group_from_range``), all on the
+    current stream, with no wait on the host.  The plain version takes each
+    tensor's min and max, the same all-reduce and _quantize_in_range."""
+    global group_global_launches, plain_calls
+    xs = list(xs)
+    _check_group('fake_quant_per_tensor_group_global', xs, bits)
+    device = xs[0].device
+    if device.type == 'cpu':
+        plain_calls += 1
+        neg_ranges = torch.stack([torch.stack([-x.min(), x.max()]) for x in xs])
+        mesh.all_reduce_max_model_(neg_ranges)
+        return [torch.where(b < 32, _quantize_in_range(x, _levels(b), -r[0], r[1]), x)
+                for x, b, r in zip(xs, bits, neg_ranges)]
+    if device.type != 'cuda':
+        raise ValueError('fake_quant_per_tensor_group_global: no kernel for device %s' % device)
+    table = _group_table(xs)
+    neg_ranges = _launch_group_minmax(xs, bits, table)
+    mesh.all_reduce_max_model_(neg_ranges)
+    out = _launch_group_from_range(xs, bits, neg_ranges, table)
+    group_global_launches += 1
+    return out
+
+
+def _launch_group_minmax(xs, bits, table) -> torch.Tensor:
+    entries, chunk_tensor, _, _ = table
+    device = xs[0].device
+    partials = torch.empty(2 * chunk_tensor.numel(), dtype=torch.float32, device=device)
+    neg_ranges = torch.empty((len(xs), 2), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = _library().pf_fake_quant_tensor_group_minmax(
+            entries.data_ptr(), chunk_tensor.data_ptr(), chunk_tensor.numel(), bits.data_ptr(),
+            partials.data_ptr(), len(xs), neg_ranges.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    _check_launch(err, 'tensor_group_minmax')
+    return neg_ranges
+
+
+def _launch_group_from_range(xs, bits, neg_ranges, table) -> List[torch.Tensor]:
+    entries, chunk_tensor, layout, total = table
+    device = xs[0].device
+    out = torch.empty(total, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = _library().pf_fake_quant_tensor_group_from_range(
+            entries.data_ptr(), chunk_tensor.data_ptr(), chunk_tensor.numel(), bits.data_ptr(),
+            neg_ranges.data_ptr(), out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    _check_launch(err, 'tensor_group_from_range')
+    return [out.as_strided(shape, strides, offset) for shape, strides, offset in layout]
+
+
+def tensor_group_minmax(xs: Sequence[torch.Tensor], bits: torch.Tensor) -> torch.Tensor:
+    """The grouped route's pass 1 alone on CUDA fp32 `xs`: a [T, 2] fp32
+    device tensor of each tensor's (-min, max) ((-FLT_MAX, -FLT_MAX) where
+    bits >= 32)."""
+    xs = list(xs)
+    _check_group('tensor_group_minmax', xs, bits)
+    if xs[0].device.type != 'cuda':
+        raise ValueError('tensor_group_minmax: no kernel for device %s' % xs[0].device)
+    return _launch_group_minmax(xs, bits, _group_table(xs))
+
+
+def tensor_group_from_range(xs: Sequence[torch.Tensor], bits: torch.Tensor,
+                            neg_ranges: torch.Tensor) -> List[torch.Tensor]:
+    """The grouped route's pass 2 alone on CUDA fp32 `xs`: each tensor's
+    fake-quant against (-neg_ranges[t, 0], neg_ranges[t, 1]) ([T, 2] fp32
+    on their device), or the tensor itself where bits[t] >= 32; views of one
+    flat buffer, as fake_quant_per_tensor_group's."""
+    xs = list(xs)
+    _check_group('tensor_group_from_range', xs, bits)
+    device = xs[0].device
+    if device.type != 'cuda':
+        raise ValueError('tensor_group_from_range: no kernel for device %s' % device)
+    if neg_ranges.device != device or neg_ranges.dtype != torch.float32 \
+            or tuple(neg_ranges.shape) != (len(xs), 2) or not neg_ranges.is_contiguous():
+        raise ValueError('neg_ranges must be [%d, 2] contiguous float32 on %s'
+                         % (len(xs), device))
+    return _launch_group_from_range(xs, bits, neg_ranges, _group_table(xs))
+
+
 def _column_view(shape: Sequence[int], bucket_size: Optional[int]) -> Tuple[int, int]:
     """(rows, cols) of a tensor's column view: channel buckets (bucket_size
     None) [n / c_out, c_out]; split buckets the flattened tensor as row-major
@@ -520,15 +617,33 @@ class _FakeQuantGroup(torch.autograd.Function):
         return (None, *grads)
 
 
-class _FakeQuantColumnGroup(torch.autograd.Function):
+class _FakeQuantGroupGlobal(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, bits, bucket_size, select, *xs):
-        return tuple(fake_quant_per_column_group([x.contiguous() for x in xs], bits, bucket_size,
-                                                 select))
+    def forward(ctx, bits, *xs):
+        return tuple(fake_quant_per_tensor_group_global([x.contiguous() for x in xs], bits))
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, None, None, *grads)
+        return (None, *grads)
+
+
+class _FakeQuantColumnGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, bits, bucket_size, select, sharded, *xs):
+        if bucket_size is None or not any(sharded):
+            return tuple(fake_quant_per_column_group([x.contiguous() for x in xs], bits,
+                                                     bucket_size, select))
+        # split buckets cross the shards of a kernel split along its last
+        # axis: quantize the full kernel and keep this rank's columns
+        full = [mesh.all_gather_model(x.contiguous(), -1) if cut else x.contiguous()
+                for x, cut in zip(xs, sharded)]
+        out = fake_quant_per_column_group(full, bits, bucket_size, select)
+        return tuple(mesh.shard_tensor(q, mesh.shard(-1)) if cut else q
+                     for q, cut in zip(out, sharded))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None, None, *grads)
 
 
 class _FakeQuantBucket(torch.autograd.Function):
@@ -581,6 +696,13 @@ def fake_quant_group(xs: Sequence[torch.Tensor], bits: torch.Tensor) -> List[tor
     return list(_FakeQuantGroup.apply(bits, *xs))
 
 
+def fake_quant_group_global(xs: Sequence[torch.Tensor], bits: torch.Tensor) -> List[torch.Tensor]:
+    """fake_quant_group with each tensor's range over the model group: the
+    weights' route under tensor parallelism, where the JAX package takes the
+    min and max of a kernel sharded along its output axis."""
+    return list(_FakeQuantGroupGlobal.apply(bits, *xs))
+
+
 def fake_quant_bucket_group(xs: Sequence[torch.Tensor], bits: torch.Tensor, bucket_type: str,
                             bucket_size: int, select: bool = True) -> List[torch.Tensor]:
     """Bucketed fake-quantization of each xs[t] at bits[t] with STE, all
@@ -589,14 +711,17 @@ def fake_quant_bucket_group(xs: Sequence[torch.Tensor], bits: torch.Tensor, buck
     result equal to fake_quant_channel_bucket's or fake_quant_split_bucket's.
     With `select`, xs[t] itself where bits[t] >= 32 (the select of the
     per-site route); without it every tensor is quantized, as the per-site
-    ops quantize."""
+    ops quantize.  Under tensor parallelism a sharded kernel's channel
+    buckets are its own columns; its split buckets are taken over the full
+    kernel, gathered over the model group, of which it keeps its columns."""
     if bucket_type == 'channel':
         size = None
     elif bucket_type == 'split':
         size = int(bucket_size)
     else:
         raise ValueError('unrecognized bucket type: ' + bucket_type)
-    return list(_FakeQuantColumnGroup.apply(bits, size, select, *xs))
+    sharded = tuple(isinstance(x, mesh.ModelShard) for x in xs)
+    return list(_FakeQuantColumnGroup.apply(bits, size, select, sharded, *xs))
 
 
 def fake_quant_split_bucket(x: torch.Tensor, bits: torch.Tensor, bucket_size: int) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Launch N data-parallel ranks on this host (counterpart of
+"""Launch N data- or tensor-parallel ranks on this host (counterpart of
 scripts/run_multihost.sh and __graft_entry__.dryrun_multichip).
 
 Each rank is a process with torchrun's environment (WORLD_SIZE, RANK,
@@ -15,8 +15,8 @@ within the timeout fails the launch, and every rank is then killed.
 
 ``spawn(target, nprocs, kwargs)`` runs ``module:function(**kwargs)`` on every
 rank and returns the ranks' results; ``dryrun_multichip(n)`` takes one
-full-precision ConvNet @ FMNIST step on n gloo CPU ranks and prints its
-accuracy.
+full-precision ConvNet @ FMNIST step on n gloo CPU ranks, on a data x model
+mesh with tensor parallelism where n >= 4 is even, and prints its accuracy.
 """
 
 from __future__ import annotations
@@ -122,17 +122,24 @@ def run_main(argv: List[str], device: str = 'cuda'):
     main_lib.main(list(argv), device=device)
 
 
-def _dryrun_rank(work_dir: str) -> float:
+def _dryrun_rank(work_dir: str, mesh_shape: str = '') -> float:
     """One full-precision ConvNet @ FMNIST train step on this rank (batch 4
-    a rank, fp32, synthetic data): the step's accuracy over the global batch."""
+    a data rank, fp32, synthetic data) on the mesh of `mesh_shape`, with
+    tensor parallelism where it has a "model" axis (fc3's kernel must then
+    be sharded): the step's accuracy over the global batch."""
     from pocketflow_tpu_torch.config import FLAGS
+    from pocketflow_tpu_torch.core import mesh
     from pocketflow_tpu_torch.learners.full_precision import FullPrecLearner
     from pocketflow_tpu_torch.nets.convnet_at_fmnist import ModelHelper
     with FLAGS.scope(batch_size=4, nb_smpls_train=256, nb_smpls_eval=64, batch_size_eval=4,
-                     compute_dtype='float32', synthetic_data=True,
+                     compute_dtype='float32', synthetic_data=True, mesh_shape=mesh_shape,
+                     enbl_tensor_parallel='model:' in mesh_shape,
                      save_path=os.path.join(work_dir, 'models', 'model.ckpt')):
         learner = FullPrecLearner(None, ModelHelper(), device='cpu')
         state, tx, _ = learner.init_state()
+        if learner.enbl_tp:  # the kernels really are sharded over "model"
+            fc3 = state.model.fc3.kernel
+            assert isinstance(fc3, mesh.ModelShard) and fc3.shape[-1] == 1024 // 2, fc3.shape
         step = learner.build_train_step(tx)
         batch = learner.put_batch(next(learner.dataset_train.build()))
         state, metrics = step(state, batch, learner.generator(0))
@@ -140,17 +147,22 @@ def _dryrun_rank(work_dir: str) -> float:
 
 
 def dryrun_multichip(nb_ranks: int = 2) -> float:
-    """One train step over `nb_ranks` gloo CPU ranks; prints and returns
-    its accuracy."""
+    """One train step over `nb_ranks` gloo CPU ranks, on a (n/2, 2) data x
+    model mesh with tensor parallelism where n >= 4 is even (the JAX
+    package's dry run), else all on "data"; prints and returns its
+    accuracy."""
     import math
+    mesh_shape = ('data:%d,model:2' % (nb_ranks // 2)
+                  if nb_ranks >= 4 and nb_ranks % 2 == 0 else '')
     with tempfile.TemporaryDirectory(prefix='pf_dryrun_') as work_dir:
         accs = spawn('pocketflow_tpu_torch.tools.launch:_dryrun_rank', nb_ranks,
-                     {'work_dir': work_dir}, work_dir=work_dir)
+                     {'work_dir': work_dir, 'mesh_shape': mesh_shape}, work_dir=work_dir)
     if len(set(accs)) != 1 or not math.isfinite(accs[0]):
         raise RuntimeError('dryrun_multichip(%d): ranks disagree or diverge: %s'
                            % (nb_ranks, accs))
-    print('dryrun_multichip(%d) OK: world=%d backend=gloo accuracy=%.3f'
-          % (nb_ranks, nb_ranks, accs[0]))
+    print('dryrun_multichip(%d) OK: world=%d mesh=%s tp=%s backend=gloo accuracy=%.3f'
+          % (nb_ranks, nb_ranks, mesh_shape or 'data:%d' % nb_ranks, bool(mesh_shape),
+             accs[0]))
     return accs[0]
 
 

@@ -160,9 +160,12 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
                          torch.tensor([4.0, 32.0], device=cuda))
     tfq.fake_quant_bucket_group([_inputs(cuda, (64, 64), torch.float32)] * 2,
                                 torch.tensor([4.0, 32.0], device=cuda), 'channel', 256)
+    tfq.fake_quant_group_global([_inputs(cuda, (64, 64), torch.float32)] * 2,
+                                torch.tensor([4.0, 32.0], device=cuda))
     assert tfq.counters() == {'fake_quant_per_tensor': 2, 'fake_quant_per_tensor_select': 1,
                               'fake_quant_per_tensor_global': 0,
                               'fake_quant_per_tensor_group': 1,
+                              'fake_quant_per_tensor_group_global': 1,
                               'fake_quant_per_column_group': 2, 'plain': 0}
     with pytest.raises(ValueError):
         tfq.fake_quant_per_tensor(_inputs(cuda, (8, 8), torch.float32), bits.cpu())
@@ -214,6 +217,38 @@ def test_group_kernel_equals_plain_and_per_tensor_kernel(cuda, bits_cycle):
         assert g.shape == x.shape and torch.equal(g, want) and torch.equal(g, g2)
         if b < 32:
             assert torch.equal(g, tfq.fake_quant_per_tensor(x, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('bits_cycle', [(2, 4, 8, 32), (4,), (32,)])
+def test_group_global_route_equals_fused_and_plain(cuda, bits_cycle):
+    """The model-axis route of the grouped kernel (pass 1 into [T, 2]
+    ranges, pass 2 from them) at model size 1 equals the fused grouped
+    kernel and the plain version bit for bit at the 52 weight shapes; pass
+    1's ranges are each tensor's (-min, max), (-FLT_MAX, -FLT_MAX) where the
+    bits are 32; pass 2 from wider ranges equals the plain version from
+    them; unaligned views take the scalar path."""
+    shapes = resnet50_weight_shapes()
+    xs = [0.05 * _inputs(cuda, s, torch.float32, seed=i) for i, s in enumerate(shapes)]
+    base = _inputs(cuda, (70001,), torch.float32)
+    xs += [base[1:50001], base[3:3 + 16385].reshape(5, 29, 113)]
+    bits = torch.tensor([float(bits_cycle[i % len(bits_cycle)]) for i in range(len(xs))],
+                        device=cuda)
+    got = tfq.fake_quant_per_tensor_group_global(xs, bits)
+    fused = tfq.fake_quant_per_tensor_group(xs, bits)
+    ranges = tfq.tensor_group_minmax(xs, bits)
+    wide = torch.stack([ranges[:, 0] + 0.5, ranges[:, 1] + 0.25], dim=1).contiguous()
+    from_wide = tfq.tensor_group_from_range(xs, bits, wide)
+    big = torch.finfo(torch.float32).max
+    for t, (x, b) in enumerate(zip(xs, bits)):
+        want = torch.where(b < 32, tfq._quantize_math_torch(x, tfq._levels(b), None), x)
+        assert torch.equal(got[t], fused[t]) and torch.equal(got[t], want)
+        want_range = torch.stack([-x.min(), x.max()]) if b < 32 else torch.tensor(
+            [-big, -big], device=cuda)
+        assert torch.equal(ranges[t], want_range)
+        want_wide = torch.where(b < 32, tfq._quantize_in_range(
+            x, tfq._levels(b), -wide[t, 0], wide[t, 1]), x)
+        assert torch.equal(from_wide[t], want_wide)
 
 
 @pytest.mark.gpu

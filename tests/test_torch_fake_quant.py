@@ -275,10 +275,12 @@ def test_cpu_tensors_take_the_plain_version():
     tfq.fake_quant_group([x, x], torch.tensor([4.0, 32.0]))
     tfq.fake_quant_bucket_group([x, x], torch.tensor([4.0, 32.0]), 'split', 4)
     tfq.fake_quant_select_global(x, _bits(4))
+    tfq.fake_quant_group_global([x, x], torch.tensor([4.0, 32.0]))
     assert tfq.counters() == {'fake_quant_per_tensor': 0, 'fake_quant_per_tensor_select': 0,
                               'fake_quant_per_tensor_global': 0,
                               'fake_quant_per_tensor_group': 0,
-                              'fake_quant_per_column_group': 0, 'plain': 6}
+                              'fake_quant_per_tensor_group_global': 0,
+                              'fake_quant_per_column_group': 0, 'plain': 7}
 
 
 # a few weight shapes of ResNet-50 (HWIO) and odd sizes, for the grouped op

@@ -1,7 +1,8 @@
 """core/mesh.py and utils/devices.py of the port: the --mesh_shape parser
 against the JAX package's, the helpers at world size 1, the helpers on two
 gloo CPU ranks (tests/torch_dist_ranks.py:mesh_helpers, joined with a 120 s
-timeout), a "model" axis refused, and require_dp_only."""
+timeout), a "model" axis that does not divide the world refused, and
+require_dp_only's message."""
 
 import os
 
@@ -84,15 +85,29 @@ def test_helpers_on_two_ranks(tmp_path):
 
 
 def test_a_model_axis_is_refused():
+    """A "model" axis is refused where the mesh does not divide the world,
+    with the JAX parser's message; one that divides it is the 2-D mesh
+    (tests/test_torch_tp_*.py run it)."""
     from pocketflow_tpu_torch import main as port_main
+    for spec, world in (('data:1,model:2', 1), ('data:1,model:3', 2), ('data:2,model:2', 2)):
+        with TFLAGS.scope(mesh_shape=spec):
+            with pytest.raises(ValueError) as port:
+                mesh.mesh_axes(world)
+        with pytest.raises(ValueError) as ref:
+            jmesh._parse_mesh_shape(spec, world)
+        assert str(port.value) == str(ref.value)
     with TFLAGS.scope(mesh_shape='data:1,model:2'):
-        with pytest.raises(NotImplementedError, match='item 20'):
-            mesh.mesh_axes()
-    with pytest.raises(NotImplementedError, match='item 20'):
+        assert mesh.mesh_axes(2) == {'data': 1, 'model': 2}
+    with pytest.raises(ValueError, match='wants 2 devices but 1 are available'):
         port_main.main(['--mesh_shape=data:1,model:2', '--synthetic_data'], device='cpu')
 
 
 def test_require_dp_only_raises_only_under_tensor_parallelism():
+    """The port's message names a flag that exists (--mesh_shape without a
+    "model" axis > 1); the JAX package's names --mesh_model_parallel=1,
+    which neither registry defines."""
+    from types import SimpleNamespace
+    from pocketflow_tpu.learners.abstract_learner import AbstractLearner as JLearner
     from pocketflow_tpu_torch.learners.full_precision import FullPrecLearner
     from pocketflow_tpu_torch.nets.convnet_at_fmnist import ModelHelper
     with TFLAGS.scope(synthetic_data=True, nb_smpls_train=64, nb_smpls_eval=16,
@@ -101,8 +116,14 @@ def test_require_dp_only_raises_only_under_tensor_parallelism():
     assert learner.enbl_tp is False  # the flag alone: no "model" axis
     learner.require_dp_only('a search')
     learner.enbl_tp = True
-    with pytest.raises(NotImplementedError, match='tensor parallelism during a search'):
+    with pytest.raises(NotImplementedError, match='tensor parallelism during a search') as port:
         learner.require_dp_only('a search')
+    assert '--mesh_shape without a "model" axis > 1' in str(port.value)
+    assert 'mesh_model_parallel' not in str(port.value)
+    with pytest.raises(NotImplementedError, match='tensor parallelism during a search') as ref:
+        JLearner.require_dp_only(SimpleNamespace(enbl_tp=True), 'a search')
+    assert '--mesh_model_parallel=1' in str(ref.value)
+    assert 'mesh_model_parallel' not in TFLAGS.defaults()
 
 
 def test_devices_without_a_card():

@@ -325,3 +325,361 @@ def detection_rank(argv):
         abstract_learner.AbstractLearner.eval_map = eval_map
         abstract_learner.AbstractLearner.save_model = save_model
     return record
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (tests/test_torch_tp_*.py)
+# ---------------------------------------------------------------------------
+
+def _tp_learner(kind: str):
+    """(learner, state, step) of a ConvNet @ FMNIST learner on the CPU under
+    the flags in scope: 'full-prec', 'uniform', 'uniform-tf' or 'non-uniform'."""
+    from pocketflow_tpu_torch.nets.convnet_at_fmnist import ModelHelper
+    if kind == 'full-prec':
+        from pocketflow_tpu_torch.learners.full_precision import FullPrecLearner
+        learner = FullPrecLearner(None, ModelHelper(), device='cpu')
+        _deterministic_augment(learner.dataset_train)
+        state, tx, _ = learner.init_state()
+        return learner, state, learner.build_train_step(tx)
+    if kind == 'non-uniform':
+        from pocketflow_tpu_torch.learners.nonuniform_quantization.learner import (
+            NonUniformQuantLearner)
+        learner = NonUniformQuantLearner(None, ModelHelper(), device='cpu')
+        _deterministic_augment(learner.dataset_train)
+        state, tx, _ = learner.init_state_quant()
+        return learner, state, learner.build_quant_train_step(tx)
+    if kind == 'uniform-tf':
+        from pocketflow_tpu_torch.learners.uniform_quantization_tf.learner import (
+            UniformQuantTFLearner)
+        learner = UniformQuantTFLearner(None, ModelHelper(), device='cpu')
+        _deterministic_augment(learner.dataset_train)
+        state, tx, _ = learner.init_state_quant()
+        return learner, state, learner.build_qat_train_step(tx, freeze_bn=False)
+    from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
+    learner = UniformQuantLearner(None, ModelHelper(), device='cpu')
+    _deterministic_augment(learner.dataset_train)
+    state, tx, _ = learner.init_state_quant()
+    return learner, state, learner.build_quant_train_step(tx)
+
+
+def tp_step(kind: str, flags, snapshot, images, labels, start_step: int = 0):
+    """One step of `kind` on this rank's rows of (images, labels) from the
+    bridged snapshot (with its 'extra', where it has one) at `start_step`,
+    under the mesh of `flags`: the full state after it (gathered over the
+    model group, 'extra/...' the learner's extra) under the JAX paths, the
+    step's loss,
+    this rank's replicated tensors (parameters and buffers), the shapes of
+    its shards and of their momentum, the collectives and launches of the
+    step, its place on the mesh."""
+    from pocketflow_tpu_torch.core.bridge import load_jax_numpy
+    from pocketflow_tpu_torch.nn import layers
+    from pocketflow_tpu_torch.ops import fake_quant as fq
+    _register_flags()
+    with FLAGS.scope(**flags):
+        learner, state, step = _tp_learner(kind)
+        load_jax_numpy(state.model, snapshot['params'], snapshot['batch_stats'])
+        if 'extra' in snapshot:
+            from pocketflow_tpu_torch.core.bridge import extra_from_jax
+            state.extra = {**state.extra, **extra_from_jax(snapshot['extra'])}
+            if 'codebooks' in snapshot['extra']:  # the optimizer over the new codebooks
+                state.optimizer = learner._tx.init(
+                    state.model, list(state.extra['codebooks'].values()))
+        state.step = start_step
+        rows = mesh.shard_rows(len(images))
+        batch = learner.put_batch({'image': images[rows], 'label': labels[rows]})
+        mesh.reset_counters()
+        fq.reset_counters()
+        state, metrics = step(state, batch, None)
+        counts, launches = mesh.counters(), fq.counters()
+        loss = learner.global_scalars(metrics)['loss']
+        local = state.model.state_dict(keep_vars=True)
+        full = {k.replace('.', '/'): v.numpy().copy()
+                for k, v in layers.full_state_dict(state.model).items()}
+        if 'extra' in snapshot:
+            flat = flat_port_state(state, True)
+            full.update({k: v for k, v in flat.items()
+                         if k.startswith('extra/') and k.split('/')[1] in snapshot['extra']})
+        from pocketflow_tpu_torch.core.bridge import to_jax_numpy
+        jax_params, _ = to_jax_numpy(state.model)  # the full arrays, gathered
+        bridged = bool(np.array_equal(jax_params['fc3']['kernel'], full['fc3/kernel']))
+        return {
+            'state': full, 'bridged': bridged,
+            'loss': loss, 'counts': counts, 'launches': launches,
+            'replicated': {k: v.detach().numpy().copy() for k, v in local.items()
+                           if not isinstance(v, mesh.ModelShard)},
+            'shards': {k: tuple(v.shape) for k, v in local.items()
+                       if isinstance(v, mesh.ModelShard)},
+            'momentum': {name: tuple(state.optimizer.state[p]['momentum_buffer'].shape)
+                         for name, p in state.model.named_parameters()
+                         if isinstance(p, mesh.ModelShard)},
+            'place': (mesh.data_rank(), mesh.model_rank(), mesh.num_workers(),
+                      mesh.model_size()),
+            'global_batch': learner.global_batch_size}
+
+
+def tp_guard(flags, learners):
+    """Each learner of `learners` ({name: extra flags}) built under the mesh
+    of `flags` and trained: {name: the NotImplementedError's message, or
+    None where it trained}."""
+    from pocketflow_tpu_torch.learners.learner_utils import create_learner
+    from pocketflow_tpu_torch.nets.convnet_at_fmnist import ModelHelper
+    import pocketflow_tpu_torch.learners.channel_pruning.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.channel_pruning_gpu.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.channel_pruning_rmt.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.discr_channel_pruning.learner  # noqa: F401
+    import pocketflow_tpu_torch.learners.weight_sparsification.learner  # noqa: F401
+    _register_flags()
+    out = {}
+    for name, extra in learners.items():
+        with FLAGS.scope(**flags, **extra):
+            learner = create_learner(None, ModelHelper(), learner_name=name.split('@')[0],
+                                     device='cpu')
+            try:
+                learner.train()
+                out[name] = None
+            except NotImplementedError as exc:
+                out[name] = str(exc)
+    return out
+
+
+def tp_layers(seed: int):
+    """A column-parallel PFConv and PFDense in float64 on this rank: the
+    forward of random inputs through each, and the gradients of a random
+    cotangent, against the same layers unsharded on this rank (no
+    collective): max |difference| of the output, the input's gradient and
+    the kernel's (this rank's columns)."""
+    from pocketflow_tpu_torch.nn import layers
+    torch.manual_seed(seed)
+    out = {}
+    for name, make, x_shape in (
+            ('conv', lambda: layers.PFConv(64, 1024, (3, 3), (2, 2), dtype=torch.float64),
+             (2, 64, 6, 6)),
+            ('dense', lambda: layers.PFDense(256, 512, dtype=torch.float64), (3, 256))):
+        full = make().double()
+        full.reset_parameters(torch.Generator().manual_seed(seed))
+        with torch.no_grad():
+            full.bias.copy_(torch.randn(full.bias.shape, generator=torch.Generator().manual_seed(1),
+                                        dtype=torch.float64))
+        sharded = make().double()
+        sharded.load_state_dict(full.state_dict())
+        assert layers.shard_model_(sharded) == ['kernel']
+        x = torch.randn(x_shape, dtype=torch.float64, generator=torch.Generator().manual_seed(2))
+        if x.dim() == 4:
+            x = x.contiguous(memory_format=torch.channels_last)
+        x_full = x.clone().requires_grad_(True)
+        x_tp = x.clone().requires_grad_(True)
+        y_full = full(x_full)
+        y_tp = sharded(x_tp)
+        dy = torch.randn(y_full.shape, dtype=torch.float64,
+                         generator=torch.Generator().manual_seed(3))
+        (y_full * dy).sum().backward()
+        (y_tp * dy).sum().backward()
+        width = sharded.kernel.shape[-1]
+        cols = slice(mesh.model_rank() * width, (mesh.model_rank() + 1) * width)
+        out[name] = {'y': float((y_tp - y_full).abs().max()),
+                     'dx': float((x_tp.grad - x_full.grad).abs().max()),
+                     'dkernel': float((sharded.kernel.grad - full.kernel.grad[..., cols])
+                                      .abs().max()),
+                     'dbias': float((sharded.bias.grad - full.bias.grad).abs().max()),
+                     'kernel_shape': tuple(sharded.kernel.shape)}
+    return out
+
+
+def tp_fake_quant(weights, bits):
+    """This rank's shard of each weight (the JAX rule's; the rest whole)
+    through the plain model-axis fake-quant: each result gathered back to
+    the full weight, with the collectives."""
+    from pocketflow_tpu_torch.ops import fake_quant as fq
+    xs, placements = [], []
+    for w in weights:
+        full = torch.from_numpy(w)
+        placement = mesh.infer_tp_sharding(full)
+        placements.append(placement)
+        xs.append(mesh.shard_tensor(full, placement))
+    mesh.reset_counters()
+    bits_t = torch.tensor(bits, dtype=torch.float32)
+    out = fq.fake_quant_per_tensor_group_global(xs, bits_t)
+    counts = mesh.counters()
+    # the bucket routes on the same shards (held as ModelShards, as the
+    # policy passes them): channel buckets are a shard's own columns, split
+    # buckets are taken over the gathered kernel
+    params = [mesh.ModelShard(x) if p.axis is not None else x for x, p in zip(xs, placements)]
+    buckets = {}
+    for kind in ('channel', 'split'):
+        mesh.reset_counters()
+        got = fq.fake_quant_bucket_group(params, bits_t, kind, 256)
+        buckets[kind] = {'counts': mesh.counters()}
+        buckets[kind]['out'] = [mesh.gather_tensor(q.detach(), p).numpy()
+                                for q, p in zip(got, placements)]
+    return {'out': [mesh.gather_tensor(q, p).numpy() for q, p in zip(out, placements)],
+            'sharded': [p.axis is not None for p in placements], 'counts': counts,
+            'buckets': buckets}
+
+
+def _full_state(state):
+    """A train state in full (the shards gathered): parameters and buffers
+    and SGD momentum (by parameter index) as numpy arrays, and the step."""
+    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+    from pocketflow_tpu_torch.nn import layers
+    opt = ckpt_lib.full_optimizer_state(state.optimizer)
+    return {'model': {k: v.numpy().copy() for k, v in layers.full_state_dict(state.model).items()},
+            'momentum': {i: b['momentum_buffer'].numpy().copy() for i, b in opt['state'].items()},
+            'step': state.step}
+
+
+def tp_main_rank(argv):
+    """main.main(argv) on this rank (CPU): the full state at each save, with
+    the files each rank wrote under the save directory's parent
+    (torch.save's and the sharded backend's)."""
+    from pocketflow_tpu_torch import main as main_lib
+    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+    from pocketflow_tpu_torch.learners import abstract_learner
+    record = {'saves': [], 'writes': []}
+    save_model = abstract_learner.AbstractLearner.save_model
+    save = ckpt_lib.torch.save
+
+    def recorded_save_model(self, state, *args, **kwargs):
+        record['saves'].append(_full_state(state))
+        return save_model(self, state, *args, **kwargs)
+
+    def counted_save(obj, path, *args, **kwargs):
+        record['writes'].append(str(path))
+        return save(obj, path, *args, **kwargs)
+
+    abstract_learner.AbstractLearner.save_model = recorded_save_model
+    ckpt_lib.torch.save = counted_save
+    try:
+        main_lib.main(list(argv), device='cpu')
+    finally:
+        abstract_learner.AbstractLearner.save_model = save_model
+        ckpt_lib.torch.save = save
+    return record
+
+
+def tp_restore(flags):
+    """A full-prec ConvNet @ FMNIST learner under the mesh of `flags`
+    restored from the newest checkpoint under --save_path: its full state,
+    this rank's shapes of fc3's kernel and momentum, and restore_intersecting
+    into a fresh model of the mesh (the count, the parameters', and whether
+    each equals the restored one)."""
+    from pocketflow_tpu_torch.learners.full_precision import FullPrecLearner
+    from pocketflow_tpu_torch.nets.convnet_at_fmnist import ModelHelper
+    _register_flags()
+    with FLAGS.scope(**flags):
+        learner = FullPrecLearner(None, ModelHelper(), device='cpu')
+        state, _, _ = learner.init_state()
+        state = learner.restore_model(state)
+        out = _full_state(state)
+        # restore_intersecting into a fresh model of this mesh: every parameter, a
+        # shard its slice
+        from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+        from pocketflow_tpu_torch.nn import layers
+        fresh = learner.create_model()
+        count = ckpt_lib.restore_intersecting(FLAGS.save_path, fresh)
+        grafted = layers.full_state_dict(fresh)
+        out['intersecting'] = (count, len(list(fresh.parameters())), all(
+            np.array_equal(grafted[name].numpy(), out['model'][name])
+            for name, _ in fresh.named_parameters()))
+        kernel = state.model.fc3.kernel
+        out['fc3'] = (tuple(kernel.shape), tuple(state.optimizer.state[kernel]['momentum_buffer']
+                                                 .shape), isinstance(kernel, mesh.ModelShard))
+        return out
+
+
+def tp_mesh_helpers(mesh_shape: str):
+    """The 2-D mesh's helpers on this rank under `mesh_shape`: its place,
+    the model group's gather (a row-major and a channels-last tensor along
+    their last and channel axes), sum and max, the data group's sum and
+    rows, a dataset's shard, the broadcasts of a shard and of a replicated
+    tensor, with the collectives each issued."""
+    with FLAGS.scope(mesh_shape=mesh_shape):
+        mesh.setup_groups()
+        rank = mesh.worker_rank()
+        out = {'place': (mesh.world_size(), mesh.num_workers(), mesh.model_size(),
+                         mesh.data_rank(), mesh.model_rank())}
+        mesh.reset_counters()
+        row = torch.full((2, 3), float(rank))
+        out['gather_rows'] = mesh.all_gather_model(row).numpy()
+        act = torch.arange(2 * 3 * 2 * 2, dtype=torch.float32).reshape(2, 3, 2, 2) + 100 * rank
+        act = act.contiguous(memory_format=torch.channels_last)
+        gathered = mesh.all_gather_model(act, 1)
+        out['gather_act'] = gathered.numpy()
+        out['gather_act_channels_last'] = gathered.is_contiguous(
+            memory_format=torch.channels_last)
+        out['sum_model'] = mesh.all_reduce_sum_model_(torch.tensor([float(rank), 1.0])).numpy()
+        out['max_model'] = mesh.all_reduce_max_model_(torch.tensor([float(rank), -rank])).numpy()
+        out['sum_data'] = mesh.all_reduce_sum_(torch.tensor([float(rank), 1.0])).numpy()
+        out['counts'] = mesh.counters()
+        out['rows'] = mesh.shard_rows(8)
+        from pocketflow_tpu_torch.datasets.fmnist import FMnistDataset
+        with FLAGS.scope(synthetic_data=True):
+            data = FMnistDataset(is_train=True)
+        out['dataset_shard'] = (data.shard_id, data.nb_shards)
+        shard = mesh.ModelShard(torch.full((2,), float(rank)))
+        plain = torch.full((2,), float(rank))
+        mesh.broadcast_from_primary([shard, plain])
+        out['broadcast'] = (shard.detach().numpy().copy(), plain.numpy().copy())
+        return out
+
+
+def tp_prune_update(mesh_shape: str, ratio: float):
+    """masking.prune_update and calc_prune_ratio on ConvNet @ FMNIST's
+    parameters (drawn from one seed on every rank) at a refresh halfway
+    through the schedule, once on the full parameters (no collective) and
+    once on this rank's shards under `mesh_shape`: the full results, and
+    the sharded ones gathered."""
+    from pocketflow_tpu_torch.learners.weight_sparsification import masking
+    from pocketflow_tpu_torch.nets.convnet_at_fmnist import ModelHelper
+    from pocketflow_tpu_torch.nn import layers
+    with FLAGS.scope(mesh_shape=mesh_shape, synthetic_data=True):
+        model = ModelHelper().create_model()
+        model.reset_parameters(torch.Generator().manual_seed(4))
+        full = {n: p.detach().clone() for n, p in model.named_parameters()}
+        assert layers.shard_model_(model) == ['fc3.kernel']
+        shards = dict(model.named_parameters())
+        ratios = {name: ratio for name in masking.maskable_paths(full)}
+        out = {}
+        for label, params in (('full', full), ('tp', shards)):
+            extra = masking.build_mask_state(params)
+            new_params, new_extra = masking.prune_update(params, extra, 50, 100, ratios)
+            gather = {name: mesh.gather_tensor(t, mesh.shard(-1))
+                      if isinstance(params[name], mesh.ModelShard) else t
+                      for name, t in new_extra['masks'].items()}
+            out[label] = {'masks': {k: v.numpy() for k, v in gather.items()},
+                          'shapes': masking.maskable_shapes(params),
+                          'ratio': float(masking.calc_prune_ratio(
+                              {k: (mesh.ModelShard(v) if isinstance(params[k], mesh.ModelShard)
+                                   else v) for k, v in new_params.items()}, maskable_only=True))}
+        return out
+
+
+def tp_cpg(flags, images, labels, nb_steps: int = 2):
+    """chn-pruned-gpu's PGD and reconstruction steps on ResNet-50 @
+    ILSVRC-12 under the mesh of `flags`, on this rank's rows of (images,
+    labels), from the learner's seeded state: the full prunable kernels
+    after `nb_steps` PGD steps and one reconstruction step (the shards
+    gathered), the channel masks, the losses, and the shards' names."""
+    from pocketflow_tpu_torch.learners.channel_pruning_gpu import learner as cpg
+    from pocketflow_tpu_torch.nets.resnet_at_ilsvrc12 import ModelHelper
+    from pocketflow_tpu_torch.nn import layers
+    with FLAGS.scope(**flags):
+        learner = cpg.ChannelPrunedGpuLearner(None, ModelHelper(resnet_size=50), device='cpu')
+        state, _, _ = learner.init_state()
+        names = learner.prunable_paths(dict(state.model.named_parameters()))
+        pruned = learner.copy_state(state)
+        rows = mesh.shard_rows(len(images))
+        batch = learner.put_batch({'image': images[rows], 'label': labels[rows]})
+        rates = torch.full((len(names),), 0.05)
+        percentiles = torch.full((len(names),), 30.0)
+        losses = [cpg.pgd_step(learner, state.model, pruned.model, names, rates, percentiles,
+                               batch).numpy() for _ in range(nb_steps)]
+        masks = learner.masks_of(pruned.model, names)
+        params = dict(pruned.model.named_parameters())
+        optimizer = cpg.RelativeAdam([params[n] for n in names], 1e-2)
+        losses.append(cpg.recon_step(learner, state.model, pruned.model, names, masks,
+                                     optimizer, batch).numpy())
+        full = layers.full_state_dict(pruned.model)
+        return {'kernels': {n: full[n].numpy() for n in names},
+                'masks': {n: masks[n].numpy() for n in names},
+                'losses': losses,
+                'shards': sorted(n for n in names if isinstance(params[n], mesh.ModelShard))}
