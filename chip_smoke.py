@@ -1,4 +1,5 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
+(``--phase31``: phase 31 alone, with no result line)
 
 Builds the port's CUDA kernels from pocketflow_tpu_torch/csrc (one nvcc per
 source, all started together), holds each against its plain PyTorch version
@@ -4724,57 +4725,66 @@ def tp_gloo_probe():
     return out
 
 
-def tp_full_record(state):
-    """sha256 of a train state's full parameters and buffers, of its full
-    momentum, and its step."""
+def tp_payload_record(model, optimizer, step):
+    """sha256 of a full state dict `model`, of the momentum of a full
+    optimizer state dict `optimizer`, and `step`."""
     import hashlib
-    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
-    full, checksum, _, _ = tp_state_digest(state)
+    full = {k.replace('.', '/'): v.detach().cpu().clone() for k, v in model.items()}
     digest = hashlib.sha256()
-    for index, buffers in sorted(ckpt_lib.full_optimizer_state(state.optimizer)['state'].items()):
+    for index, buffers in sorted(optimizer['state'].items()):
         digest.update(buffers['momentum_buffer'].detach().cpu().contiguous().view(torch.uint8)
                       .numpy().tobytes())
-    return {'model': checksum, 'momentum': digest.hexdigest(), 'step': state.step,
+    return {'model': dp_checksum(full), 'momentum': digest.hexdigest(), 'step': step,
             'nb_tensors': len(full)}
+
+
+def tp_full_record(state):
+    """tp_payload_record of a train state, its shards gathered."""
+    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+    from pocketflow_tpu_torch.nn import layers
+    return tp_payload_record(layers.full_state_dict(state.model),
+                             ckpt_lib.full_optimizer_state(state.optimizer), state.step)
 
 
 def tp_main_saves(work_dir):
     """31c on this rank: main.main (TP_CKPT_ARGV) on the mesh of the ranks
-    (data:2,model:2) trains and saves under --ckpt_backend=msgpack; its
-    learner then restores that checkpoint on the same mesh and saves it
-    under --ckpt_backend=orbax (each rank its shards).  {backend: the full
-    state's record at the save, the save path, seconds}."""
+    (data:2,model:2) under each --ckpt_backend, saving after every step, so
+    that a save is written while the next step trains.  {backend: the
+    record of the state at its last save, the save path, seconds; and for
+    'orbax', 'earlier': (the record at each earlier save, the record of
+    what its directory holds)}."""
     from pocketflow_tpu_torch import main as port_main
-    from pocketflow_tpu_torch.config import FLAGS
     from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
     from pocketflow_tpu_torch.learners import abstract_learner
     save_model = abstract_learner.AbstractLearner.save_model
-    paths = {b: os.path.join(work_dir, 'tp_ckpt', b, 'model.ckpt') for b in ('msgpack', 'orbax')}
-    record = {}
+    argv = [a for a in TP_CKPT_ARGV if not a.startswith('--save_step=')] + ['--save_step=1']
+    out = {}
+    for backend in ('msgpack', 'orbax'):
+        path = os.path.join(work_dir, 'tp_ckpt', backend, 'model.ckpt')
+        records = []
 
-    def recorded(self, state, *args, **kwargs):
-        record.update(tp_full_record(state))
-        return save_model(self, state, *args, **kwargs)
+        def recorded(self, state, *args, **kwargs):
+            records.append(tp_full_record(state))
+            return save_model(self, state, *args, **kwargs)
 
-    abstract_learner.AbstractLearner.save_model = recorded
-    start = time.perf_counter()
-    try:
-        learner = port_main.main(TP_CKPT_ARGV + [
-            '--mesh_shape=data:2,model:2', '--enbl_tensor_parallel', '--ckpt_backend=msgpack',
-            '--uql_save_quant_model_path=%s' % paths['msgpack'],
-            '--save_path=%s' % os.path.join(work_dir, 'tp_ckpt', 'base', 'model.ckpt'),
-            '--log_dir=%s' % os.path.join(work_dir, 'tp_ckpt', 'logs')], device='cuda:0')
-    finally:
-        abstract_learner.AbstractLearner.save_model = save_model
-    out = {'msgpack': dict(record, path=paths['msgpack'], seconds=time.perf_counter() - start)}
-    start = time.perf_counter()
-    with FLAGS.scope(ckpt_backend='orbax'):
-        state, _, _ = learner.init_state_quant()
-        state = learner.restore_model(state, paths['msgpack'])
-        learner.save_model(state, paths['orbax'])
-        ckpt_lib.wait_for_async_saves()
-    out['orbax'] = dict(tp_full_record(state), path=paths['orbax'],
-                        seconds=time.perf_counter() - start)
+        abstract_learner.AbstractLearner.save_model = recorded
+        start = time.perf_counter()
+        try:
+            port_main.main(argv + [
+                '--mesh_shape=data:2,model:2', '--enbl_tensor_parallel',
+                '--ckpt_backend=%s' % backend, '--uql_save_quant_model_path=%s' % path,
+                '--save_path=%s' % os.path.join(work_dir, 'tp_ckpt', 'base', 'model.ckpt'),
+                '--log_dir=%s' % os.path.join(work_dir, 'tp_ckpt', 'logs')], device='cuda:0')
+        finally:
+            abstract_learner.AbstractLearner.save_model = save_model
+        out[backend] = dict(records[-1], path=path, seconds=time.perf_counter() - start)
+        if backend == 'orbax':
+            earlier = [r for r in records if r['step'] < records[-1]['step']]
+            out[backend]['earlier'] = []
+            for record in earlier:
+                payload = ckpt_lib._dcp_load('%s-%d.dcp' % (path, record['step']))
+                out[backend]['earlier'].append((record, tp_payload_record(
+                    payload['model'], payload['optimizer'], payload['step'])))
     return out
 
 
@@ -4932,9 +4942,12 @@ def phase_tp(FLAGS, work_dir, card):
         check(all(s[backend]['model'] == saves[0][backend]['model']
                   and s[backend]['momentum'] == saves[0][backend]['momentum'] for s in saves),
               '31c %s: the ranks saved different states', backend)
-    check(saves[0]['orbax']['model'] == saves[0]['msgpack']['model']
-          and saves[0]['orbax']['momentum'] == saves[0]['msgpack']['momentum'],
-          '31c: the orbax save differs from the msgpack one it restored')
+    earlier = saves[0]['orbax']['earlier']
+    check(earlier and all(got == want for want, got in earlier),
+          '31c orbax: a save made while training went on differs from the state at the save '
+          '(%s)', earlier)
+    log('  31c orbax: %d saves made while the next step trained, each directory the state at '
+        'its save bit for bit (steps %s)', len(earlier), [w['step'] for w, _ in earlier])
     paths = {b: rec['path'] for b, rec in saves[0].items()}
     with FLAGS.scope(**FLAGS.as_dict()):
         world1 = tp_restore(paths, '')
@@ -4949,9 +4962,8 @@ def phase_tp(FLAGS, work_dir, card):
                   and got['step'] == saved['step'], '31c %s: the state restored at %s differs '
                   'from the saved one (%s vs %s)', backend, where, got, saved)
         files = sorted(os.listdir(os.path.dirname(paths[backend])))
-        log('  31c --ckpt_backend=%s: saved on data:2,model:2 in %.1f s (msgpack: main.main\'s '
-            'run and save; orbax: its learner restores that and saves again, each rank its '
-            'shards), step %d (%d tensors; files %s), restored bit for bit at world 1 and on '
+        log('  31c --ckpt_backend=%s: main.main on data:2,model:2, saving every step, in '
+            '%.1f s; step %d (%d tensors; files %s), restored bit for bit at world 1 and on '
             'data:2 (sha256 %s...)',
             backend, saved['seconds'], saved['step'], saved['nb_tensors'], files,
             saved['model'][:12])
@@ -5258,5 +5270,44 @@ def main():
         'count': torch.cuda.device_count()}}))
 
 
+def main_phase31():
+    """Phase 31 alone (``python3 chip_smoke.py --phase31``): fake_quant.cu
+    built, 31a, 31b and 31c, each checked as in the whole smoke; no result
+    line."""
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU',
+              file=sys.stderr)
+        sys.exit(1)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from pocketflow_tpu_torch import main as port_main
+    from pocketflow_tpu_torch.config import FLAGS
+    from pocketflow_tpu_torch.learners.uniform_quantization.learner import UniformQuantLearner
+    from pocketflow_tpu_torch.nets.resnet_at_ilsvrc12 import ModelHelper
+    from pocketflow_tpu_torch.ops import build
+    from pocketflow_tpu_torch.ops import fake_quant as fq
+    port_main.register_flags()
+    card = card_line()
+    log('device %s | torch %s cuda %s', card, torch.__version__, torch.version.cuda)
+    for source, (_, _, build_s) in build.load_all(['fake_quant.cu']).items():
+        log('  %s: nvcc %.1f s', source, build_s)
+    FLAGS.override(synthetic_data=True, summ_step=10 ** 9, save_step=10 ** 9,
+                   resnet_stem_s2d=True, rand_seed=0)
+    with FLAGS.scope(**DP_FLAGS):
+        learner = UniformQuantLearner(None, ModelHelper(resnet_size=50),
+                                      device=torch.device('cuda'))
+        shapes = learner.statistics['weight_shapes']
+        del learner
+    log('31a %s', phase_tp_kernel(fq, shapes, torch.device('cuda'), card))
+    with tempfile.TemporaryDirectory(prefix='pf_tp_') as work_dir:
+        runs = phase_tp(FLAGS, work_dir, card)
+    log('runs %s', {k: {n: c for n, c in v.items() if c} for k, v in runs.items()})
+    log('phase 31 alone: %.1f s | %s', time.perf_counter() - t_start, card)
+
+
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:] == ['--phase31']:
+        main_phase31()
+    else:
+        main()

@@ -30,8 +30,8 @@ each rank's shard of it).  --ckpt_backend (the JAX package's flag):
 * 'orbax': ``torch.distributed.checkpoint.async_save`` into
   ``<save_path>-<step>.dcp/``, each rank writing only its own shards (a
   ``ModelShard`` and its momentum under '<name>/shard<m>of<M>', the
-  replicated tensors once), on a gloo group of its own, while training goes
-  on; rank 0 writes ``meta.pt`` (step, optimizer settings, extra, which
+  replicated tensors once) from a host copy taken at the save, on a gloo
+  group of its own, while training goes on; rank 0 writes ``meta.pt`` (step, optimizer settings, extra, which
   entries are shards) beside them, and the index names the directory once
   the save is complete (``wait_for_async_saves``, which the next save and
   every restore call first).  Any mesh loads it: each rank reads every
@@ -190,6 +190,13 @@ def _shard_key(name: str) -> str:
     return '%s/shard%dof%d' % (name, mesh.model_rank(), mesh.model_size())
 
 
+def _host_copy(value: torch.Tensor) -> torch.Tensor:
+    """A host copy of `value` as it is now: the save writes it while the
+    next steps update the live tensors in place (whether
+    ``dcp.async_save`` stages before it returns depends on torch's version)."""
+    return value.detach().to('cpu', copy=True)
+
+
 def _dcp_save(save_path: str, step: int, model: torch.nn.Module,
               optimizer: torch.optim.Optimizer, extra: Any) -> str:
     import torch.distributed.checkpoint as dcp
@@ -202,7 +209,7 @@ def _dcp_save(save_path: str, step: int, model: torch.nn.Module,
         if isinstance(value, mesh.ModelShard):
             sharded.append(key)
             key = _shard_key(key)
-        tensors[key] = value.detach()
+        tensors[key] = _host_copy(value)
     state = optimizer.state_dict()
     flat = _flat_params(optimizer)
     for index, buffers in state['state'].items():
@@ -214,7 +221,7 @@ def _dcp_save(save_path: str, step: int, model: torch.nn.Module,
             if _is_shard_buffer(flat[index], value):
                 sharded.append(key)
                 key = _shard_key(key)
-            tensors[key] = value.detach()
+            tensors[key] = _host_copy(value)
     if mesh.is_primary_worker():
         os.makedirs(path, exist_ok=True)
         torch.save({'step': step, 'param_groups': state['param_groups'], 'extra': extra,

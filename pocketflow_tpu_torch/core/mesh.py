@@ -26,14 +26,11 @@ The JAX package lets XLA insert the collectives; here the port inserts them:
   (``broadcast_from_primary``), barriers.
 
 Model ranks of one data group hold the same rows, so a data-axis reduction
-over the world would count them M times.  Under gloo (two ranks sharing one
-card, which NCCL refuses) only all-reduce, broadcast and barrier are used,
-so that every path runs with CUDA tensors too: a gather is then a zero-padded
-SUM all-reduce, exact since every other term is 0.  Under NCCL a gather is
-``all_gather_into_tensor``.  The choice is made by the group's backend.  At
-world size 1 every helper returns at once and no collective is issued.
-``counters()`` counts the collectives issued, by kind (the model group's
-kinds once one was issued).
+over the world would count them M times.  Every collective here runs on
+NCCL and on gloo (two ranks sharing one card, which NCCL refuses), with CUDA
+tensors too.  At world size 1 every helper returns at once and no
+collective is issued.  ``counters()`` counts the collectives issued, by kind
+(the model group's kinds once one was issued).
 """
 
 from __future__ import annotations
@@ -121,19 +118,29 @@ def _layout_key() -> tuple:
     return (group, world_size(), FLAGS.get('mesh_shape') or '')
 
 
+def _axes_sizes() -> Tuple[int, int]:
+    """(D, M) of --mesh_shape over this process group (no group needed)."""
+    if _LAYOUT is not None and _LAYOUT.key == _layout_key():
+        return _LAYOUT.data_size, _LAYOUT.model_size
+    axes = mesh_axes()
+    return axes.get(DATA_AXIS, 1), axes.get(MODEL_AXIS, 1)
+
+
 def setup_groups():
     """Build this process group's data and model groups for --mesh_shape
-    (once for a group and a mesh shape): every rank calls it at the same
-    point, as ``dist.new_group`` requires (``distributed_init`` and the
-    learners call it; otherwise the first helper that reads the mesh does,
-    which SPMD code reaches on every rank alike).  Without a "model" axis
-    > 1 no group is built."""
+    (once for a group and a mesh shape; the groups of an earlier mesh shape
+    on the same process group are destroyed): every rank calls it at the
+    same point, as ``dist.new_group`` requires (``distributed_init`` and
+    the learners' ``__init__`` do).  Without a "model" axis > 1 no group is
+    built."""
     global _LAYOUT
     key = _layout_key()
     if _LAYOUT is not None and _LAYOUT.key == key:
         return
-    axes = mesh_axes()
-    data, model = axes.get(DATA_AXIS, 1), axes.get(MODEL_AXIS, 1)
+    if _LAYOUT is not None and _LAYOUT.key[0] is not None and _LAYOUT.key[0] is key[0]:
+        for group in {_LAYOUT.data_group, _LAYOUT.model_group} - {None}:
+            dist.destroy_process_group(group)
+    data, model = _axes_sizes()
     data_group = model_group = None
     if model > 1:
         rank = worker_rank()
@@ -149,19 +156,28 @@ def setup_groups():
 
 
 def _layout() -> _Layout:
-    if _LAYOUT is None or _LAYOUT.key != _layout_key():
-        setup_groups()
-    return _LAYOUT
+    """The mesh's groups.  A mesh without a "model" axis > 1 needs none; one
+    with a model axis must have had them built (``setup_groups``) for this
+    process group and --mesh_shape: a getter never issues the collective
+    ``dist.new_group``, which a read on some ranks only would hang on."""
+    key = _layout_key()
+    if _LAYOUT is not None and _LAYOUT.key == key:
+        return _LAYOUT
+    data, model = _axes_sizes()
+    if model > 1:
+        raise RuntimeError('mesh_shape %r has a "model" axis: call mesh.setup_groups() on every '
+                           'rank first' % (key[2],))
+    return _Layout(key, data, model, None, None)
 
 
 def data_size() -> int:
     """The data-parallel degree D: the "data" axis."""
-    return _layout().data_size
+    return _axes_sizes()[0]
 
 
 def model_size() -> int:
     """The tensor-parallel degree M: the "model" axis."""
-    return _layout().model_size
+    return _axes_sizes()[1]
 
 
 def data_rank() -> int:
@@ -412,16 +428,11 @@ def shard_batch(batch: Any):
 # the model axis
 # ---------------------------------------------------------------------------
 
-def _model_backend() -> str:
-    return dist.get_backend(model_group())
-
-
 def all_gather_model(tensor: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """The model group's `tensor`s (one shape on every rank) joined along
     `dim` in model-rank order, a new tensor (channels-last where `tensor`
-    is); `tensor` itself without a model axis.  NCCL gathers; gloo sums a
-    zero buffer in which each rank fills its own slice, exact since every
-    other term is 0."""
+    is); `tensor` itself without a model axis.  One
+    ``all_gather_into_tensor`` (NCCL and gloo alike)."""
     size = model_size()
     if size == 1:
         return tensor
@@ -429,21 +440,62 @@ def all_gather_model(tensor: torch.Tensor, dim: int = -1) -> torch.Tensor:
     channels_last = (tensor.dim() == 4 and not tensor.is_contiguous()
                      and tensor.is_contiguous(memory_format=torch.channels_last))
     fmt = torch.channels_last if channels_last else torch.contiguous_format
-    group = model_group()
+    src = tensor.contiguous()
+    # gloo wants the parts stacked along the first axis: [size * n0, ...]
+    parts = torch.empty((size * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
+                        device=src.device)
     _MODEL_COUNTS['all_gather_model'] += 1
-    if _model_backend() == 'nccl':
-        parts = torch.empty((size,) + tuple(tensor.shape), dtype=tensor.dtype,
-                            device=tensor.device)
-        dist.all_gather_into_tensor(parts, tensor.contiguous(), group=group)
-        return torch.cat(parts.unbind(0), dim=dim).contiguous(memory_format=fmt)
-    shape = list(tensor.shape)
-    width = shape[dim]
-    shape[dim] = width * size
-    buf = torch.empty(shape, dtype=tensor.dtype, device=tensor.device,
-                      memory_format=fmt).zero_()
-    buf.narrow(dim, model_rank() * width, width).copy_(tensor)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-    return buf
+    dist.all_gather_into_tensor(parts, src, group=model_group())
+    return torch.cat(parts.chunk(size), dim=dim).contiguous(memory_format=fmt)
+
+
+def _dense_buffer(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` whose memory is one dense block in its own layout
+    (channels-last stays channels-last), for an in-place collective."""
+    if t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last) \
+            and not t.is_contiguous():
+        return t.clone(memory_format=torch.channels_last)
+    return t.contiguous().clone() if t.is_contiguous() else t.contiguous()
+
+
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf = _dense_buffer(g)
+        if buf.dim() == 4 and not buf.is_contiguous():  # channels-last: reduce its NHWC view
+            all_reduce_sum_model_(buf.permute(0, 2, 3, 1))
+        else:
+            all_reduce_sum_model_(buf)
+        return buf
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, dim):
+        ctx.dim = dim % y.dim()
+        ctx.width = y.shape[ctx.dim]
+        return all_gather_model(y, ctx.dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, model_rank() * ctx.width, ctx.width), None
+
+
+def to_model(x: torch.Tensor) -> torch.Tensor:
+    """`x` as an input every model rank uses for its own columns: the
+    identity forward; the backward sums the gradient over the model group
+    (each rank's holds its columns' part)."""
+    return _ToModel.apply(x)
+
+
+def gather_model(y: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``all_gather_model(y, dim)``, differentiable: the backward takes this
+    rank's slice of the gradient."""
+    return _GatherModel.apply(y, dim)
 
 
 def all_reduce_sum_model_(tensor: torch.Tensor) -> torch.Tensor:

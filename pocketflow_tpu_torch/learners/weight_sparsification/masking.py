@@ -29,6 +29,7 @@ import torch
 
 from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core import mesh
+from pocketflow_tpu_torch.nn import layers
 
 FLAGS.DEFINE_float('ws_prune_ratio_exp', 3.0, "WS: pruning ratio's exponent term")
 FLAGS.DEFINE_float('ws_iter_ratio_beg', 0.1, 'WS: iteration ratio (at starting time)')
@@ -65,15 +66,9 @@ def maskable_paths(params: Tensors) -> List[str]:
     return [name for name in _tree_order(params) if is_maskable_path(name)]
 
 
-def _full_shape(tensor: torch.Tensor) -> Tuple[int, ...]:
-    if isinstance(tensor, mesh.ModelShard):
-        return tuple(tensor.shape[:-1]) + (tensor.shape[-1] * mesh.model_size(),)
-    return tuple(tensor.shape)
-
-
 def maskable_shapes(params: Tensors) -> List[Tuple[int, ...]]:
     """The maskable parameters' shapes (a ModelShard's full kernel's)."""
-    return [_full_shape(params[name]) for name in maskable_paths(params)]
+    return [layers.full_shape(name, params[name]) for name in maskable_paths(params)]
 
 
 def _mask_of(param: torch.Tensor, weights: torch.Tensor, prune_ratio) -> torch.Tensor:
@@ -243,7 +238,7 @@ def calc_prune_ratio(params: Tensors, maskable_only: bool = False) -> torch.Tens
             shard_nnz.append(count)
         else:
             nnz = nnz + count
-        tot += int(np.prod(_full_shape(params[name])))
+        tot += int(np.prod(layers.full_shape(name, params[name])))
     if shard_nnz:
         nnz = nnz + mesh.all_reduce_sum_model_(torch.stack(shard_nnz).sum().reshape(1))[0]
     return 1.0 - torch.as_tensor(nnz, dtype=torch.float32) / max(tot, 1)

@@ -28,10 +28,10 @@ Tensor parallelism (``shard_model_``): a PFConv or PFDense kernel that the
 JAX package's rule shards (``core/mesh.infer_tp_sharding``: its output axis
 over the "model" axis) holds this rank's output channels as a
 ``mesh.ModelShard``, and the layer is column-parallel, as XLA computes it
-with that axis sharded: its input passes ``_ToModel`` (the identity; the
-backward sums the input's gradient over the model group), the conv or
-matmul runs on the local output channels, and ``_GatherModel`` joins the
-model ranks' channels (the backward takes this rank's slice of the
+with that axis sharded: its input passes ``mesh.to_model`` (the identity;
+the backward sums the input's gradient over the model group), the conv or
+matmul runs on the local output channels, and ``mesh.gather_model`` joins
+the model ranks' channels (the backward takes this rank's slice of the
 gradient).  The bias (replicated: at most 65,535 elements) is added to the
 joined output, and everything downstream runs replicated on the model ranks.
 """
@@ -234,7 +234,7 @@ class PFConv(nn.Module):
         kernel = self.kernel
         sharded = isinstance(kernel, mesh.ModelShard)
         if sharded:
-            x = _ToModel.apply(x)
+            x = mesh.to_model(x)
         policy = current_policy()
         y = None
         if policy is not None:
@@ -244,7 +244,7 @@ class PFConv(nn.Module):
         if y is None:
             y = self.conv_fn(x.to(self.dtype), kernel.to(self.dtype))
         if sharded:
-            y = _GatherModel.apply(y, 1)
+            y = mesh.gather_model(y, 1)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)[:, None, None]
         if policy is not None:
@@ -311,7 +311,7 @@ class PFDense(nn.Module):
         kernel = self.kernel
         sharded = isinstance(kernel, mesh.ModelShard)
         if sharded:
-            x = _ToModel.apply(x)
+            x = mesh.to_model(x)
         policy = current_policy()
         y = None
         if policy is not None:
@@ -321,55 +321,12 @@ class PFDense(nn.Module):
         if y is None:
             y = self.dense_fn(x.to(self.dtype), kernel.to(self.dtype))
         if sharded:
-            y = _GatherModel.apply(y, -1)
+            y = mesh.gather_model(y, -1)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         if policy is not None:
             y = policy.process_act(self.path, y)
         return y.to(self.dtype)
-
-
-def _dense_buffer(t: torch.Tensor) -> torch.Tensor:
-    """A copy of `t` whose memory is one dense block in its own layout
-    (channels-last stays channels-last), for an in-place collective."""
-    if t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last) \
-            and not t.is_contiguous():
-        return t.clone(memory_format=torch.channels_last)
-    return t.contiguous().clone() if t.is_contiguous() else t.contiguous()
-
-
-class _ToModel(torch.autograd.Function):
-    """A column-parallel layer's input: the identity forward; the backward
-    sums the gradient over the model group (each rank's holds its output
-    channels' part)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        buf = _dense_buffer(g)
-        if buf.dim() == 4 and not buf.is_contiguous():  # channels-last: reduce its NHWC view
-            mesh.all_reduce_sum_model_(buf.permute(0, 2, 3, 1))
-        else:
-            mesh.all_reduce_sum_model_(buf)
-        return buf
-
-
-class _GatherModel(torch.autograd.Function):
-    """A column-parallel layer's output: the model ranks' channels joined
-    along `dim`; the backward takes this rank's slice of the gradient."""
-
-    @staticmethod
-    def forward(ctx, y, dim):
-        ctx.dim = dim % y.dim()
-        ctx.width = y.shape[ctx.dim]
-        return mesh.all_gather_model(y, ctx.dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.narrow(ctx.dim, mesh.model_rank() * ctx.width, ctx.width), None
 
 
 class _ModelSum(torch.autograd.Function):

@@ -629,21 +629,13 @@ class _FakeQuantGroupGlobal(torch.autograd.Function):
 
 class _FakeQuantColumnGroup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, bits, bucket_size, select, sharded, *xs):
-        if bucket_size is None or not any(sharded):
-            return tuple(fake_quant_per_column_group([x.contiguous() for x in xs], bits,
-                                                     bucket_size, select))
-        # split buckets cross the shards of a kernel split along its last
-        # axis: quantize the full kernel and keep this rank's columns
-        full = [mesh.all_gather_model(x.contiguous(), -1) if cut else x.contiguous()
-                for x, cut in zip(xs, sharded)]
-        out = fake_quant_per_column_group(full, bits, bucket_size, select)
-        return tuple(mesh.shard_tensor(q, mesh.shard(-1)) if cut else q
-                     for q, cut in zip(out, sharded))
+    def forward(ctx, bits, bucket_size, select, *xs):
+        return tuple(fake_quant_per_column_group([x.contiguous() for x in xs], bits,
+                                                 bucket_size, select))
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, None, None, None, *grads)
+        return (None, None, None, *grads)
 
 
 class _FakeQuantBucket(torch.autograd.Function):
@@ -720,8 +712,12 @@ def fake_quant_bucket_group(xs: Sequence[torch.Tensor], bits: torch.Tensor, buck
         size = int(bucket_size)
     else:
         raise ValueError('unrecognized bucket type: ' + bucket_type)
-    sharded = tuple(isinstance(x, mesh.ModelShard) for x in xs)
-    return list(_FakeQuantColumnGroup.apply(bits, size, select, sharded, *xs))
+    # split buckets cross the shards of a kernel split along its last axis:
+    # quantize the full kernel and keep this rank's columns
+    sharded = [size is not None and isinstance(x, mesh.ModelShard) for x in xs]
+    full = [mesh.gather_model(x) if cut else x for x, cut in zip(xs, sharded)]
+    out = _FakeQuantColumnGroup.apply(bits, size, select, *full)
+    return [mesh.shard_tensor(q, mesh.shard(-1)) if cut else q for q, cut in zip(out, sharded)]
 
 
 def fake_quant_split_bucket(x: torch.Tensor, bits: torch.Tensor, bucket_size: int) -> torch.Tensor:

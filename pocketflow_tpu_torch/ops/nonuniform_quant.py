@@ -19,11 +19,11 @@ codebooks are then per bucket column.  Codebook initialization: 'uniform'
 (Lloyd refinement from the uniform start).
 
 Under tensor parallelism a kernel held as a ``mesh.ModelShard`` is
-quantized as its full kernel (``_NonUniformQuantShard``: the shards gathered
-over the model group, so every bucket type and the per-tensor range are the
-full kernel's, as the JAX package computes them on a sharded kernel), and
-this rank keeps its columns; the codebook's gradient sums the model ranks'
-(each holds its columns' cotangents).  Its codebook is initialized from the
+quantized as its full kernel (its shards gathered over the model group,
+``mesh.gather_model``, so every bucket type and the per-tensor range are
+the full kernel's, as the JAX package computes them on a sharded kernel),
+and this rank keeps its columns; the codebook passes ``mesh.to_model``, so
+its gradient sums the model ranks' (each holds its columns' cotangents).  Its codebook is initialized from the
 gathered kernel.
 """
 
@@ -89,40 +89,6 @@ class _NonUniformQuant2d(torch.autograd.Function):
         return g, dc.reshape(k, b), None
 
 
-class _NonUniformQuantShard(torch.autograd.Function):
-    """nonuniform_quant of a ModelShard: the full kernel gathered, bucketed
-    and quantized, this rank's columns returned; STE for x; the codebook's
-    gradient from the full kernel's assignment with this rank's cotangents
-    (zeros elsewhere, the pad included), summed over the model group."""
-
-    @staticmethod
-    def forward(ctx, x, c, bucket_type, bucket_size):
-        full = mesh.all_gather_model(x.detach().contiguous(), -1)
-        x2d, pad, per_column = to_buckets(full, bucket_type, bucket_size)
-        x_norm, alpha, beta = _normalize(x2d, per_column)
-        q, assign = _assign_and_gather(x_norm, c.detach())
-        q_full = from_buckets((alpha * q + beta).to(x.dtype), full.shape, pad)
-        ctx.save_for_backward(assign, alpha)
-        ctx.layout = (tuple(c.shape), tuple(full.shape), bucket_type, bucket_size, pad,
-                      x.shape[-1])
-        return mesh.shard_tensor(q_full, mesh.shard(-1))
-
-    @staticmethod
-    def backward(ctx, g):
-        assign, alpha = ctx.saved_tensors
-        (k, b), full_shape, bucket_type, bucket_size, pad, width = ctx.layout
-        g_full = torch.zeros(full_shape, dtype=torch.float32, device=g.device)
-        g_full.narrow(-1, mesh.model_rank() * width, width).copy_(g)
-        flat = g_full.reshape(-1)
-        if pad:
-            flat = torch.cat([flat, flat.new_zeros(pad)])
-        galpha = flat.reshape(assign.shape) * alpha
-        seg = assign * b + torch.arange(b, device=assign.device)
-        dc = torch.zeros(k * b, dtype=torch.float32, device=g.device)
-        dc.index_add_(0, seg.reshape(-1), galpha.reshape(-1))
-        return g, mesh.all_reduce_sum_model_(dc).reshape(k, b), None, None
-
-
 def nonuniform_quant_2d(x2d: torch.Tensor, c: torch.Tensor, per_column: bool) -> torch.Tensor:
     """Codebook-quantize a 2-D tensor; c is [k, nb_buckets] (or [k, 1])."""
     return _NonUniformQuant2d.apply(x2d, c, per_column)
@@ -162,7 +128,8 @@ def nonuniform_quant(x: torch.Tensor, c: torch.Tensor, bucket_type: Optional[str
     """Quantize any-shape x against codebook c ([k, nb_buckets]); a
     ModelShard as its full kernel."""
     if isinstance(x, mesh.ModelShard):
-        return _NonUniformQuantShard.apply(x, c, bucket_type, bucket_size)
+        full = nonuniform_quant(mesh.gather_model(x), mesh.to_model(c), bucket_type, bucket_size)
+        return mesh.shard_tensor(full, mesh.shard(-1))
     x2d, pad, per_column = to_buckets(x, bucket_type, bucket_size)
     return from_buckets(nonuniform_quant_2d(x2d, c, per_column), x.shape, pad)
 

@@ -129,6 +129,38 @@ def test_resume_on_the_tp_mesh(saved, tmp_path):
         assert got['fc3'] == ((3136, 512), (3136, 512), True)
 
 
+def test_orbax_saves_during_training_hold_the_state_at_each_save(tmp_path):
+    """--ckpt_backend=orbax saving at every step on data:1,model:2: each
+    step's directory, written while the next steps train in place, holds
+    the state at its save bit for bit, and dcp.async_save is handed host
+    copies, no storage of a live parameter, buffer or momentum."""
+    from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
+    flags = dict(_flags(tmp_path, 'orbax'), save_step=1, batch_size=16)  # one data rank
+    argv = _argv(dict(flags, mesh_shape='data:1,model:2', enbl_tensor_parallel=True))
+    ranks = launch.spawn('torch_dist_ranks:tp_main_rank', 2, {'argv': argv},
+                         work_dir=str(tmp_path / 'ranks'), paths=[TESTS])
+    for rank in ranks:  # one save a step, then the loop's last
+        assert [s['step'] for s in rank['saves']] == list(range(1, NB_STEPS + 1)) + [NB_STEPS]
+        assert rank['shared'] == []
+        _assert_equal(rank['saves'][-1], ranks[0]['saves'][-1])
+    for want in ranks[0]['saves'][:NB_STEPS - 1]:
+        payload = ckpt_lib._dcp_load('%s-%d.dcp' % (flags['save_path'], want['step']))
+        got = {'step': payload['step'],
+               'model': {k: v.numpy() for k, v in payload['model'].items()},
+               'momentum': {i: b['momentum_buffer'].numpy()
+                            for i, b in payload['optimizer']['state'].items()}}
+        assert got['step'] == want['step']
+        assert got['model'].keys() == want['model'].keys()
+        for key, value in want['model'].items():
+            assert np.array_equal(got['model'][key], value), (want['step'], key)
+        assert got['momentum'].keys() == want['momentum'].keys()
+        for key, value in want['momentum'].items():
+            assert np.array_equal(got['momentum'][key], value), (want['step'], key)
+        # the next step moved the parameters: the save is not the final state
+        assert not np.array_equal(want['model']['fc3.kernel'],
+                                  ranks[0]['saves'][-1]['model']['fc3.kernel'])
+
+
 def test_main_evaluates_the_checkpoint_at_world_one(saved):
     from pocketflow_tpu_torch import main as port_main
     learner = port_main.main(_argv(dict(saved['flags'], exec_mode='eval')), device='cpu')

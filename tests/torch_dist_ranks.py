@@ -530,29 +530,45 @@ def _full_state(state):
 def tp_main_rank(argv):
     """main.main(argv) on this rank (CPU): the full state at each save, with
     the files each rank wrote under the save directory's parent
-    (torch.save's and the sharded backend's)."""
+    (torch.save's and the sharded backend's), and the storages of the
+    tensors handed to dcp.async_save that a live parameter, buffer or
+    momentum held at the save ('shared')."""
+    import torch.distributed.checkpoint as dcp
     from pocketflow_tpu_torch import main as main_lib
     from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
     from pocketflow_tpu_torch.learners import abstract_learner
-    record = {'saves': [], 'writes': []}
+    record = {'saves': [], 'writes': [], 'shared': []}
+    live = set()
     save_model = abstract_learner.AbstractLearner.save_model
     save = ckpt_lib.torch.save
+    async_save = dcp.async_save
 
     def recorded_save_model(self, state, *args, **kwargs):
         record['saves'].append(_full_state(state))
+        live.clear()
+        live.update(t.untyped_storage().data_ptr() for t in state.model.state_dict().values())
+        live.update(b.untyped_storage().data_ptr() for buffers in state.optimizer.state.values()
+                    for b in buffers.values() if torch.is_tensor(b))
         return save_model(self, state, *args, **kwargs)
 
     def counted_save(obj, path, *args, **kwargs):
         record['writes'].append(str(path))
         return save(obj, path, *args, **kwargs)
 
+    def recorded_async_save(state_dict, *args, **kwargs):
+        record['shared'] += [key for key, t in state_dict.items()
+                             if t.untyped_storage().data_ptr() in live]
+        return async_save(state_dict, *args, **kwargs)
+
     abstract_learner.AbstractLearner.save_model = recorded_save_model
     ckpt_lib.torch.save = counted_save
+    dcp.async_save = recorded_async_save
     try:
         main_lib.main(list(argv), device='cpu')
     finally:
         abstract_learner.AbstractLearner.save_model = save_model
         ckpt_lib.torch.save = save
+        dcp.async_save = async_save
     return record
 
 
@@ -632,6 +648,7 @@ def tp_prune_update(mesh_shape: str, ratio: float):
     from pocketflow_tpu_torch.nets.convnet_at_fmnist import ModelHelper
     from pocketflow_tpu_torch.nn import layers
     with FLAGS.scope(mesh_shape=mesh_shape, synthetic_data=True):
+        mesh.setup_groups()
         model = ModelHelper().create_model()
         model.reset_parameters(torch.Generator().manual_seed(4))
         full = {n: p.detach().clone() for n, p in model.named_parameters()}
