@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
-(``--phase31``: phase 31 alone, with no result line)
+(``--phase31``, ``--phase32``: phase 31 or 32 alone, with no result line)
 
 Builds the port's CUDA kernels from pocketflow_tpu_torch/csrc (one nvcc per
 source, all started together), holds each against its plain PyTorch version
@@ -229,6 +229,8 @@ KERNELS = {
     'matmul_bf16': ('matmul.cu', 'experiments/conv1x1_ab.py:123 (make_pallas); '
                                  'experiments/mm_shape_sweep.py:58 (make_pallas)'),
     'bn_relu_matmul_stats': ('matmul.cu', 'experiments/fused_mm_proto.py:56 (pallas_fused)'),
+    'int8_conv': ('int8_conv.cu', 'no Pallas kernel: XLA\'s native int8 convolution behind '
+                                  'pocketflow_tpu/ops/int8_ops.py:37 (int8_contract)'),
 }
 BATCH = 256
 N_WARMUP, N_TIMED = 3, 10
@@ -611,6 +613,25 @@ ROOT_RUN_UQTF = ('root 30a: uqtf_phases, QAT ResNet-50 uniform-tf, %d steps a ph
 ROOT_RUN_SERVE = 'root 30b: int8_serving_speed and shrunk_serving_latency, batch 64'
 ROOT_RUN_DRILL = ('root 30c: amc_mobilenet_onchip, MobileNet-v1 @224 b32, %d roll-outs after %d '
                   'warm steps' % (ROOT_DRILL_RLOUTS, ROOT_DRILL_WARM))
+# phase 32: the int8 serving kernel (ops/int8_ops.int8_conv) at every distinct
+# int8 site of ResNet-50 and MobileNet-v1 (224x224, bf16, batch 64, random
+# weights from seed 0, scales calibrated on 2 batches, the depthwise sites
+# skipped) and of MobileNet-v1 at odd widths (INT8_ODD_WIDTHS, as a shrink
+# leaves them): each site bit-equal to its plain version on the card and
+# timed (INT8_REPS calls) beside its bound and cuDNN's bf16 conv at the same
+# shape; INT8_FORWARDS forwards of each net counted (one launch a site, no
+# plain contraction on the card); one ResNet-50 int8 forward profiled (no
+# host-to-device copy, no stream sync); then the bring-your-own-model
+# example through its main() on the card
+INT8_BATCH, INT8_CALIB, INT8_REPS, INT8_FORWARDS = 64, 2, 10, 3
+INT8_SITES = {'resnet50': 54, 'mobilenet_v1': 15, 'mobilenet_v1 odd widths': 15}
+INT8_ODD_WIDTHS = dict({'conv_init': 19}, **{
+    'block%02d/pw' % (i + 1): w for i, w in enumerate(
+        (35, 71, 69, 141, 139, 283, 281, 279, 277, 275, 273, 563, 561))})
+INT8_RUN = ('int8 32a: int8 serving forwards, batch %d, of ResNet-50, MobileNet-v1 and '
+            'MobileNet-v1 at odd widths, %d each' % (INT8_BATCH, INT8_FORWARDS))
+EXAMPLE_RUN = ('example 32c: examples/self_defined_convnet.py --learner=weight-sparse, uniform '
+               '0.5, synthetic data')
 PARITY_RUN_UQ = 'parity 28a: ResNet-20 full-prec + uniform@4bit, hard task, --quick'
 PARITY_RUN_CP = 'parity 28b: composed CP -> QAT 8/8, ResNet-20, --quick'
 PARITY_MIN_BASELINE = 10 / 64  # ten times chance
@@ -630,17 +651,22 @@ def check(cond, msg, *args):
 
 def reset_counters():
     from pocketflow_tpu_torch.ops import fake_quant as fq
+    from pocketflow_tpu_torch.ops import int8_ops
     from pocketflow_tpu_torch.ops import matmul as mm
     fq.reset_counters()
     mm.reset_counters()
+    int8_ops.reset_counters()
 
 
 def counters() -> dict:
-    """Every kernel's launches and all plain calls since the last reset."""
+    """Every kernel's launches and all plain calls since the last reset
+    (int8_plain_cuda: the plain int8 contractions on the card;
+    int8_depthwise: the depthwise int8 route's calls)."""
     from pocketflow_tpu_torch.ops import fake_quant as fq
+    from pocketflow_tpu_torch.ops import int8_ops
     from pocketflow_tpu_torch.ops import matmul as mm
-    a, b = fq.counters(), mm.counters()
-    return {**a, **b, 'plain': a['plain'] + b['plain']}
+    a, b, c = fq.counters(), mm.counters(), int8_ops.counters()
+    return {**a, **b, **c, 'plain': a['plain'] + b['plain'] + c['plain']}
 
 
 def no_launches(**launches) -> dict:
@@ -2577,34 +2603,48 @@ def phase_cp_steps(FLAGS):
     check(sel_err <= 1e-3, 'DCP selection loss card vs CPU %.3g', sel_err)
 
 
-def int8_accumulators_card_vs_cpu(model, weight_q, scales, images):
-    """Every distinct (kernel, input, strides, padding) shape of `model`'s
-    int8 contractions in an eval forward of `images` on the card, contracted
-    again on the CPU from the same codes: the int32 accumulators must be
-    equal.  Returns the number of shapes."""
+def int8_distinct_sites(model, policy, images) -> dict:
+    """One eval forward of `images` under a copy of the int8 `policy`,
+    recording each distinct site (kernel shape, input shape and dtype,
+    strides, padding) that ran in int8: {key: {'path', 'x', 'y', 'site',
+    'layer', 'kernel', 'count'}}, count its calls in the forward."""
     from pocketflow_tpu_torch.nn.layers import compression
     from pocketflow_tpu_torch.ops import int8_ops
     seen = {}
 
     class Recorder(int8_ops.Int8ServingPolicy):
         def run_contraction(self, path, x, kernel, contract_fn):
-            def recorded(xq, codes, acc_dtype):
-                acc = contract_fn(xq, codes, acc_dtype)
+            y = super().run_contraction(path, x, kernel, contract_fn)
+            if y is not None:
                 layer = getattr(contract_fn, '__self__', None)
-                key = (tuple(codes.shape), tuple(xq.shape), getattr(layer, 'strides', None),
-                       getattr(layer, 'padding', None))
-                seen.setdefault(key, (contract_fn, xq, codes, acc))
-                return acc
-            return super().run_contraction(path, x, kernel, recorded)
+                key = (tuple(kernel.shape), tuple(x.shape), x.dtype,
+                       getattr(layer, 'strides', None), getattr(layer, 'padding', None))
+                entry = seen.setdefault(key, dict(path=path, x=x, y=y, layer=layer, kernel=kernel,
+                                                  site=self.sites[path, x.device], count=0))
+                entry['count'] += 1
+            return y
 
-    with torch.no_grad(), compression(Recorder(weight_q, scales)):
+    with torch.no_grad(), compression(Recorder(policy.weight_q, policy.act_scales,
+                                               policy.skip_depthwise)):
         model.eval()(images)
-    for key, (contract_fn, xq, codes, acc) in seen.items():
-        check(acc.dtype == torch.int32 and acc.is_cuda, 'accumulators %s on %s', acc.dtype,
-              acc.device)
-        want = contract_fn(xq.cpu(), codes.cpu(), torch.int32)
-        check(torch.equal(acc.cpu(), want), 'int8 accumulators card != CPU at %s', key)
-    return len(seen)
+    return seen
+
+
+def int8_sites_card_vs_cpu(sites: dict, policy) -> int:
+    """Each recorded site's kernel output on the card against the plain
+    version on the CPU from the same input and the same codes and scales:
+    equal bit for bit.  Returns the number of sites."""
+    from pocketflow_tpu_torch.ops import int8_ops
+    for key, e in sites.items():
+        site = e['site']
+        check(e['y'].is_cuda and site.packed is not None, 'int8 site %s not on the card', key)
+        codes, w_scale = policy.weight_q[e['path']]
+        cpu_site = int8_ops.make_site(codes.cpu(), w_scale.cpu(), policy.act_scales[e['path']],
+                                      'cpu', site.strides, site.padding, site.out_dtype)
+        want = int8_ops.int8_conv_plain(e['x'].cpu(), cpu_site)
+        check(torch.equal(e['y'].cpu(), want), 'int8 kernel on the card != plain version on the '
+              'CPU at %s', key)
+    return len(sites)
 
 
 def int8_matmul_grid_card_vs_cpu():
@@ -2684,8 +2724,8 @@ def shrunk_deltas(dense, shrunk, manifest, images):
 
 def phase_serving(FLAGS, work_dir, serve_ckpt, card):
     """Phase 22: runs T, U and V through export_cli.main and serving.main on
-    the card (see SERVE_RUNS), no kernel launched.  Returns {run label:
-    counters}."""
+    the card (see SERVE_RUNS): no fake-quant or matmul kernel, one int8_conv
+    launch a site of each int8 forward.  Returns {run label: counters}."""
     from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
     from pocketflow_tpu_torch.core.bridge import load_jax_numpy, to_jax_numpy
     from pocketflow_tpu_torch.nets import mobilenet_at_ilsvrc12, resnet_at_ilsvrc12
@@ -2725,18 +2765,23 @@ def phase_serving(FLAGS, work_dir, serve_ckpt, card):
               and coverage == {'unquantized_weights': [], 'uncalibrated': []},
               'run T: %d weights, %d scales, coverage %s', len(weight_q), len(scales), coverage)
         policy = int8_ops.Int8ServingPolicy(weight_q, scales)
-        nb_shapes = int8_accumulators_card_vs_cpu(model, weight_q, scales, images[:2])
+        nb_shapes = int8_sites_card_vs_cpu(int8_distinct_sites(model, policy, images[:2]),
+                                           policy)
         nb_grid = int8_matmul_grid_card_vs_cpu()
         agree = top1_agreement(model, policy, images)
         quant_delta = logits_delta(model, quant, images)
+        reset_counters()  # the serving forwards' launches: one a site a forward
         times = serving_times(model, {'bf16': None, 'int8': policy},
                               (SERVE_BATCH,) + tuple(images.shape[1:]))
         runs[SERVE_RUNS['T']] = counters()
-    check(runs[SERVE_RUNS['T']] == no_launches(), 'run T: launches %s', runs[SERVE_RUNS['T']])
+    nb_forwards = 2 * (SERVE_WARMUP + 1 + SERVE_TIMED)
+    check(runs[SERVE_RUNS['T']] == no_launches(int8_conv=len(weight_q) * nb_forwards),
+          'run T: launches %s over %d int8 forwards', runs[SERVE_RUNS['T']], nb_forwards)
     log('  %s: plain and quant export %.1f s; serving.main bf16 %.3f ms a batch of %d (%.1f '
         'img/s, %d + %d calls); int8: %d sites int8 (coverage complete), calibration on %d '
-        'batches %.2f s, int32 accumulators card == CPU at all %d distinct contraction shapes '
-        '(batch 2) and %d odd int8_matmul shapes, top-1 agreement with bf16 %.4f on %d images; '
+        'batches %.2f s, the int8 kernel on the card == the plain version on the CPU at all %d '
+        'distinct sites (batch 2), int8_matmul card == CPU at %d odd shapes, one int8_conv '
+        'launch a site a forward, top-1 agreement with bf16 %.4f on %d images; '
         'the 8-bit quant artifact\'s logits %.3e of the largest from the plain one\'s | %s',
         SERVE_RUNS['T'], export_s, served['latency_ms'], SERVE_BATCH,
         served['throughput_per_sec'], 100, 100, len(weight_q), SERVE_CALIB, calib_s, nb_shapes,
@@ -2796,27 +2841,36 @@ def phase_serving(FLAGS, work_dir, serve_ckpt, card):
             check(max(deltas[dtype][0], deltas[dtype][1][0]) <= tol, 'run U: shrunk net %s '
                   'from the dense one in %s (bound %.0e)', deltas[dtype], dtype, tol)
         shape = (SERVE_BATCH,) + tuple(images.shape[1:])
-        times, agree = {}, {}
+        times, agree, nb_sites = {}, {}, {}
+        total = counters()  # the export's and the checks' (none) ...
         for name, net in (('dense', dense), ('shrunk', shrunk)):
             policy = int8_ops.Int8ServingPolicy(int8_ops.quantize_model_weights(net),
                                                 int8_ops.calibrate(net, calib))
             agree[name] = top1_agreement(net, policy, images)
+            nb_sites[name] = int8_sites_card_vs_cpu(
+                int8_distinct_sites(net, policy, images[:2]), policy)
+            reset_counters()  # ... and the serving forwards': one launch a site a forward
             times.update({'%s %s' % (name, k): v for k, v in serving_times(
                 net, {'bf16': None, 'int8': policy}, shape).items()})
-        runs[SERVE_RUNS['U']] = counters()
-    check(runs[SERVE_RUNS['U']] == no_launches(), 'run U: launches %s', runs[SERVE_RUNS['U']])
+            total = {k: v + counters()[k] for k, v in total.items()}
+        runs[SERVE_RUNS['U']] = total
+    nb_forwards = 2 * (SERVE_WARMUP + 1 + SERVE_TIMED)
+    check(runs[SERVE_RUNS['U']] == no_launches(
+        int8_conv=2 * INT8_SITES['mobilenet_v1'] * nb_forwards), 'run U: launches %s over 2 x %d '
+        'int8 forwards', runs[SERVE_RUNS['U']], nb_forwards)
     audit = manifest['flops_audit']
     log('  %s: export %.1f s; %d components, %d through depthwise chains, channels kept %s | '
         'parameters %d -> %d; FLOPs audit (conv + dense) %.4e -> %.4e (-%.2f%%); scattered back '
         'to dense: logits equal at batch %d; shrunk vs dense, of the largest: logits %.3e, '
         'the worst block\'s kept channels %.3e (%s) in bf16 (bound %.0e), %.3e and %.3e (%s) '
-        'in fp32 (bound %.0e); int8 top-1 agreement with bf16 %s | %s',
-        SERVE_RUNS['U'], export_s, len(manifest['components']), len(through_dw),
+        'in fp32 (bound %.0e); int8 top-1 agreement with bf16 %s; the int8 kernel on the card '
+        '== the plain version on the CPU at the distinct sites %s (batch 2), one int8_conv '
+        'launch a site a forward | %s', SERVE_RUNS['U'], export_s, len(manifest['components']), len(through_dw),
         ['%d/%d' % (len(c['kept_channels']), c['orig_channels']) for c in manifest['components']],
         nb_dense, nb_shrunk, audit['flops_before'], audit['flops_after'],
         100 * audit['reduction'], SERVE_BATCH, deltas['bf16'][0], deltas['bf16'][1][0],
         deltas['bf16'][1][1], SHRUNK_BF16_TOL, deltas['fp32'][0], deltas['fp32'][1][0],
-        deltas['fp32'][1][1], SHRUNK_FP32_TOL, agree, card)
+        deltas['fp32'][1][1], SHRUNK_FP32_TOL, agree, nb_sites, card)
     log('  run U latency at batch %d (ms, %d calls after %d, in turns; int8 skips the depthwise '
         'convs): %s; shrunk/dense bf16 %.3f, int8 %.3f | %s', SERVE_BATCH, SERVE_TIMED,
         SERVE_WARMUP, {k: [round(t, 3) for t in v] for k, v in times.items()},
@@ -4501,7 +4555,12 @@ def phase_root_experiments(FLAGS, work_dir, card):
         shrunk = shrunk_serving_latency.run(nb_timed=ROOT_SERVE_TIMED)
         torch.cuda.synchronize()
         runs[ROOT_RUN_SERVE] = counts = counters()
-    check(counts == no_launches(), '30b: launches %s', counts)
+    # one int8_conv launch a site a forward: ResNet-50 in the default mode,
+    # MobileNet-v1 in both (13 depthwise sites on the plain route when quantized)
+    forwards = ROOT_SERVE_WARMUP + 1 + ROOT_SERVE_TIMED
+    check(counts == no_launches(
+        int8_conv=forwards * (INT8_SITES['resnet50'] + 2 * INT8_SITES['mobilenet_v1']),
+        int8_depthwise=forwards * 13), '30b: launches %s', counts)
     for model in ('resnet50', 'mobilenet_v1'):
         check(all(math.isfinite(v) and v > 0 for v in served[model].values()), '30b: %s %s',
               model, served[model])
@@ -4972,6 +5031,157 @@ def phase_tp(FLAGS, work_dir, card):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 32: the int8 serving kernel
+# ---------------------------------------------------------------------------
+
+def int8_site_row(tag, key, entry):
+    """One distinct int8 site (int8_distinct_sites' entry) on the card: the
+    kernel against its plain version bit for bit (and against the output of
+    the forward that recorded it), the kernel, the plain version and cuDNN's
+    bf16 conv (cuBLAS's product for the dense layer: the bf16 forward's own
+    call) timed over INT8_REPS calls, and the site's bound."""
+    from pocketflow_tpu_torch.core.cuda_timing import int8_conv_bound_ms
+    from pocketflow_tpu_torch.ops import int8_ops
+    x, site = entry['x'], entry['site']
+    got = int8_ops.int8_conv(x, site)
+    want = int8_ops.int8_conv_plain(x, site)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want) and torch.equal(got, entry['y']),
+          '32a %s: the int8 kernel differs from its plain version at %s (max |d| %.3g)', tag, key,
+          float((got.float() - want.float()).abs().max()))
+    kernel = entry['kernel'].detach().to(torch.bfloat16)
+    if site.dense:
+        library = lambda: x @ kernel  # noqa: E731
+    else:
+        library = lambda: entry['layer'].conv_fn(x, kernel)  # noqa: E731
+    cout = site.codes.shape[-1]
+    k = site.codes.numel() // cout
+    bound_ms, bound_by = int8_conv_bound_ms(x.numel() * x.element_size(), k * cout,
+                                            got.numel() * got.element_size(), got.numel() // cout,
+                                            cout, k)
+    return dict(site=entry['path'], kernel=key[0], x=key[1], strides=key[3], padding=key[4],
+                count=entry['count'], max_abs_err=0.0,
+                ms=time_ms(lambda: int8_ops.int8_conv(x, site), INT8_REPS),
+                plain_ms=time_ms(lambda: int8_ops.int8_conv_plain(x, site), INT8_REPS),
+                library_ms=time_ms(library, INT8_REPS), bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_int8(FLAGS, card, device=torch.device('cuda'), image_size=224):
+    """Phase 32a-b (see INT8_RUN): every distinct int8 site of each net
+    (int8_site_row), INT8_FORWARDS int8 forwards of each net counted, one
+    ResNet-50 int8 forward profiled.  Returns (the kernel's entry of the
+    result line: its ms, plain_ms, library_ms and bound_ms summed over the
+    sites of one ResNet-50 forward; {run label: counters})."""
+    from pocketflow_tpu_torch.experiments import int8_serving_profile, int8_serving_speed
+    from pocketflow_tpu_torch.nets.mobilenet import MobileNetV1
+    from pocketflow_tpu_torch.nets.resnet import ResNetImageNet
+    from pocketflow_tpu_torch.nn.layers import compression
+    from pocketflow_tpu_torch.ops import int8_ops
+    from pocketflow_tpu_torch.tools import benchmark as bm
+    shape = (INT8_BATCH, image_size, image_size, 3)
+    nets = {'resnet50': lambda: ResNetImageNet(resnet_size=50, nb_classes=1000,
+                                               dtype=torch.bfloat16),
+            'mobilenet_v1': lambda: MobileNetV1(nb_classes=1000, dtype=torch.bfloat16),
+            'mobilenet_v1 odd widths': lambda: MobileNetV1(nb_classes=1000, dtype=torch.bfloat16,
+                                                           width_map=INT8_ODD_WIDTHS)}
+    total, entry = no_launches(), None
+    with FLAGS.scope(**int8_serving_speed.SERVE_FLAGS):
+        for tag, make in nets.items():
+            start = time.perf_counter()
+            model = make()
+            model.reset_parameters(torch.Generator().manual_seed(0))
+            model = model.to(device).eval()
+            calib = [x * 0.5 for x in bm._staged_inputs(shape, torch.float32, device, seed=7,
+                                                         nb=INT8_CALIB)]
+            policy = int8_ops.Int8ServingPolicy(int8_ops.quantize_model_weights(model),
+                                                int8_ops.calibrate(model, calib))
+            inputs = bm._staged_inputs(shape, torch.bfloat16, device)
+            sites = int8_distinct_sites(model, policy, inputs[0])
+            check(sum(e['count'] for e in sites.values()) == INT8_SITES[tag],
+                  '32a %s: %d int8 sites a forward', tag, sum(e['count'] for e in sites.values()))
+            rows = [int8_site_row(tag, key, e) for key, e in sites.items()]
+            reset_counters()  # the forwards' launches are counted from here ...
+            with torch.no_grad(), compression(policy):
+                for i in range(INT8_FORWARDS):
+                    logits = model(inputs[i % len(inputs)])
+            torch.cuda.synchronize()
+            counts = counters()  # ... to here
+            check(counts == no_launches(int8_conv=INT8_SITES[tag] * INT8_FORWARDS)
+                  and torch.isfinite(logits).all() and logits.shape == (INT8_BATCH, 1000),
+                  '32a %s: launches %s over %d forwards, logits %s', tag, counts,
+                  INT8_FORWARDS, tuple(logits.shape))
+            total = {k: v + counts[k] for k, v in total.items()}
+            sums = {key: sum(r['count'] * r[key] for r in rows)
+                    for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
+            by_bytes = sum(r['count'] * r['bound_ms'] for r in rows if r['bound_by'] == 'bytes')
+            for r in rows:
+                log('  32a %s %s: kernel %s, x %s, strides %s %s, x%d a forward: int8 kernel '
+                    '%.4f ms, bound %.4f ms (%s, %.0f%% of it), plain %.4f ms, cuDNN bf16 %.4f '
+                    'ms (int8/cuDNN %.2f) | %s', tag, r['site'], r['kernel'], r['x'],
+                    r['strides'], r['padding'], r['count'], r['ms'], r['bound_ms'],
+                    r['bound_by'], 100 * r['bound_ms'] / r['ms'], r['plain_ms'],
+                    r['library_ms'], r['ms'] / r['library_ms'], card)
+            log('  32a %s: %d distinct int8 sites (%d a forward) bit-equal to the plain version; '
+                'summed over a forward\'s sites: int8 kernel %.3f ms, bound %.3f ms (%.0f%% of '
+                'it bytes-bound), plain %.3f ms, cuDNN/cuBLAS bf16 %.3f ms; %d forwards: %s | '
+                '%.1f s | %s', tag, len(rows), INT8_SITES[tag], sums['ms'], sums['bound_ms'],
+                100 * by_bytes / sums['bound_ms'], sums['plain_ms'], sums['library_ms'],
+                INT8_FORWARDS, {k: v for k, v in counts.items() if v},
+                time.perf_counter() - start, card)
+            if tag == 'resnet50':
+                entry = dict(sums, max_abs_err=0.0,
+                             bound_by='bytes' if 2 * by_bytes >= sums['bound_ms'] else 'operations')
+                prof = int8_serving_profile.profile_forward(model, policy, inputs, 1, 2)
+                check(prof['htod_copies'] == 0 and prof['stream_syncs'] == 0
+                      and prof['launches_by_part'].get('int8 kernel') == INT8_SITES[tag]
+                      and set(prof['device_ms_by_part']) <= {'int8 kernel', 'rescale and cast',
+                                                             'float layers'},
+                      '32b: the int8 forward\'s profile %s', prof)
+                log('  32b the ResNet-50 int8 forward profiled (2 forwards): %s | %s',
+                    json.dumps(prof), card)
+            del model, policy, inputs, calib, sites
+            torch.cuda.empty_cache()
+    return entry, {INT8_RUN: total}
+
+
+def phase_example(FLAGS, work_dir, card):
+    """Phase 32c (EXAMPLE_RUN): the bring-your-own-model example through its
+    main() on the card: weight sparsification of its ConvNet, pr_msk at the
+    target, the masked weights 0, no kernel.  Returns {run label: counters}."""
+    from pocketflow_tpu_torch.examples import self_defined_convnet as example
+    root = os.path.join(work_dir, 'example')
+    ws_path = os.path.join(root, 'ws', 'model.ckpt')
+    argv = ['--learner=weight-sparse', '--ws_prune_ratio_prtl=uniform', '--ws_prune_ratio=0.5',
+            '--ws_mask_update_step=3', '--synthetic_data', '--nb_epochs_rat=0.01',
+            '--lrn_rate_init=0.05', '--save_path=%s' % os.path.join(root, 'models', 'model.ckpt'),
+            '--log_dir=%s' % os.path.join(root, 'logs'), '--ws_save_path=%s' % ws_path]
+    counter = ForwardCounter()
+    start = time.perf_counter()
+    try:
+        with FLAGS.scope(**FLAGS.as_dict()):
+            reset_counters()
+            learner = example.main(argv, device='cuda')
+            torch.cuda.synchronize()
+            counts = counters()
+    finally:
+        counter.close()
+    ev = counter.evals[-1]
+    pairs = learner.var_names_n_prune_ratios
+    params = dict(learner.init_state()[0].model.named_parameters())
+    sizes = [params[name].numel() for name, _ in pairs]
+    target = sum(n * r for n, (_, r) in zip(sizes, pairs)) / sum(sizes)
+    check(counts == no_launches() and counter.steps > 0 and learner.device.type == 'cuda'
+          and all(math.isfinite(v) for v in ev.values()) and target >= 0.5 - 0.01
+          and abs(ev['pr_msk'] - target) <= 0.02, '32c: launches %s, %d steps on %s, eval %s, '
+          'target %.4f', counts, counter.steps, learner.device, ev, target)
+    nb_masked = ws_masked_weights_zero(ws_path)
+    log('  32c %s: %d steps, loss %.4f, eval %s, %d masked kernels exactly zero where masked | '
+        '%.1f s | %s', EXAMPLE_RUN, counter.steps, float(counter.metrics['loss']),
+        {k: round(v, 4) for k, v in ev.items()}, nb_masked, time.perf_counter() - start, card)
+    return {EXAMPLE_RUN: counts}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5241,6 +5451,16 @@ def main():
         torch.cuda.empty_cache()
         runs.update(phase_tp(FLAGS, work_dir, card))
         log('  phase 31: %.1f s', time.perf_counter() - t31)
+        torch.cuda.empty_cache()
+        t32 = time.perf_counter()
+        log('phase 32 the int8 serving kernel: every distinct int8 site of ResNet-50, '
+            'MobileNet-v1 and MobileNet-v1 at odd widths at batch %d, 224x224, against its plain '
+            'version and timed beside its bound and cuDNN bf16 (32a), a ResNet-50 int8 forward '
+            'profiled (32b), the bring-your-own-model example (32c)', INT8_BATCH)
+        kernels['int8_conv'], int8_runs = phase_int8(FLAGS, card)
+        runs.update(int8_runs)
+        runs.update(phase_example(FLAGS, work_dir, card))
+        log('  phase 32: %.1f s', time.perf_counter() - t32)
     serve_dir.cleanup()
 
     # each kernel's launches in the run that drives it: the main path for the
@@ -5251,7 +5471,8 @@ def main():
                'fake_quant_per_tensor_group_global': TP_RUN[TP_MESHES[-1]],
                'fake_quant_per_column_group': CHANNEL_RUN,
                'matmul_bf16': next(label for label in runs if 'mm_shape_sweep' in label),
-               'bn_relu_matmul_stats': next(label for label in runs if 'fused_mm_proto' in label)}
+               'bn_relu_matmul_stats': next(label for label in runs if 'fused_mm_proto' in label),
+               'int8_conv': INT8_RUN}
     line = {'kernels': [{'name': name, 'route': 'cuda', 'source': CSRC + source,
                          'replaces': replaces, 'run': own_run[name],
                          'launches': runs[own_run[name]][name],
@@ -5306,8 +5527,42 @@ def main_phase31():
     log('phase 31 alone: %.1f s | %s', time.perf_counter() - t_start, card)
 
 
+def main_phase32():
+    """Phase 32 alone (``python3 chip_smoke.py --phase32``): int8_conv.cu
+    built, 32a, 32b and 32c, each checked as in the whole smoke; no result
+    line."""
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is False; this smoke needs an NVIDIA GPU',
+              file=sys.stderr)
+        sys.exit(1)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from pocketflow_tpu_torch import main as port_main
+    from pocketflow_tpu_torch.config import FLAGS
+    from pocketflow_tpu_torch.ops import build
+    port_main.register_flags()
+    card = card_line()
+    log('device %s | torch %s cuda %s', card, torch.__version__, torch.version.cuda)
+    for source, (_, build_log, build_s) in build.load_all(['int8_conv.cu']).items():
+        log('  %s: nvcc %.1f s', source, build_s)
+        for line in build_log.splitlines():
+            if any(key in line for key in ('registers', 'spill', 'Compiling entry')) \
+                    or 'warning' in line.lower():
+                log('  ptxas: %s', line.strip())
+    FLAGS.override(synthetic_data=True, summ_step=10 ** 9, save_step=10 ** 9, rand_seed=0)
+    entry, runs = phase_int8(FLAGS, card)
+    log('32a int8_conv over a ResNet-50 forward: %s', entry)
+    with tempfile.TemporaryDirectory(prefix='pf_int8_') as work_dir:
+        runs.update(phase_example(FLAGS, work_dir, card))
+    log('runs %s', {k: {n: c for n, c in v.items() if c} for k, v in runs.items()})
+    log('phase 32 alone: %.1f s | %s', time.perf_counter() - t_start, card)
+
+
 if __name__ == '__main__':
     if sys.argv[1:] == ['--phase31']:
         main_phase31()
+    elif sys.argv[1:] == ['--phase32']:
+        main_phase32()
     else:
         main()

@@ -10,6 +10,7 @@ import torch
 # NVIDIA's H100 SXM data sheet, at its 700 W limit: memory bytes/s, and dense
 # bf16 tensor-core and fp32 (outside the tensor cores) operations/s
 HBM_BYTES_S, BF16_TENSOR_OPS_S, FP32_OPS_S = 3.35e12, 989e12, 67e12
+INT8_TENSOR_OPS_S = 1979e12  # dense int8 tensor-core operations/s, the same sheet
 
 
 def card_line() -> str:
@@ -46,3 +47,12 @@ def matmul_bound_ms(m: int, k: int, n: int) -> Tuple[float, str]:
     """bound_ms of y = bf16(x @ w), x [m, k], w [k, n] and y bf16: 2 m k n
     bf16 tensor-core operations."""
     return bound_ms(2 * (m * k + k * n + m * n), {BF16_TENSOR_OPS_S: 2 * m * k * n})
+
+
+def int8_conv_bound_ms(x_bytes: int, codes_bytes: int, y_bytes: int, m: int, n: int,
+                       k: int) -> Tuple[float, str]:
+    """bound_ms of one int8 serving site: its input read once in its dtype,
+    the codes read once, its output written once, and 2 m n k int8
+    tensor-core operations (m output positions, n output channels, k =
+    kh kw c_in)."""
+    return bound_ms(x_bytes + codes_bytes + y_bytes, {INT8_TENSOR_OPS_S: 2 * m * n * k})

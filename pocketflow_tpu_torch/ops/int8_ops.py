@@ -34,19 +34,58 @@ Op order follows the reference: x / sx is a division by a tensor on x's
 device (PyTorch's CUDA division by a CPU scalar multiplies by the
 reciprocal, which moves .5 boundaries), round is half to even, and the
 output scale is sx * sw_c, multiplied first.
+
+On the card a site is one kernel (``int8_conv``, ``csrc/int8_conv.cu``; its
+header says why it exists, what bounds it and how it is built): it reads the
+layer's bf16 or fp32 input in NHWC, quantizes it in registers, contracts the
+codes on the int8 tensor cores against the weights packed once per device
+(``pack_weights``: K-major [Npad, Kp]) and writes the rescaled output in the
+layer's dtype where the layer has no bias (fp32 where it has one, for the
+layer's own bias add).  Its plain version, ``int8_conv_plain``, is the
+formula above step by step (quantize, ``int8_conv2d`` or ``int8_matmul``,
+rescale, cast); the two give the same bits.  ``Int8ServingPolicy`` prepares
+each site once per device (``Int8Site``: the activation scale as a device
+tensor, the fp32 product x_scale * w_scale, the packed codes), so that a
+forward makes no host-to-device copy and no stream sync.  Dispatch is by
+device: a CPU tensor takes the plain version, a CUDA tensor launches the
+kernel, anything else raises.  The depthwise int8 route (only when the
+policy does not skip it) stays the plain one on every device.  The
+module-level counters count kernel launches, plain calls on the CPU, the
+plain contractions on CUDA tensors and the depthwise route's calls.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+import ctypes
+import dataclasses
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from pocketflow_tpu_torch.nn.layers import (
-    CompressionPolicy, PFConv, PFDense, compression, same_pad)
+    CompressionPolicy, PFConv, PFDense, _same_pads, compression, same_pad)
 
 _LEVELS = 127.0
+_K_DEPTH = 32  # wgmma's depth of int8 codes: the packed K is a multiple of it
+
+# launches of the int8 conv kernel; calls of the plain version on CPU
+# tensors; calls of the plain contractions (int8_conv2d, int8_matmul) on CUDA
+# tensors; calls of the depthwise int8 route
+kernel_launches = 0
+plain_calls = 0
+plain_cuda_calls = 0
+depthwise_calls = 0
+
+
+def reset_counters():
+    global kernel_launches, plain_calls, plain_cuda_calls, depthwise_calls
+    kernel_launches = plain_calls = plain_cuda_calls = depthwise_calls = 0
+
+
+def counters() -> dict:
+    return {'int8_conv': kernel_launches, 'int8_plain_cuda': plain_cuda_calls,
+            'int8_depthwise': depthwise_calls, 'plain': plain_calls}
 
 
 def quantize_weights_symmetric(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -62,8 +101,10 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [M, K] int8 @ b [K, N] int8 -> [M, N] int32 accumulators, padded to
     what ``torch._int_mm`` takes on the card (M > 16, K a multiple of 8, N
     of 16, B column-major)."""
+    global plain_cuda_calls
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError('int8_matmul takes int8 operands, got %s and %s' % (a.dtype, b.dtype))
+    plain_cuda_calls += a.is_cuda
     m, k = a.shape
     n = b.shape[1]
     k_pad, n_pad, m_pad = -k % 8, -n % 16, max(17 - m, 0)
@@ -81,6 +122,7 @@ def int8_conv2d(xq: torch.Tensor, codes: torch.Tensor, strides=(1, 1), padding: 
     (the layer's strides and padding); returns NCHW int32 (a channels-last
     view).  ``groups`` is 1 or, for a depthwise kernel (I == 1), the input's
     channel count."""
+    global depthwise_calls
     kh, kw, cin, cout = codes.shape
     sh, sw = strides
     if padding == 'SAME':
@@ -93,6 +135,7 @@ def int8_conv2d(xq: torch.Tensor, codes: torch.Tensor, strides=(1, 1), padding: 
         if cin != 1 or groups != c or cout % c:
             raise ValueError('int8_conv2d: groups=%d with a %s kernel on %d channels'
                              % (groups, tuple(codes.shape), c))
+        depthwise_calls += 1
         return _depthwise(xq, codes, strides, ho, wo)
     if (kh, kw, sh, sw) == (1, 1, 1, 1):
         rows = xq.permute(0, 2, 3, 1).reshape(-1, c)
@@ -130,6 +173,177 @@ def int8_contract(x: torch.Tensor, codes: torch.Tensor, w_scale: torch.Tensor, x
     if acc.dim() == 4:  # NCHW: the scale runs along the channel axis
         scale = scale[:, None, None]
     return acc.to(torch.float32) * scale
+
+
+def _tile_n(cout: int) -> int:
+    """The kernel's column tile for `cout` output channels (csrc/int8_conv.cu:
+    pf_int8_conv_tile_n): the packed codes and the scale are padded to it."""
+    return 64 if cout <= 64 else 128
+
+
+def pack_weights(codes: torch.Tensor) -> torch.Tensor:
+    """HWIO (conv) or [in, out] (dense) int8 codes -> the kernel's K-major
+    [Npad, Kp] codes: row n holds output channel n's kh * kw * in codes in
+    the HWIO flattening order, zero past K (Kp a multiple of 32) and past
+    the output channels (Npad a multiple of the column tile)."""
+    rows = codes.reshape(-1, codes.shape[-1]).t()
+    cout, k = rows.shape
+    packed = torch.zeros((-(-cout // _tile_n(cout)) * _tile_n(cout), -(-k // _K_DEPTH) * _K_DEPTH),
+                         dtype=torch.int8, device=codes.device)
+    packed[:cout, :k] = rows
+    return packed
+
+
+def unpack_weights(packed: torch.Tensor, shape) -> torch.Tensor:
+    """The codes of `shape` (HWIO or [in, out]) that pack_weights packed."""
+    cout, k = shape[-1], 1
+    for size in shape[:-1]:
+        k *= size
+    return packed[:cout, :k].t().reshape(shape)
+
+
+@dataclasses.dataclass
+class Int8Site:
+    """One int8 site's contraction on one device, prepared once: the codes
+    (HWIO or [in, out]), the activation scale (a 0-d fp32 tensor), the fp32
+    output scale x_scale * w_scale padded with zeros to the column tile, the
+    packed codes (on CUDA), the conv's strides and padding and the output
+    dtype."""
+    codes: torch.Tensor
+    x_scale: torch.Tensor
+    scale: torch.Tensor
+    packed: Optional[torch.Tensor] = None
+    strides: Tuple[int, int] = (1, 1)
+    padding: str = 'SAME'
+    out_dtype: torch.dtype = torch.float32
+
+    @property
+    def dense(self) -> bool:
+        return self.codes.dim() == 2
+
+
+def make_site(codes: torch.Tensor, w_scale: torch.Tensor, x_scale, device, strides=(1, 1),
+              padding: str = 'SAME', out_dtype: torch.dtype = torch.float32) -> Int8Site:
+    """An Int8Site on `device`; the codes are packed for the kernel on CUDA."""
+    device = torch.device(device)
+    codes = codes.to(device)
+    x_scale = torch.as_tensor(x_scale, dtype=torch.float32, device=device)
+    cout = codes.shape[-1]
+    scale = torch.zeros(-(-cout // _tile_n(cout)) * _tile_n(cout), dtype=torch.float32,
+                        device=device)
+    scale[:cout] = x_scale * w_scale.to(device)  # multiplied first, as int8_contract does
+    return Int8Site(codes, x_scale, scale, pack_weights(codes) if device.type == 'cuda' else None,
+                    tuple(strides), padding, out_dtype)
+
+
+def _conv_geometry(h: int, w: int, kh: int, kw: int, strides, padding: str):
+    """(ho, wo, pad_top, pad_left) of a conv as int8_conv2d pads it."""
+    if padding == 'SAME':
+        (top, bottom), (left, right) = _same_pads(h, kh, strides[0]), _same_pads(w, kw, strides[1])
+    elif padding == 'VALID':
+        top = bottom = left = right = 0
+    else:
+        raise ValueError('unknown padding %r' % (padding,))
+    ho = (h + top + bottom - kh) // strides[0] + 1
+    wo = (w + left + right - kw) // strides[1] + 1
+    return ho, wo, top, left
+
+
+def _contract_plain(x: torch.Tensor, site: Int8Site, contract_fn=None) -> torch.Tensor:
+    """int8_contract with the site's device scales, then the cast: quantize,
+    contract (the layer's `contract_fn`, or int8_conv2d / int8_matmul),
+    rescale by x_scale * w_scale, cast to the site's output dtype."""
+    xq = torch.clamp(torch.round(x.to(torch.float32) / site.x_scale), -127, 127).to(torch.int8)
+    if contract_fn is not None:
+        acc = contract_fn(xq, site.codes, torch.int32)
+    elif site.dense:
+        acc = int8_matmul(xq, site.codes)
+    else:
+        acc = int8_conv2d(xq, site.codes, site.strides, site.padding)
+    scale = site.scale[:site.codes.shape[-1]]
+    if acc.dim() == 4:  # NCHW: the scale runs along the channel axis
+        scale = scale[:, None, None]
+    return (acc.to(torch.float32) * scale).to(site.out_dtype)
+
+
+def int8_conv_plain(x: torch.Tensor, site: Int8Site) -> torch.Tensor:
+    """The plain version of int8_conv: the same function, op by op."""
+    global plain_calls
+    plain_calls += x.device.type == 'cpu'
+    return _contract_plain(x, site)
+
+
+def _check_conv(x: torch.Tensor, site: Int8Site):
+    """(batch, H, W, C, Ho, Wo, pad_top, pad_left) of a site the kernel takes;
+    ValueError otherwise."""
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError('int8_conv: no kernel for device %s' % x.device)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError('int8_conv takes bf16 or fp32 inputs, got %s' % x.dtype)
+    if site.out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError('int8_conv writes bf16 or fp32, not %s' % site.out_dtype)
+    for name, t in (('codes', site.codes), ('scale', site.scale), ('x_scale', site.x_scale)):
+        if t.device != x.device:
+            raise ValueError('int8_conv: x on %s, the site\'s %s on %s' % (x.device, name, t.device))
+    if site.dense:
+        k, cout = site.codes.shape
+        if x.dim() != 2 or x.shape[1] != k or not x.is_contiguous():
+            raise ValueError('int8_conv: a dense site takes a contiguous [M, %d] input, got %s %s'
+                             % (k, tuple(x.shape), tuple(x.stride())))
+        return x.shape[0], 1, 1, k, 1, 1, 0, 0
+    kh, kw, cin, cout = site.codes.shape
+    if x.dim() != 4 or x.shape[1] != cin \
+            or not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError('int8_conv: a conv site takes a channels-last [N, %d, H, W] input, got '
+                         '%s %s' % (cin, tuple(x.shape), tuple(x.stride())))
+    n, c, h, w = x.shape
+    ho, wo, top, left = _conv_geometry(h, w, kh, kw, site.strides, site.padding)
+    if ho < 1 or wo < 1:
+        raise ValueError('int8_conv: a %dx%d window does not fit a %dx%d input' % (kh, kw, h, w))
+    return n, h, w, c, ho, wo, top, left
+
+
+def _library() -> ctypes.CDLL:
+    from pocketflow_tpu_torch.ops import build
+    lib, _, _ = build.load('int8_conv.cu')
+    if not getattr(lib, '_pf_bound', False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.pf_int8_conv.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32] + [i32] * 16 + [ptr]
+        lib.pf_int8_conv.restype = i32
+        lib._pf_bound = True
+    return lib
+
+
+def int8_conv(x: torch.Tensor, site: Int8Site) -> torch.Tensor:
+    """The int8 contraction of one site: y = out_dtype(float(conv or dense of
+    clamp(round(x / x_scale), -127, 127) with the codes, int32 sums) *
+    x_scale * w_scale).  x is a channels-last NCHW (conv) or contiguous [M,
+    K] (dense) bf16 or fp32 tensor; y is channels-last NCHW or [M, N].  The
+    kernel on CUDA (one launch), the plain version on the CPU."""
+    global kernel_launches
+    n, h, w, c, ho, wo, top, left = _check_conv(x, site)
+    if x.device.type == 'cpu':
+        return int8_conv_plain(x, site)
+    if site.packed is None or site.packed.device != x.device:
+        raise ValueError('int8_conv: the site has no packed codes on %s' % x.device)
+    kh, kw = (1, 1) if site.dense else site.codes.shape[:2]
+    cout = site.codes.shape[-1]
+    if site.dense:
+        y = torch.empty((n, cout), dtype=site.out_dtype, device=x.device)
+    else:
+        y = torch.empty((n, ho, wo, cout), dtype=site.out_dtype,
+                        device=x.device).permute(0, 3, 1, 2)
+    vec = c % 8 == 0 and x.data_ptr() % 16 == 0
+    npad, kp = site.packed.shape
+    err = _library().pf_int8_conv(
+        x.data_ptr(), x.dtype == torch.float32, site.packed.data_ptr(), site.scale.data_ptr(),
+        site.x_scale.data_ptr(), y.data_ptr(), site.out_dtype == torch.float32, n, h, w, c, ho,
+        wo, cout, npad, kp, kh, kw, site.strides[0], site.strides[1], top, left, vec,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError('int8_conv: CUDA error %d at launch' % err)
+    kernel_launches += 1
+    return y
 
 
 class CalibrationPolicy(CompressionPolicy):
@@ -177,23 +391,55 @@ class Int8ServingPolicy(CompressionPolicy):
     I == 1 and O a multiple of the input's channel count (x.shape[1], the
     channel axis of NCHW activations).  C > 1 keeps a dense conv on one
     input channel (a grayscale stem) in int8.
+
+    Each site is prepared once per device at its first use (``Int8Site``).
+    The layer is the contraction's owner (``contract_fn.__self__``, PFConv's
+    bound ``conv_fn``): its strides and padding, and its dtype, which the
+    site writes where the layer has no bias.  PFDense's ``dense_fn`` is
+    static, so a dense site writes fp32 and the layer adds its bias and
+    casts.  On CUDA a site is one ``int8_conv`` launch; on the CPU, and for a
+    depthwise site on any device, the plain formula through the layer's
+    ``contract_fn``.
     """
 
     def __init__(self, weight_q, act_scales: Dict[str, float], skip_depthwise: bool = True):
         self.weight_q = weight_q
         self.act_scales = act_scales
         self.skip_depthwise = skip_depthwise
+        self.sites: Dict[tuple, Int8Site] = {}
+
+    def site(self, path, x, contract_fn) -> Int8Site:
+        """The prepared site of `path` on x's device."""
+        key = (path, x.device)
+        if key not in self.sites:
+            codes, w_scale = self.weight_q[path]
+            layer = getattr(contract_fn, '__self__', None)
+            out_dtype = (layer.dtype if isinstance(layer, PFConv) and layer.bias is None
+                         else torch.float32)
+            geometry = {}
+            if isinstance(layer, PFConv):
+                geometry = dict(strides=layer.strides, padding=layer.padding)
+            elif codes.dim() == 4 and x.device.type == 'cuda':
+                raise ValueError('Int8ServingPolicy: %s: a conv site on the card needs its '
+                                 'layer (contract_fn.__self__) for strides and padding' % path)
+            self.sites[key] = make_site(codes, w_scale, self.act_scales[path], x.device,
+                                        out_dtype=out_dtype, **geometry)
+        return self.sites[key]
 
     def run_contraction(self, path, x, kernel, contract_fn):
+        global plain_calls
         entry = self.weight_q.get(path)
         if entry is None or path not in self.act_scales:
             return None
-        if (self.skip_depthwise and kernel.dim() == 4 and kernel.shape[-2] == 1
-                and kernel.shape[-1] > 1 and x.shape[1] > 1
-                and kernel.shape[-1] % x.shape[1] == 0):
+        depthwise = (kernel.dim() == 4 and kernel.shape[-2] == 1 and kernel.shape[-1] > 1
+                     and x.shape[1] > 1 and kernel.shape[-1] % x.shape[1] == 0)
+        if depthwise and self.skip_depthwise:
             return None
-        codes, w_scale = entry
-        return int8_contract(x, codes, w_scale, self.act_scales[path], contract_fn)
+        site = self.site(path, x, contract_fn)
+        if x.device.type == 'cuda' and not depthwise:
+            return int8_conv(x, site)
+        plain_calls += x.device.type == 'cpu'
+        return _contract_plain(x, site, contract_fn)
 
 
 class _SiteRecorder(CompressionPolicy):

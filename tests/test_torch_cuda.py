@@ -482,3 +482,62 @@ def test_global_range_route_equals_fused_kernel_and_plain(cuda, bits, select, sh
     if select:
         want = torch.where(b < 32, want, x)
     assert torch.equal(tfq.tensor_from_range(x, b, neg_range, select), want)
+
+
+# ---------------------------------------------------------------------------
+# the int8 serving kernel (ops/int8_ops.int8_conv)
+# ---------------------------------------------------------------------------
+
+def _int8_site(device, kshape, strides=(1, 1), padding='SAME', out_dtype=torch.bfloat16,
+               seed=0):
+    from pocketflow_tpu_torch.ops import int8_ops as ti8
+    gen = torch.Generator().manual_seed(seed)
+    codes, w_scale = ti8.quantize_weights_symmetric(torch.randn(kshape, generator=gen))
+    return ti8.make_site(codes, w_scale, 0.02, device, strides, padding, out_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kshape,strides,padding,size,dtype', [
+    ((7, 7, 3, 64), (2, 2), 'SAME', 57, torch.bfloat16),
+    ((3, 3, 64, 64), (1, 1), 'SAME', 28, torch.bfloat16),
+    ((3, 3, 128, 128), (2, 2), 'SAME', 28, torch.bfloat16),
+    ((1, 1, 256, 512), (2, 2), 'SAME', 14, torch.bfloat16),
+    ((1, 1, 37, 53), (1, 1), 'SAME', 15, torch.bfloat16),
+    ((3, 3, 19, 200), (2, 2), 'VALID', 15, torch.float32),
+    ((2048, 1000), None, None, None, torch.bfloat16)])
+def test_int8_kernel_equals_plain(cuda, kshape, strides, padding, size, dtype):
+    from pocketflow_tpu_torch.ops import int8_ops as ti8
+    dense = len(kshape) == 2
+    site = _int8_site(cuda, kshape, strides or (1, 1), padding or 'SAME',
+                      torch.float32 if dense else torch.bfloat16)
+    shape = (64, kshape[0]) if dense else (8, size, size + 1, kshape[2])
+    x = _inputs(cuda, shape, dtype) * 2
+    x = x if dense else x.permute(0, 3, 1, 2)
+    got = ti8.int8_conv(x, site)
+    torch.cuda.synchronize()
+    want = ti8.int8_conv_plain(x, site)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), ti8.int8_conv_plain(x.cpu(), _int8_site(
+        'cpu', kshape, strides or (1, 1), padding or 'SAME', site.out_dtype)))
+
+
+@pytest.mark.gpu
+def test_int8_wrapper_counts_launches_and_rejects_bad_inputs(cuda):
+    from pocketflow_tpu_torch.ops import int8_ops as ti8
+    site = _int8_site(cuda, (3, 3, 16, 32))
+    x = _inputs(cuda, (2, 16, 9, 9), torch.bfloat16).to(memory_format=torch.channels_last)
+    ti8.reset_counters()
+    ti8.int8_conv(x, site)
+    ti8.int8_conv(x.float(), site)
+    assert ti8.counters() == {'int8_conv': 2, 'int8_plain_cuda': 0, 'int8_depthwise': 0,
+                              'plain': 0}
+    with pytest.raises(ValueError, match='bf16 or fp32'):
+        ti8.int8_conv(x.half(), site)
+    with pytest.raises(ValueError, match='channels-last'):
+        ti8.int8_conv(x.contiguous(), site)
+    with pytest.raises(ValueError, match='site'):
+        ti8.int8_conv(x.cpu().to(memory_format=torch.channels_last), site)
+    with pytest.raises(ValueError, match='site'):
+        ti8.int8_conv(x, _int8_site('cpu', (3, 3, 16, 32)))
+    assert ti8.counters()['int8_conv'] == 2
