@@ -5067,7 +5067,7 @@ def int8_site_row(tag, key, entry):
                 library_ms=time_ms(library, INT8_REPS), bound_ms=bound_ms, bound_by=bound_by)
 
 
-def phase_int8(FLAGS, card, device=torch.device('cuda'), image_size=224):
+def phase_int8(FLAGS, card):
     """Phase 32a-b (see INT8_RUN): every distinct int8 site of each net
     (int8_site_row), INT8_FORWARDS int8 forwards of each net counted, one
     ResNet-50 int8 forward profiled.  Returns (the kernel's entry of the
@@ -5079,7 +5079,8 @@ def phase_int8(FLAGS, card, device=torch.device('cuda'), image_size=224):
     from pocketflow_tpu_torch.nn.layers import compression
     from pocketflow_tpu_torch.ops import int8_ops
     from pocketflow_tpu_torch.tools import benchmark as bm
-    shape = (INT8_BATCH, image_size, image_size, 3)
+    device = torch.device('cuda')
+    shape = (INT8_BATCH, 224, 224, 3)
     nets = {'resnet50': lambda: ResNetImageNet(resnet_size=50, nb_classes=1000,
                                                dtype=torch.bfloat16),
             'mobilenet_v1': lambda: MobileNetV1(nb_classes=1000, dtype=torch.bfloat16),

@@ -595,16 +595,16 @@ int launch_t(const Params& p, bool vec, bool y_fp32, cudaStream_t stream) {
                 : launch<BN, T, false, __nv_bfloat16>(p, stream);
 }
 
+// The column tile of a site with `cout` output channels: the packed codes
+// and the scale are padded to a multiple of it (ops/int8_ops.py:_padded_cout).
+int tile_n(int cout) { return cout <= 64 ? 64 : 128; }
+
 }  // namespace
 
 extern "C" {
 
-// The column tile of a site with `cout` output channels: the packed codes
-// and the scale are padded to a multiple of it.
-int pf_int8_conv_tile_n(int cout) { return cout <= 64 ? 64 : 128; }
-
 // x: [batch, H, W, C] (NHWC) bf16 (x_fp32 = 0) or fp32; w: [Npad, Kp] int8
-// with Npad = Cout rounded up to pf_int8_conv_tile_n(Cout) and Kp = K
+// with Npad = Cout rounded up to tile_n(Cout) and Kp = K
 // rounded up to 32, K = kh * kw * C; scale: [Npad] fp32; x_scale: one fp32;
 // y: [batch, Ho, Wo, Cout] bf16 (y_fp32 = 0) or fp32.  vec: C % 8 == 0 and x
 // 16-byte aligned (one load an 8-channel chunk).  A dense layer is batch = M,
@@ -615,7 +615,7 @@ int pf_int8_conv(const void* x, int x_fp32, const int8_t* w, const float* scale,
                  int pad_top, int pad_left, int vec, void* stream) {
   const int64_t M = static_cast<int64_t>(batch) * Ho * Wo;
   const int64_t K = static_cast<int64_t>(kh) * kw * C;
-  const int bn = pf_int8_conv_tile_n(Cout);
+  const int bn = tile_n(Cout);
   if (M < 1 || M > INT32_MAX / 2 || K < 1 || Kp % 32 || Kp < K || Kp - K >= 32 || Cout < 1 ||
       Npad % bn || Npad < Cout || sh < 1 || sw < 1 || kw < 1 ||
       static_cast<int64_t>(batch) * H > INT32_MAX / 2 || (vec && C % 8))

@@ -162,23 +162,30 @@ def _depthwise(xq, codes, strides, ho, wo):
     return acc.to(torch.int32)
 
 
-def int8_contract(x: torch.Tensor, codes: torch.Tensor, w_scale: torch.Tensor, x_scale,
-                  contract_fn) -> torch.Tensor:
-    """Quantize x, contract in int8 -> int32, rescale to float32.
-    `contract_fn(xq, codes, torch.int32)` is the layer's conv or dense."""
-    x_scale = torch.as_tensor(x_scale, dtype=torch.float32, device=x.device)
+def _contract(x: torch.Tensor, x_scale: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+              contract_fn) -> torch.Tensor:
+    """Quantize x by the 0-d device tensor x_scale, contract, rescale the
+    int32 sums by `scale` (x_scale * w_scale) to float32."""
     xq = torch.clamp(torch.round(x.to(torch.float32) / x_scale), -127, 127).to(torch.int8)
     acc = contract_fn(xq, codes, torch.int32)
-    scale = x_scale * w_scale
     if acc.dim() == 4:  # NCHW: the scale runs along the channel axis
         scale = scale[:, None, None]
     return acc.to(torch.float32) * scale
 
 
-def _tile_n(cout: int) -> int:
-    """The kernel's column tile for `cout` output channels (csrc/int8_conv.cu:
-    pf_int8_conv_tile_n): the packed codes and the scale are padded to it."""
-    return 64 if cout <= 64 else 128
+def int8_contract(x: torch.Tensor, codes: torch.Tensor, w_scale: torch.Tensor, x_scale,
+                  contract_fn) -> torch.Tensor:
+    """Quantize x, contract in int8 -> int32, rescale to float32.
+    `contract_fn(xq, codes, torch.int32)` is the layer's conv or dense."""
+    x_scale = torch.as_tensor(x_scale, dtype=torch.float32, device=x.device)
+    return _contract(x, x_scale, codes, x_scale * w_scale, contract_fn)
+
+
+def _padded_cout(cout: int) -> int:
+    """`cout` rounded up to the kernel's column tile (csrc/int8_conv.cu:
+    tile_n), the rows of the packed codes and the length of the scale."""
+    tile = 64 if cout <= 64 else 128
+    return -(-cout // tile) * tile
 
 
 def pack_weights(codes: torch.Tensor) -> torch.Tensor:
@@ -188,18 +195,10 @@ def pack_weights(codes: torch.Tensor) -> torch.Tensor:
     the output channels (Npad a multiple of the column tile)."""
     rows = codes.reshape(-1, codes.shape[-1]).t()
     cout, k = rows.shape
-    packed = torch.zeros((-(-cout // _tile_n(cout)) * _tile_n(cout), -(-k // _K_DEPTH) * _K_DEPTH),
-                         dtype=torch.int8, device=codes.device)
+    packed = torch.zeros((_padded_cout(cout), -(-k // _K_DEPTH) * _K_DEPTH), dtype=torch.int8,
+                         device=codes.device)
     packed[:cout, :k] = rows
     return packed
-
-
-def unpack_weights(packed: torch.Tensor, shape) -> torch.Tensor:
-    """The codes of `shape` (HWIO or [in, out]) that pack_weights packed."""
-    cout, k = shape[-1], 1
-    for size in shape[:-1]:
-        k *= size
-    return packed[:cout, :k].t().reshape(shape)
 
 
 @dataclasses.dataclass
@@ -229,8 +228,7 @@ def make_site(codes: torch.Tensor, w_scale: torch.Tensor, x_scale, device, strid
     codes = codes.to(device)
     x_scale = torch.as_tensor(x_scale, dtype=torch.float32, device=device)
     cout = codes.shape[-1]
-    scale = torch.zeros(-(-cout // _tile_n(cout)) * _tile_n(cout), dtype=torch.float32,
-                        device=device)
+    scale = torch.zeros(_padded_cout(cout), dtype=torch.float32, device=device)
     scale[:cout] = x_scale * w_scale.to(device)  # multiplied first, as int8_contract does
     return Int8Site(codes, x_scale, scale, pack_weights(codes) if device.type == 'cuda' else None,
                     tuple(strides), padding, out_dtype)
@@ -250,20 +248,17 @@ def _conv_geometry(h: int, w: int, kh: int, kw: int, strides, padding: str):
 
 
 def _contract_plain(x: torch.Tensor, site: Int8Site, contract_fn=None) -> torch.Tensor:
-    """int8_contract with the site's device scales, then the cast: quantize,
-    contract (the layer's `contract_fn`, or int8_conv2d / int8_matmul),
-    rescale by x_scale * w_scale, cast to the site's output dtype."""
-    xq = torch.clamp(torch.round(x.to(torch.float32) / site.x_scale), -127, 127).to(torch.int8)
-    if contract_fn is not None:
-        acc = contract_fn(xq, site.codes, torch.int32)
-    elif site.dense:
-        acc = int8_matmul(xq, site.codes)
-    else:
-        acc = int8_conv2d(xq, site.codes, site.strides, site.padding)
-    scale = site.scale[:site.codes.shape[-1]]
-    if acc.dim() == 4:  # NCHW: the scale runs along the channel axis
-        scale = scale[:, None, None]
-    return (acc.to(torch.float32) * scale).to(site.out_dtype)
+    """int8_contract with the site's device scales, then the cast to its
+    output dtype; the contraction is the layer's `contract_fn`, or
+    int8_matmul / int8_conv2d."""
+    if contract_fn is None:
+        if site.dense:
+            contract_fn = lambda xq, codes, _: int8_matmul(xq, codes)  # noqa: E731
+        else:
+            contract_fn = lambda xq, codes, _: int8_conv2d(  # noqa: E731
+                xq, codes, site.strides, site.padding)
+    return _contract(x, site.x_scale, site.codes, site.scale[:site.codes.shape[-1]],
+                     contract_fn).to(site.out_dtype)
 
 
 def int8_conv_plain(x: torch.Tensor, site: Int8Site) -> torch.Tensor:
