@@ -2841,7 +2841,7 @@ def phase_serving(FLAGS, work_dir, serve_ckpt, card):
             check(max(deltas[dtype][0], deltas[dtype][1][0]) <= tol, 'run U: shrunk net %s '
                   'from the dense one in %s (bound %.0e)', deltas[dtype], dtype, tol)
         shape = (SERVE_BATCH,) + tuple(images.shape[1:])
-        times, agree, nb_sites = {}, {}, {}
+        times, agree, nb_sites, int8_sites = {}, {}, {}, 0
         total = counters()  # the export's and the checks' (none) ...
         for name, net in (('dense', dense), ('shrunk', shrunk)):
             policy = int8_ops.Int8ServingPolicy(int8_ops.quantize_model_weights(net),
@@ -2849,15 +2849,19 @@ def phase_serving(FLAGS, work_dir, serve_ckpt, card):
             agree[name] = top1_agreement(net, policy, images)
             nb_sites[name] = int8_sites_card_vs_cpu(
                 int8_distinct_sites(net, policy, images[:2]), policy)
+            # the sites a forward ran in int8: the stem, the pointwise convs
+            # and the dense layer, and a depthwise conv pruned to one channel
+            # (a conv on one input channel, as a grayscale stem)
+            int8_sites += len(policy.sites)
             reset_counters()  # ... and the serving forwards': one launch a site a forward
             times.update({'%s %s' % (name, k): v for k, v in serving_times(
                 net, {'bf16': None, 'int8': policy}, shape).items()})
             total = {k: v + counters()[k] for k, v in total.items()}
         runs[SERVE_RUNS['U']] = total
     nb_forwards = 2 * (SERVE_WARMUP + 1 + SERVE_TIMED)
-    check(runs[SERVE_RUNS['U']] == no_launches(
-        int8_conv=2 * INT8_SITES['mobilenet_v1'] * nb_forwards), 'run U: launches %s over 2 x %d '
-        'int8 forwards', runs[SERVE_RUNS['U']], nb_forwards)
+    check(int8_sites >= 2 * INT8_SITES['mobilenet_v1'] and runs[SERVE_RUNS['U']] == no_launches(
+        int8_conv=int8_sites * nb_forwards), 'run U: launches %s over 2 x %d int8 forwards of '
+        '%d sites', runs[SERVE_RUNS['U']], nb_forwards, int8_sites)
     audit = manifest['flops_audit']
     log('  %s: export %.1f s; %d components, %d through depthwise chains, channels kept %s | '
         'parameters %d -> %d; FLOPs audit (conv + dense) %.4e -> %.4e (-%.2f%%); scattered back '
@@ -2865,12 +2869,12 @@ def phase_serving(FLAGS, work_dir, serve_ckpt, card):
         'the worst block\'s kept channels %.3e (%s) in bf16 (bound %.0e), %.3e and %.3e (%s) '
         'in fp32 (bound %.0e); int8 top-1 agreement with bf16 %s; the int8 kernel on the card '
         '== the plain version on the CPU at the distinct sites %s (batch 2), one int8_conv '
-        'launch a site a forward | %s', SERVE_RUNS['U'], export_s, len(manifest['components']), len(through_dw),
+        'launch a site a forward (%d sites in the two nets) | %s', SERVE_RUNS['U'], export_s, len(manifest['components']), len(through_dw),
         ['%d/%d' % (len(c['kept_channels']), c['orig_channels']) for c in manifest['components']],
         nb_dense, nb_shrunk, audit['flops_before'], audit['flops_after'],
         100 * audit['reduction'], SERVE_BATCH, deltas['bf16'][0], deltas['bf16'][1][0],
         deltas['bf16'][1][1], SHRUNK_BF16_TOL, deltas['fp32'][0], deltas['fp32'][1][0],
-        deltas['fp32'][1][1], SHRUNK_FP32_TOL, agree, nb_sites, card)
+        deltas['fp32'][1][1], SHRUNK_FP32_TOL, agree, nb_sites, int8_sites, card)
     log('  run U latency at batch %d (ms, %d calls after %d, in turns; int8 skips the depthwise '
         'convs): %s; shrunk/dense bf16 %.3f, int8 %.3f | %s', SERVE_BATCH, SERVE_TIMED,
         SERVE_WARMUP, {k: [round(t, 3) for t in v] for k, v in times.items()},

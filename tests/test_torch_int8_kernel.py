@@ -7,7 +7,9 @@ prepared policy (pocketflow_tpu_torch/ops/int8_ops.py), on the CPU:
   and at 'VALID' padding, K and N off the multiples of 8 and 16, odd shrunk
   widths and an fp32 input: the layer's output through the prepared site
   equals ``int8_contract`` followed by the layer's bias add and cast, bit
-  for bit (the route before the kernel);
+  for bit (the route before the kernel); and the logits of ResNet-50 and
+  MobileNet-v1 at full width (batch 2, 64x64) through all their int8 sites,
+  equal to that route's;
 * the K-major packing: zeros past K and past the output channels, the
   codes back exactly;
 * a prepared ``Int8ServingPolicy`` makes no tensor from host values in a
@@ -34,6 +36,8 @@ class _ContractPolicy(tl.CompressionPolicy):
         self.weight_q, self.act_scales = weight_q, act_scales
 
     def run_contraction(self, path, x, kernel, contract_fn):
+        if path not in self.act_scales:
+            return None
         codes, w_scale = self.weight_q[path]
         return tint8.int8_contract(x, codes, w_scale, self.act_scales[path], contract_fn)
 
@@ -258,3 +262,30 @@ def test_profile_splits_an_int8_forward_by_part():
     assert bf16['device_ms_by_part']['convs and dense'] == pytest.approx(30 / 1e3)
     assert bf16['device_ms_by_part']['float layers'] == pytest.approx(20 / 1e3)
     assert 0.0 < out['idle_share'] < 1.0
+
+
+@pytest.mark.parametrize('net', ['resnet50', 'mobilenet_v1'])
+def test_net_forward_equals_the_contract_route(net):
+    """Every int8 site of the serving nets at full width (batch 2, 64x64,
+    bf16): the logits through the prepared sites equal the route before the
+    kernel's (int8_contract, then each layer's cast), bit for bit."""
+    from pocketflow_tpu_torch.nets.mobilenet import MobileNetV1
+    from pocketflow_tpu_torch.nets.resnet import ResNetImageNet
+    model = (ResNetImageNet(resnet_size=50, nb_classes=1000, dtype=torch.bfloat16)
+             if net == 'resnet50' else MobileNetV1(nb_classes=1000, dtype=torch.bfloat16))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.eval()
+    images = torch.from_numpy(np.random.default_rng(5).normal(size=(2, 64, 64, 3))
+                              .astype(np.float32))
+    weight_q = tint8.quantize_model_weights(model)
+    scales = tint8.calibrate(model, [images])
+    policy = tint8.Int8ServingPolicy(weight_q, scales)
+    with torch.no_grad():
+        with tl.compression(policy):
+            got = model(images)
+        # the same sites in int8 (the depthwise ones stay in float)
+        int8_paths = {path for path, _ in policy.sites}
+        with tl.compression(_ContractPolicy(weight_q, {p: scales[p] for p in int8_paths})):
+            want = model(images)
+    assert len(int8_paths) == {'resnet50': 54, 'mobilenet_v1': 15}[net]
+    assert torch.equal(got, want)
