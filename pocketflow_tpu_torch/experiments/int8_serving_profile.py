@@ -110,7 +110,8 @@ def trace_parts(events, nb_forwards: int, int8_forward: bool) -> dict:
     from pocketflow_tpu_torch.tools.profile_step import _busy_us
     host = sorted((e for e in events if e.get('cat') in ('cpu_op', 'user_annotation')
                    and 'dur' in e), key=lambda e: (e['ts'], -e['dur']))
-    # the launches: the runtime's, and the driver's (cuBLASLt launches through it)
+    # the launches: the CUDA runtime API's, and the CUDA driver API's, through
+    # which cuBLASLt launches its kernels
     runtime = sorted((e for e in events if e.get('cat') in ('cuda_runtime', 'cuda_driver')),
                      key=lambda e: e['ts'])
     device = [e for e in events if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')

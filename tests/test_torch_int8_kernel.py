@@ -204,7 +204,7 @@ def test_kernel_wrapper_refuses_inputs_it_does_not_take():
 
 def _trace():
     """A Chrome trace of one int8 forward in both routes: site 'a' on the
-    eager route (quantize, im2col, the GEMM launched through the driver API,
+    eager route (quantize, im2col, the GEMM launched through the CUDA driver API,
     rescale), site 'b' on the kernel
     (launched by the site itself, then the dense layer's bias add), a BN
     outside any site, a depthwise site on the float path."""
@@ -233,7 +233,7 @@ def _trace():
                               ('aten::to', 150, 9), ('aten::mul', 160, 10)):
         op(name, ts, 5)
         op('aten::copy_', ts + 1, 3)  # a nested op: the part is the top-level one's
-        # cuBLASLt's GEMM launches through the driver API
+        # cuBLASLt's GEMM launches through the CUDA driver API
         launch(ts + 2, part_us, runtime='cuLaunchKernel' if name == 'aten::_int_mm'
                else 'cudaLaunchKernel')
     op('aten::batch_norm', 210, 10)
