@@ -504,6 +504,7 @@ def _int8_site(device, kshape, strides=(1, 1), padding='SAME', out_dtype=torch.b
     ((1, 1, 256, 512), (2, 2), 'SAME', 14, torch.bfloat16),
     ((1, 1, 37, 53), (1, 1), 'SAME', 15, torch.bfloat16),
     ((3, 3, 19, 200), (2, 2), 'VALID', 15, torch.float32),
+    ((3, 3, 64, 96), (1, 1), 'SAME', 20, torch.float32),
     ((2048, 1000), None, None, None, torch.bfloat16)])
 def test_int8_kernel_equals_plain(cuda, kshape, strides, padding, size, dtype):
     from pocketflow_tpu_torch.ops import int8_ops as ti8
@@ -520,6 +521,18 @@ def test_int8_kernel_equals_plain(cuda, kshape, strides, padding, size, dtype):
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), ti8.int8_conv_plain(x.cpu(), _int8_site(
         'cpu', kshape, strides or (1, 1), padding or 'SAME', site.out_dtype)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_int8_kernel_writes_fp32_as_plain(cuda, dtype):
+    """A site that writes fp32 (a layer with a bias adds it after): the
+    accumulators scaled, unrounded, at a vectorized input width."""
+    from pocketflow_tpu_torch.ops import int8_ops as ti8
+    site = _int8_site(cuda, (3, 3, 32, 48), out_dtype=torch.float32)
+    x = (_inputs(cuda, (4, 17, 18, 32), dtype) * 2).permute(0, 3, 1, 2)
+    got = ti8.int8_conv(x, site)
+    assert got.dtype == torch.float32 and torch.equal(got, ti8.int8_conv_plain(x, site))
 
 
 @pytest.mark.gpu
