@@ -1,6 +1,6 @@
 // The int8 serving contraction of one conv or dense site for Hopper (sm_90a).
 //
-//   y[m, n] = out(float(sum_k xq[m, k] * w[n, k]) * scale[n])
+//   y[m, n] = out(float(sum_k xq[m, k] * w[n, k]) * scale[n] (+ bias[n]))
 //   xq      = clamp(rint(x / x_scale), -127, 127)        (int8, in registers)
 //
 // x is the layer's input, NHWC (a channels-last NCHW tensor, or [M, K] for a
@@ -9,7 +9,8 @@
 // where the window falls on the padding.  w is the packed [Npad, Kp] int8
 // codes (K-major: row n holds output channel n's kh * kw * C codes, zero past
 // K and past Cout), scale[n] = x_scale * w_scale[n] in fp32 (zero past Cout),
-// x_scale one fp32 value on the device, y [M, Cout] (NHWC) in bf16 or fp32.
+// x_scale one fp32 value on the device, bias (optional) [Npad] fp32 (zero
+// past Cout), y [M, Cout] (NHWC) in bf16 or fp32.
 //
 // It replaces no Pallas kernel.  The JAX package's int8 serving
 // (pocketflow_tpu/ops/int8_ops.py:37, int8_contract) is XLA's native int8
@@ -24,8 +25,9 @@
 // quantize_rows() below gets them from a multiply and, where that could
 // round otherwise, __fdiv_rn), rint rounds half to even as torch.round, the
 // int32 sums are exact, and the rescale is one __fmul_rn of
-// __int2float_rn(acc) by the precomputed scale, rounded once to the output
-// type (__float2bfloat16_rn).
+// __int2float_rn(acc) by the precomputed scale, then one __fadd_rn of the
+// layer's bias where it has one (its fp32 bias add), rounded once to the
+// output type (__float2bfloat16_rn).
 //
 // What bounds it on the card.  A site moves its input in its dtype (read
 // once), the codes and its output (written once); it does 2 * M * Cout * K
@@ -67,11 +69,15 @@
 //     int32 accumulators in registers, waited for before the next stage's
 //     quantize rewrites A (the products are a small share of the time); the
 //     last stage issues only the 32-deep steps below Kp;
-//   * the epilogue converts and scales the accumulators; a bf16 output with
+//   * the epilogue converts and scales the accumulators and adds the bias;
+//     a bf16 output with
 //     Cout % 8 == 0 goes through shared memory (the raw stage just read)
 //     and leaves in whole 16-byte chunks a row, other outputs go straight
 //     to y (rows < M, columns < Cout), two columns at a time where Cout is
-//     even.
+//     even;
+//   * the dynamic shared memory size and the grid (the blocks that fit on
+//     the SMs at once) are set up at a variant's first launch on a device,
+//     so that a launch makes no other call of the runtime.
 //
 // Plain C interface for ctypes; the entry point returns cudaGetLastError()
 // (or cudaErrorInvalidValue for arguments out of range).
@@ -107,6 +113,7 @@ struct Params {
   const int8_t* w;
   const float* scale;
   const float* x_scale;
+  const float* bias;  // or nullptr
   void* y;
   int M, H, W, C, Ho, Wo, Cout, Kp, K, kw, sh, sw, pad_top, pad_left;
 };
@@ -243,6 +250,14 @@ __device__ __forceinline__ uint64_t quantize_rows(const float (&v)[kRowsAThread]
     out[q] = make_uint2(w[0], w[1]);
   }
   return near_half;
+}
+
+// An accumulator rescaled as the plain route does: float(acc) * scale, then
+// + bias in fp32 where the layer has one, and nothing where it has none (a
+// product that underflows to -0.0 stays -0.0).
+__device__ __forceinline__ float rescale(int acc, float scale, float bias, const float* has_bias) {
+  const float v = __fmul_rn(__int2float_rn(acc), scale);
+  return has_bias ? __fadd_rn(v, bias) : v;
 }
 
 template <typename OutT> struct Out;
@@ -476,12 +491,13 @@ int8_conv_wgmma(const Params p) {
       for (int j = 0; j < BN / 8; ++j) {
         const int col = n0 + 8 * j + 2 * (lane & 3);
         const float s0 = p.scale[col], s1 = p.scale[col + 1];  // scale is Npad long
+        const float b0 = p.bias ? p.bias[col] : 0.0f, b1 = p.bias ? p.bias[col + 1] : 0.0f;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = row0 + 8 * h;
           const __nv_bfloat162 pair =
-              __floats2bfloat162_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), s0),
-                                    __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), s1));
+              __floats2bfloat162_rn(rescale(acc[4 * j + 2 * h], s0, b0, p.bias),
+                                    rescale(acc[4 * j + 2 * h + 1], s1, b1, p.bias));
           *reinterpret_cast<__nv_bfloat162*>(tile_smem + r * BN * 2 + ((j ^ (r & 7)) << 4) +
                                              4 * (lane & 3)) = pair;
         }
@@ -502,13 +518,14 @@ int8_conv_wgmma(const Params p) {
       const int col = n0 + 8 * j + 2 * (lane & 3);
       if (col >= p.Cout) continue;
       const float s0 = p.scale[col], s1 = p.scale[col + 1];  // scale is Npad long
+      const float b0 = p.bias ? p.bias[col] : 0.0f, b1 = p.bias ? p.bias[col + 1] : 0.0f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = m0 + row0 + 8 * h;
         if (m >= p.M) continue;
         const int64_t at = static_cast<int64_t>(m) * p.Cout + col;
-        const float v0 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), s0);
-        const float v1 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), s1);
+        const float v0 = rescale(acc[4 * j + 2 * h], s0, b0, p.bias);
+        const float v1 = rescale(acc[4 * j + 2 * h + 1], s1, b1, p.bias);
         if (pairs) {
           Out<OutT>::two(p.y, at, v0, v1);
         } else {
@@ -555,32 +572,34 @@ int8_conv_wgmma(const Params p) {
   }
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int device = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  return sms;
-}
+constexpr int kMaxDevices = 64;
 
 template <int BN, typename T, bool kVec, typename OutT>
 int launch(const Params& p, cudaStream_t stream) {
   const int smem = Tile<BN, T, kVec>::kSmemBytes;
-  const cudaError_t err = cudaFuncSetAttribute(int8_conv_wgmma<BN, T, kVec, OutT>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // persistent: as many blocks as fit on the SMs at once, each walking its
-  // tiles
   const int64_t tiles = static_cast<int64_t>((p.M + kBM - 1) / kBM) * ((p.Cout + BN - 1) / BN);
   if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  int per_sm = 0;
-  const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, int8_conv_wgmma<BN, T, kVec, OutT>, kThreads, smem);
-  if (occ != cudaSuccess) return static_cast<int>(occ);
-  const int64_t slots = static_cast<int64_t>(sm_count()) * (per_sm > 0 ? per_sm : 1);
-  const int grid = static_cast<int>(tiles < slots ? tiles : slots);
+  // persistent: as many blocks as fit on the SMs at once (this variant's
+  // slots on the device, found at its first launch there), each walking
+  // its tiles
+  static int slots[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (slots[device] == 0) {
+    err = cudaFuncSetAttribute(int8_conv_wgmma<BN, T, kVec, OutT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, int8_conv_wgmma<BN, T, kVec, OutT>, kThreads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    slots[device] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int grid = static_cast<int>(tiles < slots[device] ? tiles : slots[device]);
   int8_conv_wgmma<BN, T, kVec, OutT><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -604,15 +623,15 @@ int tile_n(int cout) { return cout <= 64 ? 64 : 128; }
 extern "C" {
 
 // x: [batch, H, W, C] (NHWC) bf16 (x_fp32 = 0) or fp32; w: [Npad, Kp] int8
-// with Npad = Cout rounded up to tile_n(Cout) and Kp = K
-// rounded up to 32, K = kh * kw * C; scale: [Npad] fp32; x_scale: one fp32;
-// y: [batch, Ho, Wo, Cout] bf16 (y_fp32 = 0) or fp32.  vec: C % 8 == 0 and x
-// 16-byte aligned (one load an 8-channel chunk).  A dense layer is batch = M,
-// H = W = Ho = Wo = kh = kw = 1, C = K.
+// with Npad = Cout rounded up to tile_n(Cout) and Kp = K rounded up to 32,
+// K = kh * kw * C; scale: [Npad] fp32; x_scale: one fp32; bias: [Npad] fp32
+// or null; y: [batch, Ho, Wo, Cout] bf16 (y_fp32 = 0) or fp32.  vec: C % 8
+// == 0 and x 16-byte aligned (one load an 8-channel chunk).  A dense layer
+// is batch = M, H = W = Ho = Wo = kh = kw = 1, C = K.
 int pf_int8_conv(const void* x, int x_fp32, const int8_t* w, const float* scale,
-                 const float* x_scale, void* y, int y_fp32, int batch, int H, int W, int C,
-                 int Ho, int Wo, int Cout, int Npad, int Kp, int kh, int kw, int sh, int sw,
-                 int pad_top, int pad_left, int vec, void* stream) {
+                 const float* x_scale, const float* bias, void* y, int y_fp32, int batch, int H,
+                 int W, int C, int Ho, int Wo, int Cout, int Npad, int Kp, int kh, int kw, int sh,
+                 int sw, int pad_top, int pad_left, int vec, void* stream) {
   const int64_t M = static_cast<int64_t>(batch) * Ho * Wo;
   const int64_t K = static_cast<int64_t>(kh) * kw * C;
   const int bn = tile_n(Cout);
@@ -620,7 +639,7 @@ int pf_int8_conv(const void* x, int x_fp32, const int8_t* w, const float* scale,
       Npad % bn || Npad < Cout || sh < 1 || sw < 1 || kw < 1 ||
       static_cast<int64_t>(batch) * H > INT32_MAX / 2 || (vec && C % 8))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{x, w, scale, x_scale, y, static_cast<int>(M), H, W, C, Ho, Wo, Cout, Kp,
+  Params p{x, w, scale, x_scale, bias, y, static_cast<int>(M), H, W, C, Ho, Wo, Cout, Kp,
            static_cast<int>(K), kw, sh, sw, pad_top, pad_left};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bn == 64) {

@@ -10,13 +10,9 @@ under torch.profiler with the host's ops recorded and each PFConv / PFDense
 call inside a named range.  A kernel belongs to the op that launched it
 (the profiler's correlation id), and so to a part of the forward:
 
-    int8 kernel        the int8 conv kernel (launched inside a site)
-    quantize           a site's ops up to and including the cast to int8
-    im2col and copies  from there to the int8 GEMM: pads, the window copy,
-                       the weights' transposed copy
-    int8 GEMM          torch._int_mm (cuBLASLt)
-    rescale and cast   a site's ops after the GEMM or the kernel: int32 ->
-                       fp32, the scale, the bias, the cast to bf16
+    int8 kernel        the int8 conv kernel (launched by the site itself)
+    other site ops     anything else an int8 site launches (none: the
+                       kernel adds the bias and casts)
     convs and dense    a site that ran in bf16 (cuDNN, cuBLAS)
     float layers       everything else: BN, ReLU, adds, pools, the mean,
                        and the depthwise convs the int8 forward skips
@@ -25,10 +21,7 @@ It reports, per forward: the device window (first kernel start to last
 kernel end), the busy time (the union of kernels, copies and memsets) and the
 idle share, from a profile of the card alone; the device ms and launches of
 each part, the host-to-device copies and the cudaStreamSynchronize calls,
-and the top kernels, from the profile with the host's ops.  It reads
-only what every version of the port's int8 route has (the policy, the
-calibration, the nets), so the same script profiles the route before and
-after the int8 kernel.
+and the top kernels, from the profile with the host's ops.
 
     python -m pocketflow_tpu_torch.experiments.int8_serving_profile [--out FILE]
 
@@ -51,8 +44,7 @@ TAG = 'int8_serving_profile'
 BATCH, IMAGE_SIZE, NB_CLASSES = 64, 224, 1000
 NB_WARMUP, NB_PROFILED, NB_CALIB = 5, 5, 2
 SITE = 'pf.site '
-PARTS = ('int8 kernel', 'quantize', 'im2col and copies', 'int8 GEMM', 'rescale and cast',
-         'convs and dense', 'float layers')
+PARTS = ('int8 kernel', 'other site ops', 'convs and dense', 'float layers')
 
 
 def _site_ranges(model):
@@ -80,28 +72,13 @@ def _site_ranges(model):
 
 def _classify_site(launches, int8_forward: bool):
     """[(runtime event, name of the op it ran under at the site's top level,
-    or None when the site launched it itself)] of one site call, in order ->
-    the part of each.  A site that ran in float is a conv or dense of the
-    bf16 forward, or a depthwise conv that the int8 forward skips."""
-    if not any(top in (None, 'aten::div', 'aten::_int_mm') for _, top in launches):
+    or None when the site launched it itself)] of one site call -> the part
+    of each.  A site that launched nothing itself ran in float: a conv or
+    dense of the bf16 forward, or a depthwise conv that the int8 forward
+    skips."""
+    if all(top is not None for _, top in launches):
         return ['float layers' if int8_forward else 'convs and dense'] * len(launches)
-    parts, phase = [], 'quantize'
-    for _, top in launches:
-        if top is None:
-            part, phase = 'int8 kernel', 'rescale and cast'
-        elif top == 'aten::_int_mm':
-            part, phase = 'int8 GEMM', 'rescale and cast'
-        elif phase == 'quantize':
-            part = 'quantize'
-            if top == 'aten::clamp':
-                phase = 'quantize cast'
-        elif phase == 'quantize cast':  # the cast to int8 ends the quantize
-            part, phase = ('quantize' if top in ('aten::to', 'aten::_to_copy')
-                           else 'im2col and copies'), 'im2col and copies'
-        else:
-            part = phase
-        parts.append(part)
-    return parts
+    return ['int8 kernel' if top is None else 'other site ops' for _, top in launches]
 
 
 def trace_parts(events, nb_forwards: int, int8_forward: bool) -> dict:

@@ -79,9 +79,12 @@ class CompressionPolicy:
         return x
 
     def run_contraction(self, path: str, x: torch.Tensor, kernel: torch.Tensor,
-                        conv_fn: Callable) -> Optional[torch.Tensor]:
+                        conv_fn: Callable, layer: Optional[nn.Module] = None
+                        ) -> Optional[torch.Tensor]:
         """Optionally take over a conv/dense contraction (return the output),
-        or return None to run the default path."""
+        or return None to run the default path.  PFConv and PFDense pass
+        themselves as `layer`; an output returned for a layer holds its bias,
+        which the layer then does not add."""
         return None
 
     def prepare(self):
@@ -240,12 +243,13 @@ class PFConv(nn.Module):
         if policy is not None:
             x = policy.process_input(self.path, x)
             kernel = policy.process_weight(self.path, kernel)
-            y = policy.run_contraction(self.path, x, kernel, self.conv_fn)
-        if y is None:
+            y = policy.run_contraction(self.path, x, kernel, self.conv_fn, self)
+        taken = y is not None  # the policy's output holds the bias
+        if not taken:
             y = self.conv_fn(x.to(self.dtype), kernel.to(self.dtype))
         if sharded:
             y = mesh.gather_model(y, 1)
-        if self.bias is not None:
+        if self.bias is not None and not taken:
             y = y + self.bias.to(y.dtype)[:, None, None]
         if policy is not None:
             y = policy.process_act(self.path, y)
@@ -317,12 +321,13 @@ class PFDense(nn.Module):
         if policy is not None:
             x = policy.process_input(self.path, x)
             kernel = policy.process_weight(self.path, kernel)
-            y = policy.run_contraction(self.path, x, kernel, self.dense_fn)
-        if y is None:
+            y = policy.run_contraction(self.path, x, kernel, self.dense_fn, self)
+        taken = y is not None  # the policy's output holds the bias
+        if not taken:
             y = self.dense_fn(x.to(self.dtype), kernel.to(self.dtype))
         if sharded:
             y = mesh.gather_model(y, -1)
-        if self.bias is not None:
+        if self.bias is not None and not taken:
             y = y + self.bias.to(y.dtype)
         if policy is not None:
             y = policy.process_act(self.path, y)

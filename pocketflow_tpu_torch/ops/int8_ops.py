@@ -39,19 +39,19 @@ On the card a site is one kernel (``int8_conv``, ``csrc/int8_conv.cu``; its
 header says why it exists, what bounds it and how it is built): it reads the
 layer's bf16 or fp32 input in NHWC, quantizes it in registers, contracts the
 codes on the int8 tensor cores against the weights packed once per device
-(``pack_weights``: K-major [Npad, Kp]) and writes the rescaled output in the
-layer's dtype where the layer has no bias (fp32 where it has one, for the
-layer's own bias add).  Its plain version, ``int8_conv_plain``, is the
-formula above step by step (quantize, ``int8_conv2d`` or ``int8_matmul``,
-rescale, cast); the two give the same bits.  ``Int8ServingPolicy`` prepares
-each site once per device (``Int8Site``: the activation scale as a device
-tensor, the fp32 product x_scale * w_scale, the packed codes), so that a
-forward makes no host-to-device copy and no stream sync.  Dispatch is by
-device: a CPU tensor takes the plain version, a CUDA tensor launches the
-kernel, anything else raises.  The depthwise int8 route (only when the
-policy does not skip it) stays the plain one on every device.  The
-module-level counters count kernel launches, plain calls on the CPU, the
-plain contractions on CUDA tensors and the depthwise route's calls.
+(``pack_weights``: K-major [Npad, Kp]), adds the layer's bias in fp32 where
+it has one (its own bias add) and writes the layer's dtype.  Its plain
+version, ``int8_conv_plain``, is the formula above step by step (quantize,
+``int8_conv2d`` or ``int8_matmul``, rescale, bias, cast); the two give the
+same bits.  ``Int8ServingPolicy`` prepares each site once per device
+(``Int8Site``: the activation scale as a device tensor, the fp32 product
+x_scale * w_scale, the bias, the packed codes), so that a forward makes no
+host-to-device copy and no stream sync.  Dispatch is by device: a CPU
+tensor takes the plain version, a CUDA tensor launches the kernel, anything
+else raises.  The depthwise int8 route (only when the policy does not skip
+it) stays the layer's plain contraction on every device.  The module-level
+counters count kernel launches, plain calls on the CPU, the plain
+contractions on CUDA tensors and the depthwise route's calls.
 """
 
 from __future__ import annotations
@@ -163,14 +163,17 @@ def _depthwise(xq, codes, strides, ho, wo):
 
 
 def _contract(x: torch.Tensor, x_scale: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
-              contract_fn) -> torch.Tensor:
+              contract_fn, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Quantize x by the 0-d device tensor x_scale, contract, rescale the
-    int32 sums by `scale` (x_scale * w_scale) to float32."""
+    int32 sums by `scale` (x_scale * w_scale) to float32 and add the fp32
+    `bias`, as the layer adds it."""
     xq = torch.clamp(torch.round(x.to(torch.float32) / x_scale), -127, 127).to(torch.int8)
     acc = contract_fn(xq, codes, torch.int32)
-    if acc.dim() == 4:  # NCHW: the scale runs along the channel axis
+    if acc.dim() == 4:  # NCHW: the scale and the bias run along the channel axis
         scale = scale[:, None, None]
-    return acc.to(torch.float32) * scale
+        bias = None if bias is None else bias[:, None, None]
+    y = acc.to(torch.float32) * scale
+    return y if bias is None else y + bias
 
 
 def int8_contract(x: torch.Tensor, codes: torch.Tensor, w_scale: torch.Tensor, x_scale,
@@ -205,9 +208,9 @@ def pack_weights(codes: torch.Tensor) -> torch.Tensor:
 class Int8Site:
     """One int8 site's contraction on one device, prepared once: the codes
     (HWIO or [in, out]), the activation scale (a 0-d fp32 tensor), the fp32
-    output scale x_scale * w_scale padded with zeros to the column tile, the
-    packed codes (on CUDA), the conv's strides and padding and the output
-    dtype."""
+    output scale x_scale * w_scale and the layer's bias in fp32 (or None),
+    both padded with zeros to the column tile, the packed codes (on CUDA),
+    the conv's strides and padding and the output dtype."""
     codes: torch.Tensor
     x_scale: torch.Tensor
     scale: torch.Tensor
@@ -215,6 +218,7 @@ class Int8Site:
     strides: Tuple[int, int] = (1, 1)
     padding: str = 'SAME'
     out_dtype: torch.dtype = torch.float32
+    bias: Optional[torch.Tensor] = None
 
     @property
     def dense(self) -> bool:
@@ -222,7 +226,8 @@ class Int8Site:
 
 
 def make_site(codes: torch.Tensor, w_scale: torch.Tensor, x_scale, device, strides=(1, 1),
-              padding: str = 'SAME', out_dtype: torch.dtype = torch.float32) -> Int8Site:
+              padding: str = 'SAME', out_dtype: torch.dtype = torch.float32,
+              bias: Optional[torch.Tensor] = None) -> Int8Site:
     """An Int8Site on `device`; the codes are packed for the kernel on CUDA."""
     device = torch.device(device)
     codes = codes.to(device)
@@ -230,8 +235,12 @@ def make_site(codes: torch.Tensor, w_scale: torch.Tensor, x_scale, device, strid
     cout = codes.shape[-1]
     scale = torch.zeros(_padded_cout(cout), dtype=torch.float32, device=device)
     scale[:cout] = x_scale * w_scale.to(device)  # multiplied first, as int8_contract does
+    if bias is not None:
+        padded = torch.zeros_like(scale)
+        padded[:cout] = bias.detach().to(device, torch.float32)
+        bias = padded
     return Int8Site(codes, x_scale, scale, pack_weights(codes) if device.type == 'cuda' else None,
-                    tuple(strides), padding, out_dtype)
+                    tuple(strides), padding, out_dtype, bias)
 
 
 def _conv_geometry(h: int, w: int, kh: int, kw: int, strides, padding: str):
@@ -248,17 +257,18 @@ def _conv_geometry(h: int, w: int, kh: int, kw: int, strides, padding: str):
 
 
 def _contract_plain(x: torch.Tensor, site: Int8Site, contract_fn=None) -> torch.Tensor:
-    """int8_contract with the site's device scales, then the cast to its
-    output dtype; the contraction is the layer's `contract_fn`, or
-    int8_matmul / int8_conv2d."""
+    """int8_contract with the site's device scales, then its bias and the
+    cast to its output dtype; the contraction is the layer's `contract_fn`,
+    or int8_matmul / int8_conv2d."""
     if contract_fn is None:
         if site.dense:
             contract_fn = lambda xq, codes, _: int8_matmul(xq, codes)  # noqa: E731
         else:
             contract_fn = lambda xq, codes, _: int8_conv2d(  # noqa: E731
                 xq, codes, site.strides, site.padding)
-    return _contract(x, site.x_scale, site.codes, site.scale[:site.codes.shape[-1]],
-                     contract_fn).to(site.out_dtype)
+    cout = site.codes.shape[-1]
+    return _contract(x, site.x_scale, site.codes, site.scale[:cout], contract_fn,
+                     None if site.bias is None else site.bias[:cout]).to(site.out_dtype)
 
 
 def int8_conv_plain(x: torch.Tensor, site: Int8Site) -> torch.Tensor:
@@ -277,8 +287,9 @@ def _check_conv(x: torch.Tensor, site: Int8Site):
         raise ValueError('int8_conv takes bf16 or fp32 inputs, got %s' % x.dtype)
     if site.out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError('int8_conv writes bf16 or fp32, not %s' % site.out_dtype)
-    for name, t in (('codes', site.codes), ('scale', site.scale), ('x_scale', site.x_scale)):
-        if t.device != x.device:
+    for name, t in (('codes', site.codes), ('scale', site.scale), ('x_scale', site.x_scale),
+                    ('bias', site.bias)):
+        if t is not None and t.device != x.device:
             raise ValueError('int8_conv: x on %s, the site\'s %s on %s' % (x.device, name, t.device))
     if site.dense:
         k, cout = site.codes.shape
@@ -303,7 +314,7 @@ def _library() -> ctypes.CDLL:
     lib, _, _ = build.load('int8_conv.cu')
     if not getattr(lib, '_pf_bound', False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.pf_int8_conv.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32] + [i32] * 16 + [ptr]
+        lib.pf_int8_conv.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, i32] + [i32] * 16 + [ptr]
         lib.pf_int8_conv.restype = i32
         lib._pf_bound = True
     return lib
@@ -312,7 +323,7 @@ def _library() -> ctypes.CDLL:
 def int8_conv(x: torch.Tensor, site: Int8Site) -> torch.Tensor:
     """The int8 contraction of one site: y = out_dtype(float(conv or dense of
     clamp(round(x / x_scale), -127, 127) with the codes, int32 sums) *
-    x_scale * w_scale).  x is a channels-last NCHW (conv) or contiguous [M,
+    x_scale * w_scale (+ bias)).  x is a channels-last NCHW (conv) or contiguous [M,
     K] (dense) bf16 or fp32 tensor; y is channels-last NCHW or [M, N].  The
     kernel on CUDA (one launch), the plain version on the CPU."""
     global kernel_launches
@@ -332,7 +343,8 @@ def int8_conv(x: torch.Tensor, site: Int8Site) -> torch.Tensor:
     npad, kp = site.packed.shape
     err = _library().pf_int8_conv(
         x.data_ptr(), x.dtype == torch.float32, site.packed.data_ptr(), site.scale.data_ptr(),
-        site.x_scale.data_ptr(), y.data_ptr(), site.out_dtype == torch.float32, n, h, w, c, ho,
+        site.x_scale.data_ptr(), None if site.bias is None else site.bias.data_ptr(),
+        y.data_ptr(), site.out_dtype == torch.float32, n, h, w, c, ho,
         wo, cout, npad, kp, kh, kw, site.strides[0], site.strides[1], top, left, vec,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -387,14 +399,13 @@ class Int8ServingPolicy(CompressionPolicy):
     channel axis of NCHW activations).  C > 1 keeps a dense conv on one
     input channel (a grayscale stem) in int8.
 
-    Each site is prepared once per device at its first use (``Int8Site``).
-    The layer is the contraction's owner (``contract_fn.__self__``, PFConv's
-    bound ``conv_fn``): its strides and padding, and its dtype, which the
-    site writes where the layer has no bias.  PFDense's ``dense_fn`` is
-    static, so a dense site writes fp32 and the layer adds its bias and
-    casts.  On CUDA a site is one ``int8_conv`` launch; on the CPU, and for a
-    depthwise site on any device, the plain formula through the layer's
-    ``contract_fn``.
+    Each site is prepared once per device at its first use (``Int8Site``)
+    from the layer that the hook passes: its strides and padding, its dtype,
+    which the site writes, and its bias, which the site adds.  A site is
+    ``int8_conv`` (one kernel launch on CUDA, the plain version on the CPU);
+    a depthwise one is the plain formula through the layer's ``contract_fn``
+    on any device.  A bare contraction (no layer: stride 1, 'SAME', fp32, no
+    bias) takes that route too, on the CPU only.
     """
 
     def __init__(self, weight_q, act_scales: Dict[str, float], skip_depthwise: bool = True):
@@ -403,25 +414,20 @@ class Int8ServingPolicy(CompressionPolicy):
         self.skip_depthwise = skip_depthwise
         self.sites: Dict[tuple, Int8Site] = {}
 
-    def site(self, path, x, contract_fn) -> Int8Site:
+    def site(self, path, x, layer=None) -> Int8Site:
         """The prepared site of `path` on x's device."""
         key = (path, x.device)
         if key not in self.sites:
             codes, w_scale = self.weight_q[path]
-            layer = getattr(contract_fn, '__self__', None)
-            out_dtype = (layer.dtype if isinstance(layer, PFConv) and layer.bias is None
-                         else torch.float32)
-            geometry = {}
-            if isinstance(layer, PFConv):
-                geometry = dict(strides=layer.strides, padding=layer.padding)
-            elif codes.dim() == 4 and x.device.type == 'cuda':
-                raise ValueError('Int8ServingPolicy: %s: a conv site on the card needs its '
-                                 'layer (contract_fn.__self__) for strides and padding' % path)
-            self.sites[key] = make_site(codes, w_scale, self.act_scales[path], x.device,
-                                        out_dtype=out_dtype, **geometry)
+            spec = {}
+            if layer is not None:
+                spec = dict(out_dtype=layer.dtype, bias=layer.bias)
+                if isinstance(layer, PFConv):
+                    spec.update(strides=layer.strides, padding=layer.padding)
+            self.sites[key] = make_site(codes, w_scale, self.act_scales[path], x.device, **spec)
         return self.sites[key]
 
-    def run_contraction(self, path, x, kernel, contract_fn):
+    def run_contraction(self, path, x, kernel, contract_fn, layer=None):
         global plain_calls
         entry = self.weight_q.get(path)
         if entry is None or path not in self.act_scales:
@@ -430,9 +436,12 @@ class Int8ServingPolicy(CompressionPolicy):
                      and x.shape[1] > 1 and kernel.shape[-1] % x.shape[1] == 0)
         if depthwise and self.skip_depthwise:
             return None
-        site = self.site(path, x, contract_fn)
-        if x.device.type == 'cuda' and not depthwise:
+        site = self.site(path, x, layer)
+        if layer is not None and not depthwise:
             return int8_conv(x, site)
+        if x.device.type != 'cpu' and not depthwise:
+            raise ValueError('Int8ServingPolicy: %s on %s: the kernel needs the layer' %
+                             (path, x.device))
         plain_calls += x.device.type == 'cpu'
         return _contract_plain(x, site, contract_fn)
 

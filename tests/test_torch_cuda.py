@@ -22,6 +22,8 @@ M=802,816, while counting rows past M or summing bf16 y reads 2.6e-5 (s) or
 1.8e-5 (ss) even at M=801,816.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -489,11 +491,12 @@ def test_global_range_route_equals_fused_kernel_and_plain(cuda, bits, select, sh
 # ---------------------------------------------------------------------------
 
 def _int8_site(device, kshape, strides=(1, 1), padding='SAME', out_dtype=torch.bfloat16,
-               seed=0):
+               seed=0, bias=False):
     from pocketflow_tpu_torch.ops import int8_ops as ti8
     gen = torch.Generator().manual_seed(seed)
     codes, w_scale = ti8.quantize_weights_symmetric(torch.randn(kshape, generator=gen))
-    return ti8.make_site(codes, w_scale, 0.02, device, strides, padding, out_dtype)
+    b = torch.randn(kshape[-1], generator=gen) if bias else None
+    return ti8.make_site(codes, w_scale, 0.02, device, strides, padding, out_dtype, b)
 
 
 @pytest.mark.gpu
@@ -526,13 +529,33 @@ def test_int8_kernel_equals_plain(cuda, kshape, strides, padding, size, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 def test_int8_kernel_writes_fp32_as_plain(cuda, dtype):
-    """A site that writes fp32 (a layer with a bias adds it after): the
-    accumulators scaled, unrounded, at a vectorized input width."""
+    """A site that writes fp32 (an fp32 layer): the accumulators scaled,
+    unrounded, at a vectorized input width."""
     from pocketflow_tpu_torch.ops import int8_ops as ti8
     site = _int8_site(cuda, (3, 3, 32, 48), out_dtype=torch.float32)
     x = (_inputs(cuda, (4, 17, 18, 32), dtype) * 2).permute(0, 3, 1, 2)
     got = ti8.int8_conv(x, site)
     assert got.dtype == torch.float32 and torch.equal(got, ti8.int8_conv_plain(x, site))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kshape,out_dtype', [((2048, 1000), torch.bfloat16),
+                                              ((3, 3, 32, 48), torch.bfloat16),
+                                              ((1, 1, 37, 53), torch.float32)])
+def test_int8_kernel_adds_the_bias_as_plain(cuda, kshape, out_dtype):
+    """A layer with a bias (the dense layers of the serving nets): the kernel
+    adds it in fp32 before its one rounding, as the layer's bias add does,
+    on the staged bf16 epilogue, the direct one and an fp32 output."""
+    from pocketflow_tpu_torch.ops import int8_ops as ti8
+    site = _int8_site(cuda, kshape, out_dtype=out_dtype, bias=True)
+    dense = len(kshape) == 2
+    shape = (64, kshape[0]) if dense else (4, 9, 10, kshape[2])
+    x = _inputs(cuda, shape, torch.bfloat16) * 2
+    x = x if dense else x.permute(0, 3, 1, 2)
+    got = ti8.int8_conv(x, site)
+    want = ti8.int8_conv_plain(x, site)
+    assert got.dtype == out_dtype and torch.equal(got, want)
+    assert not torch.equal(got, ti8.int8_conv_plain(x, dataclasses.replace(site, bias=None)))
 
 
 @pytest.mark.gpu

@@ -30,16 +30,21 @@ torch.set_num_threads(2)
 
 class _ContractPolicy(tl.CompressionPolicy):
     """The int8 route before the kernel: int8_contract on each site from a
-    host scale, fp32 out, the layer's bias and cast after it."""
+    host scale, fp32 out, then the layer's bias added as the layer adds it
+    (an output the policy returns holds the bias) and the layer's cast."""
 
     def __init__(self, weight_q, act_scales):
         self.weight_q, self.act_scales = weight_q, act_scales
 
-    def run_contraction(self, path, x, kernel, contract_fn):
+    def run_contraction(self, path, x, kernel, contract_fn, layer=None):
         if path not in self.act_scales:
             return None
         codes, w_scale = self.weight_q[path]
-        return tint8.int8_contract(x, codes, w_scale, self.act_scales[path], contract_fn)
+        y = tint8.int8_contract(x, codes, w_scale, self.act_scales[path], contract_fn)
+        if layer.bias is None:
+            return y
+        bias = layer.bias.to(y.dtype)
+        return y + (bias[:, None, None] if y.dim() == 4 else bias)
 
 
 # (name, HWIO kernel or [in, out], strides, padding, input spatial size, input dtype, bias)
@@ -107,20 +112,18 @@ def test_fused_plain_equals_contract_then_layer_cast(case):
         with tl.compression(policy):
             got = layer(x)
         # the wrapper itself (the plain version on the CPU) on the prepared
-        # site, then the layer's bias and cast
+        # site: the layer's bias and dtype are the site's
         direct = tint8.int8_conv(x, policy.sites['', x.device])
-        if bias:
-            b = layer.bias.to(direct.dtype)
-            direct = direct + (b if len(kshape) == 2 else b[:, None, None])
-        direct = direct.to(dtype)
-    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    assert got.dtype == want.dtype == direct.dtype == dtype and got.shape == want.shape
     assert torch.equal(got, want), name
     assert torch.equal(direct, want), name
     assert got.is_contiguous(memory_format=torch.channels_last) or got.dim() == 2
-    # the site writes the layer's dtype where the layer has no bias
+    # the site writes the layer's dtype and adds its bias, a dense layer's too
     site = policy.sites['', x.device]
-    conv_no_bias = len(kshape) == 4 and not bias
-    assert site.out_dtype == (dtype if conv_no_bias else torch.float32)
+    assert site.out_dtype == dtype and (site.bias is not None) == bias
+    if bias:
+        assert torch.equal(site.bias[:kshape[-1]], layer.bias.float())
+        assert not site.bias[kshape[-1]:].any() and site.bias.shape == site.scale.shape
     assert tint8.counters() == {'int8_conv': 0, 'int8_plain_cuda': 0, 'int8_depthwise': 0,
                                 'plain': 2}
     assert not torch.equal(got, layer(x))  # int8 really ran
@@ -203,11 +206,10 @@ def test_kernel_wrapper_refuses_inputs_it_does_not_take():
 
 
 def _trace():
-    """A Chrome trace of one int8 forward in both routes: site 'a' on the
-    eager route (quantize, im2col, the GEMM launched through the CUDA driver API,
-    rescale), site 'b' on the kernel
-    (launched by the site itself, then the dense layer's bias add), a BN
-    outside any site, a depthwise site on the float path."""
+    """A Chrome trace of one int8 forward: site 'a' on the kernel, launched
+    by the site itself, then an op of its own; a BN outside any site; a
+    depthwise site on the float path; site 'b' on the kernel alone, and a
+    host-to-device copy and a stream sync outside the sites."""
     events, corr = [], [0]
 
     def op(name, ts, dur, cat='cpu_op'):
@@ -215,36 +217,27 @@ def _trace():
 
     def launch(ts, dur_us, kernel='k', cat='kernel', runtime='cudaLaunchKernel'):
         corr[0] += 1
-        api = 'cuda_driver' if runtime.startswith('cu') and not runtime.startswith('cuda') \
-            else 'cuda_runtime'
-        events.append({'cat': api, 'name': runtime, 'ts': ts, 'dur': 1,
+        events.append({'cat': 'cuda_runtime', 'name': runtime, 'ts': ts, 'dur': 1,
                        'args': {'correlation': corr[0]}})
         if dur_us:
             events.append({'cat': cat, 'name': kernel, 'ts': 1000 + ts, 'dur': dur_us,
                            'args': {'correlation': corr[0]}})
 
     op('pf.site a', 100, 100, 'user_annotation')
-    op('aten::to', 101, 3)
-    launch(102, 1, 'Memcpy HtoD (Pageable -> Device)', 'gpu_memcpy', 'cudaMemcpyAsync')
-    launch(103, 0, runtime='cudaStreamSynchronize')
-    for name, ts, part_us in (('aten::to', 105, 2), ('aten::div', 108, 3), ('aten::round', 112, 4),
-                              ('aten::clamp', 117, 5), ('aten::to', 123, 6),
-                              ('aten::reshape', 130, 7), ('aten::_int_mm', 140, 8),
-                              ('aten::to', 150, 9), ('aten::mul', 160, 10)):
-        op(name, ts, 5)
-        op('aten::copy_', ts + 1, 3)  # a nested op: the part is the top-level one's
-        # cuBLASLt's GEMM launches through the CUDA driver API
-        launch(ts + 2, part_us, runtime='cuLaunchKernel' if name == 'aten::_int_mm'
-               else 'cudaLaunchKernel')
+    launch(102, 40, 'void int8_conv_wgmma<128>')
+    op('aten::add', 110, 5)
+    op('aten::add_', 111, 3)  # a nested op: the part is the top-level one's
+    launch(112, 9)
     op('aten::batch_norm', 210, 10)
     launch(212, 20)
     op('pf.site dw', 230, 20, 'user_annotation')
     op('aten::conv2d', 232, 10)
     launch(235, 30)
     op('pf.site b', 300, 20, 'user_annotation')
-    launch(305, 40, 'void int8_conv_wgmma<128>')
-    op('aten::add', 310, 5)
-    launch(311, 50)
+    launch(305, 50, 'void int8_conv_wgmma<64>')
+    op('aten::to', 330, 5)
+    launch(331, 1, 'Memcpy HtoD (Pageable -> Device)', 'gpu_memcpy', 'cudaMemcpyAsync')
+    launch(333, 0, runtime='cudaStreamSynchronize')
     return events
 
 
@@ -252,15 +245,14 @@ def test_profile_splits_an_int8_forward_by_part():
     from pocketflow_tpu_torch.experiments.int8_serving_profile import trace_parts
     out = trace_parts(_trace(), 1, int8_forward=True)
     assert out['device_ms_by_part'] == pytest.approx({
-        'quantize': (1 + 2 + 3 + 4 + 5 + 6) / 1e3, 'im2col and copies': 7 / 1e3,
-        'int8 GEMM': 8 / 1e3, 'rescale and cast': (9 + 10 + 50) / 1e3, 'int8 kernel': 40 / 1e3,
-        'float layers': (20 + 30) / 1e3})
-    assert out['launches_by_part']['int8 kernel'] == 1 and out['launches_by_part']['quantize'] == 6
+        'int8 kernel': (40 + 50) / 1e3, 'other site ops': 9 / 1e3,
+        'float layers': (20 + 30 + 1) / 1e3})
+    assert out['launches_by_part'] == {'int8 kernel': 2, 'other site ops': 1, 'float layers': 3}
     assert out['htod_copies'] == 1 and out['stream_syncs'] == 1
     # the bf16 forward: a site in float is a conv
     bf16 = trace_parts(_trace(), 1, int8_forward=False)
     assert bf16['device_ms_by_part']['convs and dense'] == pytest.approx(30 / 1e3)
-    assert bf16['device_ms_by_part']['float layers'] == pytest.approx(20 / 1e3)
+    assert bf16['device_ms_by_part']['float layers'] == pytest.approx(20 / 1e3 + 1 / 1e3)
     assert 0.0 < out['idle_share'] < 1.0
 
 
