@@ -244,9 +244,13 @@ def test_clis_need_a_card(monkeypatch):
 
 # int8 serving against bf16 on the card, as measured (ROADMAP section 3): each
 # int8 site is one launch of the int8 conv kernel (csrc/int8_conv.cu), and the
-# committed run holds both locked floors (ResNet-50 1.225, MobileNet-v1 1.100);
-# the violations that a run gives are listed here, none for this one.
-INT8_MEASURED_ON_THE_CARD = []
+# committed run misses both locked floors (ResNet-50 1.020, MobileNet-v1
+# 0.970): the bf16 forward is host-bound at batch 64, so the ratio moves with
+# the host from run to run.  The violations that the committed run gives:
+INT8_MEASURED_ON_THE_CARD = [
+    'resnet50 int8 speedup 1.020 below locked floor 1.05',
+    'mobilenet_v1 int8 speedup 0.970 below locked floor 1.00',
+]
 
 
 def test_committed_int8_result_holds_its_verdict():
