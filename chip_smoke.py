@@ -5050,7 +5050,8 @@ def int8_site_row(tag, key, entry):
     kernel against its plain version bit for bit (and against the output of
     the forward that recorded it), the kernel, the plain version and cuDNN's
     bf16 conv (cuBLAS's product for the dense layer: the bf16 forward's own
-    call) timed over INT8_REPS calls, and the site's bound."""
+    call) timed over INT8_REPS calls, the site's bound and its tile plan
+    (rows and columns of a tile, splits of K)."""
     from pocketflow_tpu_torch.core.cuda_timing import int8_conv_bound_ms
     from pocketflow_tpu_torch.ops import int8_ops
     x, site = entry['x'], entry['site']
@@ -5070,8 +5071,9 @@ def int8_site_row(tag, key, entry):
     bound_ms, bound_by = int8_conv_bound_ms(x.numel() * x.element_size(), k * cout,
                                             got.numel() * got.element_size(), got.numel() // cout,
                                             cout, k)
+    plan, _ = site.plans[got.numel() // cout]
     return dict(site=entry['path'], kernel=key[0], x=key[1], strides=key[3], padding=key[4],
-                count=entry['count'], max_abs_err=0.0,
+                count=entry['count'], max_abs_err=0.0, plan=(plan.bm, plan.bn, plan.splits),
                 ms=time_ms(lambda: int8_ops.int8_conv(x, site), INT8_REPS),
                 plain_ms=time_ms(lambda: int8_ops.int8_conv_plain(x, site), INT8_REPS),
                 library_ms=time_ms(library, INT8_REPS), bound_ms=bound_ms, bound_by=bound_by)
@@ -5096,7 +5098,7 @@ def phase_int8(FLAGS, card):
             'mobilenet_v1': lambda: MobileNetV1(nb_classes=1000, dtype=torch.bfloat16),
             'mobilenet_v1 odd widths': lambda: MobileNetV1(nb_classes=1000, dtype=torch.bfloat16,
                                                            width_map=INT8_ODD_WIDTHS)}
-    total, entry = no_launches(), None
+    total, entry, net_sums = no_launches(), None, {}
     with FLAGS.scope(**int8_serving_speed.SERVE_FLAGS):
         for tag, make in nets.items():
             start = time.perf_counter()
@@ -5126,13 +5128,15 @@ def phase_int8(FLAGS, card):
             sums = {key: sum(r['count'] * r[key] for r in rows)
                     for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
             by_bytes = sum(r['count'] * r['bound_ms'] for r in rows if r['bound_by'] == 'bytes')
+            net_sums[tag] = (sums['ms'], sums['library_ms'])
             for r in rows:
-                log('  32a %s %s: kernel %s, x %s, strides %s %s, x%d a forward: int8 kernel '
-                    '%.4f ms, bound %.4f ms (%s, %.0f%% of it), plain %.4f ms, cuDNN bf16 %.4f '
-                    'ms (int8/cuDNN %.2f) | %s', tag, r['site'], r['kernel'], r['x'],
-                    r['strides'], r['padding'], r['count'], r['ms'], r['bound_ms'],
-                    r['bound_by'], 100 * r['bound_ms'] / r['ms'], r['plain_ms'],
-                    r['library_ms'], r['ms'] / r['library_ms'], card)
+                log('  32a %s %s: kernel %s, x %s, strides %s %s, x%d a forward, plan %dx%d '
+                    'tiles, %d split(s) of K: int8 kernel %.4f ms, bound %.4f ms (%s, %.0f%% of '
+                    'it), plain %.4f ms, cuDNN bf16 %.4f ms (int8/cuDNN %.2f) | %s', tag,
+                    r['site'], r['kernel'], r['x'], r['strides'], r['padding'], r['count'],
+                    *r['plan'], r['ms'], r['bound_ms'], r['bound_by'],
+                    100 * r['bound_ms'] / r['ms'], r['plain_ms'], r['library_ms'],
+                    r['ms'] / r['library_ms'], card)
             log('  32a %s: %d distinct int8 sites (%d a forward) bit-equal to the plain version; '
                 'summed over a forward\'s sites: int8 kernel %.3f ms, bound %.3f ms (%.0f%% of '
                 'it bytes-bound), plain %.3f ms, cuDNN/cuBLAS bf16 %.3f ms; %d forwards: %s | '
@@ -5155,6 +5159,9 @@ def phase_int8(FLAGS, card):
                     json.dumps(prof), card)
             del model, policy, inputs, calib, sites
             torch.cuda.empty_cache()
+    log('  32a the int8 kernel against cuDNN/cuBLAS bf16, ms summed over a forward\'s sites: %s '
+        '| %s', '; '.join('%s %.3f / %.3f (%.2fx)' % (tag, ms, lib, ms / lib)
+                          for tag, (ms, lib) in net_sums.items()), card)
     return entry, {INT8_RUN: total}
 
 

@@ -1,121 +1,160 @@
 // The int8 serving contraction of one conv or dense site for Hopper (sm_90a).
 //
 //   y[m, n] = out(float(sum_k xq[m, k] * w[n, k]) * scale[n] (+ bias[n]))
-//   xq      = clamp(rint(x / x_scale), -127, 127)        (int8, in registers)
+//   xq      = clamp(rint(x / x_scale), -127, 127)        (int8)
 //
-// x is the layer's input, NHWC (a channels-last NCHW tensor, or [M, K] for a
+// x is the layer's input, NHWC (a channels-last NCHW tensor, or [M, C] for a
 // dense layer) in bf16 or fp32; xq[m, k] is the im2col row of output position
-// m, with k = (i * kw + j) * C + c in the order of the HWIO kernel, code 0
-// where the window falls on the padding.  w is the packed [Npad, Kp] int8
-// codes (K-major: row n holds output channel n's kh * kw * C codes, zero past
-// K and past Cout), scale[n] = x_scale * w_scale[n] in fp32 (zero past Cout),
-// x_scale one fp32 value on the device, bias (optional) [Npad] fp32 (zero
-// past Cout), y [M, Cout] (NHWC) in bf16 or fp32.
+// m over the input's codes with their channels padded to Cp (C rounded up to
+// 16, code 0 past C): k = (i * kw + j) * Cp + c in the order of the HWIO
+// kernel, code 0 where the window falls on the padding.  w is the packed
+// [Npad, Kp] int8 codes (K-major: row n holds output channel n's kh * kw * Cp
+// codes, zero past C in each tap, past K = kh * kw * Cp up to Kp, a multiple
+// of 128, and past Cout),
+// scale[n] = x_scale * w_scale[n] in fp32 (zero past Cout), x_scale one fp32
+// value on the device, bias (optional) [Npad] fp32 (zero past Cout), y
+// [M, Cout] (NHWC) in bf16 or fp32.
 //
 // It replaces no Pallas kernel.  The JAX package's int8 serving
 // (pocketflow_tpu/ops/int8_ops.py:37, int8_contract) is XLA's native int8
 // convolution with preferred_element_type=int32, into which XLA fuses the
-// quantize before and the rescale and cast after.  The port ran the same
-// formula as separate eager passes around cuBLASLt's int8 GEMM (an fp32
-// quantize in five passes, an int8 im2col copy, the GEMM, an fp32 rescale and
-// a cast), which made int8 serving three times slower than bf16 on an H100;
-// this kernel does the whole site in one launch.  Its plain version,
-// ops/int8_ops.py:int8_conv_plain, is that formula; the two give the same bits:
-// the codes are those of the IEEE division (PyTorch divides by a tensor so;
-// quantize_rows() below gets them from a multiply and, where that could
-// round otherwise, __fdiv_rn), rint rounds half to even as torch.round, the
-// int32 sums are exact, and the rescale is one __fmul_rn of
-// __int2float_rn(acc) by the precomputed scale, then one __fadd_rn of the
-// layer's bias where it has one (its fp32 bias add), rounded once to the
-// output type (__float2bfloat16_rn).
+// quantize before and the rescale and cast after; this kernel does the
+// whole site in one launch.  Its plain version, ops/int8_ops.py:
+// int8_conv_plain, is that formula step by step, and the two give the same
+// bits: the codes are those of the IEEE division (PyTorch divides by a
+// tensor so; quantize16() below gets them from a multiply and, where that
+// could round otherwise, __fdiv_rn), rint rounds half to even as
+// torch.round, the int32 sums are exact in any order (|sum| < 127^2 K <
+// 2^31), and the rescale is one __fmul_rn of __int2float_rn(acc) by the
+// precomputed scale, then one __fadd_rn of the layer's bias where it has one
+// (its fp32 bias add), rounded once to the output type (__float2bfloat16_rn).
 //
-// What bounds it on the card.  A site moves its input in its dtype (read
-// once), the codes and its output (written once); it does 2 * M * Cout * K
-// int8 operations, against the H100's 1,979 TOP/s int8 and 3.35 TB/s: most
-// sites of ResNet-50 and MobileNet-v1 at batch 64 are bound by bytes.  Inside
-// the kernel the quantize is the cost that neither bound counts: it runs on
-// the ALUs, once for each element of the im2col rows (nine times a pixel for
-// a 3x3 conv) and once more for each column tile of the output.  A stage's
-// quantize (8,192 elements at a 64 x 128 tile) takes several times its int8
-// products, so the kernel is built around keeping the ALUs busy on it: the
-// copies run ahead asynchronously, three blocks share an SM so that one
-// quantizes while the others wait on their products or write their output,
-// and an element costs a multiply by 1/x_scale, a rounding and two compares,
-// not a division (quantize_rows(), below).
+// What bounds a site on the card.  It reads its input once in its dtype and
+// writes its output once, and does 2 * M * Cout * kh * kw * C int8
+// operations, against the H100's 3.35 TB/s and 1,979 TOP/s int8: most sites
+// of ResNet-50 and MobileNet-v1 at batch 64 are bound by bytes, the dense
+// layers and the last stage's 3x3 convs come close to neither bound (few
+// output tiles for 132 SMs).  The quantize costs ALU work that neither bound
+// counts: done inside the product's main loop, it ran once for each element
+// of the im2col rows (nine times a pixel for a 3x3 conv) and once more for
+// each column tile, and took several times the int8 products.  The design:
 //
-// Design:
-//   * 64 x BN output tiles, BN = 64 (Cout <= 64) or 128, the column tile
-//     fastest, so that the tiles of one row tile run side by side and x is
-//     read from memory about once; a persistent grid of blocks of one
-//     warpgroup (128 threads), as many as fit on the SMs at once (three an
-//     SM for bf16 inputs), walks them, a block's tiles' k-blocks one
-//     pipeline, so that the next tile's first copies run during a tile's
-//     last products and its epilogue;
-//   * the implicit GEMM's A tile is 64 rows x 128 k a stage (a thread
-//     computes its rows' window origins once a tile).  Where C % 8 == 0 and
-//     x is 16-byte aligned, a thread owns 8 consecutive k (one tap's 8
-//     channels, 16 bytes of bf16) of 8 rows, and cp.async copies them into
-//     one of two raw stages in shared memory, a stage ahead; positions on
-//     the padding, rows past M and k past K are copied as zeros (cp.async's
-//     zero fill), which quantize to code 0.  Elsewhere (the stems' 3
-//     channels, odd shrunk widths) the quantize reads its 8 elements one by
-//     one from x;
-//   * every thread quantizes its chunks of a stage into int8 A (128-byte
-//     rows, 128-byte swizzle: 16-byte chunk c of row r at c ^ (r % 8)), one
-//     stage, while the next stage's copies run;
-//   * B (the BN x 128 panel of w) is copied with cp.async into one of two
-//     stages in the same layout;
-//   * wgmma m64nBNk32 s32.s8.s8 with A and B K-major from shared memory,
-//     int32 accumulators in registers, waited for before the next stage's
-//     quantize rewrites A (the products are a small share of the time); the
-//     last stage issues only the 32-deep steps below Kp;
-//   * the epilogue converts and scales the accumulators and adds the bias;
-//     a bf16 output with
-//     Cout % 8 == 0 goes through shared memory (the raw stage just read)
-//     and leaves in whole 16-byte chunks a row, other outputs go straight
-//     to y (rows < M, columns < Cout), two columns at a time where Cout is
-//     even;
-//   * the dynamic shared memory size and the grid (the blocks that fit on
-//     the SMs at once) are set up at a variant's first launch on a device,
-//     so that a launch makes no other call of the runtime.
+//   * Two phases in one cooperative launch.  Phase 1 quantizes the input
+//     once an element into a workspace of codes [N, H, W, Cp] (the wrapper
+//     allocates it; the kernel allocates nothing), every thread of the grid
+//     on 16-code chunks, four chunks in flight a thread, 16-byte loads where
+//     C % 8 == 0 (element loads elsewhere: the stems' 3 channels, odd shrunk
+//     widths), one 16-byte store of codes a chunk.  A grid-wide barrier
+//     follows (a self-resetting arrival count and generation in the site's
+//     counters; the cooperative launch makes every block resident, or
+//     refuses the launch, so the barrier cannot hang).  No site keeps the
+//     quantize inside its product: one path for every site, and the codes
+//     are half the bytes of a bf16 input, read back mostly from the 50 MB L2.
+//   * Phase 2 is a warp-specialized implicit GEMM over the codes.  A
+//     producer warpgroup gathers the A tile (BM rows of the im2col, 128 k a
+//     stage: each thread one 16-byte chunk of one tap for BM / 16 rows, the
+//     rows' window origins computed once a tile) and B's BN x 128 panel with
+//     cp.async into a ring of stages (128-byte swizzle: 16-byte chunk c of
+//     row r at c ^ (r % 8)).  Since Cp is a multiple of 16, a chunk never
+//     straddles two taps, so the stems and odd widths take the same whole
+//     chunks as every other site; the window's padding, rows past M and k
+//     past K are cp.async's zero fill.  A thread signals stage g's full
+//     mbarrier once its copies of stage g have landed (cp.async.wait_group
+//     kLag, so kLag + 1 stages of copies are in flight) and after a proxy
+//     fence that makes them visible to the tensor cores; the consumers free a
+//     stage through its empty mbarrier.
+//   * One or two consumer warpgroups (BM = 64 or 128) run wgmma
+//     m64nBNk32 s32.s8.s8 on a stage and wait with wgmma.wait_group 1, so a
+//     stage's products run while the next stage is waited for; the producer
+//     hands registers to the consumers (setmaxnreg) where there are two.
+//   * A tile plan a site, chosen on the host (ops/int8_ops.py:tile_plan):
+//     BM, BN = 64, 128 or 256 (by Cout: the packed codes are padded to it)
+//     and a split of K.  The grid is persistent (as many blocks as fit on
+//     the SMs, each walking its units: split fastest, then the column tile,
+//     then the row tile), so the producer loads the next unit's stages
+//     while the consumers write a unit out.  With a split, each unit writes
+//     its int32 partial sums in the accumulators' own layout to a workspace,
+//     counts itself in its tile's counter, and the last unit of a tile to
+//     arrive adds the others' partials (exact in any order), resets the
+//     counter for the next call and writes the tile.
+//   * The epilogue: a bf16 output with Cout % 8 == 0 goes through a
+//     warpgroup's own staging tile in shared memory (swizzled, no bank
+//     conflict) and leaves as whole 16-byte chunks a row, 128 columns a
+//     pass; other outputs go straight to y, two columns at a time where Cout
+//     is even.
+//   * The dynamic shared memory size and the grid are set up at a variant's
+//     first launch on a device, so that a launch makes no other call of the
+//     runtime.  A wait of about ten seconds traps, so that a fault of the
+//     pipeline is a launch error, not a hung card.
 //
-// Plain C interface for ctypes; the entry point returns cudaGetLastError()
+// Plain C interface for ctypes; the entry point returns the launch's error
 // (or cudaErrorInvalidValue for arguments out of range).
 
+#include <cuda.h>  // CUtensorMap and its enums (types only; nothing is linked from it)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int kBM = 64;        // output rows a tile: one warpgroup's wgmma
-constexpr int kBK = 128;       // k a stage: one 128-byte row of codes
-constexpr int kThreads = 128;
-constexpr int kChunks = kBK / 8;                           // 8-k chunks of a row
-constexpr int kRowsAThread = kBM * kChunks / kThreads;     // 8
-constexpr int kRowStep = kThreads / kChunks;               // 8
-constexpr int kSmemAlign = 1024;  // a 128-byte swizzle repeats every 8 rows of 128 bytes
+constexpr int kBK = 128;              // k a stage: one 128-byte row of codes
+constexpr int kChunk = 16;            // codes a 16-byte chunk; Cp is a multiple of it
+constexpr int kGroup = 8;             // phase 1: codes a thread makes at a time
+constexpr int kGroupsInFlight = 8;    // phase 1: groups a thread loads before it quantizes them
+constexpr int kNearCap = 256;         // phase 1: groups a warp lists to redo with divisions
+constexpr int kMaxWarps = 16;
+constexpr int kProducerThreads = 128;
+constexpr int kProducerRegs = 56;     // setmaxnreg with two consumer warpgroups:
+constexpr int kConsumerRegs = 224;    // 128 x 56 + 256 x 224 = 384 x 168
+constexpr int kLag = 2;               // stages of copies in flight beyond the signalled one
+constexpr int kSmemAlign = 1024;      // a 128-byte swizzle repeats every 8 rows of 128 bytes
+constexpr int kMaxSmem = 232448;      // dynamic shared memory of one block
+constexpr long long kWaitTrapCycles = 1LL << 34;  // ~10 s at the H100's clocks
 
-template <int BN, typename T, bool kVec> struct Tile {
-  static constexpr int kRawStages = 2;  // the input, a stage ahead
-  static constexpr int kBStages = 2;
-  static constexpr int kABytes = kBM * kBK;                           // int8 codes, one stage
+template <int BM, int BN> struct Tile {
+  static constexpr int kConsumers = BM / 64;  // warpgroups of 64 rows
+  static constexpr int kThreads = 128 * kConsumers + kProducerThreads;
+  static constexpr int kABytes = BM * kBK;
   static constexpr int kBBytes = BN * kBK;
-  static constexpr int kRawBytes = kVec ? kBM * kBK * sizeof(T) : 0;  // the input, raw
-  static constexpr int kBOffset = kABytes;
-  static constexpr int kRawOffset = kBOffset + kBStages * kBBytes;
-  static constexpr int kSmemBytes = kRawOffset + kRawStages * kRawBytes + kSmemAlign;
-  static_assert(kSmemBytes <= 232448, "shared memory of one block");
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStageCols = BN < 128 ? BN : 128;  // bf16 columns a staging pass
+  static constexpr int kStagingBytes = kConsumers * 64 * kStageCols * 2;
+  static constexpr int kRowsOffset = 256;  // after the mbarriers and the last-unit flag
+  static constexpr int kMiscBytes = kRowsOffset + 8 * BM;  // and the row tile's window origins
+  static constexpr int kFit = (kMaxSmem - kStagingBytes - kMiscBytes - kSmemAlign) / kStageBytes;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static constexpr int kStagingOffset = kStages * kStageBytes;
+  static constexpr int kBarOffset = kStagingOffset + kStagingBytes;
+  static constexpr int kSmemBytes = kBarOffset + kMiscBytes + kSmemAlign;
+  static_assert(kStages >= kLag + 2, "the ring: the producer's lag and a stage being read");
+  static_assert(kStages * kStageBytes >= 4 * kMaxWarps * (1 + kNearCap), "phase 1's lists");
+  static_assert(kSmemBytes <= kMaxSmem, "shared memory of one block");
+  static_assert(2 * 8 * kStages + 4 <= kMiscBytes, "the mbarriers");
 };
 
-struct Params {
+struct alignas(64) Params {
+  CUtensorMap y_map;  // y as [M, Cout] bf16 in 64 x 64 boxes, 128-byte swizzle (tma_y)
   const void* x;
   const int8_t* w;
   const float* scale;
   const float* x_scale;
   const float* bias;  // or nullptr
   void* y;
-  int M, H, W, C, Ho, Wo, Cout, Kp, K, kw, sh, sw, pad_top, pad_left;
+  int8_t* codes;       // [pixels, Cp], phase 1's output
+  int* partials;       // [units, BM * BN] int32 partial sums (splits > 1)
+  unsigned* counters;  // [2 + tiles]: the grid barrier's count and generation, a count a tile
+  // phase 2's geometry: the codes' grid [N, H, W, Cp], the taps kh x kw at
+  // strides sh, sw; C the input's channels
+  int pixels, H, W, C, Cp, Ho, Wo, M, Cout, Kp, K, kw, sh, sw, pad_top, pad_left, splits;
+  // wide: the codes' pixel (n, h, wo) holds the kw taps of one window row,
+  // code j C + c from x[n, h, wo xsw - xpl + j, c] (x's width xW), and phase
+  // 2 runs kh x 1 taps over them; sub (a 1x1 conv at a stride): the codes'
+  // pixel (n, ho, wo) is x's pixel (n, ho xsh, wo xsw) (x's height xH), and
+  // phase 2 runs a 1x1 conv at stride 1 over them
+  int wide, sub, xH, xW, xkw, xsh, xsw, xpl;
+  int x_fp32, y_fp32, vec;
+  int tma_y;  // a bf16 y with Cout % 8 == 0: the epilogue stores with TMA
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -130,6 +169,73 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1) << 62;
 }
 
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`; a wait
+// of more than about ten seconds traps.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > kWaitTrapCycles) __trap();
+  } while (!done);
+}
+
+// The 64 x 64 box of y at (column c0, row c1) from a swizzled staging panel.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Every block of the (cooperative, so all resident) grid reaches this
+// before any goes on: bar[0] counts the arrivals and is reset by the last,
+// which then advances the generation bar[1] that the others wait on.  The
+// fences order each block's earlier global stores before its arrival, and
+// the generation's read before its later loads.
+__device__ __forceinline__ void grid_sync(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned generation = ld_acquire(bar + 1);
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      const long long start = clock64();
+      while (ld_acquire(bar + 1) == generation)
+        if (clock64() - start > kWaitTrapCycles) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
 #define PF_ACC8(i)                                                                          \
   "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
       "+r"(d[i + 6]), "+r"(d[i + 7])
@@ -141,10 +247,16 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   PF_D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
          "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "    \
          "%60, %61, %62, %63"
+#define PF_D128                                                                       \
+  PF_D64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "    \
+         "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, " \
+         "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "     \
+         "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "    \
+         "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
 
 // d (+)= a @ b for one m64nNk32 step of int8 codes, a and b K-major in
 // shared memory, int32 accumulators d[0..N/2) in the layout of the f32 ones;
-// scale_d = 0 starts a new sum (a tile's first step), so that no other
+// scale_d = 0 starts a new sum (a unit's first step), so that no other
 // instruction writes the accumulators between the products.
 template <int N> struct WgmmaS8;
 
@@ -168,10 +280,21 @@ template <> struct WgmmaS8<128> {
   }
 };
 
+template <> struct WgmmaS8<256> {
+  __device__ __forceinline__ static void mma(int (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" PF_D128 "}, %128, %129, p;\n}\n"
+        : PF_ACC32(0), PF_ACC32(32), PF_ACC32(64), PF_ACC32(96)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
 #undef PF_ACC8
 #undef PF_ACC32
 #undef PF_D32
 #undef PF_D64
+#undef PF_D128
 
 template <int R>
 __device__ __forceinline__ void fence_registers(int (&d)[R]) {
@@ -186,70 +309,208 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
                : "memory");
 }
 
-// The value of element e of a chunk's raw bits: 8 bf16 in 4 words, or 8 fp32.
-template <typename T> struct Raw;
-template <> struct Raw<__nv_bfloat16> {
+// The raw bits of a group of 8 values: 8 bf16 in 4 words, or 8 fp32.
+template <typename T> struct Group;
+template <> struct Group<__nv_bfloat16> {
   static constexpr int kWords = 4;
-  __device__ __forceinline__ static float load(const void* p) {
-    return __uint_as_float(static_cast<uint32_t>(*static_cast<const unsigned short*>(p)) << 16);
+  __device__ __forceinline__ static void load8(const __nv_bfloat16* p, uint32_t (&w)[kWords]) {
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = b.x;
+    w[1] = b.y;
+    w[2] = b.z;
+    w[3] = b.w;
   }
-  __device__ __forceinline__ static float value(const uint32_t (&r)[kWords], int e) {
-    const uint32_t word = r[e >> 1];
-    return __uint_as_float((e & 1) ? (word & 0xFFFF0000u) : (word << 16));
+  __device__ __forceinline__ static void put(uint32_t (&w)[kWords], int e, const __nv_bfloat16* p) {
+    const uint32_t bits = *reinterpret_cast<const unsigned short*>(p);
+    w[e >> 1] |= (e & 1) ? bits << 16 : bits;
   }
-  __device__ __forceinline__ static void put(uint32_t (&r)[kWords], int e, const void* p) {
-    const uint32_t bits = *static_cast<const unsigned short*>(p);
-    r[e >> 1] |= (e & 1) ? bits << 16 : bits;
+  __device__ __forceinline__ static float value(const uint32_t (&w)[kWords], int e) {
+    return __uint_as_float((e & 1) ? (w[e >> 1] & 0xFFFF0000u) : (w[e >> 1] << 16));
   }
 };
-template <> struct Raw<float> {
+template <> struct Group<float> {
   static constexpr int kWords = 8;
-  __device__ __forceinline__ static float load(const void* p) {
-    return *static_cast<const float*>(p);
+  __device__ __forceinline__ static void load8(const float* p, uint32_t (&w)[kWords]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(p) + h);
+      w[4 * h] = b.x;
+      w[4 * h + 1] = b.y;
+      w[4 * h + 2] = b.z;
+      w[4 * h + 3] = b.w;
+    }
   }
-  __device__ __forceinline__ static float value(const uint32_t (&r)[kWords], int e) {
-    return __uint_as_float(r[e]);
+  __device__ __forceinline__ static void put(uint32_t (&w)[kWords], int e, const float* p) {
+    w[e] = *reinterpret_cast<const uint32_t*>(p);
   }
-  __device__ __forceinline__ static void put(uint32_t (&r)[kWords], int e, const void* p) {
-    r[e] = *static_cast<const uint32_t*>(p);
+  __device__ __forceinline__ static float value(const uint32_t (&w)[kWords], int e) {
+    return __uint_as_float(w[e]);
   }
 };
 
-// The code of a quotient t: clamp(rint(t), -127, 127) as a byte (the clamp
-// before the rounding gives the same integer as after it).
-__device__ __forceinline__ uint32_t code_of(float t) {
-  return static_cast<uint32_t>(__float2int_rn(fminf(fmaxf(t, -127.0f), 127.0f))) & 0xFFu;
+// The raw bits of group v's values (the codes' pixel v / gq, channels 8 (v
+// % gq) + e), zero where the code is 0: one 16-byte load of bf16 where vec
+// (C % 8 == 0, x 16-byte aligned, not wide), element loads elsewhere.
+template <typename T>
+__device__ __forceinline__ void load_group(const Params& p, int v, int gq,
+                                           uint32_t (&w)[Group<T>::kWords]) {
+  using G = Group<T>;
+#pragma unroll
+  for (int i = 0; i < G::kWords; ++i) w[i] = 0u;
+  const T* x = static_cast<const T*>(p.x);
+  if (p.vec && p.Cp == p.C && !p.sub) {  // no padding: group v is x's values 8 v on
+    G::load8(x + static_cast<int64_t>(v) * kGroup, w);
+    return;
+  }
+  int pix = v / gq;
+  const int c0 = (v - pix * gq) * kGroup;
+  if (p.sub) {  // the codes' pixel (n, ho, wo) is x's pixel (n, ho xsh, wo xsw)
+    const int nh = pix / p.W, wo = pix - nh * p.W;
+    const int n = nh / p.H, ho = nh - n * p.H;
+    pix = (n * p.xH + ho * p.xsh) * p.xW + wo * p.xsw;
+  }
+  if (p.vec) {
+    if (c0 < p.C) G::load8(x + static_cast<int64_t>(pix) * p.C + c0, w);
+    return;
+  }
+  if (!p.wide) {
+    const T* src = x + static_cast<int64_t>(pix) * p.C + c0;
+#pragma unroll
+    for (int e = 0; e < kGroup; ++e)
+      if (c0 + e < p.C) G::put(w, e, src + e);
+    return;
+  }
+  // wide: the window row's kw C values are contiguous in x's image row,
+  // from column w0 on; those of columns outside it are the padding
+  const int nh = pix / p.W, wo = pix - nh * p.W;
+  const int first = (wo * p.xsw - p.xpl) * p.C + c0;  // in the image row's W C values
+  const T* row = x + static_cast<int64_t>(nh) * p.xW * p.C;
+#pragma unroll
+  for (int e = 0; e < kGroup; ++e)
+    if (c0 + e < p.xkw * p.C && first + e >= 0 && first + e < p.xW * p.C)
+      G::put(w, e, row + first + e);
 }
 
-// The codes clamp(rint(v / s), -127, 127) of a thread's 8 x 8 values, as the
-// IEEE division rounds them, 8 to a uint2 (low byte first), from r = 1 / s
-// rounded.  t = v * r is within 3 units of 2^-24 of v / s relative to it (one
-// rounding in r, one in the product), and the rounded quotient within one
-// unit: below |t| = 128 the two lie within 2^-14 / 2.67 of each other.  So
-// where t lies farther than 2^-14 from every half-integer, both round to the
-// same integer, and where |t| >= 127 both clamp to +-127.  The rest (bf16
-// activations repeat their values: about one in 3,000 of a normal batch, in
-// about half of a warp's stages) come back as bit 8 q + e of the mask, for
-// the caller to redo with the division.  The common path is a multiply, a
-// rounding and two compares an element, all 64 independent.
+// The codes clamp(rint(v / s), -127, 127) of a group's 8 values, as the
+// IEEE division rounds them, low byte first, from r = 1 / s rounded.  t = v *
+// r is within 3 units of 2^-24 of v / s relative to it (one rounding in r,
+// one in the product), and the rounded quotient within one unit: below |t|
+// = 128 the two lie within 2^-14 / 2.67 of each other.  So where t lies
+// farther than 2^-14 from every half-integer, both round to the same
+// integer, and where |t| >= 127 both clamp to +-127.  The rest (bf16
+// activations repeat their values: about one in 3,000 of a normal batch)
+// have to be divided: quantize8() says whether the group holds any, and
+// exact8() computes the group again with those divided.  The common path
+// uses no conversion instruction (a quarter of the ALUs' rate on this card):
+// t clamped to [-127, 127] (as good as clamping after the rounding) plus
+// 1.5 * 2^23 rounds to an integer, half to even, whose low byte is the code,
+// and |t - its rounding| < kNearHalf clears the group; an element costs a
+// multiply, a clamp, three adds and a max, and a byte permute for two.
 constexpr float kNearHalf = 0.5f - 1.0f / 16384.0f;
+constexpr float kRoundMagic = 12582912.0f;  // 1.5 * 2^23
 
-__device__ __forceinline__ uint64_t quantize_rows(const float (&v)[kRowsAThread][8], float r,
-                                                  uint2 (&out)[kRowsAThread]) {
-  uint64_t near_half = 0;
+__device__ __forceinline__ bool near_half(float t) {
+  return fabsf(t - rintf(t)) >= kNearHalf && fabsf(t) < 127.0f;
+}
+
+__device__ __forceinline__ int code_int(float t) {
+  return __float2int_rn(fminf(fmaxf(t, -127.0f), 127.0f));
+}
+
+// the low bytes of eight words (codes), low byte first
+__device__ __forceinline__ uint2 pack8(const int (&c)[kGroup]) {
+  return make_uint2(
+      __byte_perm(__byte_perm(c[0], c[1], 0x0040), __byte_perm(c[2], c[3], 0x0040), 0x5410),
+      __byte_perm(__byte_perm(c[4], c[5], 0x0040), __byte_perm(c[6], c[7], 0x0040), 0x5410));
+}
+
+template <typename T>
+__device__ __forceinline__ bool quantize8(const uint32_t (&w)[Group<T>::kWords], float r,
+                                          uint2& out) {
+  int c[kGroup];
+  float worst = 0.0f;
 #pragma unroll
-  for (int q = 0; q < kRowsAThread; ++q) {
-    uint32_t w[2] = {0u, 0u};
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float t = __fmul_rn(v[q][e], r);
-      if (fabsf(t - rintf(t)) >= kNearHalf && fabsf(t) < 127.0f)
-        near_half |= static_cast<uint64_t>(1) << (8 * q + e);
-      w[e >> 2] |= code_of(t) << (8 * (e & 3));
-    }
-    out[q] = make_uint2(w[0], w[1]);
+  for (int e = 0; e < kGroup; ++e) {
+    const float t = fminf(fmaxf(__fmul_rn(Group<T>::value(w, e), r), -127.0f), 127.0f);
+    const float rounded = __fadd_rn(t, kRoundMagic);
+    worst = fmaxf(worst, fabsf(__fadd_rn(t, -__fadd_rn(rounded, -kRoundMagic))));
+    c[e] = __float_as_int(rounded);  // its low byte is the code
   }
-  return near_half;
+  out = pack8(c);
+  return worst >= kNearHalf;
+}
+
+template <typename T>
+__device__ __forceinline__ uint2 exact8(const Params& p, int v, int gq, float s, float r) {
+  uint32_t w[Group<T>::kWords];
+  load_group<T>(p, v, gq, w);
+  int c[kGroup];
+#pragma unroll
+  for (int e = 0; e < kGroup; ++e) {
+    const float x = Group<T>::value(w, e);
+    const float t = __fmul_rn(x, r);
+    c[e] = code_int(near_half(t) ? __fdiv_rn(x, s) : t);
+  }
+  return pack8(c);
+}
+
+// Phase 1: the codes of the whole input, [pixels, Cp], every thread of the
+// grid on groups v, v + stride, ... (a warp's loads and stores contiguous),
+// kGroupsInFlight groups' loads in flight a thread.  A group with a value
+// near a half-integer goes on its warp's list in shared memory (`near`: a
+// count a warp, then the lists; the warp's count kept in registers, the
+// same in every lane, so that no atomic is needed), and the block redoes
+// the listed groups with exact8() after its loop; should a list overflow,
+// the block redoes all its groups so.
+template <typename T>
+__device__ __forceinline__ void quantize_input(const Params& p, float s, float r, int* near) {
+  constexpr int kWords = Group<T>::kWords;
+  const int gq = p.Cp / kGroup;
+  const int groups = p.pixels * gq;
+  const int stride = static_cast<int>(gridDim.x * blockDim.x);
+  const int first = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* list = near + kMaxWarps + warp * kNearCap;
+  uint2* codes = reinterpret_cast<uint2*>(p.codes);
+  int listed = 0;
+  for (int v0 = first; v0 < groups; v0 += kGroupsInFlight * stride) {
+    uint32_t w[kGroupsInFlight][kWords];
+#pragma unroll
+    for (int q = 0; q < kGroupsInFlight; ++q)
+      if (v0 + q * stride < groups) load_group<T>(p, v0 + q * stride, gq, w[q]);
+    uint32_t flagged = 0u;  // no branch in the loop: the groups' work interleaves
+#pragma unroll
+    for (int q = 0; q < kGroupsInFlight; ++q) {
+      const int v = v0 + q * stride;
+      if (v >= groups) continue;
+      uint2 c;
+      flagged |= static_cast<uint32_t>(quantize8<T>(w[q], r, c)) << q;
+      codes[v] = c;
+    }
+    // the lanes still in the loop append their flagged groups in lane order
+    const unsigned active = __activemask();
+#pragma unroll
+    for (int q = 0; q < kGroupsInFlight; ++q) {
+      const unsigned ballot = __ballot_sync(active, flagged >> q & 1u);
+      if (flagged >> q & 1u) {
+        const int slot = listed + __popc(ballot & ((1u << lane) - 1u));
+        if (slot < kNearCap) list[slot] = v0 + q * stride;
+      }
+      listed += __popc(ballot);
+    }
+  }
+  // lane 0 took part in every pass of its warp (it has the lowest v0)
+  if (lane == 0) near[warp] = listed;
+  const bool overflow = __syncthreads_or(listed > kNearCap);
+  if (!overflow) {
+    const int n = near[warp];
+    for (int i = lane; i < n; i += 32) {
+      const int v = list[i];
+      codes[v] = exact8<T>(p, v, gq, s, r);
+    }
+  } else {
+    for (int v = first; v < groups; v += stride) codes[v] = exact8<T>(p, v, gq, s, r);
+  }
 }
 
 // An accumulator rescaled as the plain route does: float(acc) * scale, then
@@ -260,255 +521,180 @@ __device__ __forceinline__ float rescale(int acc, float scale, float bias, const
   return has_bias ? __fadd_rn(v, bias) : v;
 }
 
-template <typename OutT> struct Out;
-template <> struct Out<__nv_bfloat16> {
-  __device__ __forceinline__ static void one(void* y, int64_t at, float v) {
-    static_cast<__nv_bfloat16*>(y)[at] = __float2bfloat16_rn(v);
-  }
-  __device__ __forceinline__ static void two(void* y, int64_t at, float v0, float v1) {
-    reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(y) + at)[0] =
-        __floats2bfloat162_rn(v0, v1);
-  }
-};
-template <> struct Out<float> {
-  __device__ __forceinline__ static void one(void* y, int64_t at, float v) {
-    static_cast<float*>(y)[at] = v;
-  }
-  __device__ __forceinline__ static void two(void* y, int64_t at, float v0, float v1) {
-    reinterpret_cast<float2*>(static_cast<float*>(y) + at)[0] = make_float2(v0, v1);
-  }
-};
-
-template <int BN, typename T, bool kVec, typename OutT>
-__global__ void __launch_bounds__(kThreads, 3)
-int8_conv_wgmma(const Params p) {
-  using Tl = Tile<BN, T, kVec>;
-  using R = Raw<T>;
-  constexpr int S = Tl::kRawStages;
+template <int BM, int BN>
+__global__ void __launch_bounds__(Tile<BM, BN>::kThreads, 1)
+int8_conv_wgmma(const __grid_constant__ Params p) {
+  using Tl = Tile<BM, BN>;
+  constexpr int S = Tl::kStages;
+  constexpr int kConsumerThreads = 128 * Tl::kConsumers;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + kSmemAlign - 1) & ~static_cast<uint32_t>(kSmemAlign - 1);
   unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full_bar = base + Tl::kBarOffset;  // stage s: full_bar + 8 s
+  const uint32_t empty_bar = full_bar + 8 * S;
+  volatile int* last_flag = reinterpret_cast<volatile int*>(smem + Tl::kBarOffset + 16 * S);
 
-  const int tid = threadIdx.x;
+  // phase 1: the input's codes; the barriers set up meanwhile
+  {
+    const float s = *p.x_scale;
+    const float r = __frcp_rn(s);
+    // the near-half list in the stages' memory, which phase 2 fills later
+    int* near = reinterpret_cast<int*>(smem);
+    if (p.x_fp32)
+      quantize_input<float>(p, s, r, near);
+    else
+      quantize_input<__nv_bfloat16>(p, s, r, near);
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full_bar + 8 * i, kProducerThreads);
+      mbar_init(empty_bar + 8 * i, kConsumerThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  grid_sync(p.counters);
+
+  // phase 2: unit u = (tile, split), tile = row tile * n_tiles + column
+  // tile; split s takes k-blocks [s nk / splits, (s + 1) nk / splits)
   const int n_tiles = (p.Cout + BN - 1) / BN;
-  const int tiles = ((p.M + kBM - 1) / kBM) * n_tiles;
+  const int units = ((p.M + BM - 1) / BM) * n_tiles * p.splits;
   const int nk = (p.Kp + kBK - 1) / kBK;
-  // this block's tiles are blockIdx.x + i * gridDim.x; stage g is tile i's
-  // k-block g % nk, i = g / nk, one pipeline over all of them
   const int block = static_cast<int>(blockIdx.x), grid = static_cast<int>(gridDim.x);
-  const int my_tiles = block < tiles ? (tiles - 1 - block) / grid + 1 : 0;
-  const int stages = my_tiles * nk;
-  const T* __restrict__ x = static_cast<const T*>(p.x);
-  const float s = *p.x_scale;
-  const float r = __frcp_rn(s);
 
-  // this thread's chunk of 8 k and its rows r0 + 16 q
-  const int chunk = tid % kChunks;
-  const int r0 = tid / kChunks;
-
-  auto tile_of = [&](int g) { return block + (g / nk) * grid; };
-
-  // the image offset (n * H), window origin (h0, w0) and validity of this
-  // thread's rows of the tile last looked up
-  int rows_tile = -1;
-  int4 rows[kRowsAThread];
-  auto rows_of = [&](int tile) {
-    if (tile == rows_tile) return;
-    rows_tile = tile;
-    const int hw = p.Ho * p.Wo;
-#pragma unroll
-    for (int q = 0; q < kRowsAThread; ++q) {
-      const int m = (tile / n_tiles) * kBM + r0 + kRowStep * q;
-      const int mm = m < p.M ? m : 0;
-      const int img = mm / hw, rem = mm - img * hw;
-      const int ho = rem / p.Wo, wo = rem - ho * p.Wo;
-      rows[q] = make_int4(img * p.H, ho * p.sh - p.pad_top, wo * p.sw - p.pad_left, m < p.M);
-    }
-  };
-
-  // the copies of stage g: the raw input chunks (kVec) and B's panel
-  // (16-byte chunks below Kp: the wgmma steps past Kp are not issued)
-  auto issue = [&](int g) {
-    const int tile = tile_of(g), kb = g % nk;
-    if constexpr (kVec) {
-      rows_of(tile);
-      const int k0 = kb * kBK + chunk * 8;
-      const int tap = k0 / p.C;
-      const int c0 = k0 - tap * p.C;
-      const int i0 = tap / p.kw, j0 = tap - i0 * p.kw;
-      const uint32_t dst = base + Tl::kRawOffset + (g % S) * Tl::kRawBytes +
-                           chunk * 8 * static_cast<int>(sizeof(T));
-#pragma unroll
-      for (int q = 0; q < kRowsAThread; ++q) {
-        const int h = rows[q].y + i0, w = rows[q].z + j0;
-        const bool in = rows[q].w && k0 < p.K && h >= 0 && h < p.H && w >= 0 && w < p.W;
-        const T* src = in ? x + ((static_cast<int64_t>(rows[q].x + h) * p.W + w) * p.C + c0) : x;
-#pragma unroll
-        for (int v = 0; v < static_cast<int>(sizeof(T)) / 2; ++v)
-          cp_async16(dst + (r0 + kRowStep * q) * kBK * static_cast<int>(sizeof(T)) + 16 * v,
-                     src + v * (16 / static_cast<int>(sizeof(T))), in ? 16 : 0);
-      }
-    }
-    const int n0 = (tile % n_tiles) * BN;
-    const uint32_t b = base + Tl::kBOffset + (g % Tl::kBStages) * Tl::kBBytes;
-    for (int u = tid; u < BN * (kBK / 16); u += kThreads) {
-      const int n = u / (kBK / 16), c = u % (kBK / 16);
-      const int kbyte = kb * kBK + c * 16;
-      if (kbyte < p.Kp)
-        cp_async16(b + n * kBK + ((c ^ (n & 7)) << 4),
-                   p.w + static_cast<int64_t>(n0 + n) * p.Kp + kbyte);
-    }
-  };
-
-  // quantize stage g into A's stage g % 2: 8 codes (8 bytes) a chunk, at
-  // half `chunk % 2` of 16-byte chunk (chunk / 2) ^ (row % 8) of the row
-  // quantize stage g into A: 8 codes (8 bytes) a chunk, at half `chunk % 2`
-  // of 16-byte chunk (chunk / 2) ^ (row % 8) of the row
-  auto quantize_stage = [&](int g) {
-    unsigned char* a = smem;
-    const unsigned char* in = smem + Tl::kRawOffset + (g % S) * Tl::kRawBytes;
-    const int k0 = (g % nk) * kBK + chunk * 8;
-    int c0 = 0, i0 = 0, j0 = 0;
-    if constexpr (!kVec) {
-      rows_of(tile_of(g));
-      const int tap = k0 / p.C;
-      c0 = k0 - tap * p.C;
-      i0 = tap / p.kw;
-      j0 = tap - i0 * p.kw;
-    }
-    float v[kRowsAThread][8];
-#pragma unroll
-    for (int q = 0; q < kRowsAThread; ++q) {
-      const int row_index = r0 + kRowStep * q;
-      uint32_t bits[R::kWords];
-      if constexpr (kVec) {
-        // the chunk's raw bits, as the copy left them
-#pragma unroll
-        for (int u = 0; u < R::kWords / 4; ++u) {
-          const uint4 b4 = *reinterpret_cast<const uint4*>(
-              in + row_index * kBK * static_cast<int>(sizeof(T)) +
-              chunk * 8 * static_cast<int>(sizeof(T)) + 16 * u);
-          bits[4 * u] = b4.x;
-          bits[4 * u + 1] = b4.y;
-          bits[4 * u + 2] = b4.z;
-          bits[4 * u + 3] = b4.w;
-        }
-      } else {
-        // element by element from x (C % 8 != 0 or x not 16-byte aligned)
-#pragma unroll
-        for (int u = 0; u < R::kWords; ++u) bits[u] = 0u;
-        if (rows[q].w) {
-          int c = c0, i = i0, j = j0;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const int h = rows[q].y + i, w = rows[q].z + j;
-            if (k0 + e < p.K && h >= 0 && h < p.H && w >= 0 && w < p.W)
-              R::put(bits, e, x + ((static_cast<int64_t>(rows[q].x + h) * p.W + w) * p.C + c));
-            if (++c == p.C) {
-              c = 0;
-              if (++j == p.kw) {
-                j = 0;
-                ++i;
-              }
-            }
+  if (threadIdx.x >= kConsumerThreads) {
+    // the producer warpgroup: thread t copies 16-byte chunk t % 8 of rows
+    // t / 8 + 16 q of A and of B each stage
+    if constexpr (Tl::kConsumers == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    const int t = threadIdx.x - kConsumerThreads;
+    const int chunk = t & 7, r0 = t >> 3;
+    const int swizzle = (chunk ^ (r0 & 7)) << 4;  // rows r0 + 16 q all have r % 8 = r0 % 8
+    // row r0 + 16 q of the current row tile: the pixel offset of its window
+    // origin, (n H + h0) W + w0, and (h0, w0) as two 16-bit halves (h0 far
+    // below 0 past M, so every tap falls outside); thread t works out row t
+    // of a new row tile into shared memory, and each thread reads its rows
+    int2* rows = reinterpret_cast<int2*>(smem + Tl::kBarOffset + Tl::kRowsOffset);
+    int origin[BM / 16], hw[BM / 16];
+    int rows_tile = -1;
+    int g = 0;
+    for (int u = block; u < units; u += grid) {
+      const int tile = u / p.splits, split = u - tile * p.splits;
+      const int mt = tile / n_tiles, n0 = (tile - mt * n_tiles) * BN;
+      const int kb0 = split * nk / p.splits, kb1 = (split + 1) * nk / p.splits;
+      if (mt != rows_tile) {
+        rows_tile = mt;
+        named_barrier(4, kProducerThreads);  // every thread has read the last tile's rows
+        const int m = mt * BM + t;
+        if (t < BM) {
+          if (m < p.M) {
+            const int hwo = p.Ho * p.Wo;
+            const int img = m / hwo, rem = m - img * hwo;
+            const int ho = rem / p.Wo, wo = rem - ho * p.Wo;
+            const int h0 = ho * p.sh - p.pad_top, w0 = wo * p.sw - p.pad_left;
+            rows[t] = make_int2((img * p.H + h0) * p.W + w0,
+                                static_cast<int>((static_cast<unsigned>(h0) << 16) | (w0 & 0xFFFF)));
+          } else {
+            rows[t] = make_int2(0, static_cast<int>(0x80000000u));
           }
         }
-      }
+        named_barrier(4, kProducerThreads);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[q][e] = R::value(bits, e);
-    }
-    uint2 codes[kRowsAThread];
-    uint64_t near_half = quantize_rows(v, r, codes);
-    // the values near a half-integer, read again and divided (the 64 floats
-    // are dead by now: only their positions are kept)
-    while (near_half != 0) {
-      const int i = __ffsll(static_cast<long long>(near_half)) - 1;
-      near_half &= near_half - 1;
-      const int q = i >> 3, e = i & 7;
-      float value;
-      if constexpr (kVec) {
-        value = R::load(in + (r0 + kRowStep * q) * kBK * static_cast<int>(sizeof(T)) +
-                        (chunk * 8 + e) * static_cast<int>(sizeof(T)));
-      } else {
-        // element e of the chunk: k0 + e, from (i0, j0, c0) on; it lies
-        // inside the input (a padded position is 0, never near a half)
-        int c = c0 + e, ii = i0, jj = j0;
-        while (c >= p.C) {
-          c -= p.C;
-          if (++jj == p.kw) {
-            jj = 0;
-            ++ii;
-          }
+        for (int q = 0; q < BM / 16; ++q) {
+          const int2 row = rows[r0 + 16 * q];
+          origin[q] = row.x;
+          hw[q] = row.y;
         }
-        int4 row = rows[0];
-#pragma unroll
-        for (int u = 1; u < kRowsAThread; ++u)
-          if (u == q) row = rows[u];
-        value = R::load(x + ((static_cast<int64_t>(row.x + row.y + ii) * p.W + row.z + jj) * p.C + c));
       }
-      const uint32_t shift = 8 * (e & 3), code = code_of(__fdiv_rn(value, s)) << shift;
+      for (int kb = kb0; kb < kb1; ++kb, ++g) {
+        const int slot = g % S;
+        mbar_wait(empty_bar + 8 * slot, ((g / S) & 1) ^ 1);
+        const uint32_t a = base + slot * Tl::kStageBytes;
+        const uint32_t b = a + Tl::kABytes;
+        const int k0 = kb * kBK + chunk * kChunk;
+        if (k0 < p.K) {
+          const int tap = k0 / p.Cp;
+          const int c0 = k0 - tap * p.Cp;
+          const int i = tap / p.kw, j = tap - i * p.kw;
 #pragma unroll
-      for (int u = 0; u < kRowsAThread; ++u) {
-        if (u != q) continue;
-        if (e & 4)
-          codes[u].y = (codes[u].y & ~(0xFFu << shift)) | code;
-        else
-          codes[u].x = (codes[u].x & ~(0xFFu << shift)) | code;
+          for (int q = 0; q < BM / 16; ++q) {
+            const int h = (hw[q] >> 16) + i;
+            const int w = static_cast<int>(static_cast<int16_t>(hw[q] & 0xFFFF)) + j;
+            const bool in = static_cast<unsigned>(h) < static_cast<unsigned>(p.H) &&
+                            static_cast<unsigned>(w) < static_cast<unsigned>(p.W);
+            const int8_t* src =
+                in ? p.codes + static_cast<int64_t>(origin[q] + i * p.W + j) * p.Cp + c0 : p.codes;
+            cp_async16(a + (r0 + 16 * q) * kBK + swizzle, src, in ? 16 : 0);
+          }
+        }  // past K, B's codes are zero: whatever A's stage holds there adds nothing
+        const int8_t* src = p.w + static_cast<int64_t>(n0 + r0) * p.Kp + k0;
+#pragma unroll
+        for (int q = 0; q < BN / 16; ++q)
+          cp_async16(b + (r0 + 16 * q) * kBK + swizzle, src + static_cast<int64_t>(16 * q) * p.Kp);
+        asm volatile("cp.async.commit_group;" ::: "memory");
+        if (g >= kLag) {
+          // stage g - kLag's copies have landed: visible to the tensor cores
+          asm volatile("cp.async.wait_group %0;" ::"n"(kLag) : "memory");
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          mbar_arrive(full_bar + 8 * ((g - kLag) % S));
+        }
       }
     }
-#pragma unroll
-    for (int q = 0; q < kRowsAThread; ++q) {
-      const int row_index = r0 + kRowStep * q;
-      *reinterpret_cast<uint2*>(a + row_index * kBK +
-                                ((((chunk >> 1) ^ (row_index & 7)) << 4) | ((chunk & 1) << 3))) =
-          codes[q];
-    }
-  };
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    for (int h = g - kLag > 0 ? g - kLag : 0; h < g; ++h) mbar_arrive(full_bar + 8 * (h % S));
+    return;
+  }
 
-  const int lane = tid & 31;
+  // the consumer warpgroups: wg owns rows [64 wg, 64 wg + 64) of each tile
+  if constexpr (Tl::kConsumers == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int wg = threadIdx.x >> 7;
+  const int t = threadIdx.x & 127, lane = t & 31, warp = t >> 5;
+  unsigned char* staging = smem + Tl::kStagingOffset + wg * 64 * Tl::kStageCols * 2;
   int acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;  // each tile's first product overwrites it
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;  // each unit's first product overwrites it
 
-  // the epilogue of a tile: acc[4 j + 2 h + c] is row 16 warp + lane / 4 +
-  // 8 h, column 8 j + 2 (lane % 4) + c.  A bf16 tile with Cout % 8 == 0
-  // goes through shared memory (the raw stage `staging`, which stage g's
-  // quantize has read and stage g + 2's copies have not begun to fill):
-  // 16-byte chunk c of row r at chunk c ^ (r % 8), so that both the pairs
-  // written from the accumulators and the chunks read back meet no bank
-  // conflict, and each row leaves as whole 16-byte stores.  Otherwise the
-  // pairs go straight to y.
-  auto epilogue = [&](int tile, int staging) {
-    const int n0 = (tile % n_tiles) * BN;
-    const int m0 = (tile / n_tiles) * kBM;
-    const int row0 = (tid >> 5) * 16 + (lane >> 2);
-    constexpr bool kStaged = kVec && sizeof(T) == 2 && sizeof(OutT) == 2 &&
-                             kBM * BN * 2 <= Tl::kRawBytes;
-    if (kStaged && (p.Cout & 7) == 0) {
-      unsigned char* tile_smem = smem + Tl::kRawOffset + staging * Tl::kRawBytes;
+  // the epilogue of a unit: acc[4 j + 2 h + c] is row 16 warp + lane / 4 +
+  // 8 h, column 8 j + 2 (lane % 4) + c of the warpgroup's 64 x BN tile
+  auto epilogue = [&](int m0, int n0) {
+    const int row0 = warp * 16 + (lane >> 2);
+    if (p.tma_y) {
+      // through the staging tile, kStageCols columns a pass in 64 x 64
+      // panels of 128-byte rows, 16-byte chunk c of row r at chunk c ^ (r %
+      // 8) (TMA's 128-byte swizzle; no bank conflict for the pairs written
+      // from the accumulators), then one TMA store a panel (rows past M and
+      // columns past Cout clipped), which runs on while the next unit's
+      // products start
+      constexpr int kCols = Tl::kStageCols;
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = n0 + 8 * j + 2 * (lane & 3);
-        const float s0 = p.scale[col], s1 = p.scale[col + 1];  // scale is Npad long
-        const float b0 = p.bias ? p.bias[col] : 0.0f, b1 = p.bias ? p.bias[col + 1] : 0.0f;
+      for (int pass = 0; pass < BN / kCols; ++pass) {
+        // the last stores have read the staging tile
+        if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+        named_barrier(2 + wg, 128);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = row0 + 8 * h;
-          const __nv_bfloat162 pair =
-              __floats2bfloat162_rn(rescale(acc[4 * j + 2 * h], s0, b0, p.bias),
-                                    rescale(acc[4 * j + 2 * h + 1], s1, b1, p.bias));
-          *reinterpret_cast<__nv_bfloat162*>(tile_smem + r * BN * 2 + ((j ^ (r & 7)) << 4) +
-                                             4 * (lane & 3)) = pair;
+        for (int j = 0; j < kCols / 8; ++j) {
+          const int jj = pass * (kCols / 8) + j;
+          const int col = n0 + 8 * jj + 2 * (lane & 3);
+          const float s0 = p.scale[col], s1 = p.scale[col + 1];  // scale is Npad long
+          const float b0 = p.bias ? p.bias[col] : 0.0f, b1 = p.bias ? p.bias[col + 1] : 0.0f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = row0 + 8 * h;
+            *reinterpret_cast<__nv_bfloat162*>(staging + (j >> 3) * 8192 + r * 128 +
+                                               (((j & 7) ^ (r & 7)) << 4) + 4 * (lane & 3)) =
+                __floats2bfloat162_rn(rescale(acc[4 * jj + 2 * h], s0, b0, p.bias),
+                                      rescale(acc[4 * jj + 2 * h + 1], s1, b1, p.bias));
+          }
         }
-      }
-      asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
-      for (int u = tid; u < kBM * (BN / 8); u += kThreads) {
-        const int r = u / (BN / 8), c = u % (BN / 8);
-        if (m0 + r < p.M && n0 + 8 * c < p.Cout)
-          *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.y) +
-                                    static_cast<int64_t>(m0 + r) * p.Cout + n0 + 8 * c) =
-              *reinterpret_cast<const uint4*>(tile_smem + r * BN * 2 + ((c ^ (r & 7)) << 4));
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to the TMA unit
+        named_barrier(2 + wg, 128);
+        if (t == 0) {
+#pragma unroll
+          for (int panel = 0; panel < kCols / 64; ++panel)
+            tma_store(&p.y_map, smem_addr(staging) + panel * 8192, n0 + pass * kCols + 64 * panel,
+                      m0);
+          asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        }
       }
       return;
     }
@@ -517,7 +703,7 @@ int8_conv_wgmma(const Params p) {
     for (int j = 0; j < BN / 8; ++j) {
       const int col = n0 + 8 * j + 2 * (lane & 3);
       if (col >= p.Cout) continue;
-      const float s0 = p.scale[col], s1 = p.scale[col + 1];  // scale is Npad long
+      const float s0 = p.scale[col], s1 = p.scale[col + 1];
       const float b0 = p.bias ? p.bias[col] : 0.0f, b1 = p.bias ? p.bias[col + 1] : 0.0f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -526,128 +712,268 @@ int8_conv_wgmma(const Params p) {
         const int64_t at = static_cast<int64_t>(m) * p.Cout + col;
         const float v0 = rescale(acc[4 * j + 2 * h], s0, b0, p.bias);
         const float v1 = rescale(acc[4 * j + 2 * h + 1], s1, b1, p.bias);
-        if (pairs) {
-          Out<OutT>::two(p.y, at, v0, v1);
+        const bool second = col + 1 < p.Cout;
+        if (p.y_fp32) {
+          float* y = static_cast<float*>(p.y) + at;
+          if (pairs) {
+            *reinterpret_cast<float2*>(y) = make_float2(v0, v1);
+          } else {
+            y[0] = v0;
+            if (second) y[1] = v1;
+          }
         } else {
-          Out<OutT>::one(p.y, at, v0);
-          if (col + 1 < p.Cout) Out<OutT>::one(p.y, at + 1, v1);
+          __nv_bfloat16* y = static_cast<__nv_bfloat16*>(p.y) + at;
+          if (pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(y) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            y[0] = __float2bfloat16_rn(v0);
+            if (second) y[1] = __float2bfloat16_rn(v1);
+          }
         }
       }
     }
   };
 
-  // stage 0's copies before the loop, one cp.async group a stage
-  if (stages > 0) issue(0);
-  asm volatile("cp.async.commit_group;" ::: "memory");
-  for (int g = 0; g < stages; ++g) {
-    const int kb = g % nk;
-    // stage g - 1's products are done (A and its B stage are free again),
-    // and this thread's copies of stage g have landed; past the barrier
-    // every thread's have
+  int g = 0;
+  for (int u = block; u < units; u += grid) {
+    const int tile = u / p.splits, split = u - tile * p.splits;
+    const int mt = tile / n_tiles, n0 = (tile - mt * n_tiles) * BN;
+    const int kb0 = split * nk / p.splits, kb1 = (split + 1) * nk / p.splits;
+    int prev = -1;
+    for (int kb = kb0; kb < kb1; ++kb, ++g) {
+      const int slot = g % S;
+      mbar_wait(full_bar + 8 * slot, (g / S) & 1);
+      const uint32_t a = base + slot * Tl::kStageBytes + wg * 64 * kBK;
+      const uint32_t b = base + slot * Tl::kStageBytes + Tl::kABytes;
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kBK / 32; ++kk)
+        WgmmaS8<BN>::mma(acc, smem_desc(a + kk * 32), smem_desc(b + kk * 32), kk > 0 || kb > kb0);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      if (prev >= 0) {  // the previous stage's products are done: release it
+        asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+        fence_registers(acc);
+        if (lane == 0) mbar_arrive(empty_bar + 8 * prev);
+      }
+      prev = slot;
+    }
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
     fence_registers(acc);
-    asm volatile("cp.async.wait_group 0;" ::: "memory");
-    __syncthreads();
-    if (g + 1 < stages) issue(g + 1);  // into stage g - 1's raw and B stages
-    asm volatile("cp.async.commit_group;" ::: "memory");
-    quantize_stage(g);  // while stage g + 1's copies run
-    // this stage's codes and B's copies, visible to the tensor cores' proxy
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();
-    const uint32_t a = base;
-    const uint32_t b = base + Tl::kBOffset + (g % Tl::kBStages) * Tl::kBBytes;
-    const int steps = min(kBK / 32, (p.Kp - kb * kBK) / 32);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    if (lane == 0) mbar_arrive(empty_bar + 8 * prev);
+
+    if (p.splits > 1) {
+      // this unit's partial sums, thread t's acc[i] at [i][t] of its
+      // warpgroup's slice (coalesced, and read back in the same layout)
+      const int64_t slice = static_cast<int64_t>(BN / 2) * 128;
+      int* mine = p.partials + (static_cast<int64_t>(u) * Tl::kConsumers + wg) * slice + t;
 #pragma unroll
-    for (int kk = 0; kk < kBK / 32; ++kk)
-      if (kk < steps)
-        WgmmaS8<BN>::mma(acc, smem_desc(a + kk * 32), smem_desc(b + kk * 32), kb > 0 || kk > 0);
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    if (kb == nk - 1) {  // the tile's last stage: write it out, while the
-                         // next tile's first stage is being copied
-      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-      fence_registers(acc);
-      epilogue(tile_of(g), g % S);
+      for (int i = 0; i < BN / 2; ++i) mine[i * 128] = acc[i];
+      __threadfence();
+      named_barrier(1, kConsumerThreads);
+      if (threadIdx.x == 0) {
+        const bool last = atomicAdd(p.counters + 2 + tile, 1u) == static_cast<unsigned>(p.splits - 1);
+        if (last) p.counters[2 + tile] = 0;  // every split has arrived: ready for the next call
+        *last_flag = last;
+      }
+      named_barrier(1, kConsumerThreads);
+      if (!*last_flag) continue;
+      __threadfence();
+      for (int other = 0; other < p.splits; ++other) {
+        if (other == split) continue;
+        const int* theirs = mine + static_cast<int64_t>(other - split) * Tl::kConsumers * slice;
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] += __ldcg(theirs + i * 128);
+      }
     }
+    epilogue(mt * BM + wg * 64, n0);
   }
+  // the block's shared memory stays until its last stores have read it
+  if (t == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 constexpr int kMaxDevices = 64;
 
-template <int BN, typename T, bool kVec, typename OutT>
-int launch(const Params& p, cudaStream_t stream) {
-  const int smem = Tile<BN, T, kVec>::kSmemBytes;
-  const int64_t tiles = static_cast<int64_t>((p.M + kBM - 1) / kBM) * ((p.Cout + BN - 1) / BN);
-  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// y as a row-major [M, Cout] bf16 matrix, stored in 64 x 64 boxes from
+// 128-byte swizzled panels; boxes past the edges are clipped.
+bool y_map(CUtensorMap* map, void* y, uint64_t cout, uint64_t m) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cout, m};
+  const cuuint64_t strides[1] = {cout * 2};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, y, dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int BM, int BN>
+int launch(const Params& p, int units, cudaStream_t stream) {
+  using Tl = Tile<BM, BN>;
+  auto kernel = int8_conv_wgmma<BM, BN>;
   // persistent: as many blocks as fit on the SMs at once (this variant's
-  // slots on the device, found at its first launch there), each walking
-  // its tiles
+  // slots on the device, found at its first launch there); a cooperative
+  // launch, so that all of them are resident for phase 1's barrier
   static int slots[kMaxDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (slots[device] == 0) {
-    err = cudaFuncSetAttribute(int8_conv_wgmma<BN, T, kVec, OutT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Tl::kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, int8_conv_wgmma<BN, T, kVec, OutT>, kThreads, smem);
+    if (Tl::kConsumers == 2) {
+      // setmaxnreg shares out the block's registers: the kernel must start
+      // with at least what the producer and the consumers then hold
+      cudaFuncAttributes attr;
+      err = cudaFuncGetAttributes(&attr, kernel);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (attr.numRegs * Tl::kThreads < kProducerRegs * 128 + kConsumerRegs * 256)
+        return static_cast<int>(cudaErrorInvalidDeviceFunction);
+    }
+    int per_sm = 0, sms = 0, cooperative = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Tl::kThreads,
+                                                        Tl::kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    slots[device] = sms * (per_sm > 0 ? per_sm : 1);
+    err = cudaDeviceGetAttribute(&cooperative, cudaDevAttrCooperativeLaunch, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (!cooperative || per_sm < 1) return static_cast<int>(cudaErrorNotSupported);
+    slots[device] = sms * per_sm;
   }
-  const int grid = static_cast<int>(tiles < slots[device] ? tiles : slots[device]);
-  int8_conv_wgmma<BN, T, kVec, OutT><<<grid, kThreads, smem, stream>>>(p);
+  const int grid = units < slots[device] ? units : slots[device];
+  Params args = p;
+  void* argv[] = {&args};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
+                                    dim3(Tl::kThreads), argv, Tl::kSmemBytes, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
-
-template <int BN, typename T>
-int launch_t(const Params& p, bool vec, bool y_fp32, cudaStream_t stream) {
-  if (vec) {
-    return y_fp32 ? launch<BN, T, true, float>(p, stream)
-                  : launch<BN, T, true, __nv_bfloat16>(p, stream);
-  }
-  return y_fp32 ? launch<BN, T, false, float>(p, stream)
-                : launch<BN, T, false, __nv_bfloat16>(p, stream);
-}
-
-// The column tile of a site with `cout` output channels: the packed codes
-// and the scale are padded to a multiple of it (ops/int8_ops.py:_padded_cout).
-int tile_n(int cout) { return cout <= 64 ? 64 : 128; }
 
 }  // namespace
 
 extern "C" {
 
-// x: [batch, H, W, C] (NHWC) bf16 (x_fp32 = 0) or fp32; w: [Npad, Kp] int8
-// with Npad = Cout rounded up to tile_n(Cout) and Kp = K rounded up to 32,
-// K = kh * kw * C; scale: [Npad] fp32; x_scale: one fp32; bias: [Npad] fp32
-// or null; y: [batch, Ho, Wo, Cout] bf16 (y_fp32 = 0) or fp32.  vec: C % 8
-// == 0 and x 16-byte aligned (one load an 8-channel chunk).  A dense layer
-// is batch = M, H = W = Ho = Wo = kh = kw = 1, C = K.
-int pf_int8_conv(const void* x, int x_fp32, const int8_t* w, const float* scale,
-                 const float* x_scale, const float* bias, void* y, int y_fp32, int batch, int H,
-                 int W, int C, int Ho, int Wo, int Cout, int Npad, int Kp, int kh, int kw, int sh,
-                 int sw, int pad_top, int pad_left, int vec, void* stream) {
+// x: [batch, H, W, C] (NHWC) bf16 (x_fp32 = 1: fp32); w: [Npad, Kp] int8
+// with K = kh * kw * Cp, Cp = C rounded up to 16 (wide: K = kh * Cp, Cp =
+// kw * C rounded up to 16), Kp = K rounded up to 128 and Npad = Cout rounded
+// up to bn; scale: [Npad] fp32; x_scale: one fp32; bias: [Npad] fp32 or
+// null; y: [batch, Ho, Wo, Cout] bf16 (y_fp32 = 1: fp32).  codes: the
+// codes' bytes (batch * H * W * Cp, wide: batch * H * Wo * Cp), 16-byte
+// aligned; partials: ceil(M / bm) * (Npad / bn) * splits * bm * bn int32
+// (splits > 1; else null); counters: 2 + ceil(M / bm) * (Npad / bn) uint32,
+// zero before a site's first call (each call leaves its counts so).
+// geometry: {x_fp32, y_fp32, batch, H, W, C, Cp, Ho, Wo, Cout, Npad, Kp, kh,
+// kw, sh, sw, pad_top, pad_left, wide, bm, bn, splits}, the tile plan bm 64
+// or 128, bn 64, 128 or 256, splits of K in [1, Kp / 128].  vec: C % 8 ==
+// 0, x 16-byte aligned and not wide (phase 1 loads 8 channels at a time).
+// A dense layer is batch = M, H = W = Ho = Wo = kh = kw = 1, C its inputs.
+int pf_int8_conv(const void* x, const int8_t* w, const float* scale, const float* x_scale,
+                 const float* bias, void* y, int8_t* codes, int* partials, unsigned* counters,
+                 const int* geometry, int vec, void* stream) {
+  const int x_fp32 = geometry[0], y_fp32 = geometry[1], batch = geometry[2], H = geometry[3],
+            W = geometry[4], C = geometry[5], Cp = geometry[6], Ho = geometry[7],
+            Wo = geometry[8], Cout = geometry[9], Npad = geometry[10], Kp = geometry[11],
+            kh = geometry[12], kw = geometry[13], sh = geometry[14], sw = geometry[15],
+            pad_top = geometry[16], pad_left = geometry[17], wide = geometry[18],
+            bm = geometry[19], bn = geometry[20], splits = geometry[21];
+  // phase 2's grid and taps: in the wide layout a window row's taps are
+  // channels of the codes; a strided 1x1 conv (sub) runs at stride 1 over
+  // the pixels it reads
+  const int sub = kh == 1 && kw == 1 && (sh > 1 || sw > 1);
+  const int H2 = sub ? Ho : H, W2 = wide || sub ? Wo : W, kw2 = wide ? 1 : kw;
+  const int sh2 = sub ? 1 : sh, sw2 = wide || sub ? 1 : sw, pl2 = wide ? 0 : pad_left;
+  const int64_t channels = static_cast<int64_t>(wide ? kw : 1) * C;
   const int64_t M = static_cast<int64_t>(batch) * Ho * Wo;
-  const int64_t K = static_cast<int64_t>(kh) * kw * C;
-  const int bn = tile_n(Cout);
-  if (M < 1 || M > INT32_MAX / 2 || K < 1 || Kp % 32 || Kp < K || Kp - K >= 32 || Cout < 1 ||
-      Npad % bn || Npad < Cout || sh < 1 || sw < 1 || kw < 1 ||
-      static_cast<int64_t>(batch) * H > INT32_MAX / 2 || (vec && C % 8))
+  const int64_t pixels = static_cast<int64_t>(batch) * H2 * W2;
+  const int64_t K = static_cast<int64_t>(kh) * kw2 * Cp;
+  const bool plan_ok = (bm == 64 || bm == 128) && (bn == 64 || bn == 128 || bn == 256);
+  if (!plan_ok || M < 1 || M > INT32_MAX / 2 || pixels * Cp > INT32_MAX / 2 || Cp % kChunk ||
+      Cp < channels || Cp - channels >= kChunk || C < 1 || K > INT32_MAX / 2 || Kp % kBK ||
+      Kp < K || Kp - K >= kBK || Cout < 1 || Npad % bn || Npad < Cout || sh < 1 || sw < 1 ||
+      kw < 1 || H > 16384 || W > 16384 || pad_top > 16384 || pad_left > 16384 ||
+      (vec && (C % 8 || wide)) || (sub && (pad_top || pad_left)) || splits < 1 ||
+      splits > Kp / kBK ||
+      (splits > 1 && partials == nullptr) || codes == nullptr || counters == nullptr ||
+      reinterpret_cast<uintptr_t>(codes) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{x, w, scale, x_scale, bias, y, static_cast<int>(M), H, W, C, Ho, Wo, Cout, Kp,
-           static_cast<int>(K), kw, sh, sw, pad_top, pad_left};
+  const int64_t units = ((M + bm - 1) / bm) * ((Cout + bn - 1) / bn) * splits;
+  if (units > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  memset(&p, 0, sizeof(p));
+  p.x = x;
+  p.w = w;
+  p.scale = scale;
+  p.x_scale = x_scale;
+  p.bias = bias;
+  p.y = y;
+  p.codes = codes;
+  p.partials = partials;
+  p.counters = counters;
+  p.pixels = static_cast<int>(pixels);
+  p.H = H2;
+  p.W = W2;
+  p.C = C;
+  p.Cp = Cp;
+  p.Ho = Ho;
+  p.Wo = Wo;
+  p.M = static_cast<int>(M);
+  p.Cout = Cout;
+  p.Kp = Kp;
+  p.K = static_cast<int>(K);
+  p.kw = kw2;
+  p.sh = sh2;
+  p.sw = sw2;
+  p.pad_top = pad_top;
+  p.pad_left = pl2;
+  p.splits = splits;
+  p.wide = wide;
+  p.sub = sub;
+  p.xH = H;
+  p.xsh = sh;
+  p.xW = W;
+  p.xkw = kw;
+  p.xsw = sw;
+  p.xpl = pad_left;
+  p.x_fp32 = x_fp32;
+  p.y_fp32 = y_fp32;
+  p.vec = vec;
+  p.tma_y = !y_fp32 && Cout % 8 == 0;
+  if (p.tma_y && (reinterpret_cast<uintptr_t>(y) % 16 ||
+                  !y_map(&p.y_map, y, static_cast<uint64_t>(Cout), static_cast<uint64_t>(M))))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bn == 64) {
-    return x_fp32 ? launch_t<64, float>(p, vec, y_fp32, st)
-                  : launch_t<64, __nv_bfloat16>(p, vec, y_fp32, st);
+  const int u = static_cast<int>(units);
+  if (bm == 128) {
+    return bn == 64 ? launch<128, 64>(p, u, st) : bn == 128 ? launch<128, 128>(p, u, st)
+                                                            : launch<128, 256>(p, u, st);
   }
-  return x_fp32 ? launch_t<128, float>(p, vec, y_fp32, st)
-                : launch_t<128, __nv_bfloat16>(p, vec, y_fp32, st);
+  return bn == 64 ? launch<64, 64>(p, u, st) : bn == 128 ? launch<64, 128>(p, u, st)
+                                                         : launch<64, 256>(p, u, st);
 }
 
 }  // extern "C"

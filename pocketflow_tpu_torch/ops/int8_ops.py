@@ -36,22 +36,32 @@ reciprocal, which moves .5 boundaries), round is half to even, and the
 output scale is sx * sw_c, multiplied first.
 
 On the card a site is one kernel (``int8_conv``, ``csrc/int8_conv.cu``; its
-header says why it exists, what bounds it and how it is built): it reads the
-layer's bf16 or fp32 input in NHWC, quantizes it in registers, contracts the
-codes on the int8 tensor cores against the weights packed once per device
-(``pack_weights``: K-major [Npad, Kp]), adds the layer's bias in fp32 where
-it has one (its own bias add) and writes the layer's dtype.  Its plain
-version, ``int8_conv_plain``, is the formula above step by step (quantize,
+header says why it exists, what bounds it and how it is built), one launch
+in two phases: it quantizes the layer's bf16 or fp32 NHWC input once an
+element into int8 codes with the channels padded to ``Cp`` (C rounded up to
+16, code 0 past C), then contracts the codes' im2col rows on the int8
+tensor cores against the weights packed once per device with the same
+channel padding (``pack_weights``: K-major [Npad, Kp], K = kh * kw * Cp),
+adds the layer's bias in fp32 where it has one (its own bias add) and
+writes the layer's dtype.  Each site takes a tile plan chosen on the host
+once for its shape (``tile_plan``: the tile's rows and columns and a split
+of K for sites with fewer tiles than the card has SMs).  Its plain version,
+``int8_conv_plain``, is the formula above step by step (quantize,
 ``int8_conv2d`` or ``int8_matmul``, rescale, bias, cast); the two give the
-same bits.  ``Int8ServingPolicy`` prepares each site once per device
-(``Int8Site``: the activation scale as a device tensor, the fp32 product
-x_scale * w_scale, the bias, the packed codes), so that a forward makes no
-host-to-device copy and no stream sync.  Dispatch is by device: a CPU
-tensor takes the plain version, a CUDA tensor launches the kernel, anything
-else raises.  The depthwise int8 route (only when the policy does not skip
-it) stays the layer's plain contraction on every device.  The module-level
-counters count kernel launches, plain calls on the CPU, the plain
-contractions on CUDA tensors and the depthwise route's calls.
+same bits.  The kernel's layout steps have plain versions too, for the
+tests: the padded codes (``padded_codes_plain``), their im2col rows
+(``padded_rows_plain``), the split-K partial sums and their sum
+(``split_k_partials_plain``, ``split_k_sum_plain``), composed by
+``int8_conv_layout_plain``.  ``Int8ServingPolicy`` prepares each site once
+per device (``Int8Site``: the activation scale as a device tensor, the fp32
+product x_scale * w_scale, the bias, the packed codes, the plan and its
+counters), so that a forward makes no host-to-device copy and no stream
+sync.  Dispatch is by device: a CPU tensor takes the plain version, a CUDA
+tensor launches the kernel, anything else raises.  The depthwise int8 route
+(only when the policy does not skip it) stays the layer's plain contraction
+on every device.  The module-level counters count kernel launches, plain
+calls on the CPU, the plain contractions on CUDA tensors and the depthwise
+route's calls.
 """
 
 from __future__ import annotations
@@ -67,7 +77,11 @@ from pocketflow_tpu_torch.nn.layers import (
     CompressionPolicy, PFConv, PFDense, _same_pads, compression, same_pad)
 
 _LEVELS = 127.0
-_K_DEPTH = 32  # wgmma's depth of int8 codes: the packed K is a multiple of it
+_CHANNEL_CHUNK = 16  # codes a 16-byte copy: a site's channels are padded to a multiple of it
+_K_STAGE = 128  # k (bytes of codes) of a kernel stage: split-K splits whole stages
+_TILE_ROWS = (128, 64)  # the tile's rows: two consumer warpgroups, or one
+_PLAN_SMS = 132  # the H100's SMs: the plans fill them (any card runs any plan)
+_MAX_SPLITS = 16
 
 # launches of the int8 conv kernel; calls of the plain version on CPU
 # tensors; calls of the plain contractions (int8_conv2d, int8_matmul) on CUDA
@@ -184,24 +198,122 @@ def int8_contract(x: torch.Tensor, codes: torch.Tensor, w_scale: torch.Tensor, x
     return _contract(x, x_scale, codes, x_scale * w_scale, contract_fn)
 
 
+def padded_channels(c: int) -> int:
+    """A site's input channels in the kernel's codes: c rounded up to 16, so
+    that a 16-byte chunk of codes never straddles two taps."""
+    return -(-c // _CHANNEL_CHUNK) * _CHANNEL_CHUNK
+
+
+def tile_n(cout: int) -> int:
+    """The kernel's column tile (csrc/int8_conv.cu: BN) for `cout` output
+    channels: the least of 64, 128, 256 that covers them up to 256."""
+    return 64 if cout <= 64 else 128 if cout <= 128 else 256
+
+
 def _padded_cout(cout: int) -> int:
-    """`cout` rounded up to the kernel's column tile (csrc/int8_conv.cu:
-    tile_n), the rows of the packed codes and the length of the scale."""
-    tile = 64 if cout <= 64 else 128
+    """`cout` rounded up to the column tile (tile_n), the rows of the packed
+    codes and the length of the scale."""
+    tile = tile_n(cout)
     return -(-cout // tile) * tile
+
+
+def wide_taps(kshape) -> bool:
+    """Whether the kernel lays a site out wide: a conv on so few input
+    channels (the stems) that one window row's kw taps, kw * C codes, fit in
+    32.  Its codes then hold at (n, h, wo) the codes of x[n, h, wo * sw - pad
+    + j, c] at channel j * C + c (padded_channels of kw * C), and the
+    product runs kh x 1 taps over them: kh 32-byte chunks a row, not kh * kw
+    chunks of 16 bytes mostly of padding."""
+    return len(kshape) == 4 and kshape[1] > 1 and kshape[1] * kshape[2] <= 2 * _CHANNEL_CHUNK
+
+
+def subsampled(kshape, strides) -> bool:
+    """Whether the kernel codes only the pixels a site reads: a 1x1 conv at
+    a stride (no padding), whose codes are [N, Ho, Wo, Cp], x's pixels (n, ho
+    sh, wo sw), and whose product is a 1x1 conv at stride 1 over them."""
+    return len(kshape) == 4 and tuple(kshape[:2]) == (1, 1) and tuple(strides) != (1, 1)
+
+
+def _codes_kshape(kshape):
+    """The kernel shape that the product sees: HWIO, [1, 1, in, out] for a
+    dense layer, [kh, 1, kw * C, out] for a wide site."""
+    if len(kshape) == 2:
+        return (1, 1) + tuple(kshape)
+    kh, kw, cin, cout = kshape
+    return (kh, 1, kw * cin, cout) if wide_taps(kshape) else tuple(kshape)
+
+
+def _packed_k(kshape) -> int:
+    """Kp of the packed codes of an HWIO or [in, out] kernel: kh * kw * Cp
+    (wide: kh * padded_channels(kw * C)) rounded up to a kernel stage (128),
+    so that every stage runs whole."""
+    kh, kw, cin, _ = _codes_kshape(kshape)
+    k = kh * kw * padded_channels(cin)
+    return -(-k // _K_STAGE) * _K_STAGE
 
 
 def pack_weights(codes: torch.Tensor) -> torch.Tensor:
     """HWIO (conv) or [in, out] (dense) int8 codes -> the kernel's K-major
-    [Npad, Kp] codes: row n holds output channel n's kh * kw * in codes in
-    the HWIO flattening order, zero past K (Kp a multiple of 32) and past
-    the output channels (Npad a multiple of the column tile)."""
-    rows = codes.reshape(-1, codes.shape[-1]).t()
-    cout, k = rows.shape
-    packed = torch.zeros((_padded_cout(cout), -(-k // _K_DEPTH) * _K_DEPTH), dtype=torch.int8,
+    [Npad, Kp] codes: row n holds output channel n's kh * kw * Cp codes in
+    the HWIO flattening order with the input channels padded to Cp
+    (padded_channels, zero past the inputs in each tap), zero past K (Kp a
+    multiple of 128, the kernel's stage) and past the output channels (Npad
+    a multiple of the column tile).  A wide site (wide_taps) packs its kernel
+    as [kh, 1, kw * C, out], the order of its codes' channels."""
+    kh, kw, cin, cout = _codes_kshape(tuple(codes.shape))
+    hwio = codes.reshape(kh, kw, cin, cout)
+    cp = padded_channels(cin)
+    taps = torch.zeros((cout, kh, kw, cp), dtype=torch.int8, device=codes.device)
+    taps[..., :cin] = hwio.permute(3, 0, 1, 2)
+    packed = torch.zeros((_padded_cout(cout), _packed_k(codes.shape)), dtype=torch.int8,
                          device=codes.device)
-    packed[:cout, :k] = rows
+    packed[:cout, :kh * kw * cp] = taps.reshape(cout, -1)
     return packed
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How the kernel cuts one site: bm x bn output tiles (bm 128 or 64,
+    bn = tile_n(Cout)) and K split into `splits` runs of whole 128-deep
+    stages, whose int32 partial sums the last of a tile's units adds."""
+    bm: int
+    bn: int
+    splits: int
+
+
+def tile_plan(m: int, cout: int, kp: int) -> TilePlan:
+    """The tile plan of a site with m output rows, cout channels and packed
+    depth kp, a pure function of the shapes.  It minimizes a block's work
+    in cycles times the waves of units over the H100's 132 SMs (one block
+    an SM): a 128-deep stage costs the larger of its int8 products
+    (bm bn / 32 cycles at 8,192 operations a cycle) and its copies (2 (bm +
+    bn): 64 bytes a cycle), a unit adds its fill and epilogue (600 + bm bn /
+    32) and, split, its partials' write and read (bm bn / 8).  Ties keep the
+    larger tile and the fewer splits.  Sites with many tiles get bm = 128 and
+    no split; the dense layers at M = 64 get bm = 64 and a split of K."""
+    bn = tile_n(cout)
+    nk = -(-kp // _K_STAGE)
+    n_tiles = -(-cout // bn)
+    best, best_cost = None, None
+    for bm in _TILE_ROWS:
+        tiles = -(-m // bm) * n_tiles
+        stage = max(bm * bn / 32, 2 * (bm + bn))
+        for splits in range(1, min(nk, _MAX_SPLITS) + 1):
+            waves = -(-tiles * splits // _PLAN_SMS)
+            unit = -(-nk // splits) * stage + 600 + bm * bn / 32 + (splits > 1) * bm * bn / 8
+            cost = waves * unit
+            if best_cost is None or cost < best_cost:
+                best, best_cost = TilePlan(bm, bn, splits), cost
+    return best
+
+
+def split_k_bounds(kp: int, splits: int):
+    """The k ranges [k0, k1) of the kernel's splits: split s takes stages
+    [s nk / splits, (s + 1) nk / splits) of the nk = kp / 128 (uneven where
+    splits does not divide nk)."""
+    nk = kp // _K_STAGE
+    return [(s * nk // splits * _K_STAGE, (s + 1) * nk // splits * _K_STAGE)
+            for s in range(splits)]
 
 
 @dataclasses.dataclass
@@ -210,7 +322,13 @@ class Int8Site:
     (HWIO or [in, out]), the activation scale (a 0-d fp32 tensor), the fp32
     output scale x_scale * w_scale and the layer's bias in fp32 (or None),
     both padded with zeros to the column tile, the packed codes (on CUDA),
-    the conv's strides and padding and the output dtype."""
+    the conv's strides and padding, the output dtype, the kernel's launch
+    for each input layout it has served (checked and laid out once), and
+    the kernel's tile plan for each row count it has served ({M: (TilePlan, counters)}: on
+    CUDA the plan's counters [2 + tiles], made zero: the grid barrier's
+    arrivals, which each launch leaves zero, its generation, which each
+    launch advances, and a count a tile, which each launch leaves zero; a
+    site's launches run one after another on one stream)."""
     codes: torch.Tensor
     x_scale: torch.Tensor
     scale: torch.Tensor
@@ -219,6 +337,9 @@ class Int8Site:
     padding: str = 'SAME'
     out_dtype: torch.dtype = torch.float32
     bias: Optional[torch.Tensor] = None
+    plans: Dict[int, Tuple[TilePlan, Optional[torch.Tensor]]] = dataclasses.field(
+        default_factory=dict)
+    launches: Dict[tuple, '_Launch'] = dataclasses.field(default_factory=dict)
 
     @property
     def dense(self) -> bool:
@@ -227,8 +348,9 @@ class Int8Site:
 
 def make_site(codes: torch.Tensor, w_scale: torch.Tensor, x_scale, device, strides=(1, 1),
               padding: str = 'SAME', out_dtype: torch.dtype = torch.float32,
-              bias: Optional[torch.Tensor] = None) -> Int8Site:
-    """An Int8Site on `device`; the codes are packed for the kernel on CUDA."""
+              bias: Optional[torch.Tensor] = None, x_shape=None) -> Int8Site:
+    """An Int8Site on `device`; the codes are packed for the kernel on CUDA,
+    and the tile plan of an input of `x_shape` (NCHW or [M, K]) is chosen."""
     device = torch.device(device)
     codes = codes.to(device)
     x_scale = torch.as_tensor(x_scale, dtype=torch.float32, device=device)
@@ -239,8 +361,35 @@ def make_site(codes: torch.Tensor, w_scale: torch.Tensor, x_scale, device, strid
         padded = torch.zeros_like(scale)
         padded[:cout] = bias.detach().to(device, torch.float32)
         bias = padded
-    return Int8Site(codes, x_scale, scale, pack_weights(codes) if device.type == 'cuda' else None,
+    site = Int8Site(codes, x_scale, scale,
+                    pack_weights(codes) if device.type == 'cuda' else None,
                     tuple(strides), padding, out_dtype, bias)
+    if x_shape is not None:
+        site_plan(site, _site_rows(site, x_shape))
+    return site
+
+
+def _site_rows(site: Int8Site, x_shape) -> int:
+    """M, the output positions of a site on an input of x_shape."""
+    if site.dense:
+        return x_shape[0]
+    n, _, h, w = x_shape
+    ho, wo, _, _ = _conv_geometry(h, w, *site.codes.shape[:2], site.strides, site.padding)
+    return n * ho * wo
+
+
+def site_plan(site: Int8Site, m: int) -> Tuple[TilePlan, Optional[torch.Tensor]]:
+    """The site's tile plan for m output rows and, on CUDA, its counters:
+    chosen and allocated at the first call for m, kept in the site."""
+    if m not in site.plans:
+        cout = site.codes.shape[-1]
+        plan = tile_plan(m, cout, _packed_k(site.codes.shape))
+        counters = None
+        if site.scale.is_cuda:
+            tiles = -(-m // plan.bm) * (_padded_cout(cout) // plan.bn)
+            counters = torch.zeros(2 + tiles, dtype=torch.int32, device=site.scale.device)
+        site.plans[m] = (plan, counters)
+    return site.plans[m]
 
 
 def _conv_geometry(h: int, w: int, kh: int, kw: int, strides, padding: str):
@@ -276,6 +425,99 @@ def int8_conv_plain(x: torch.Tensor, site: Int8Site) -> torch.Tensor:
     global plain_calls
     plain_calls += x.device.type == 'cpu'
     return _contract_plain(x, site)
+
+
+def padded_codes_plain(x: torch.Tensor, site: Int8Site) -> torch.Tensor:
+    """The kernel's first phase: x's codes clamp(round(x / x_scale), -127,
+    127) as the plain version computes them, NHWC [N, H, W, Cp] (a dense
+    input: [M, Cp]), code 0 past the C channels.  A wide site (wide_taps):
+    [N, H, Wo, Cp], at (n, h, wo) channel j * C + c the code of x[n, h, wo *
+    sw - pad_left + j, c] (0 on the padding), 0 past kw * C.  A subsampled
+    site: [N, Ho, Wo, Cp], the codes of x's pixels (n, ho sh, wo sw)."""
+    xq = torch.clamp(torch.round(x.to(torch.float32) / site.x_scale), -127, 127).to(torch.int8)
+    if not site.dense:
+        xq = xq.permute(0, 2, 3, 1)
+    if subsampled(tuple(site.codes.shape), site.strides):
+        xq = xq[:, ::site.strides[0], ::site.strides[1]]
+    if wide_taps(tuple(site.codes.shape)):
+        kh, kw = site.codes.shape[:2]
+        n, h, w, c = xq.shape
+        _, wo, _, left = _conv_geometry(h, w, kh, kw, site.strides, site.padding)
+        right = max((wo - 1) * site.strides[1] + kw - w - left, 0)
+        padded = torch.zeros((n, h, w + left + right, c), dtype=torch.int8, device=x.device)
+        padded[:, :, left:left + w] = xq
+        windows = padded.unfold(2, kw, site.strides[1])[:, :, :wo]  # [N, H, Wo, C, kw]
+        xq = windows.permute(0, 1, 2, 4, 3).reshape(n, h, wo, kw * c)
+    c = xq.shape[-1]
+    codes = torch.zeros(xq.shape[:-1] + (padded_channels(c),), dtype=torch.int8,
+                        device=x.device)
+    codes[..., :c] = xq
+    return codes
+
+
+def padded_rows_plain(codes: torch.Tensor, site: Int8Site) -> torch.Tensor:
+    """The im2col rows [M, Kp] that the kernel's producer gathers from the
+    padded codes: k = (i kw + j) Cp + c, code 0 where the window falls on
+    the padding and past K = kh kw Cp."""
+    if site.dense:
+        rows = codes
+    else:
+        kh, kw = site.codes.shape[:2]
+        sh, sw = site.strides
+        n, h, w, cp = codes.shape
+        ho, wo, top, left = _conv_geometry(h, w, kh, kw, site.strides, site.padding)
+        if wide_taps(tuple(site.codes.shape)):  # kh x 1 taps over the wide codes
+            kw, sw, wo, left = 1, 1, w, 0
+        if subsampled(tuple(site.codes.shape), site.strides):  # 1x1, stride 1
+            sh = sw = 1
+            ho, wo, top, left = h, w, 0, 0
+        bottom = max((ho - 1) * sh + kh - h - top, 0)
+        right = max((wo - 1) * sw + kw - w - left, 0)
+        padded = torch.zeros((n, h + top + bottom, w + left + right, cp), dtype=torch.int8,
+                             device=codes.device)
+        padded[:, top:top + h, left:left + w] = codes
+        windows = padded.unfold(1, kh, sh).unfold(2, kw, sw)[:, :ho, :wo]  # [N, Ho, Wo, Cp, kh, kw]
+        rows = windows.permute(0, 1, 2, 4, 5, 3).reshape(n * ho * wo, kh * kw * cp)
+    out = torch.zeros((rows.shape[0], _packed_k(site.codes.shape)), dtype=torch.int8,
+                      device=codes.device)
+    out[:, :rows.shape[1]] = rows
+    return out
+
+
+def split_k_partials_plain(rows: torch.Tensor, packed: torch.Tensor, cout: int,
+                           splits: int) -> torch.Tensor:
+    """The int32 partial sums [splits, M, cout] of rows [M, Kp] against the
+    packed codes [Npad, Kp], one a split of split_k_bounds."""
+    return torch.stack([int8_matmul(rows[:, k0:k1].contiguous(), packed[:cout, k0:k1].t())
+                        for k0, k1 in split_k_bounds(rows.shape[1], splits)])
+
+
+def split_k_sum_plain(partials: torch.Tensor) -> torch.Tensor:
+    """The int32 sum of the splits' partial sums (exact in any order)."""
+    return partials.sum(0, dtype=torch.int32)
+
+
+def int8_conv_layout_plain(x: torch.Tensor, site: Int8Site, packed: Optional[torch.Tensor] = None,
+                           plan: Optional[TilePlan] = None) -> torch.Tensor:
+    """int8_conv through the kernel's layout, step by step: the padded codes,
+    their rows against the padded packed codes (``pack_weights``, or
+    `packed`) in the plan's splits of K, the partials summed, then the
+    rescale, bias and cast of int8_conv_plain.  It gives int8_conv_plain's
+    bits; the tests hold it to that."""
+    packed = pack_weights(site.codes) if packed is None else packed
+    rows = padded_rows_plain(padded_codes_plain(x, site), site)
+    cout = site.codes.shape[-1]
+    plan = tile_plan(rows.shape[0], cout, packed.shape[1]) if plan is None else plan
+    acc = split_k_sum_plain(split_k_partials_plain(rows, packed, cout, plan.splits))
+    y = acc.to(torch.float32) * site.scale[:cout]
+    if site.bias is not None:
+        y = y + site.bias[:cout]
+    y = y.to(site.out_dtype)
+    if site.dense:
+        return y
+    n, _, h, w = x.shape
+    ho, wo, _, _ = _conv_geometry(h, w, *site.codes.shape[:2], site.strides, site.padding)
+    return y.reshape(n, ho, wo, cout).permute(0, 3, 1, 2)
 
 
 def _check_conv(x: torch.Tensor, site: Int8Site):
@@ -314,10 +556,47 @@ def _library() -> ctypes.CDLL:
     lib, _, _ = build.load('int8_conv.cu')
     if not getattr(lib, '_pf_bound', False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.pf_int8_conv.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, i32] + [i32] * 16 + [ptr]
+        lib.pf_int8_conv.argtypes = [ptr] * 10 + [i32, ptr]
         lib.pf_int8_conv.restype = i32
         lib._pf_bound = True
     return lib
+
+
+@dataclasses.dataclass
+class _Launch:
+    """The kernel's launch of a site for one input layout, worked out once:
+    the output's NHWC shape, the workspace's bytes (the codes, then the
+    split-K partials), the plan's counters, whether x's channels allow
+    16-byte loads, and the entry point's geometry (csrc/int8_conv.cu:
+    pf_int8_conv), a ctypes int array."""
+    y_shape: Tuple[int, ...]
+    codes_bytes: int
+    partial_bytes: int
+    counters: torch.Tensor
+    vec: bool
+    geometry: ctypes.Array
+
+
+def _prepare_launch(x: torch.Tensor, site: Int8Site) -> _Launch:
+    n, h, w, c, ho, wo, top, left = _check_conv(x, site)
+    if site.packed is None or site.packed.device != x.device:
+        raise ValueError('int8_conv: the site has no packed codes on %s' % x.device)
+    kh, kw = (1, 1) if site.dense else site.codes.shape[:2]
+    cout = site.codes.shape[-1]
+    m = n * ho * wo
+    plan, counters = site_plan(site, m)
+    wide = wide_taps(tuple(site.codes.shape))
+    sub = subsampled(tuple(site.codes.shape), site.strides)
+    npad, kp = site.packed.shape
+    cp = padded_channels(kw * c if wide else c)
+    units = -(-m // plan.bm) * (npad // plan.bn) * plan.splits
+    geometry = (x.dtype == torch.float32, site.out_dtype == torch.float32, n, h, w, c, cp, ho, wo,
+                cout, npad, kp, kh, kw, site.strides[0], site.strides[1], top, left, wide,
+                plan.bm, plan.bn, plan.splits)
+    return _Launch((n, cout) if site.dense else (n, ho, wo, cout),
+                   n * (ho if sub else h) * (wo if wide or sub else w) * cp,
+                   units * plan.bm * plan.bn * 4 if plan.splits > 1 else 0, counters,
+                   c % 8 == 0 and not wide, (ctypes.c_int * len(geometry))(*geometry))
 
 
 def int8_conv(x: torch.Tensor, site: Int8Site) -> torch.Tensor:
@@ -325,32 +604,33 @@ def int8_conv(x: torch.Tensor, site: Int8Site) -> torch.Tensor:
     clamp(round(x / x_scale), -127, 127) with the codes, int32 sums) *
     x_scale * w_scale (+ bias)).  x is a channels-last NCHW (conv) or contiguous [M,
     K] (dense) bf16 or fp32 tensor; y is channels-last NCHW or [M, N].  The
-    kernel on CUDA (one launch), the plain version on the CPU."""
+    kernel on CUDA (one launch, with a workspace for the padded codes and,
+    where the plan splits K, the partial sums; an input layout is checked
+    and laid out at its first call), the plain version on the CPU."""
     global kernel_launches
-    n, h, w, c, ho, wo, top, left = _check_conv(x, site)
-    if x.device.type == 'cpu':
+    if x.device.type != 'cuda':
+        _check_conv(x, site)
         return int8_conv_plain(x, site)
-    if site.packed is None or site.packed.device != x.device:
-        raise ValueError('int8_conv: the site has no packed codes on %s' % x.device)
-    kh, kw = (1, 1) if site.dense else site.codes.shape[:2]
-    cout = site.codes.shape[-1]
-    if site.dense:
-        y = torch.empty((n, cout), dtype=site.out_dtype, device=x.device)
-    else:
-        y = torch.empty((n, ho, wo, cout), dtype=site.out_dtype,
-                        device=x.device).permute(0, 3, 1, 2)
-    vec = c % 8 == 0 and x.data_ptr() % 16 == 0
-    npad, kp = site.packed.shape
+    key = (x.shape, x.stride(), x.dtype, x.device)
+    launch = site.launches.get(key)
+    if launch is None:
+        launch = site.launches[key] = _prepare_launch(x, site)
+    y = torch.empty(launch.y_shape, dtype=site.out_dtype, device=x.device)
+    workspace = torch.empty(launch.codes_bytes + launch.partial_bytes, dtype=torch.uint8,
+                            device=x.device)
+    x_ptr, ws_ptr = x.data_ptr(), workspace.data_ptr()
     err = _library().pf_int8_conv(
-        x.data_ptr(), x.dtype == torch.float32, site.packed.data_ptr(), site.scale.data_ptr(),
-        site.x_scale.data_ptr(), None if site.bias is None else site.bias.data_ptr(),
-        y.data_ptr(), site.out_dtype == torch.float32, n, h, w, c, ho,
-        wo, cout, npad, kp, kh, kw, site.strides[0], site.strides[1], top, left, vec,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x_ptr, site.packed.data_ptr(), site.scale.data_ptr(), site.x_scale.data_ptr(),
+        None if site.bias is None else site.bias.data_ptr(), y.data_ptr(), ws_ptr,
+        ws_ptr + launch.codes_bytes if launch.partial_bytes else None,
+        launch.counters.data_ptr(), launch.geometry, launch.vec and x_ptr % 16 == 0,
+        # the raw handle of the current stream (torch.cuda.current_stream
+        # builds a Stream object: several microseconds a call)
+        torch._C._cuda_getCurrentRawStream(x.get_device()))
     if err != 0:
         raise RuntimeError('int8_conv: CUDA error %d at launch' % err)
     kernel_launches += 1
-    return y
+    return y if site.dense else y.permute(0, 3, 1, 2)
 
 
 class CalibrationPolicy(CompressionPolicy):
@@ -424,7 +704,8 @@ class Int8ServingPolicy(CompressionPolicy):
                 spec = dict(out_dtype=layer.dtype, bias=layer.bias)
                 if isinstance(layer, PFConv):
                     spec.update(strides=layer.strides, padding=layer.padding)
-            self.sites[key] = make_site(codes, w_scale, self.act_scales[path], x.device, **spec)
+            self.sites[key] = make_site(codes, w_scale, self.act_scales[path], x.device,
+                                        x_shape=tuple(x.shape), **spec)
         return self.sites[key]
 
     def run_contraction(self, path, x, kernel, contract_fn, layer=None):

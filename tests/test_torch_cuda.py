@@ -508,7 +508,16 @@ def _int8_site(device, kshape, strides=(1, 1), padding='SAME', out_dtype=torch.b
     ((1, 1, 37, 53), (1, 1), 'SAME', 15, torch.bfloat16),
     ((3, 3, 19, 200), (2, 2), 'VALID', 15, torch.float32),
     ((3, 3, 64, 96), (1, 1), 'SAME', 20, torch.float32),
-    ((2048, 1000), None, None, None, torch.bfloat16)])
+    ((2048, 1000), None, None, None, torch.bfloat16),
+    # the stems (3 and 12 channels) and odd shrunk widths: padded to 16
+    # channels in the codes and the packing
+    ((3, 3, 3, 32), (2, 2), 'SAME', 57, torch.bfloat16),
+    ((4, 4, 12, 64), (1, 1), 'SAME', 28, torch.bfloat16),
+    ((3, 3, 3, 19), (2, 2), 'SAME', 33, torch.float32),
+    ((1, 1, 35, 71), (1, 1), 'SAME', 28, torch.bfloat16),
+    ((1, 1, 563, 561), (1, 1), 'SAME', 7, torch.bfloat16),
+    ((1, 1, 141, 139), (2, 2), 'SAME', 14, torch.bfloat16),
+    ((561, 1000), None, None, None, torch.bfloat16)])
 def test_int8_kernel_equals_plain(cuda, kshape, strides, padding, size, dtype):
     from pocketflow_tpu_torch.ops import int8_ops as ti8
     dense = len(kshape) == 2
@@ -524,6 +533,53 @@ def test_int8_kernel_equals_plain(cuda, kshape, strides, padding, size, dtype):
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), ti8.int8_conv_plain(x.cpu(), _int8_site(
         'cpu', kshape, strides or (1, 1), padding or 'SAME', site.out_dtype)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kshape,rows,out_dtype', [((2048, 1000), 64, torch.bfloat16),
+                                                   ((1024, 1000), 64, torch.float32),
+                                                   ((561, 1000), 64, torch.bfloat16),
+                                                   ((3, 3, 512, 512), 7, torch.bfloat16)])
+def test_int8_kernel_split_k_equals_plain(cuda, kshape, rows, out_dtype):
+    """Sites whose plan splits K (the dense layers at M = 64, the last
+    stage's 3x3 conv at batch 64): bit-equal to the plain version, and again
+    on a second call (the barrier's count and the tiles' counters reset
+    themselves; the barrier's generation counts the calls)."""
+    from pocketflow_tpu_torch.ops import int8_ops as ti8
+    dense = len(kshape) == 2
+    site = _int8_site(cuda, kshape, out_dtype=out_dtype, bias=dense)
+    shape = (64, kshape[0]) if dense else (64, rows, rows, kshape[2])
+    x = _inputs(cuda, shape, torch.bfloat16) * 2
+    x = x if dense else x.permute(0, 3, 1, 2)
+    first = ti8.int8_conv(x, site)
+    (plan, counters), = site.plans.values()
+    assert plan.splits > 1, plan
+    second = ti8.int8_conv(x, site)
+    torch.cuda.synchronize()
+    want = ti8.int8_conv_plain(x, site)
+    assert torch.equal(first, want) and torch.equal(second, want)
+    assert counters[0] == 0 and counters[1] == 2 and not counters[2:].any()
+    assert torch.equal(ti8.int8_conv_layout_plain(x, site), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('share', [0.05, 1.0])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_int8_kernel_divides_near_half_values(cuda, share, dtype):
+    """Inputs whose quotient by x_scale is a half-integer (a share of them,
+    or all: every warp's list of such groups overflows, and the blocks redo
+    all their groups): the kernel rounds them as the IEEE division and
+    torch.round do, half to even."""
+    from pocketflow_tpu_torch.ops import int8_ops as ti8
+    gen = torch.Generator().manual_seed(3)
+    codes, w_scale = ti8.quantize_weights_symmetric(torch.randn((1, 1, 64, 64), generator=gen))
+    site = ti8.make_site(codes, w_scale, 0.5, cuda, out_dtype=torch.bfloat16)
+    halves = (torch.randint(-200, 200, (16, 28, 28, 64), generator=gen) * 2 + 1) * 0.25
+    x = torch.where(torch.rand(halves.shape, generator=gen) < share, halves,
+                    torch.randn(halves.shape, generator=gen) * 20)
+    x = x.to(cuda, dtype).permute(0, 3, 1, 2)
+    got = ti8.int8_conv(x, site)
+    assert torch.equal(got, ti8.int8_conv_plain(x, site))
 
 
 @pytest.mark.gpu
