@@ -5071,7 +5071,7 @@ def int8_site_row(tag, key, entry):
     bound_ms, bound_by = int8_conv_bound_ms(x.numel() * x.element_size(), k * cout,
                                             got.numel() * got.element_size(), got.numel() // cout,
                                             cout, k)
-    plan, _ = site.plans[got.numel() // cout]
+    plan = int8_ops.launch_plan(x, site)
     return dict(site=entry['path'], kernel=key[0], x=key[1], strides=key[3], padding=key[4],
                 count=entry['count'], max_abs_err=0.0, plan=(plan.bm, plan.bn, plan.splits),
                 ms=time_ms(lambda: int8_ops.int8_conv(x, site), INT8_REPS),

@@ -22,7 +22,7 @@
 // whole site in one launch.  Its plain version, ops/int8_ops.py:
 // int8_conv_plain, is that formula step by step, and the two give the same
 // bits: the codes are those of the IEEE division (PyTorch divides by a
-// tensor so; quantize16() below gets them from a multiply and, where that
+// tensor so; quantize8() below gets them from a multiply and, where that
 // could round otherwise, __fdiv_rn), rint rounds half to even as
 // torch.round, the int32 sums are exact in any order (|sum| < 127^2 K <
 // 2^31), and the rescale is one __fmul_rn of __int2float_rn(acc) by the
@@ -33,40 +33,55 @@
 // writes its output once, and does 2 * M * Cout * kh * kw * C int8
 // operations, against the H100's 3.35 TB/s and 1,979 TOP/s int8: most sites
 // of ResNet-50 and MobileNet-v1 at batch 64 are bound by bytes, the dense
-// layers and the last stage's 3x3 convs come close to neither bound (few
-// output tiles for 132 SMs).  The quantize costs ALU work that neither bound
-// counts: done inside the product's main loop, it ran once for each element
-// of the im2col rows (nine times a pixel for a 3x3 conv) and once more for
-// each column tile, and took several times the int8 products.  The design:
+// layers and the last stage's convs by neither (few output tiles for 132
+// SMs: latency).  The quantize costs ALU work that neither bound counts:
+// done inside the product's main loop, as this kernel first did, it ran
+// once for each element of the im2col rows (nine times a pixel for a 3x3
+// conv) and once more for each column tile, and took several times the int8
+// products.  The design:
 //
 //   * Two phases in one cooperative launch.  Phase 1 quantizes the input
 //     once an element into a workspace of codes [N, H, W, Cp] (the wrapper
-//     allocates it; the kernel allocates nothing), every thread of the grid
-//     on 16-code chunks, four chunks in flight a thread, 16-byte loads where
-//     C % 8 == 0 (element loads elsewhere: the stems' 3 channels, odd shrunk
-//     widths), one 16-byte store of codes a chunk.  A grid-wide barrier
-//     follows (a self-resetting arrival count and generation in the site's
-//     counters; the cooperative launch makes every block resident, or
-//     refuses the launch, so the barrier cannot hang).  No site keeps the
-//     quantize inside its product: one path for every site, and the codes
-//     are half the bytes of a bf16 input, read back mostly from the 50 MB L2.
-//   * Phase 2 is a warp-specialized implicit GEMM over the codes.  A
-//     producer warpgroup gathers the A tile (BM rows of the im2col, 128 k a
-//     stage: each thread one 16-byte chunk of one tap for BM / 16 rows, the
-//     rows' window origins computed once a tile) and B's BN x 128 panel with
-//     cp.async into a ring of stages (128-byte swizzle: 16-byte chunk c of
-//     row r at c ^ (r % 8)).  Since Cp is a multiple of 16, a chunk never
-//     straddles two taps, so the stems and odd widths take the same whole
-//     chunks as every other site; the window's padding, rows past M and k
-//     past K are cp.async's zero fill.  A thread signals stage g's full
-//     mbarrier once its copies of stage g have landed (cp.async.wait_group
-//     kLag, so kLag + 1 stages of copies are in flight) and after a proxy
-//     fence that makes them visible to the tensor cores; the consumers free a
-//     stage through its empty mbarrier.
+//     allocates it; the kernel allocates nothing): every thread of the grid
+//     on groups of 8 codes, 8 groups' loads in flight a thread (16-byte loads
+//     where C % 8 == 0, element loads elsewhere), an 8-byte store of codes a
+//     group.  Its arithmetic avoids the conversion instructions, which run
+//     at a quarter of the ALUs' rate (quantize8()), and the rare values
+//     that need the division go on a per-warp list in shared memory that the
+//     block redoes after its loop (no atomic, no branch in the loop).  A
+//     grid-wide barrier follows (a self-resetting arrival count and
+//     generation in the site's counters; the cooperative launch makes every
+//     block resident, or refuses the launch, so the barrier cannot hang).
+//     No site keeps the quantize inside its product: one path for every
+//     site; the codes are half the bytes of a bf16 input, and a 1x1 site
+//     reads them back mostly from the 50 MB L2.
+//   * Three layouts of the codes, so that phase 2 copies whole 16-byte
+//     chunks of one tap: the channels padded to 16 (code 0 past C; the
+//     packed weights the same, zero there); the stems' wide layout (a conv
+//     on so few channels that a window row's kw * C codes fit in 32: the
+//     codes' pixel (n, h, wo) holds that row's codes, and phase 2 runs kh x
+//     1 taps, kh 32-byte chunks a row instead of kh * kw chunks mostly of
+//     padding); a strided 1x1 conv's subsampled layout (only the pixels it
+//     reads, and phase 2 at stride 1).
+//   * Phase 2 is a warp-specialized implicit GEMM over the codes into a ring
+//     of stages (128 k a stage, 128-byte swizzle: 16-byte chunk c of row r
+//     at c ^ (r % 8)), a full and an empty mbarrier a stage.  One thread of
+//     the producer warpgroup loads B's BN x 128 panel with TMA and, where
+//     phase 2 is a 1x1 product at stride 1 (A's rows are the codes' rows),
+//     A's BM x 128 box too (zeros past M and past Cp).  Otherwise the
+//     producer's threads gather A with cp.async, each one 16-byte chunk of
+//     one tap for BM / 16 rows (the rows' window origins worked out once a
+//     row tile, one row a thread, through shared memory), the window's
+//     padding and rows past M as cp.async's zero fill, and signal a stage's
+//     full barrier kLag stages later, once its copies have landed
+//     (cp.async.wait_group) and after a proxy fence that makes them visible
+//     to the tensor cores.  Past K the stage's A is left as it is: B is zero
+//     there (Kp is a multiple of 128, so every stage runs its four steps).
 //   * One or two consumer warpgroups (BM = 64 or 128) run wgmma
 //     m64nBNk32 s32.s8.s8 on a stage and wait with wgmma.wait_group 1, so a
-//     stage's products run while the next stage is waited for; the producer
-//     hands registers to the consumers (setmaxnreg) where there are two.
+//     stage's products run while the next stage is waited for, and free the
+//     stage through its empty barrier; the producer hands registers to the
+//     consumers (setmaxnreg) where there are two.
 //   * A tile plan a site, chosen on the host (ops/int8_ops.py:tile_plan):
 //     BM, BN = 64, 128 or 256 (by Cout: the packed codes are padded to it)
 //     and a split of K.  The grid is persistent (as many blocks as fit on
@@ -78,14 +93,15 @@
 //     arrive adds the others' partials (exact in any order), resets the
 //     counter for the next call and writes the tile.
 //   * The epilogue: a bf16 output with Cout % 8 == 0 goes through a
-//     warpgroup's own staging tile in shared memory (swizzled, no bank
-//     conflict) and leaves as whole 16-byte chunks a row, 128 columns a
-//     pass; other outputs go straight to y, two columns at a time where Cout
-//     is even.
+//     warpgroup's staging tile in shared memory (64 x 64 panels in TMA's
+//     swizzle, no bank conflict) and leaves by TMA stores, which run on
+//     while the next unit's products start; other outputs go straight to
+//     y, two columns at a time where Cout is even.
 //   * The dynamic shared memory size and the grid are set up at a variant's
 //     first launch on a device, so that a launch makes no other call of the
-//     runtime.  A wait of about ten seconds traps, so that a fault of the
-//     pipeline is a launch error, not a hung card.
+//     runtime than its tensor maps' encoding.  A wait of about ten seconds
+//     traps, so that a fault of the pipeline is a launch error, not a hung
+//     card.
 //
 // Plain C interface for ctypes; the entry point returns the launch's error
 // (or cudaErrorInvalidValue for arguments out of range).
@@ -130,11 +146,13 @@ template <int BM, int BN> struct Tile {
   static_assert(kStages >= kLag + 2, "the ring: the producer's lag and a stage being read");
   static_assert(kStages * kStageBytes >= 4 * kMaxWarps * (1 + kNearCap), "phase 1's lists");
   static_assert(kSmemBytes <= kMaxSmem, "shared memory of one block");
-  static_assert(2 * 8 * kStages + 4 <= kMiscBytes, "the mbarriers");
+  static_assert(16 * kStages + 4 <= kRowsOffset, "the mbarriers and the flag");
 };
 
 struct alignas(64) Params {
   CUtensorMap y_map;  // y as [M, Cout] bf16 in 64 x 64 boxes, 128-byte swizzle (tma_y)
+  CUtensorMap b_map;  // w as [Npad, Kp] int8 in BN x 128 boxes, 128-byte swizzle
+  CUtensorMap a_map;  // the codes as [pixels, Cp] int8 in BM x 128 boxes (tma_a)
   const void* x;
   const int8_t* w;
   const float* scale;
@@ -155,6 +173,7 @@ struct alignas(64) Params {
   int wide, sub, xH, xW, xkw, xsh, xsw, xpl;
   int x_fp32, y_fp32, vec;
   int tma_y;  // a bf16 y with Cout % 8 == 0: the epilogue stores with TMA
+  int tma_a;  // a 1x1 product at stride 1: A's rows are the codes' rows, loaded with TMA
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -171,6 +190,22 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// The box of a 2-D tensor map at (c0 inner, c1 outer) into shared memory;
+// its bytes complete the transaction count of the mbarrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
@@ -548,7 +583,8 @@ int8_conv_wgmma(const __grid_constant__ Params p) {
   }
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
-      mbar_init(full_bar + 8 * i, kProducerThreads);
+      // the TMA thread's expected bytes, and the A copies' lagged signals
+      mbar_init(full_bar + 8 * i, p.tma_a ? 1 : 1 + kProducerThreads);
       mbar_init(empty_bar + 8 * i, kConsumerThreads / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -563,10 +599,28 @@ int8_conv_wgmma(const __grid_constant__ Params p) {
   const int block = static_cast<int>(blockIdx.x), grid = static_cast<int>(gridDim.x);
 
   if (threadIdx.x >= kConsumerThreads) {
-    // the producer warpgroup: thread t copies 16-byte chunk t % 8 of rows
-    // t / 8 + 16 q of A and of B each stage
+    // the producer warpgroup: thread 0 loads B's panel (and, tma_a, A's
+    // rows) of each stage with TMA; otherwise thread t copies 16-byte chunk
+    // t % 8 of rows t / 8 + 16 q of A
     if constexpr (Tl::kConsumers == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     const int t = threadIdx.x - kConsumerThreads;
+    if (p.tma_a) {
+      if (t != 0) return;
+      int g = 0;
+      for (int u = block; u < units; u += grid) {
+        const int tile = u / p.splits, split = u - tile * p.splits;
+        const int mt = tile / n_tiles, n0 = (tile - mt * n_tiles) * BN;
+        for (int kb = split * nk / p.splits; kb < (split + 1) * nk / p.splits; ++kb, ++g) {
+          const int slot = g % S;
+          mbar_wait(empty_bar + 8 * slot, ((g / S) & 1) ^ 1);
+          const uint32_t a = base + slot * Tl::kStageBytes, bar = full_bar + 8 * slot;
+          mbar_expect_tx(bar, Tl::kStageBytes);  // rows past M, k past Cp: zeros
+          tma_load(a, &p.a_map, bar, kb * kBK, mt * BM);
+          tma_load(a + Tl::kABytes, &p.b_map, bar, kb * kBK, n0);
+        }
+      }
+      return;
+    }
     const int chunk = t & 7, r0 = t >> 3;
     const int swizzle = (chunk ^ (r0 & 7)) << 4;  // rows r0 + 16 q all have r % 8 = r0 % 8
     // row r0 + 16 q of the current row tile: the pixel offset of its window
@@ -610,6 +664,10 @@ int8_conv_wgmma(const __grid_constant__ Params p) {
         mbar_wait(empty_bar + 8 * slot, ((g / S) & 1) ^ 1);
         const uint32_t a = base + slot * Tl::kStageBytes;
         const uint32_t b = a + Tl::kABytes;
+        if (t == 0) {  // B's panel, with the stage's expected bytes
+          mbar_expect_tx(full_bar + 8 * slot, Tl::kBBytes);
+          tma_load(b, &p.b_map, full_bar + 8 * slot, kb * kBK, n0);
+        }
         const int k0 = kb * kBK + chunk * kChunk;
         if (k0 < p.K) {
           const int tap = k0 / p.Cp;
@@ -626,10 +684,6 @@ int8_conv_wgmma(const __grid_constant__ Params p) {
             cp_async16(a + (r0 + 16 * q) * kBK + swizzle, src, in ? 16 : 0);
           }
         }  // past K, B's codes are zero: whatever A's stage holds there adds nothing
-        const int8_t* src = p.w + static_cast<int64_t>(n0 + r0) * p.Kp + k0;
-#pragma unroll
-        for (int q = 0; q < BN / 16; ++q)
-          cp_async16(b + (r0 + 16 * q) * kBK + swizzle, src + static_cast<int64_t>(16 * q) * p.Kp);
         asm volatile("cp.async.commit_group;" ::: "memory");
         if (g >= kLag) {
           // stage g - kLag's copies have landed: visible to the tensor cores
@@ -814,18 +868,21 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// y as a row-major [M, Cout] bf16 matrix, stored in 64 x 64 boxes from
-// 128-byte swizzled panels; boxes past the edges are clipped.
-bool y_map(CUtensorMap* map, void* y, uint64_t cout, uint64_t m) {
+// A row-major [rows, inner] matrix of 1-byte (int8) or 2-byte (bf16)
+// elements in boxes of box_rows x box_inner, 128-byte swizzle; loads past
+// the edges fill zeros, stores past them are clipped.
+bool tensor_map(CUtensorMap* map, const void* ptr, int elem_bytes, uint64_t inner, uint64_t rows,
+                uint32_t box_inner, uint32_t box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {cout, m};
-  const cuuint64_t strides[1] = {cout * 2};
-  const cuuint32_t box[2] = {64, 64};
+  const cuuint64_t dims[2] = {inner, rows};
+  const cuuint64_t strides[1] = {inner * elem_bytes};
+  const cuuint32_t box[2] = {box_inner, box_rows};
   const cuuint32_t steps[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, y, dims, strides, box, steps,
+  return encode(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                2, const_cast<void*>(ptr), dims, strides, box, steps,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }
 
@@ -963,8 +1020,12 @@ int pf_int8_conv(const void* x, const int8_t* w, const float* scale, const float
   p.y_fp32 = y_fp32;
   p.vec = vec;
   p.tma_y = !y_fp32 && Cout % 8 == 0;
-  if (p.tma_y && (reinterpret_cast<uintptr_t>(y) % 16 ||
-                  !y_map(&p.y_map, y, static_cast<uint64_t>(Cout), static_cast<uint64_t>(M))))
+  // A's rows are the codes' rows where phase 2 is a 1x1 product at stride 1
+  p.tma_a = kh == 1 && kw2 == 1 && sh2 == 1 && sw2 == 1 && pad_top == 0 && pl2 == 0;
+  if ((p.tma_y && (reinterpret_cast<uintptr_t>(y) % 16 ||
+                   !tensor_map(&p.y_map, y, 2, Cout, M, 64, 64))) ||
+      reinterpret_cast<uintptr_t>(w) % 16 || !tensor_map(&p.b_map, w, 1, Kp, Npad, kBK, bn) ||
+      (p.tma_a && !tensor_map(&p.a_map, codes, 1, Cp, pixels, kBK, bm)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int u = static_cast<int>(units);

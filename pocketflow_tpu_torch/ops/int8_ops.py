@@ -324,8 +324,9 @@ class Int8Site:
     both padded with zeros to the column tile, the packed codes (on CUDA),
     the conv's strides and padding, the output dtype, the kernel's launch
     for each input layout it has served (checked and laid out once), and
-    the kernel's tile plan for each row count it has served ({M: (TilePlan, counters)}: on
-    CUDA the plan's counters [2 + tiles], made zero: the grid barrier's
+    the kernel's tile plan for each row count it has served ({M: (TilePlan,
+    counters)}: on CUDA the plan's counters [2 + tiles], made zero: the
+    grid barrier's
     arrivals, which each launch leaves zero, its generation, which each
     launch advances, and a count a tile, which each launch leaves zero; a
     site's launches run one after another on one stream)."""
@@ -565,10 +566,11 @@ def _library() -> ctypes.CDLL:
 @dataclasses.dataclass
 class _Launch:
     """The kernel's launch of a site for one input layout, worked out once:
-    the output's NHWC shape, the workspace's bytes (the codes, then the
-    split-K partials), the plan's counters, whether x's channels allow
-    16-byte loads, and the entry point's geometry (csrc/int8_conv.cu:
-    pf_int8_conv), a ctypes int array."""
+    the tile plan, the output's NHWC shape, the workspace's bytes (the
+    codes, then the split-K partials), the plan's counters, whether x's
+    channels allow 16-byte loads, and the entry point's geometry
+    (csrc/int8_conv.cu: pf_int8_conv), a ctypes int array."""
+    plan: TilePlan
     y_shape: Tuple[int, ...]
     codes_bytes: int
     partial_bytes: int
@@ -577,7 +579,7 @@ class _Launch:
     geometry: ctypes.Array
 
 
-def _prepare_launch(x: torch.Tensor, site: Int8Site) -> _Launch:
+def _prepare_launch(x: torch.Tensor, site: Int8Site, aligned: bool) -> _Launch:
     n, h, w, c, ho, wo, top, left = _check_conv(x, site)
     if site.packed is None or site.packed.device != x.device:
         raise ValueError('int8_conv: the site has no packed codes on %s' % x.device)
@@ -593,10 +595,23 @@ def _prepare_launch(x: torch.Tensor, site: Int8Site) -> _Launch:
     geometry = (x.dtype == torch.float32, site.out_dtype == torch.float32, n, h, w, c, cp, ho, wo,
                 cout, npad, kp, kh, kw, site.strides[0], site.strides[1], top, left, wide,
                 plan.bm, plan.bn, plan.splits)
-    return _Launch((n, cout) if site.dense else (n, ho, wo, cout),
+    return _Launch(plan, (n, cout) if site.dense else (n, ho, wo, cout),
                    n * (ho if sub else h) * (wo if wide or sub else w) * cp,
                    units * plan.bm * plan.bn * 4 if plan.splits > 1 else 0, counters,
-                   c % 8 == 0 and not wide, (ctypes.c_int * len(geometry))(*geometry))
+                   aligned and c % 8 == 0 and not wide, (ctypes.c_int * len(geometry))(*geometry))
+
+
+def launch_plan(x: torch.Tensor, site: Int8Site) -> TilePlan:
+    """The tile plan of the kernel's launch for x (a CUDA tensor)."""
+    return _launch(x, site).plan
+
+
+def _launch(x: torch.Tensor, site: Int8Site) -> _Launch:
+    key = (x.shape, x.stride(), x.dtype, x.device, x.data_ptr() % 16 == 0)
+    launch = site.launches.get(key)
+    if launch is None:
+        launch = site.launches[key] = _prepare_launch(x, site, key[-1])
+    return launch
 
 
 def int8_conv(x: torch.Tensor, site: Int8Site) -> torch.Tensor:
@@ -611,10 +626,7 @@ def int8_conv(x: torch.Tensor, site: Int8Site) -> torch.Tensor:
     if x.device.type != 'cuda':
         _check_conv(x, site)
         return int8_conv_plain(x, site)
-    key = (x.shape, x.stride(), x.dtype, x.device)
-    launch = site.launches.get(key)
-    if launch is None:
-        launch = site.launches[key] = _prepare_launch(x, site)
+    launch = _launch(x, site)
     y = torch.empty(launch.y_shape, dtype=site.out_dtype, device=x.device)
     workspace = torch.empty(launch.codes_bytes + launch.partial_bytes, dtype=torch.uint8,
                             device=x.device)
@@ -623,7 +635,7 @@ def int8_conv(x: torch.Tensor, site: Int8Site) -> torch.Tensor:
         x_ptr, site.packed.data_ptr(), site.scale.data_ptr(), site.x_scale.data_ptr(),
         None if site.bias is None else site.bias.data_ptr(), y.data_ptr(), ws_ptr,
         ws_ptr + launch.codes_bytes if launch.partial_bytes else None,
-        launch.counters.data_ptr(), launch.geometry, launch.vec and x_ptr % 16 == 0,
+        launch.counters.data_ptr(), launch.geometry, launch.vec,
         # the raw handle of the current stream (torch.cuda.current_stream
         # builds a Stream object: several microseconds a call)
         torch._C._cuda_getCurrentRawStream(x.get_device()))

@@ -517,7 +517,13 @@ def _int8_site(device, kshape, strides=(1, 1), padding='SAME', out_dtype=torch.b
     ((1, 1, 35, 71), (1, 1), 'SAME', 28, torch.bfloat16),
     ((1, 1, 563, 561), (1, 1), 'SAME', 7, torch.bfloat16),
     ((1, 1, 141, 139), (2, 2), 'SAME', 14, torch.bfloat16),
-    ((561, 1000), None, None, None, torch.bfloat16)])
+    ((561, 1000), None, None, None, torch.bfloat16),
+    # 1x1 products at stride 1 (A's rows loaded with TMA): ragged M, odd
+    # Cout, each column tile
+    ((1, 1, 64, 53), (1, 1), 'SAME', 13, torch.bfloat16),
+    ((1, 1, 32, 64), (1, 1), 'SAME', 30, torch.bfloat16),
+    ((1, 1, 136, 128), (1, 1), 'SAME', 13, torch.bfloat16),
+    ((1, 1, 128, 256), (1, 1), 'SAME', 14, torch.bfloat16)])
 def test_int8_kernel_equals_plain(cuda, kshape, strides, padding, size, dtype):
     from pocketflow_tpu_torch.ops import int8_ops as ti8
     dense = len(kshape) == 2
