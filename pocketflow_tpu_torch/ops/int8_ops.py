@@ -39,9 +39,11 @@ On the card a site is one kernel (``int8_conv``, ``csrc/int8_conv.cu``; its
 header says why it exists, what bounds it and how it is built), one launch
 in two phases: it quantizes the layer's bf16 or fp32 NHWC input once an
 element into int8 codes with the channels padded to ``Cp`` (C rounded up to
-16, code 0 past C), then contracts the codes' im2col rows on the int8
-tensor cores against the weights packed once per device with the same
-channel padding (``pack_weights``: K-major [Npad, Kp], K = kh * kw * Cp),
+16, code 0 past C; the stems' window rows laid out as channels,
+``wide_taps``; a strided 1x1 conv's read pixels only, ``subsampled``), then
+contracts the codes' im2col rows on the int8 tensor cores against the
+weights packed once per device with the same channel padding
+(``pack_weights``: K-major [Npad, Kp], K = kh * kw * Cp),
 adds the layer's bias in fp32 where it has one (its own bias add) and
 writes the layer's dtype.  Each site takes a tile plan chosen on the host
 once for its shape (``tile_plan``: the tile's rows and columns and a split
