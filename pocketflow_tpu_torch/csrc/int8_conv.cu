@@ -48,7 +48,8 @@
 //     group.  Its arithmetic avoids the conversion instructions, which run
 //     at a quarter of the ALUs' rate (quantize8()), and the rare values
 //     that need the division go on a per-warp list in shared memory that the
-//     block redoes after its loop (no atomic, no branch in the loop).  A
+//     warp redoes after its loop (no atomic, no branch in the loop; a group
+//     past a full list is redone at once).  A
 //     grid-wide barrier follows (a self-resetting arrival count and
 //     generation in the site's counters; the cooperative launch makes every
 //     block resident, or refuses the launch, so the barrier cannot hang).
@@ -118,7 +119,7 @@ constexpr int kBK = 128;              // k a stage: one 128-byte row of codes
 constexpr int kChunk = 16;            // codes a 16-byte chunk; Cp is a multiple of it
 constexpr int kGroup = 8;             // phase 1: codes a thread makes at a time
 constexpr int kGroupsInFlight = 8;    // phase 1: groups a thread loads before it quantizes them
-constexpr int kNearCap = 256;         // phase 1: groups a warp lists to redo with divisions
+constexpr int kNearCap = 2047;        // phase 1: groups a warp lists to redo with divisions
 constexpr int kMaxWarps = 16;
 constexpr int kProducerThreads = 128;
 constexpr int kProducerRegs = 56;     // setmaxnreg with two consumer warpgroups:
@@ -494,9 +495,9 @@ __device__ __forceinline__ uint2 exact8(const Params& p, int v, int gq, float s,
 // kGroupsInFlight groups' loads in flight a thread.  A group with a value
 // near a half-integer goes on its warp's list in shared memory (`near`: a
 // count a warp, then the lists; the warp's count kept in registers, the
-// same in every lane, so that no atomic is needed), and the block redoes
-// the listed groups with exact8() after its loop; should a list overflow,
-// the block redoes all its groups so.
+// same in every lane, so that no atomic is needed), and the warp redoes
+// its listed groups with exact8() after its loop; a group past a full list
+// is redone at once.
 template <typename T>
 __device__ __forceinline__ void quantize_input(const Params& p, float s, float r, int* near) {
   constexpr int kWords = Group<T>::kWords;
@@ -529,22 +530,21 @@ __device__ __forceinline__ void quantize_input(const Params& p, float s, float r
       const unsigned ballot = __ballot_sync(active, flagged >> q & 1u);
       if (flagged >> q & 1u) {
         const int slot = listed + __popc(ballot & ((1u << lane) - 1u));
-        if (slot < kNearCap) list[slot] = v0 + q * stride;
+        const int v = v0 + q * stride;
+        if (slot < kNearCap)
+          list[slot] = v;
+        else
+          codes[v] = exact8<T>(p, v, gq, s, r);
       }
       listed += __popc(ballot);
     }
   }
   // lane 0 took part in every pass of its warp (it has the lowest v0)
-  if (lane == 0) near[warp] = listed;
-  const bool overflow = __syncthreads_or(listed > kNearCap);
-  if (!overflow) {
-    const int n = near[warp];
-    for (int i = lane; i < n; i += 32) {
-      const int v = list[i];
-      codes[v] = exact8<T>(p, v, gq, s, r);
-    }
-  } else {
-    for (int v = first; v < groups; v += stride) codes[v] = exact8<T>(p, v, gq, s, r);
+  if (lane == 0) near[warp] = min(listed, kNearCap);
+  __syncwarp();
+  for (int i = lane; i < near[warp]; i += 32) {
+    const int v = list[i];
+    codes[v] = exact8<T>(p, v, gq, s, r);
   }
 }
 

@@ -573,8 +573,8 @@ def test_int8_kernel_split_k_equals_plain(cuda, kshape, rows, out_dtype):
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 def test_int8_kernel_divides_near_half_values(cuda, share, dtype):
     """Inputs whose quotient by x_scale is a half-integer (a share of them,
-    or all: every warp's list of such groups overflows, and the blocks redo
-    all their groups): the kernel rounds them as the IEEE division and
+    or all: every warp's list of such groups fills, and the groups past it
+    are redone at once): the kernel rounds them as the IEEE division and
     torch.round do, half to even."""
     from pocketflow_tpu_torch.ops import int8_ops as ti8
     gen = torch.Generator().manual_seed(3)
