@@ -3316,23 +3316,18 @@ class DetStepProbe:
     host time of the DET_TIMED steps after DET_WARMUP (synchronized at the
     window's edges only); then DET_PROFILED steps under the profiler, the
     device only (busy time, idle share, layers); then DET_PROFILED steps
-    with the host's ops recorded and the detection ranges named
-    (tools/profile_step.py), which slows the host."""
+    with the host's ops recorded, for the detection spans the program names
+    (tools/profile_step.py's RANGES), which slows the host."""
 
     def __init__(self):
         self.index, self.window_ms, self.profile = 0, None, None
-        self._t0 = self._stack = self._prof = None
+        self._t0 = self._prof = None
 
     def _start(self, ranges: bool):
-        import contextlib
         from torch.profiler import ProfilerActivity, profile
-        from pocketflow_tpu_torch.tools import profile_step
-        self._stack = contextlib.ExitStack()
-        activities = [ProfilerActivity.CUDA]
-        if ranges:
-            self._stack.enter_context(profile_step.detection_ranges())
-            activities.append(ProfilerActivity.CPU)
-        self._prof = self._stack.enter_context(profile(activities=activities))
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
+        self._prof = profile(activities=activities)
+        self._prof.start()
 
     def __call__(self, when, state):
         from pocketflow_tpu_torch.tools import profile_step
@@ -3351,13 +3346,14 @@ class DetStepProbe:
         self.index += 1
         if self.index in (first_profiled + DET_PROFILED, DET_STEPS):
             torch.cuda.synchronize()
-            self._stack.close()
+            self._prof.stop()
             if self.index < DET_STEPS:
                 self.profile = profile_step.summarize(profile_step.device_events(self._prof),
                                                       DET_PROFILED)
             else:
-                self.profile['by_range_ms_per_step'] = profile_step.range_times(
-                    self._prof, DET_PROFILED)
+                spans = profile_step.range_times(self._prof, DET_PROFILED)
+                self.profile['by_range_ms_per_step'] = {
+                    name: spans[name] for name in profile_step.RANGES if name in spans}
 
 
 def detection_list(helper):

@@ -1,15 +1,41 @@
-"""Profiler hook of the train loop (counterpart of pocketflow_tpu/core/profiling.py).
+"""Profiler hook of the train loop (counterpart of pocketflow_tpu/core/profiling.py)
+and the program's spans.
 
 With ``--enbl_profiler``, ``torch.profiler`` traces steps
 [profiler_start_step, profiler_start_step + profiler_nb_steps) into
 ``<log_dir>/profile`` as a Chrome trace (``trace_steps_<a>-<b>.json``): the
 host's ops and, when the model is on the card, its kernels, copies and
 memsets.  Each traced step is a user annotation ``train_step_<i>``;
-``tools/profile_step.py:trace_summary`` reads such a file back.
+``tools/profile_step.py:trace_summary`` reads such a file back, with the
+device ms, host ms and launches of each program span.
+
+``span(name, detail)`` names a part of the program for whatever profiler
+records: ``record_function('pf.<name>[ <detail>]')``, in the same trace as
+the kernels it launches, so that each kernel and each idle gap of the card
+can be put down to the span the host was in.  While no profiler records it
+returns one shared no-op context and formats nothing.  The spans, from the
+train step down:
+
+    pf.train.augment          the step's augmentation (``augment_xy``)
+    pf.train.forward          the policy, the forward, the loss and any extra loss
+    pf.train.backward         zero_grad and the backward (autograd's own ops)
+    pf.train.grad_sync        the gradient all-reduce; returns at once at world 1
+    pf.train.update           gradient transform, the optimizer step, post-update
+                              (uniform-tf's range EMA)
+    pf.quant.act              an activation site's quantization: its range
+                              record and the fake-quant (sites at < 32 bits)
+    pf.quant.act_backward     the STE backward of an activation site, on
+                              autograd's thread
+    pf.int8.site <path>       one int8 serving site's wrapper and kernel
+    pf.remat.recompute <blk>  a remat block's recompute in the backward
+    pf.det.loss               a detector's calc_loss (matching, targets, loss)
+    pf.det.propose            Faster R-CNN's proposal layer (top-k, NMS)
+    pf.det.roi_align          Faster R-CNN's ROI-align (forward)
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional
 
@@ -18,11 +44,27 @@ import torch
 from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core.metrics import get_logger
 
+# the help is the JAX registry's, word for word, as for every global flag
 FLAGS.DEFINE_boolean('enbl_profiler', False, 'capture a jax.profiler trace')
 FLAGS.DEFINE_integer('profiler_start_step', 10, 'first step of the trace window')
 FLAGS.DEFINE_integer('profiler_nb_steps', 5, '# of steps to trace')
 
 STEP_PREFIX = 'train_step_'  # the annotation of each traced step
+SPAN_PREFIX = 'pf.'  # the annotation of each program span
+
+_OFF = contextlib.nullcontext()
+_recording = torch.autograd._profiler_enabled
+
+
+def span(name: str, detail: Optional[str] = None):
+    """The context of program span ``pf.<name>`` (``pf.<name> <detail>``
+    with a detail): a ``record_function`` while a profiler records, else
+    the shared no-op."""
+    if not _recording():
+        return _OFF
+    if detail is not None:
+        name = '%s %s' % (name, detail)
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 class ProfilerHook:

@@ -52,7 +52,7 @@ from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core import checkpoint as ckpt_lib
 from pocketflow_tpu_torch.core import mesh
 from pocketflow_tpu_torch.core.metrics import ProgressMonitor, SummaryWriter, get_logger
-from pocketflow_tpu_torch.core.profiling import ProfilerHook
+from pocketflow_tpu_torch.core.profiling import ProfilerHook, span
 from pocketflow_tpu_torch.core.schedules import Schedule
 from pocketflow_tpu_torch.nn import layers
 from pocketflow_tpu_torch.nn.layers import CompressionPolicy
@@ -250,34 +250,39 @@ class AbstractLearner(ABC):
 
         def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                     generator: Optional[torch.Generator]):
-            images, labels = augment_xy(batch, generator, True)
-            policy = policy_fn(state) if policy_fn is not None else None
-            if frozen_bn:
-                outputs = helper.forward_eval(state.model, images, policy=policy)
-            else:
-                outputs = helper.forward_train(
-                    state.model, images, policy=policy,
-                    labels=labels if self.forward_w_labels else None)
-            params = state.params.items()
-            if loss_takes_step:
-                loss, metrics = helper.calc_loss(labels, outputs, params, step=state.step)
-            else:
-                loss, metrics = helper.calc_loss(labels, outputs, params)
-            if loss_extra_fn is not None:
-                extra_loss, extra_metrics = loss_extra_fn(state, outputs, images, labels)
-                loss = loss + extra_loss
-                metrics = {**metrics, **extra_metrics}
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            # the gradient of the global batch's mean loss, before any transform
-            mesh.all_reduce_grads_([p for group in state.optimizer.param_groups
-                                    for p in group['params']])
-            if grad_transform_fn is not None:
-                grad_transform_fn(state)
-            tx.update(state.optimizer, state.step)
-            state.step += 1
-            if post_update_fn is not None:
-                state = post_update_fn(state)
+            with span('train.augment'):
+                images, labels = augment_xy(batch, generator, True)
+            with span('train.forward'):
+                policy = policy_fn(state) if policy_fn is not None else None
+                if frozen_bn:
+                    outputs = helper.forward_eval(state.model, images, policy=policy)
+                else:
+                    outputs = helper.forward_train(
+                        state.model, images, policy=policy,
+                        labels=labels if self.forward_w_labels else None)
+                params = state.params.items()
+                if loss_takes_step:
+                    loss, metrics = helper.calc_loss(labels, outputs, params, step=state.step)
+                else:
+                    loss, metrics = helper.calc_loss(labels, outputs, params)
+                if loss_extra_fn is not None:
+                    extra_loss, extra_metrics = loss_extra_fn(state, outputs, images, labels)
+                    loss = loss + extra_loss
+                    metrics = {**metrics, **extra_metrics}
+            with span('train.backward'):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with span('train.grad_sync'):
+                # the gradient of the global batch's mean loss, before any transform
+                mesh.all_reduce_grads_([p for group in state.optimizer.param_groups
+                                        for p in group['params']])
+            with span('train.update'):
+                if grad_transform_fn is not None:
+                    grad_transform_fn(state)
+                tx.update(state.optimizer, state.step)
+                state.step += 1
+                if post_update_fn is not None:
+                    state = post_update_fn(state)
             metrics = {'loss': loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
             return state, metrics
 

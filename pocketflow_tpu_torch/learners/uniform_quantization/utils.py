@@ -21,6 +21,7 @@ import torch
 
 from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core import mesh
+from pocketflow_tpu_torch.core.profiling import span
 from pocketflow_tpu_torch.nn.layers import (
     CompressionPolicy, PFConv, PFDense, compression, recomputing)
 from pocketflow_tpu_torch.ops import fake_quant as fq
@@ -151,7 +152,8 @@ class QuantPolicy(CompressionPolicy):
             return act
         idx = int(path.split('/')[1])  # call-order site id assigned by relu()
         # bits >= 32 means full precision: the select is inside the op
-        return fq.fake_quant_act_select(act, self.a_bits[idx])
+        with span('quant.act'):
+            return fq.fake_quant_act_select(act, self.a_bits[idx])
 
 
 def bits_state(statistics: Dict[str, Any], w_bit_list=None, a_bit_list=None, *,

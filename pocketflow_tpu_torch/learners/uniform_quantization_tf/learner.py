@@ -33,6 +33,7 @@ import torch
 
 from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core import mesh
+from pocketflow_tpu_torch.core.profiling import span
 from pocketflow_tpu_torch.learners.abstract_learner import AbstractLearner, Sgd, TrainState
 from pocketflow_tpu_torch.learners.distillation_helper import DistillationHelper
 from pocketflow_tpu_torch.learners.uniform_quantization import utils as uq_utils
@@ -114,11 +115,13 @@ class RangeQuantPolicy(CompressionPolicy):
         if not path.startswith('act/') or self.act_min.shape[0] == 0:
             return act
         idx = int(path.split('/')[1])
-        if self.record and not recomputing():  # a recompute records nothing
-            self.batch_ranges.append((idx, torch.stack(torch.aminmax(act.detach()))))
-        if not self.enabled:
-            return act
-        return fq.fake_quant_with_range(act, self.act_min[idx], self.act_max[idx], self.a_bits)
+        with span('quant.act'):
+            if self.record and not recomputing():  # a recompute records nothing
+                self.batch_ranges.append((idx, torch.stack(torch.aminmax(act.detach()))))
+            if not self.enabled:
+                return act
+            return fq.fake_quant_with_range(act, self.act_min[idx], self.act_max[idx],
+                                            self.a_bits)
 
     def update_ranges(self, ema: float):
         """act_min, act_max <- ema * old + (1 - ema) * this forward's batch

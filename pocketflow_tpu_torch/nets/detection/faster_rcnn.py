@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from pocketflow_tpu_torch.core.profiling import span
 from pocketflow_tpu_torch.nets.detection import anchors as anchor_lib
 from pocketflow_tpu_torch.nets.detection.anchors import gather_rows
 from pocketflow_tpu_torch.nets.detection.ssd_loss import smooth_l1
@@ -70,10 +71,11 @@ def propose(rpn_scores: torch.Tensor, rpn_deltas: torch.Tensor, anchors: torch.T
     """The proposal layer: the top nb_pre_nms anchors by objectness
     (rpn_scores [B, A]), decoded (rpn_deltas [B, A, 4], anchors [A, 4]), then
     NMS.  Returns (proposal boxes [B, nb_proposals, 4], valid [B, nb_proposals])."""
-    scores, order = top_k_stable(rpn_scores, min(nb_pre_nms, rpn_scores.shape[1]))
-    boxes = anchor_lib.decode_boxes(gather_rows(rpn_deltas, order), anchors[order])
-    idx, valid = nms_fixed(boxes, scores, nb_proposals, iou_threshold)
-    return gather_rows(boxes, idx), valid
+    with span('det.propose'):
+        scores, order = top_k_stable(rpn_scores, min(nb_pre_nms, rpn_scores.shape[1]))
+        boxes = anchor_lib.decode_boxes(gather_rows(rpn_deltas, order), anchors[order])
+        idx, valid = nms_fixed(boxes, scores, nb_proposals, iou_threshold)
+        return gather_rows(boxes, idx), valid
 
 
 def roi_linspace(lo: torch.Tensor, hi: torch.Tensor, num: int) -> torch.Tensor:
@@ -89,23 +91,24 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, output_size: int = 7) 
     """Bilinear ROI-align: features [B, H, W, C] (NHWC), rois [B, R, 4]
     normalized (ymin, xmin, ymax, xmax) -> [B, R, S, S, C].  Each output
     point samples its 4 neighbours at (y0, x0) clipped to [0, H-2] x [0, W-2]."""
-    nb_img, height, width, _ = features.shape
-    ys = roi_linspace(rois[..., 0], rois[..., 2], output_size) * (height - 1)   # [B, R, S]
-    xs = roi_linspace(rois[..., 1], rois[..., 3], output_size) * (width - 1)
-    # a NaN coordinate indexes row 0 (XLA converts NaN to the integer 0) and
-    # yields NaN through its weight, never an index out of range
-    y0 = torch.nan_to_num(torch.floor(ys), nan=0.0).clamp(0, height - 2).long()
-    x0 = torch.nan_to_num(torch.floor(xs), nan=0.0).clamp(0, width - 2).long()
-    wy = (ys - y0).clamp(0.0, 1.0)[..., :, None, None]                         # [B, R, S, 1, 1]
-    wx = (xs - x0).clamp(0.0, 1.0)[..., None, :, None]                         # [B, R, 1, S, 1]
-    b = torch.arange(nb_img, device=features.device)[:, None, None, None]
-    yi, xi = y0[..., :, None], x0[..., None, :]                                # [B, R, S, 1/S]
-    f00 = features[b, yi, xi]
-    f01 = features[b, yi, xi + 1]
-    f10 = features[b, yi + 1, xi]
-    f11 = features[b, yi + 1, xi + 1]
-    return (f00 * (1 - wy) * (1 - wx) + f01 * (1 - wy) * wx
-            + f10 * wy * (1 - wx) + f11 * wy * wx)
+    with span('det.roi_align'):
+        nb_img, height, width, _ = features.shape
+        ys = roi_linspace(rois[..., 0], rois[..., 2], output_size) * (height - 1)   # [B, R, S]
+        xs = roi_linspace(rois[..., 1], rois[..., 3], output_size) * (width - 1)
+        # a NaN coordinate indexes row 0 (XLA converts NaN to the integer 0) and
+        # yields NaN through its weight, never an index out of range
+        y0 = torch.nan_to_num(torch.floor(ys), nan=0.0).clamp(0, height - 2).long()
+        x0 = torch.nan_to_num(torch.floor(xs), nan=0.0).clamp(0, width - 2).long()
+        wy = (ys - y0).clamp(0.0, 1.0)[..., :, None, None]                         # [B, R, S, 1, 1]
+        wx = (xs - x0).clamp(0.0, 1.0)[..., None, :, None]                         # [B, R, 1, S, 1]
+        b = torch.arange(nb_img, device=features.device)[:, None, None, None]
+        yi, xi = y0[..., :, None], x0[..., None, :]                                # [B, R, S, 1/S]
+        f00 = features[b, yi, xi]
+        f01 = features[b, yi, xi + 1]
+        f10 = features[b, yi + 1, xi]
+        f11 = features[b, yi + 1, xi + 1]
+        return (f00 * (1 - wy) * (1 - wx) + f01 * (1 - wy) * wx
+                + f10 * wy * (1 - wx) + f11 * wy * wx)
 
 
 def _match_gt(boxes: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Tensor):

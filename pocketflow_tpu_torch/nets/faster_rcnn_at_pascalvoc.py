@@ -32,6 +32,7 @@ from torch import nn
 
 from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core import schedules
+from pocketflow_tpu_torch.core.profiling import span
 from pocketflow_tpu_torch.datasets.pascalvoc import PascalVocDataset
 from pocketflow_tpu_torch.nets.abstract_model_helper import AbstractModelHelper
 from pocketflow_tpu_torch.nets.detection import anchors as anchor_lib
@@ -282,26 +283,27 @@ class ModelHelper(DetectionHelperMixin, AbstractModelHelper):
             return model(inputs, labels=labels)
 
     def calc_loss(self, labels, outputs, trainable_vars):
-        labels = labels.to(torch.float32)
-        gt_boxes, gt_cls, gt_valid = labels[..., 1:5], labels[..., 0], labels[..., 5]
-        rpn_lab, rpn_t = frcnn.rpn_targets(gt_boxes, gt_valid, outputs['anchors'])
-        l_rpn = frcnn.rpn_loss(outputs['obj_logits'], outputs['rpn_deltas'], rpn_lab, rpn_t)
-        metrics = {}
-        if 'roi_cls_targets' in outputs:  # the sampled minibatch: targets from the forward
-            cls_t, box_t = outputs['roi_cls_targets'], outputs['roi_box_targets']
-            fg, vmask = outputs['roi_fg'], outputs['roi_valid']
-            metrics['nb_fg_rois'] = fg.sum(dim=1).mean()
-        else:  # eval outputs (every proposal): targets assigned here
-            cls_t, box_t, fg, vmask = frcnn.proposal_targets(
-                outputs['roi_boxes'], outputs['proposal_valid'], gt_boxes, gt_cls, gt_valid)
-        l_rcnn = frcnn.rcnn_loss(outputs['cls_logits'], outputs['box_deltas'], cls_t, box_t,
-                                 fg, vmask)
-        pred = outputs['cls_logits'].argmax(dim=-1)
-        acc = ((pred == cls_t) * fg).sum(dim=1) / fg.sum(dim=1).clamp(min=1.0)
-        loss = l_rpn.mean() + l_rcnn.mean()
-        loss = loss + self.weight_decay_loss(trainable_vars, exclude_bn=True).to(loss.device)
-        return loss, {'rpn_loss': l_rpn.mean(), 'rcnn_loss': l_rcnn.mean(),
-                      'accuracy': acc.mean(), **metrics}
+        with span('det.loss'):
+            labels = labels.to(torch.float32)
+            gt_boxes, gt_cls, gt_valid = labels[..., 1:5], labels[..., 0], labels[..., 5]
+            rpn_lab, rpn_t = frcnn.rpn_targets(gt_boxes, gt_valid, outputs['anchors'])
+            l_rpn = frcnn.rpn_loss(outputs['obj_logits'], outputs['rpn_deltas'], rpn_lab, rpn_t)
+            metrics = {}
+            if 'roi_cls_targets' in outputs:  # the sampled minibatch: targets from the forward
+                cls_t, box_t = outputs['roi_cls_targets'], outputs['roi_box_targets']
+                fg, vmask = outputs['roi_fg'], outputs['roi_valid']
+                metrics['nb_fg_rois'] = fg.sum(dim=1).mean()
+            else:  # eval outputs (every proposal): targets assigned here
+                cls_t, box_t, fg, vmask = frcnn.proposal_targets(
+                    outputs['roi_boxes'], outputs['proposal_valid'], gt_boxes, gt_cls, gt_valid)
+            l_rcnn = frcnn.rcnn_loss(outputs['cls_logits'], outputs['box_deltas'], cls_t, box_t,
+                                     fg, vmask)
+            pred = outputs['cls_logits'].argmax(dim=-1)
+            acc = ((pred == cls_t) * fg).sum(dim=1) / fg.sum(dim=1).clamp(min=1.0)
+            loss = l_rpn.mean() + l_rcnn.mean()
+            loss = loss + self.weight_decay_loss(trainable_vars, exclude_bn=True).to(loss.device)
+            return loss, {'rpn_loss': l_rpn.mean(), 'rcnn_loss': l_rcnn.mean(),
+                          'accuracy': acc.mean(), **metrics}
 
     def setup_lrn_rate(self, global_batch_size: int):
         nb_epochs = 25

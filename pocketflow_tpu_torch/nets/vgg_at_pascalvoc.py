@@ -16,6 +16,7 @@ import torch
 
 from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core import schedules
+from pocketflow_tpu_torch.core.profiling import span
 from pocketflow_tpu_torch.datasets.pascalvoc import PascalVocDataset
 from pocketflow_tpu_torch.nets.abstract_model_helper import AbstractModelHelper
 from pocketflow_tpu_torch.nets.detection import anchors as anchor_lib
@@ -78,26 +79,27 @@ class ModelHelper(DetectionHelperMixin, AbstractModelHelper):
                       nb_anchors_per_cell=2 + len(SSD_ASPECTS[0]), dtype=dtype)
 
     def calc_loss(self, labels, outputs, trainable_vars, step=None):
-        cls_logits, box_deltas = outputs
-        labels = labels.to(torch.float32)
-        loss, metrics = loss_lib.ssd_loss(
-            cls_logits, box_deltas, labels, self.anchors(cls_logits.device),
-            negative_ratio=FLAGS.ssd_negative_ratio, pos_threshold=FLAGS.ssd_match_threshold)
-        if step is not None:
-            # the train step's classification warm-up: w * cls + loc with
-            # w = min(step / nb_iters_cls_wmup, 1) in fp32; eval and the
-            # compression finetunes' own steps pass no step
-            w_cls = min(np.float32(step) / np.float32(FLAGS.nb_iters_cls_wmup), np.float32(1.0))
-            loss = float(w_cls) * metrics['cls_loss'] + metrics['loc_loss']
-        loss = loss + self.weight_decay_loss(trainable_vars, exclude_bn=True).to(loss.device)
-        # proxy accuracy: the share of images whose best-scoring anchor class
-        # is among their ground truths
-        fg = torch.softmax(cls_logits, dim=-1)[..., 1:]
-        best_flat = fg.reshape(fg.shape[0], -1).argmax(dim=1)
-        best_cls = best_flat % (self.nb_classes - 1) + 1
-        gt_cls = labels[..., 0].to(torch.int32)
-        hit = ((gt_cls == best_cls[:, None]) & (labels[..., 5] > 0.5)).any(dim=1)
-        return loss, {**metrics, 'accuracy': hit.to(torch.float32).mean()}
+        with span('det.loss'):
+            cls_logits, box_deltas = outputs
+            labels = labels.to(torch.float32)
+            loss, metrics = loss_lib.ssd_loss(
+                cls_logits, box_deltas, labels, self.anchors(cls_logits.device),
+                negative_ratio=FLAGS.ssd_negative_ratio, pos_threshold=FLAGS.ssd_match_threshold)
+            if step is not None:
+                # the train step's classification warm-up: w * cls + loc with
+                # w = min(step / nb_iters_cls_wmup, 1) in fp32; eval and the
+                # compression finetunes' own steps pass no step
+                w_cls = min(np.float32(step) / np.float32(FLAGS.nb_iters_cls_wmup), np.float32(1.0))
+                loss = float(w_cls) * metrics['cls_loss'] + metrics['loc_loss']
+            loss = loss + self.weight_decay_loss(trainable_vars, exclude_bn=True).to(loss.device)
+            # proxy accuracy: the share of images whose best-scoring anchor class
+            # is among their ground truths
+            fg = torch.softmax(cls_logits, dim=-1)[..., 1:]
+            best_flat = fg.reshape(fg.shape[0], -1).argmax(dim=1)
+            best_cls = best_flat % (self.nb_classes - 1) + 1
+            gt_cls = labels[..., 0].to(torch.int32)
+            hit = ((gt_cls == best_cls[:, None]) & (labels[..., 5] > 0.5)).any(dim=1)
+            return loss, {**metrics, 'accuracy': hit.to(torch.float32).mean()}
 
     def setup_lrn_rate(self, global_batch_size: int):
         nb_epochs = 120  # SSD-VOC recipe

@@ -48,6 +48,7 @@ from torch import nn
 
 from pocketflow_tpu_torch.config import FLAGS
 from pocketflow_tpu_torch.core import mesh
+from pocketflow_tpu_torch.core.profiling import span
 
 # ---------------------------------------------------------------------------
 # Compression policy context
@@ -719,7 +720,7 @@ def _recompute(policy: Optional[CompressionPolicy], entry: int,
     _POLICY_STACK.append(policy)
     _recomputing += 1
     try:
-        with torch.profiler.record_function('remat_recompute/' + label), _keeping(products):
+        with span('remat.recompute', label), _keeping(products):
             yield
     finally:
         _recomputing -= 1

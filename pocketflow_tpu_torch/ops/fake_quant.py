@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from pocketflow_tpu_torch.core import mesh
+from pocketflow_tpu_torch.core.profiling import span
 
 EPS = 1e-10
 
@@ -593,7 +594,8 @@ class _FakeQuantSelect(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        with span('quant.act_backward'):
+            return g, None
 
 
 class _FakeQuantSelectGlobal(torch.autograd.Function):
@@ -604,7 +606,8 @@ class _FakeQuantSelectGlobal(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        with span('quant.act_backward'):
+            return g, None
 
 
 class _FakeQuantGroup(torch.autograd.Function):
@@ -756,8 +759,9 @@ class _FakeQuantWithRange(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        in_range, = ctx.saved_tensors
-        return g * in_range.to(g.dtype), None, None, None
+        with span('quant.act_backward'):
+            in_range, = ctx.saved_tensors
+            return g * in_range.to(g.dtype), None, None, None
 
 
 def fake_quant_with_range(x: torch.Tensor, range_min: torch.Tensor, range_max: torch.Tensor,

@@ -75,6 +75,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from pocketflow_tpu_torch.core.profiling import span
 from pocketflow_tpu_torch.nn.layers import (
     CompressionPolicy, PFConv, PFDense, _same_pads, compression, same_pad)
 
@@ -731,14 +732,15 @@ class Int8ServingPolicy(CompressionPolicy):
                      and x.shape[1] > 1 and kernel.shape[-1] % x.shape[1] == 0)
         if depthwise and self.skip_depthwise:
             return None
-        site = self.site(path, x, layer)
-        if layer is not None and not depthwise:
-            return int8_conv(x, site)
-        if x.device.type != 'cpu' and not depthwise:
-            raise ValueError('Int8ServingPolicy: %s on %s: the kernel needs the layer' %
-                             (path, x.device))
-        plain_calls += x.device.type == 'cpu'
-        return _contract_plain(x, site, contract_fn)
+        with span('int8.site', path):
+            site = self.site(path, x, layer)
+            if layer is not None and not depthwise:
+                return int8_conv(x, site)
+            if x.device.type != 'cpu' and not depthwise:
+                raise ValueError('Int8ServingPolicy: %s on %s: the kernel needs the layer' %
+                                 (path, x.device))
+            plain_calls += x.device.type == 'cpu'
+            return _contract_plain(x, site, contract_fn)
 
 
 class _SiteRecorder(CompressionPolicy):

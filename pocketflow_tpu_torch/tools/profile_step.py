@@ -55,16 +55,18 @@ synthetic VOC (the chip smoke's phase 24):
                      at --lrn_rate_init=0.01: the default rate diverges from
                      random weights within a few steps
 
-whose profiles also give, from NB_PROFILED more steps with the host's ops
-recorded, the device time of kernels launched inside three named parts of
-the step (`by_range_ms_per_step`, with their kernel launches): each helper's calc_loss ('matching and loss': anchor matching,
-targets, mining and the loss's forward), Faster R-CNN's proposal layer
-('proposal layer': top-k and nms_fixed) and its ROI-align ('roi-align',
-forward; the backward runs outside the range),
-
 and the DDPG agent of the RL searches (`ddpg`: one `train` update a step,
 state 29 wide as ResNet-20's weight-sparsification search, batch 64, a full
 buffer of 1,100 transitions).
+
+Every variant's profile also gives, from NB_PROFILED more steps with the
+host's ops recorded, each program span's device ms, host ms, count and
+launches a step (`spans_per_step`; ``core/profiling.py`` lists the spans):
+the train step's phases, the activation quantizers forward and backward,
+and in the detectors each helper's calc_loss (`pf.det.loss`: anchor
+matching, targets, mining and the loss's forward), Faster R-CNN's proposal
+layer (`pf.det.propose`: top-k and nms_fixed) and its ROI-align
+(`pf.det.roi_align`, forward; the backward runs outside the span).
 
 For each variant: 3 warm-up steps, then 3 windows of 10 steps timed on the
 host clock and ended by torch.cuda.synchronize(); then 5 steps under
@@ -97,14 +99,17 @@ as name#2 the second time.
 from __future__ import annotations
 
 import argparse
-import contextlib
+import bisect
 import json
+import os
 import sys
+import tempfile
 import time
 
 import torch
 
 from pocketflow_tpu_torch.core.cuda_timing import card_line
+from pocketflow_tpu_torch.core.profiling import SPAN_PREFIX
 
 VARIANTS = {
     'qat': ('uniform', {}),
@@ -133,8 +138,10 @@ VARIANTS = {
     'ddpg': (None, {}),
 }
 DET_BATCH = 32
-# the parts of a detection step the profiler names (record_function ranges)
-RANGES = ('matching and loss', 'proposal layer', 'roi-align')
+# the parts of a detection step the program names (core/profiling.py spans)
+RANGES = ('pf.det.loss', 'pf.det.propose', 'pf.det.roi_align')
+DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+LAUNCH_CATS = ('cuda_runtime', 'cuda_driver')
 DDPG_S_DIMS, DDPG_BUF_SIZE, DDPG_BATCH = 29, 1100, 64
 R20_BATCH = 128
 BATCH = 256
@@ -168,56 +175,74 @@ def kernel_category(name: str) -> str:
 
 def device_events(prof):
     """(name, start_us, end_us) of every kernel, copy and memset on the card
-    (not the ranges' annotations)."""
+    (not the program spans' annotations)."""
     out = []
     for event in prof.events():
-        if event.device_type == torch.autograd.DeviceType.CUDA and event.name not in RANGES:
+        if (event.device_type == torch.autograd.DeviceType.CUDA
+                and not event.name.startswith(SPAN_PREFIX)):
             out.append((event.name, event.time_range.start, event.time_range.end))
     return out
 
 
-def range_times(prof, nb_steps: int) -> dict:
-    """{range: {'ms_per_step', 'kernels_per_step'}}: the device time and the
-    launches of the kernels each named range (RANGES) launched, its ops'
-    included, from the profiler's CPU events."""
-    def kernels(event):
-        return len(event.kernels) + sum(kernels(child) for child in event.cpu_children)
+def _launched(events):
+    """(device us by correlation id of the card's events, sorted (ts, id) of
+    the runtime calls that launched one of them)."""
+    by_corr = {}
+    for e in events:
+        if e.get('cat') in DEVICE_CATS and 'dur' in e:
+            corr = e.get('args', {}).get('correlation')
+            by_corr[corr] = by_corr.get(corr, 0.0) + e['dur']
+    launches = sorted((e['ts'], e.get('args', {}).get('correlation')) for e in events
+                      if e.get('cat') in LAUNCH_CATS
+                      and e.get('args', {}).get('correlation') in by_corr)
+    return by_corr, launches
 
-    out = {}
-    for event in prof.events():
-        if event.device_type == torch.autograd.DeviceType.CPU and event.name in RANGES:
-            entry = out.setdefault(event.name, {'ms_per_step': 0.0, 'kernels_per_step': 0.0})
-            entry['ms_per_step'] += event.device_time_total / nb_steps / 1e3
-            entry['kernels_per_step'] += kernels(event) / nb_steps
+
+def _inside(launches, bounds):
+    """The correlation ids of `launches` whose call lies inside one of the
+    (start, end) `bounds`, each once."""
+    times = [t for t, _ in launches]
+    out = set()
+    for s, e in bounds:
+        lo, hi = bisect.bisect_left(times, s), bisect.bisect_right(times, e)
+        out.update(corr for _, corr in launches[lo:hi])
     return out
 
 
-@contextlib.contextmanager
-def detection_ranges():
-    """Name the parts of a detection step for the profiler (RANGES), for the
-    block: both helpers' calc_loss, faster_rcnn.propose and roi_align."""
-    from pocketflow_tpu_torch.nets import faster_rcnn_at_pascalvoc, vgg_at_pascalvoc
-    from pocketflow_tpu_torch.nets.detection import faster_rcnn
-    from torch.profiler import record_function
+def span_times(events, nb_steps: int = 1) -> dict:
+    """{span: {'device_ms', 'host_ms', 'count', 'launches'}} a step of each
+    program span (``pf.<name>``, without its detail) in a Chrome trace's
+    events: the device ms of the kernels, copies and memsets whose launch
+    (the runtime call of the same correlation id, on any thread) lies
+    inside one of its annotations, the annotations' summed host ms (they
+    carry the profiler's cost on the host), their number, and those
+    launches."""
+    by_corr, launches = _launched(events)
+    bounds = {}
+    for e in events:
+        name = e.get('name', '')
+        if e.get('cat') == 'user_annotation' and 'dur' in e and name.startswith(SPAN_PREFIX):
+            bounds.setdefault(name.split(' ')[0], []).append((e['ts'], e['ts'] + e['dur']))
+    out = {}
+    for name, spans in sorted(bounds.items()):
+        inside = _inside(launches, spans)
+        out[name] = {'device_ms': sum(by_corr[c] for c in inside) / nb_steps / 1e3,
+                     'host_ms': sum(t - s for s, t in spans) / nb_steps / 1e3,
+                     'count': len(spans) / nb_steps, 'launches': len(inside) / nb_steps}
+    return out
 
-    def named(label, fn):
-        def wrapped(*args, **kwargs):
-            with record_function(label):
-                return fn(*args, **kwargs)
-        return wrapped
 
-    patches = [(vgg_at_pascalvoc.ModelHelper, 'calc_loss', 'matching and loss'),
-               (faster_rcnn_at_pascalvoc.ModelHelper, 'calc_loss', 'matching and loss'),
-               (faster_rcnn, 'propose', 'proposal layer'),
-               (faster_rcnn, 'roi_align', 'roi-align')]
-    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patches]
-    for owner, attr, label in patches:
-        setattr(owner, attr, named(label, getattr(owner, attr)))
+def range_times(prof, nb_steps: int) -> dict:
+    """``span_times`` of a finished profile of `nb_steps` steps that
+    recorded the host's ops and the card."""
+    fd, path = tempfile.mkstemp(prefix='profile_step_', suffix='.json')
+    os.close(fd)
     try:
-        yield
+        prof.export_chrome_trace(path)
+        with open(path) as fin:
+            return span_times(json.load(fin)['traceEvents'], nb_steps)
     finally:
-        for owner, attr, fn in saved:
-            setattr(owner, attr, fn)
+        os.remove(path)
 
 
 def _busy_us(events) -> float:
@@ -237,8 +262,9 @@ def trace_summary(path: str, ranges=()) -> dict:
     (``core/profiling.py``) holds: `steps` (the traced step numbers),
     `window_ms` (the first step's start to the end of the last step or of
     the last device event, whichever is later: the steps are not
-    synchronized), and, when it recorded the card, `busy_ms` (the union of
-    its kernels, copies and memsets), `idle_share`, `device_events` and, for
+    synchronized), each program span's ``span_times`` a traced step
+    (`spans`), and, when it recorded the card, `busy_ms` (the union of its
+    kernels, copies and memsets), `idle_share`, `device_events` and, for
     each name in `ranges`, the device ms of the kernels whose launch lies
     inside that user annotation (`range_ms`)."""
     from pocketflow_tpu_torch.core.profiling import STEP_PREFIX
@@ -260,21 +286,16 @@ def trace_summary(path: str, ranges=()) -> dict:
         busy = _busy_us(inside)
         out.update(busy_ms=busy / 1e3, idle_share=1.0 - busy / (hi - lo),
                    device_events=len(inside))
+    out['spans'] = span_times(events, len(steps))
     if ranges:
         # a kernel belongs to a range when the runtime call that launched it
         # (the same correlation id) lies inside one of the range's annotations
-        by_corr = {}
-        for e in device:
-            corr = e.get('args', {}).get('correlation')
-            by_corr[corr] = by_corr.get(corr, 0.0) + e['dur']
-        launches = [e for e in events if e.get('cat') == 'cuda_runtime']
+        by_corr, launches = _launched(events)
         out['range_ms'] = {}
         for name in ranges:
             spans = [(e['ts'], e['ts'] + e['dur']) for e in events
                      if e.get('cat') == 'user_annotation' and e.get('name') == name]
-            out['range_ms'][name] = sum(
-                by_corr.get(e.get('args', {}).get('correlation'), 0.0) for e in launches
-                if any(s <= e['ts'] <= t for s, t in spans)) / 1e3
+            out['range_ms'][name] = sum(by_corr[c] for c in _inside(launches, spans)) / 1e3
     return out
 
 
@@ -302,20 +323,16 @@ def summarize(events, nb_steps: int, nb_top: int = 12) -> dict:
     }
 
 
-def _profile(fn, nb_steps: int, ranges: bool = False):
+def _profile(fn, nb_steps: int, spans: bool = False):
     """The device events of `nb_steps` calls of fn(i) under the profiler, and
-    with `ranges` (the host's ops recorded too, the detection ranges named)
-    their ranges' times."""
+    with `spans` (the host's ops recorded too) the program spans' times."""
     from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
-    with contextlib.ExitStack() as stack:
-        if ranges:
-            stack.enter_context(detection_ranges())
-        prof = stack.enter_context(profile(activities=activities))
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if spans else [])
+    with profile(activities=activities) as prof:
         for i in range(nb_steps):
             fn(i)
         torch.cuda.synchronize()
-    return device_events(prof), (range_times(prof, nb_steps) if ranges else None)
+    return device_events(prof), (range_times(prof, nb_steps) if spans else None)
 
 
 def ddpg_step():
@@ -392,15 +409,13 @@ def profile_variant(name: str) -> dict:
         iterator = learner.dataset_train.build()
         batches = [learner.put_batch(next(iterator)) for _ in range(NB_BATCHES)]
         del iterator
-        return time_and_profile(name, train_step, state, batches, batch_size, learner.generator,
-                                ranges=detection)
+        return time_and_profile(name, train_step, state, batches, batch_size, learner.generator)
 
 
-def time_and_profile(name, train_step, state, batches, batch_size, generator=lambda i: None,
-                     ranges: bool = False):
+def time_and_profile(name, train_step, state, batches, batch_size, generator=lambda i: None):
     """Warm-up steps, NB_WINDOWS timed windows of NB_STEPS steps, then
-    NB_PROFILED steps under the profiler (with `ranges`, the detection
-    ranges named and timed); the variant's record."""
+    NB_PROFILED steps under the profiler, then NB_PROFILED with the host's
+    ops recorded for the program spans; the variant's record."""
     def step(i):
         nonlocal state, metrics
         state, metrics = train_step(state, batches[i % len(batches)], generator(i))
@@ -426,8 +441,8 @@ def time_and_profile(name, train_step, state, batches, batch_size, generator=lam
         'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
     }
     result['profile'] = summarize(_profile(step, NB_PROFILED)[0], NB_PROFILED)
-    if ranges:  # a window of its own: recording the host's ops slows the host
-        result['profile']['by_range_ms_per_step'] = _profile(step, NB_PROFILED, True)[1]
+    # a window of its own: recording the host's ops slows the host
+    result['profile']['spans_per_step'] = _profile(step, NB_PROFILED, True)[1]
     if not torch.isfinite(torch.tensor(loss)):
         raise RuntimeError('%s: loss %r' % (name, loss))
     return result
@@ -612,7 +627,7 @@ def main(argv=None):
         brief.update({k: result['profile'][k] for k in
                       ('window_ms_per_step', 'busy_ms_per_step', 'idle_share',
                        'device_events_per_step', 'by_category_ms_per_step',
-                       'by_range_ms_per_step') if k in result['profile']})
+                       'spans_per_step') if k in result['profile']})
         print('%s %s' % (name, json.dumps(brief)), flush=True)
         torch.cuda.empty_cache()
     if args.depthwise:
