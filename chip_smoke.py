@@ -88,8 +88,9 @@ on the card, and drives the port's paths:
     main.main: SSD-VGG16 full-prec (run D1), uniform 4-bit (D2: one grouped
     K1' launch a forward for its 33 weights) and with 8-bit activations
     (D3: and K1' with the select at each of its 23 relu sites), each timed,
-    profiled (device busy time, idle share, layers; the matching and loss,
-    Faster R-CNN's proposal layer and ROI-align as named ranges) and D1, D2
+    profiled (device busy time, idle share, layers; the program's spans
+    pf.det.loss, pf.det.propose and pf.det.roi_align: the matching and loss,
+    Faster R-CNN's proposal layer and ROI-align) and D1, D2
     evaluated with mAP (forward, decode, host NMS, VOC eval timed); the
     grouped K1' at SSD's weights and K1' at its largest activation against
     their plain versions; Faster R-CNN with a ResNet-50 trunk (D4) trained
@@ -541,6 +542,7 @@ RD_STEPS, RD_PROF_START, RD_PROF_NB = 13, 3, 5
 RD_TIMED_FROM = RD_PROF_START + RD_PROF_NB  # steps 8-11 timed by the host clock
 RD_TIMED = RD_STEPS - 1 - RD_TIMED_FROM
 RD_LOADER_BATCHES = 16
+CROP_SPAN = 'pf.data.crop_resize'  # the program's span around the train crop-resize
 RD_EVAL_RTOL = 1e-3  # R2's eval loss against R1's last eval, the same checkpoint and data
 RD_RUNS = {
     'R0': 'real-data run R0: resnet_at_ilsvrc12 ResNet-50 uniform 4-bit, in-memory synthetic '
@@ -3329,6 +3331,16 @@ class DetStepProbe:
         self._prof = profile(activities=activities)
         self._prof.start()
 
+    def _stop(self):
+        prof, self._prof = self._prof, None
+        prof.stop()
+        return prof
+
+    def close(self):
+        """Stop a profile still running (the run raised inside its window)."""
+        if self._prof is not None:
+            self._stop()
+
     def __call__(self, when, state):
         from pocketflow_tpu_torch.tools import profile_step
         first_profiled = DET_WARMUP + DET_TIMED
@@ -3346,13 +3358,13 @@ class DetStepProbe:
         self.index += 1
         if self.index in (first_profiled + DET_PROFILED, DET_STEPS):
             torch.cuda.synchronize()
-            self._prof.stop()
+            prof = self._stop()
             if self.index < DET_STEPS:
-                self.profile = profile_step.summarize(profile_step.device_events(self._prof),
+                self.profile = profile_step.summarize(profile_step.device_events(prof),
                                                       DET_PROFILED)
             else:
-                spans = profile_step.range_times(self._prof, DET_PROFILED)
-                self.profile['by_range_ms_per_step'] = {
+                spans = profile_step.range_times(prof, DET_PROFILED)
+                self.profile['spans_per_step'] = {
                     name: spans[name] for name in profile_step.RANGES if name in spans}
 
 
@@ -3425,7 +3437,11 @@ def det_train(FLAGS, work_dir, label, model, argv, per_forward, card, sites=None
     probe = DetStepProbe()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    learner, counter, counts, elapsed = run_main(FLAGS, work_dir, model, argv, probe, det_argv)
+    try:
+        learner, counter, counts, elapsed = run_main(FLAGS, work_dir, model, argv, probe,
+                                                     det_argv)
+    finally:
+        probe.close()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     loss = float(counter.metrics['loss'])
     check(counter.steps == DET_STEPS, '%s: %d steps', label, counter.steps)
@@ -3454,10 +3470,10 @@ def det_train(FLAGS, work_dir, label, model, argv, per_forward, card, sites=None
         probe.window_ms, DET_TIMED, DET_WARMUP, DET_BATCH * 1e3 / probe.window_ms,
         prof['busy_ms_per_step'], prof['window_ms_per_step'], 100 * prof['idle_share'],
         prof['device_events_per_step'], peak, elapsed, card)
-    log('  %s: device ms a step by layer %s; by range %s', label,
+    log('  %s: device ms a step by layer %s; by program span %s', label,
         {k: round(v, 3) for k, v in prof['by_category_ms_per_step'].items()},
         {k: {kk: round(vv, 3) for kk, vv in v.items()}
-         for k, v in prof['by_range_ms_per_step'].items()})
+         for k, v in prof['spans_per_step'].items()})
     return learner, counts
 
 
@@ -3818,15 +3834,7 @@ def rd_train(FLAGS, root, label, data, card):
     crop-resize's device time), peak memory.  Returns (learner, counters,
     summary)."""
     from pocketflow_tpu_torch.tools.profile_step import trace_summary
-    from pocketflow_tpu_torch.datasets import augment
     probe = RdStepProbe()
-    crop = augment.random_crop_resize
-
-    def named_crop(*args, **kwargs):
-        with torch.profiler.record_function('crop_resize'):
-            return crop(*args, **kwargs)
-
-    augment.random_crop_resize = named_crop
     samplers = NativeSamplers()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3835,7 +3843,6 @@ def rd_train(FLAGS, root, label, data, card):
             FLAGS, root, 'resnet_at_ilsvrc12', data, probe,
             lambda work_dir, model, argv: rd_argv(work_dir, label, argv))
     finally:
-        augment.random_crop_resize = crop
         samplers.close()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     loss, evals = float(counter.metrics['loss']), counter.evals[-1]
@@ -3850,7 +3857,7 @@ def rd_train(FLAGS, root, label, data, card):
           counts, counter.forwards, RD_STEPS, nb_eval)
     ckpt = os.path.join(root, label, 'uql', 'model.ckpt-%d.pt' % RD_STEPS)
     check(os.path.exists(ckpt), '%s: no checkpoint %s', label, ckpt)
-    summary = trace_summary(learner.profile_path, ranges=['crop_resize'])
+    summary = trace_summary(learner.profile_path)
     check(summary['steps'] == list(range(RD_PROF_START, RD_TIMED_FROM))
           and summary.get('device_events', 0) > 0,
           '%s: the trace holds steps %s, %s device events', label, summary['steps'],
@@ -3858,7 +3865,8 @@ def rd_train(FLAGS, root, label, data, card):
     nb = RD_PROF_NB
     summary.update(step_ms=probe.window_ms, peak_gib=peak, seconds=elapsed, loss=loss,
                    eval=evals, samplers=samplers.made, ckpt=ckpt,
-                   busy_step_ms=summary['busy_ms'] / nb)
+                   busy_step_ms=summary['busy_ms'] / nb,
+                   crop_step_ms=summary['spans'].get(CROP_SPAN, {}).get('device_ms', 0.0))
     log('  %s: %d steps, loss %.4f, eval %s | launches %s | %.2f ms a step over steps %d-%d '
         '(%.1f img/s, the next batch\'s fetch included; device busy %.1f%% of it) | the hook\'s '
         'trace of steps %d-%d (host ops recorded too): %.2f ms a step, device busy %.2f ms a '
@@ -3868,7 +3876,7 @@ def rd_train(FLAGS, root, label, data, card):
         RD_TIMED_FROM + RD_TIMED - 1, BATCH * 1e3 / probe.window_ms,
         100 * summary['busy_step_ms'] / probe.window_ms, RD_PROF_START, RD_TIMED_FROM - 1,
         summary['window_ms'] / nb, summary['busy_step_ms'], 100 * summary['idle_share'],
-        summary['device_events'] / nb, summary['range_ms']['crop_resize'] / nb, peak,
+        summary['device_events'] / nb, summary['crop_step_ms'], peak,
         samplers.made, elapsed, card)
     return learner, counts, summary
 

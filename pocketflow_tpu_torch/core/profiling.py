@@ -28,6 +28,7 @@ train step down:
                               autograd's thread
     pf.int8.site <path>       one int8 serving site's wrapper and kernel
     pf.remat.recompute <blk>  a remat block's recompute in the backward
+    pf.data.crop_resize       ILSVRC-12's train crop-resize (full-frame shards)
     pf.det.loss               a detector's calc_loss (matching, targets, loss)
     pf.det.propose            Faster R-CNN's proposal layer (top-k, NMS)
     pf.det.roi_align          Faster R-CNN's ROI-align (forward)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from pocketflow_tpu_torch.config import FLAGS
+from pocketflow_tpu_torch.core.profiling import span
 from pocketflow_tpu_torch.datasets import augment
 from pocketflow_tpu_torch.datasets.abstract import AbstractDataset, DatasetSpec
 from pocketflow_tpu_torch.datasets.remote_fs import resolve_data_dir
@@ -96,8 +97,9 @@ class Ilsvrc12Dataset(AbstractDataset):
                 if FLAGS.get('ilsvrc_augment') == 'mild':
                     images = augment.center_crop_resize(images, out_hw, valid_hw=valid_hw)
                 else:
-                    images = augment.random_crop_resize(images, generator, out_hw,
-                                                        valid_hw=valid_hw)
+                    with span('data.crop_resize'):
+                        images = augment.random_crop_resize(images, generator, out_hw,
+                                                            valid_hw=valid_hw)
             images = augment.random_flip_lr(images, generator)
         elif resize:
             images = augment.center_crop_resize(images, out_hw, valid_hw=valid_hw)

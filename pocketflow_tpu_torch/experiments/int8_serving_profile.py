@@ -8,7 +8,8 @@ and through ``ops/int8_ops.Int8ServingPolicy``, NB_WARMUP forwards over the
 benchmark's staged inputs (``tools/benchmark.py``), then NB_PROFILED more
 under torch.profiler with the host's ops recorded and each PFConv / PFDense
 call inside a named range.  A kernel belongs to the op that launched it
-(the profiler's correlation id), and so to a part of the forward:
+(the profiler's correlation id; the program's ``pf.`` spans, such as an
+int8 site's ``pf.int8.site``, are not ops), and so to a part of the forward:
 
     int8 kernel        the int8 conv kernel (launched by the site itself)
     other site ops     anything else an int8 site launches (none: the
@@ -43,7 +44,7 @@ from pocketflow_tpu_torch.experiments import require_cuda
 TAG = 'int8_serving_profile'
 BATCH, IMAGE_SIZE, NB_CLASSES = 64, 224, 1000
 NB_WARMUP, NB_PROFILED, NB_CALIB = 5, 5, 2
-SITE = 'pf.site '
+SITE = 'int8_profile.site '  # outside the program spans' 'pf.'
 PARTS = ('int8 kernel', 'other site ops', 'convs and dense', 'float layers')
 
 
@@ -84,6 +85,7 @@ def _classify_site(launches, int8_forward: bool):
 def trace_parts(events, nb_forwards: int, int8_forward: bool) -> dict:
     """The per-forward breakdown of a Chrome trace's events (see the module
     docstring)."""
+    from pocketflow_tpu_torch.core.profiling import SPAN_PREFIX
     from pocketflow_tpu_torch.tools.profile_step import _busy_us
     host = sorted((e for e in events if e.get('cat') in ('cpu_op', 'user_annotation')
                    and 'dur' in e), key=lambda e: (e['ts'], -e['dur']))
@@ -113,7 +115,8 @@ def trace_parts(events, nb_forwards: int, int8_forward: bool) -> dict:
         if at is None:
             part_of[corr] = 'float layers'
         else:
-            top = open_[at + 1]['name'] if at + 1 < len(open_) else None
+            top = next((e['name'] for e in open_[at + 1:]
+                        if not e['name'].startswith(SPAN_PREFIX)), None)
             sites.setdefault(id(open_[at]), []).append((r, top))
     for launches in sites.values():
         for (r, _), part in zip(launches, _classify_site(launches, int8_forward)):

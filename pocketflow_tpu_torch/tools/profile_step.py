@@ -257,16 +257,14 @@ def _busy_us(events) -> float:
     return busy
 
 
-def trace_summary(path: str, ranges=()) -> dict:
+def trace_summary(path: str) -> dict:
     """What a Chrome trace of the train loop's profiler hook
     (``core/profiling.py``) holds: `steps` (the traced step numbers),
     `window_ms` (the first step's start to the end of the last step or of
     the last device event, whichever is later: the steps are not
     synchronized), each program span's ``span_times`` a traced step
     (`spans`), and, when it recorded the card, `busy_ms` (the union of its
-    kernels, copies and memsets), `idle_share`, `device_events` and, for
-    each name in `ranges`, the device ms of the kernels whose launch lies
-    inside that user annotation (`range_ms`)."""
+    kernels, copies and memsets), `idle_share` and `device_events`."""
     from pocketflow_tpu_torch.core.profiling import STEP_PREFIX
     with open(path) as fin:
         events = json.load(fin)['traceEvents']
@@ -287,15 +285,6 @@ def trace_summary(path: str, ranges=()) -> dict:
         out.update(busy_ms=busy / 1e3, idle_share=1.0 - busy / (hi - lo),
                    device_events=len(inside))
     out['spans'] = span_times(events, len(steps))
-    if ranges:
-        # a kernel belongs to a range when the runtime call that launched it
-        # (the same correlation id) lies inside one of the range's annotations
-        by_corr, launches = _launched(events)
-        out['range_ms'] = {}
-        for name in ranges:
-            spans = [(e['ts'], e['ts'] + e['dur']) for e in events
-                     if e.get('cat') == 'user_annotation' and e.get('name') == name]
-            out['range_ms'][name] = sum(by_corr[c] for c in _inside(launches, spans)) / 1e3
     return out
 
 

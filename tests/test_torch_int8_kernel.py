@@ -407,7 +407,10 @@ def _trace():
     """A Chrome trace of one int8 forward: site 'a' on the kernel, launched
     by the site itself, then an op of its own; a BN outside any site; a
     depthwise site on the float path; site 'b' on the kernel alone, and a
-    host-to-device copy and a stream sync outside the sites."""
+    host-to-device copy and a stream sync outside the sites.  The int8
+    sites' program spans (``pf.int8.site``) open inside the profile's site
+    ranges, as Int8ServingPolicy opens them."""
+    from pocketflow_tpu_torch.experiments.int8_serving_profile import SITE
     events, corr = [], [0]
 
     def op(name, ts, dur, cat='cpu_op'):
@@ -421,17 +424,19 @@ def _trace():
             events.append({'cat': cat, 'name': kernel, 'ts': 1000 + ts, 'dur': dur_us,
                            'args': {'correlation': corr[0]}})
 
-    op('pf.site a', 100, 100, 'user_annotation')
+    op(SITE + 'a', 100, 100, 'user_annotation')
+    op('pf.int8.site a', 101, 98, 'user_annotation')
     launch(102, 40, 'void int8_conv_wgmma<128>')
     op('aten::add', 110, 5)
     op('aten::add_', 111, 3)  # a nested op: the part is the top-level one's
     launch(112, 9)
     op('aten::batch_norm', 210, 10)
     launch(212, 20)
-    op('pf.site dw', 230, 20, 'user_annotation')
+    op(SITE + 'dw', 230, 20, 'user_annotation')
     op('aten::conv2d', 232, 10)
     launch(235, 30)
-    op('pf.site b', 300, 20, 'user_annotation')
+    op(SITE + 'b', 300, 20, 'user_annotation')
+    op('pf.int8.site b', 301, 18, 'user_annotation')
     launch(305, 50, 'void int8_conv_wgmma<64>')
     op('aten::to', 330, 5)
     launch(331, 1, 'Memcpy HtoD (Pageable -> Device)', 'gpu_memcpy', 'cudaMemcpyAsync')

@@ -68,15 +68,17 @@ def test_profiler_traces_exactly_its_window(tmp_path, start, nb, traced):
 
 
 def test_trace_summary_reads_device_time(tmp_path):
-    """Busy time, idle share and a range's device time of a trace written
-    as the hook's are on the card (kernels tied to their launches by
+    """Busy time, idle share and a program span's device time of a trace
+    written as the hook's are on the card (kernels tied to their launches by
     correlation id): two steps over 0-100 us, kernels 10-30 and 20-50 (one
-    launched inside 'crop_resize') and a copy 90-120, past the last step."""
+    launched inside 'pf.data.crop_resize') and a copy 90-120, past the last
+    step."""
     from pocketflow_tpu_torch.tools.profile_step import trace_summary
     events = [
         {'ph': 'X', 'cat': 'user_annotation', 'name': 'train_step_3', 'ts': 0, 'dur': 40},
         {'ph': 'X', 'cat': 'user_annotation', 'name': 'train_step_4', 'ts': 40, 'dur': 60},
-        {'ph': 'X', 'cat': 'user_annotation', 'name': 'crop_resize', 'ts': 2, 'dur': 5},
+        {'ph': 'X', 'cat': 'user_annotation', 'name': 'pf.data.crop_resize', 'ts': 2,
+         'dur': 5},
         {'ph': 'X', 'cat': 'cuda_runtime', 'name': 'cudaLaunchKernel', 'ts': 3, 'dur': 1,
          'args': {'correlation': 7}},
         {'ph': 'X', 'cat': 'cuda_runtime', 'name': 'cudaLaunchKernel', 'ts': 9, 'dur': 1,
@@ -89,11 +91,12 @@ def test_trace_summary_reads_device_time(tmp_path):
          'args': {'correlation': 9}}]
     path = tmp_path / 'trace.json'
     path.write_text(json.dumps({'traceEvents': events}))
-    summary = trace_summary(str(path), ranges=['crop_resize'])
+    summary = trace_summary(str(path))
     assert summary['steps'] == [3, 4] and summary['device_events'] == 3
     assert summary['window_ms'] == 0.12 and summary['busy_ms'] == 0.07
     assert abs(summary['idle_share'] - 5 / 12) < 1e-12
-    assert summary['range_ms'] == {'crop_resize': 0.02}
+    assert summary['spans'] == {'pf.data.crop_resize': {  # a step of the two
+        'device_ms': 0.01, 'host_ms': 0.0025, 'count': 0.5, 'launches': 0.5}}
 
 
 def test_no_trace_without_the_flag(tmp_path):

@@ -2,12 +2,14 @@
 
 * without a profiler ``span()`` is the shared no-op, formats nothing, and a
   uniform-tf step, a uniform step and an int8 serving forward of ConvNet @
-  FMNIST enter no ``record_function``;
+  FMNIST, and ILSVRC-12's train augmentation, enter no ``record_function``;
 * under ``torch.profiler`` (host ops) a step records each ``pf.train.*``
   phase once, one ``pf.quant.act`` a quantized activation site inside
   ``pf.train.forward`` and one ``pf.quant.act_backward`` a site inside
   ``pf.train.backward``; at 32-bit activations no ``pf.quant.act``;
 * an int8 serving forward records one ``pf.int8.site <path>`` a site;
+* ILSVRC-12's train augmentation of full-frame rows records one
+  ``pf.data.crop_resize``, its eval augmentation none;
 * a ``--enbl_profiler`` trace through main.main holds the five phases
   inside each ``train_step_<i>``, and ``trace_summary`` counts them;
 * ``tools/profile_step.py:span_times`` on a hand-made trace with spans on
@@ -94,6 +96,22 @@ def _int8_forward():
     return forward, sorted(policy.act_scales)
 
 
+def _crop(is_train=True):
+    """augment() -> ILSVRC-12's augmentation of two full-frame rows (their
+    [label, valid h, valid w] rows), resized to 224x224."""
+    from pocketflow_tpu_torch.datasets.ilsvrc12 import Ilsvrc12Dataset
+    with FLAGS.scope(batch_size=2, synthetic_data=True, ilsvrc_augment='inception'):
+        dataset = Ilsvrc12Dataset(is_train=True)
+    packed = {'image': torch.zeros((2, 48, 64, 3), dtype=torch.uint8),
+              'label': torch.tensor([[7.0, 40.0, 30.0], [3.0, 48.0, 64.0]])}
+
+    def augment():
+        with FLAGS.scope(ilsvrc_augment='inception'):
+            dataset.augment_xy(packed, torch.Generator().manual_seed(0), is_train)
+
+    return augment
+
+
 def _spans(fn):
     """{name: [(start_us, end_us)]} of the program spans recorded while fn() ran."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -120,9 +138,9 @@ def test_span_is_the_shared_noop_without_a_profiler():
         pass
 
 
-@pytest.mark.parametrize('kind', sorted(STEPS) + ['int8'])
+@pytest.mark.parametrize('kind', sorted(STEPS) + ['int8', 'crop'])
 def test_no_record_function_without_a_profiler(monkeypatch, kind):
-    run = _int8_forward()[0] if kind == 'int8' else _step(kind)[0]
+    run = {'int8': lambda: _int8_forward()[0], 'crop': _crop}.get(kind, lambda: _step(kind)[0])()
 
     def refuse(*args, **kwargs):
         raise AssertionError('record_function entered with no profiler: %r' % (args,))
@@ -155,6 +173,13 @@ def test_int8_forward_records_one_span_a_site():
     spans = _spans(forward)
     sites = {name: len(v) for name, v in spans.items() if name.startswith('pf.int8.site ')}
     assert sites == {'pf.int8.site ' + path: 1 for path in paths} and len(paths) >= 3
+
+
+@pytest.mark.parametrize('is_train', [True, False])
+def test_ilsvrc12_crop_resize_records_its_span(is_train):
+    spans = _spans(_crop(is_train))
+    assert {name: len(v) for name, v in spans.items()} == (
+        {'pf.data.crop_resize': 1} if is_train else {})
 
 
 def test_enbl_profiler_trace_holds_the_phases_inside_each_step(tmp_path):
